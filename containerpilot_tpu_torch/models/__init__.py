@@ -1,0 +1,1 @@
+"""models of the PyTorch/CUDA port (module paths mirror containerpilot_tpu/models)."""

@@ -1,0 +1,1 @@
+"""ops of the PyTorch/CUDA port (module paths mirror containerpilot_tpu/ops)."""

@@ -1,0 +1,1 @@
+"""utils of the PyTorch/CUDA port (module paths mirror containerpilot_tpu/utils)."""

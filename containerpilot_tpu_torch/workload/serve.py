@@ -1,0 +1,305 @@
+"""The inference server of the port (counterpart of
+``containerpilot_tpu/workload/serve.py``), default-flag serving only.
+
+API (token-level):
+
+    POST /v1/generate {"tokens": [[1,2,3]], "max_new_tokens": 16,
+                       "temperature": 0.0, "n": 1, ...}
+        -> {"tokens": [[...generated ids...]]}
+    GET /health   -> 200 once warm
+    GET /v1/model -> config summary (the reference's schema; the
+                     features not ported yet report None)
+
+Every request goes through the continuous batcher (serve_batcher.py)
+into ``models.decode.generate``. Generation runs on one worker thread,
+so the event loop (health checks included) never waits on the device.
+The other reference routes (SSE streaming, /v1/score, /metrics,
+/v1/completions, the fleet and KV verbs) answer 404 until they are
+ported (ROADMAP.md). Unlike the reference, ``max_new_tokens`` is not
+bucketed to a multiple of 16 (eager torch compiles nothing); the
+trimmed output is the same.
+
+``python -m containerpilot_tpu_torch.workload.serve`` runs the CLI
+(serve_cli.py).
+"""
+from __future__ import annotations
+
+import asyncio
+import json
+import logging
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Dict, List
+
+import torch
+
+from .. import resolve_device
+from ..models.decode import generate
+from ..models.transformer import TransformerConfig
+from ..utils.http import HTTPServer, Request, Response
+from .modelcfg import parse_logit_bias, parse_stop_ids
+from .serve_batcher import Batcher, GenJob
+from .serve_cli import main  # noqa: F401  (one import path for the CLI)
+
+log = logging.getLogger("containerpilot.serve")
+
+
+def _parse_token_rows(body: Dict[str, Any], vocab: int, min_row_len: int):
+    """A non-empty list of equal-length integer rows within the vocab.
+    Raises ValueError with a client-facing message."""
+    tokens = body["tokens"]
+    if not isinstance(tokens, list) or not tokens or not all(
+        isinstance(row, list) and len(row) >= min_row_len for row in tokens
+    ):
+        raise ValueError(
+            f"'tokens' must be a non-empty list of rows with "
+            f">= {min_row_len} ids"
+        )
+    row_len = len(tokens[0])
+    if any(len(row) != row_len for row in tokens):
+        raise ValueError("all rows must share a length (pad first)")
+    if any(
+        not isinstance(t, int) or isinstance(t, bool) or t < 0 or t >= vocab
+        for row in tokens
+        for t in row
+    ):
+        raise ValueError(f"token ids must be integers in [0, {vocab})")
+    return tokens, row_len
+
+
+class InferenceServer:
+    def __init__(
+        self,
+        cfg: TransformerConfig,
+        params: Any,
+        host: str,
+        port: int,
+        max_len: int,
+        max_batch_rows: int = 16,
+        device="cuda",
+    ) -> None:
+        self.device = resolve_device(device)
+        if params["norm_out"].device != self.device:
+            raise ValueError(
+                f"params live on {params['norm_out'].device}, the server "
+                f"on {self.device}"
+            )
+        self.cfg = cfg
+        self.params = params
+        self.host = host
+        self.port = port
+        self.max_len = max_len
+        self.ready = False
+        self.max_batch_rows = max_batch_rows
+        self._executor = ThreadPoolExecutor(
+            max_workers=1, thread_name_prefix="inference"
+        )
+        self._server = HTTPServer()
+        self._server.route("GET", "/health", self._health)
+        self._server.route("GET", "/v1/model", self._model_info)
+        self._server.route("POST", "/v1/generate", self._generate)
+        self._batcher = Batcher(
+            params, cfg, max_len, max_batch_rows, self._executor
+        )
+        self.batch_stats = self._batcher.stats
+
+    # -- handlers -------------------------------------------------------
+
+    async def _health(self, _req: Request) -> Response:
+        if not self.ready:
+            return Response(503, b"warming up\n")
+        return Response(200, b"ok\n")
+
+    async def _model_info(self, _req: Request) -> Response:
+        body = json.dumps({
+            "vocab_size": self.cfg.vocab_size,
+            "d_model": self.cfg.d_model,
+            "n_heads": self.cfg.n_heads,
+            "n_kv_heads": self.cfg.kv_heads,
+            "n_layers": self.cfg.n_layers,
+            "max_len": self.max_len,
+            "mesh": None,
+            "text": False,
+            "speculative": None,
+            "batching": {
+                "max_batch_rows": self.max_batch_rows,
+                "device_calls": self.batch_stats["calls"],
+                "rows": self.batch_stats["rows"],
+            },
+            "prefix_cache": None,
+            "prefix_digest": None,
+            "kv_spill": None,
+            "slot_engine": None,
+            "stream": False,
+            "draining": False,
+            "cp": None,
+            "device": str(self.device),
+        }).encode()
+        return Response(200, body, content_type="application/json")
+
+    def _parse_sampling(
+        self, body: Dict[str, Any], tokens: List[List[int]],
+        prompt_len: int,
+    ) -> Dict[str, Any]:
+        """Validate the sampling/decode knobs (the reference's checks
+        and messages). Raises ValueError for a 422."""
+        p = {
+            "max_new_requested": int(body.get("max_new_tokens", 16)),
+            "temperature": float(body.get("temperature", 0.0)),
+            "seed": int(body.get("seed", 0)),
+            "top_k": int(body.get("top_k", 0)),
+            "top_p": float(body.get("top_p", 0.0)),
+            "eos_id": int(body.get("eos_id", -1)),
+            "min_new": int(body.get("min_new_tokens", 0)),
+            "presence": float(body.get("presence_penalty", 0.0)),
+            "frequency": float(body.get("frequency_penalty", 0.0)),
+            "stop": parse_stop_ids(body.get("stop"), self.cfg.vocab_size),
+            "logit_bias": parse_logit_bias(
+                body.get("logit_bias"), self.cfg.vocab_size
+            ),
+        }
+        for key, what in (("beam_width", "beam search"),
+                          ("logprobs", "logprobs"),
+                          ("stream", "SSE streaming")):
+            if body.get(key):
+                raise ValueError(
+                    f"{what} is not ported yet (ROADMAP.md queue 1)"
+                )
+        p["n"] = int(body.get("n", 1))
+        if not 1 <= p["n"] <= self.max_batch_rows:
+            raise ValueError(
+                f"n must be in [1, --max-batch-rows {self.max_batch_rows}]"
+            )
+        if p["n"] > 1 and len(tokens) != 1:
+            raise ValueError(
+                "n > 1 takes a single prompt row (it IS the row multiplier)"
+            )
+        if (not 0 <= p["top_k"] <= self.cfg.vocab_size
+                or not 0.0 <= p["top_p"] <= 1.0):
+            raise ValueError(
+                f"top_k must be in [0, vocab {self.cfg.vocab_size}] "
+                "and top_p in [0, 1]"
+            )
+        if p["eos_id"] >= self.cfg.vocab_size:
+            raise ValueError(f"eos_id must be < vocab {self.cfg.vocab_size}")
+        if not 0 <= p["min_new"] <= max(p["max_new_requested"], 0):
+            raise ValueError("min_new_tokens must be in [0, max_new_tokens]")
+        if not (abs(p["presence"]) <= 100 and abs(p["frequency"]) <= 100):
+            raise ValueError(
+                "presence/frequency penalties must be in [-100, 100]"
+            )
+        if prompt_len + p["max_new_requested"] > self.max_len:
+            raise ValueError(
+                f"prompt_len + max_new_tokens exceeds max_len {self.max_len}"
+            )
+        if p["max_new_requested"] < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        p["max_new"] = p["max_new_requested"]
+        return p
+
+    @staticmethod
+    def _trim(
+        generated: List[List[int]], max_new_requested: int, eos_id: int
+    ) -> List[List[int]]:
+        generated = [r[:max_new_requested] for r in generated]
+        if eos_id >= 0:
+            # each row ends at its first eos (inclusive)
+            generated = [
+                row[: row.index(eos_id) + 1] if eos_id in row else row
+                for row in generated
+            ]
+        return generated
+
+    @staticmethod
+    def _trim_stops(
+        generated: List[List[int]], stops: List[List[int]]
+    ) -> List[List[int]]:
+        """Cut each row at the earliest occurrence of any stop sequence,
+        excluding the stop itself (the OpenAI convention)."""
+        if not stops:
+            return generated
+        out = []
+        for row in generated:
+            cut = len(row)
+            for stop in stops:
+                n = len(stop)
+                for i in range(0, min(cut, len(row) - n + 1)):
+                    if row[i:i + n] == stop:
+                        cut = min(cut, i)
+                        break
+            out.append(row[:cut])
+        return out
+
+    async def _generate(self, req: Request) -> Response:
+        try:
+            body = json.loads(req.body.decode() or "{}")
+            tokens, prompt_len = _parse_token_rows(
+                body, self.cfg.vocab_size, min_row_len=1
+            )
+            p = self._parse_sampling(body, tokens, prompt_len)
+            if p["n"] > 1:
+                # one prompt, n samples; row i draws from (seed, i)
+                tokens = [list(tokens[0]) for _ in range(p["n"])]
+        except (ValueError, KeyError, TypeError) as exc:
+            return Response(422, f"{exc}\n".encode())
+        job = GenJob(
+            rows=tokens, prompt_len=prompt_len, max_new=p["max_new"],
+            temperature=p["temperature"], top_k=p["top_k"],
+            top_p=p["top_p"], eos_id=p["eos_id"], seed=p["seed"],
+            min_new=p["min_new"], presence=p["presence"],
+            frequency=p["frequency"], logit_bias=p["logit_bias"],
+            future=asyncio.get_running_loop().create_future(),
+        )
+        generated = await self._batcher.submit(job)
+        generated = self._trim(generated, p["max_new_requested"], p["eos_id"])
+        generated = self._trim_stops(generated, p["stop"])
+        return Response(
+            200, json.dumps({"tokens": generated}).encode(),
+            content_type="application/json",
+        )
+
+    # -- lifecycle ------------------------------------------------------
+
+    def _warm(self) -> None:
+        if self.device.type == "cuda":
+            # build both kernels now, not under the first live request
+            from ..ops import _build
+
+            seconds = _build.build_all()
+            log.info("serve: CUDA kernels ready in %.1fs", seconds)
+        for prompt_len in (4, 16):
+            if prompt_len + 16 > self.max_len:
+                continue
+            prompt = torch.zeros(
+                (1, prompt_len), dtype=torch.int64, device=self.device
+            )
+            generate(
+                self.params, prompt, self.cfg, max_new_tokens=16,
+                max_len=self.max_len,
+            )
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    async def warmup(self) -> None:
+        """Build the kernels and run the default-shaped requests once
+        before reporting healthy."""
+        await asyncio.get_running_loop().run_in_executor(
+            self._executor, self._warm
+        )
+        self.ready = True
+        log.info("serve: default shapes warm; accepting traffic")
+
+    async def run(self) -> None:
+        await self._server.start_tcp(self.host, self.port)
+        self.port = self._server.bound_port or self.port
+        self._batcher.start()
+        log.info("serve: listening on %s:%d", self.host, self.port)
+        await self.warmup()
+
+    async def stop(self) -> None:
+        await self._batcher.stop()
+        await self._server.stop()
+        self._executor.shutdown(wait=True)
+
+
+if __name__ == "__main__":
+    main()

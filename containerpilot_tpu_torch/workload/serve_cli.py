@@ -1,0 +1,169 @@
+"""CLI for the port's inference server (counterpart of
+``containerpilot_tpu/workload/serve_cli.py``).
+
+``python -m containerpilot_tpu_torch.workload.serve`` lands here. The
+flags this slice runs: --host, --port, --max-len, --d-model,
+--n-layers, --n-heads, --n-kv-heads, --vocab, --int8,
+--max-batch-rows, and --device (default cuda; the part JAX_PLATFORMS
+plays for the reference). Every other reference flag is accepted with
+its reference default and exits with a "not ported yet" message when
+set to anything else. Weights come from a seeded initialization
+(checkpoints are a later slice).
+"""
+from __future__ import annotations
+
+import argparse
+import asyncio
+from typing import Any, Dict, Tuple
+
+# reference flags this slice does not run yet: dest -> (flag, default)
+_NOT_PORTED: Dict[str, Tuple[str, Any]] = {
+    "mux": ("--mux", True),
+    "moe_experts": ("--moe-experts", 0),
+    "window": ("--window", 0),
+    "checkpoint_dir": ("--checkpoint-dir", ""),
+    "use_ema": ("--use-ema", False),
+    "kv_int8": ("--kv-int8", False),
+    "lora_dir": ("--lora-dir", ""),
+    "lora_rank": ("--lora-rank", 0),
+    "draft_layers": ("--draft-layers", 0),
+    "speculate": ("--speculate", 4),
+    "prefill_chunk": ("--prefill-chunk", 0),
+    "prefix_cache": ("--prefix-cache", 0),
+    "kv_spill_mb": ("--kv-spill-mb", 0.0),
+    "text": ("--text", False),
+    "slots": ("--slots", 0),
+    "slot_chunk": ("--slot-chunk", 8),
+    "slot_window": ("--slot-window", 4),
+    "tp": ("--tp", 1),
+    "cp": ("--cp", 1),
+    "cp_min_len": ("--cp-min-len", 0),
+    "fleet_catalog": ("--fleet-catalog", ""),
+    "fleet_service": ("--fleet-service", "inference"),
+    "fleet_ttl": ("--fleet-ttl", 10),
+    "fleet_address": ("--fleet-address", "127.0.0.1"),
+    "fleet_id": ("--fleet-id", ""),
+    "migrate_window": ("--migrate-window", 5.0),
+    "standby": ("--standby", False),
+    "role": ("--role", "mixed"),
+    "weights_from": ("--weights-from", ""),
+    "adopt_compile_cache": ("--adopt-compile-cache", True),
+}
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    parser = argparse.ArgumentParser(
+        description="supervised inference server (PyTorch/CUDA port)"
+    )
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument("--max-len", type=int, default=512)
+    parser.add_argument("--d-model", type=int, default=256)
+    parser.add_argument("--n-layers", type=int, default=2)
+    parser.add_argument("--n-heads", type=int, default=4)
+    parser.add_argument("--n-kv-heads", type=int, default=0,
+                        help="GQA kv heads (0 = full multi-head)")
+    parser.add_argument("--vocab", type=int, default=1024)
+    parser.add_argument(
+        "--int8", action="store_true",
+        help="weight-only int8; decode projections run the int8 kernel",
+    )
+    parser.add_argument(
+        "--max-batch-rows", type=int, default=16,
+        help="continuous batching: max sequences coalesced into one "
+        "device call",
+    )
+    parser.add_argument(
+        "--device", default="cuda",
+        help="torch device to serve on (default cuda; 'cpu' runs the "
+        "plain torch versions of the kernels)",
+    )
+    not_ported = parser.add_argument_group(
+        "reference flags not ported yet (any value but the default "
+        "exits)"
+    )
+    for dest, (flag, default) in _NOT_PORTED.items():
+        if isinstance(default, bool):
+            action = (
+                argparse.BooleanOptionalAction if default else "store_true"
+            )
+            not_ported.add_argument(flag, dest=dest, default=default,
+                                    action=action)
+        else:
+            not_ported.add_argument(flag, dest=dest, default=default,
+                                    type=type(default))
+    return parser
+
+
+def check_ported(args: argparse.Namespace) -> None:
+    """Exit with a clear message when a flag this slice does not run is
+    set to anything but its default."""
+    for dest, (flag, default) in _NOT_PORTED.items():
+        if getattr(args, dest) != default:
+            raise SystemExit(
+                f"{flag} is not ported yet to the PyTorch/CUDA server "
+                "(see ROADMAP.md queue 1)"
+            )
+
+
+def load_model(args: argparse.Namespace):
+    """-> (cfg, params) per the flags: seeded float32 masters,
+    quantized under --int8 (on the masters), then cast once to the
+    compute dtype."""
+    from ..models.quantized import (
+        cast_params,
+        param_bytes,
+        quantize_model_params,
+    )
+    from ..models.transformer import TransformerConfig, init_params
+    from .modelcfg import derive_d_ff
+
+    cfg = TransformerConfig(
+        vocab_size=args.vocab,
+        d_model=args.d_model,
+        n_heads=args.n_heads,
+        n_kv_heads=args.n_kv_heads,
+        n_layers=args.n_layers,
+        d_ff=derive_d_ff(args.d_model),
+        max_seq_len=args.max_len,
+    )
+    params = init_params(0, cfg, device=args.device)
+    if args.int8:
+        dense = param_bytes(cast_params(params, cfg.dtype))
+        params = quantize_model_params(params)
+        quant = param_bytes(cast_params(params, cfg.dtype))
+        print(
+            f"int8: resident params {dense} -> {quant} bytes "
+            f"({dense / quant:.1f}x smaller)"
+        )
+    return cfg, cast_params(params, cfg.dtype)
+
+
+def main(argv=None) -> int:
+    import logging
+    import signal
+
+    from .serve import InferenceServer
+
+    logging.basicConfig(
+        level=logging.INFO, format="%(asctime)s %(name)s %(message)s"
+    )
+    args = build_arg_parser().parse_args(argv)
+    check_ported(args)
+    cfg, params = load_model(args)
+    server = InferenceServer(
+        cfg, params, args.host, args.port, args.max_len,
+        max_batch_rows=args.max_batch_rows, device=args.device,
+    )
+
+    async def serve() -> None:
+        await server.run()
+        stop = asyncio.Event()
+        loop = asyncio.get_running_loop()
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            loop.add_signal_handler(sig, stop.set)
+        await stop.wait()
+        await server.stop()
+
+    asyncio.run(serve())
+    return 0

@@ -1,0 +1,98 @@
+"""Where a decode step of the PyTorch/CUDA port spends its time on one
+GPU.
+
+    python3 scripts/torch_decode_profile.py [--int8] [--steps 16]
+
+Builds the 1.2B flagship (vocab 32768, d_model 2048, 16 heads, 16
+layers, d_ff 8192; seeded random weights, bf16), prefills a 1024-token
+prompt, then runs ``--steps`` greedy decode steps under
+``torch.profiler`` and prints one JSON line: wall ms per step (host
+clock, synchronized), device kernel ms per step (the sum of CUDA kernel
+times the profiler saw), the device's idle share, kernel launches per
+step, and the ten kernels with the most device time. Needs a card.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import torch
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--int8", action="store_true")
+    parser.add_argument("--steps", type=int, default=16)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from torch.profiler import ProfilerActivity, profile
+
+    from containerpilot_tpu_torch.models import decode, quantized
+    from containerpilot_tpu_torch.models import transformer as tf
+    from containerpilot_tpu_torch.ops import _build
+
+    _build.build_all()
+    cfg = tf.TransformerConfig(vocab_size=32768, d_model=2048, n_heads=16,
+                               n_layers=16, d_ff=8192, max_seq_len=2048)
+    params = tf.init_params(0, cfg, device="cuda")
+    if args.int8:
+        params = quantized.quantize_model_params(params)
+    params = quantized.cast_params(params, cfg.dtype)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    prompt = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen,
+                           device="cuda")
+    with torch.inference_mode():
+        logits, cache = decode.prefill(params, prompt, cfg, 2048)
+        token = torch.argmax(logits, dim=-1)
+        for _ in range(4):  # warm
+            logits, cache = decode.decode_step(params, cache, token, cfg)
+            token = torch.argmax(logits, dim=-1)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                logits, cache = decode.decode_step(params, cache, token, cfg)
+                token = torch.argmax(logits, dim=-1)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+    kernels = [
+        e for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA
+    ]
+    device_us = sum(e.time_range.elapsed_us() for e in kernels)
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True,
+    ).stdout.strip().splitlines()[0]
+    steps = args.steps
+    print(json.dumps({
+        "int8": args.int8,
+        "steps": steps,
+        "wall_ms_per_step": wall * 1e3 / steps,
+        "device_kernel_ms_per_step": device_us / 1e3 / steps,
+        "device_idle_share": 1.0 - device_us / 1e6 / wall,
+        "kernel_launches_per_step": len(kernels) / steps,
+        "top_kernels_ms_per_step": [
+            [name[:80], us / 1e3 / steps] for name, us in top
+        ],
+        "card": smi,
+    }))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,182 @@
+"""The port's InferenceServer over real HTTP on 127.0.0.1:0 with
+device="cpu": health after warmup, /v1/model, /v1/generate JSON equal to
+JAX ``generate`` tokens after the same trim, a 422 for a bad row, 404
+for a route not ported yet, and the CLI's flag surface."""
+import asyncio
+import json
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+
+from containerpilot_tpu.models import decode as jdecode
+from containerpilot_tpu.models import transformer as jtf
+from containerpilot_tpu_torch import bridge
+from containerpilot_tpu_torch.models import transformer as ttf
+from containerpilot_tpu_torch.workload import serve_cli
+from containerpilot_tpu_torch.workload.serve import InferenceServer
+
+BASE = dict(vocab_size=128, d_model=64, n_heads=2, n_layers=2, d_ff=128,
+            max_seq_len=64, dtype="float32")
+MAX_LEN = 64
+
+
+async def _http(port, method, path, body=None):
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    payload = json.dumps(body).encode() if body is not None else b""
+    writer.write(
+        f"{method} {path} HTTP/1.1\r\nHost: x\r\nConnection: close\r\n"
+        f"Content-Length: {len(payload)}\r\n\r\n".encode() + payload
+    )
+    await writer.drain()
+    raw = await reader.read()
+    writer.close()
+    head, _, data = raw.partition(b"\r\n\r\n")
+    return int(head.split()[1]), data
+
+
+def _reference(jp, jcfg, rows, max_new, **kw):
+    """JAX generate at the reference server's bucketed length, then the
+    server's trim (first max_new, cut after eos)."""
+    bucket = min(-(-max_new // 16) * 16, MAX_LEN - len(rows[0]))
+    out = np.asarray(jdecode.generate(
+        jp, jnp.asarray(rows, jnp.int32), jcfg, max_new_tokens=bucket,
+        max_len=MAX_LEN, **kw,
+    )).tolist()
+    out = [r[:max_new] for r in out]
+    eos = kw.get("eos_id", -1)
+    if eos >= 0:
+        out = [r[: r.index(eos) + 1] if eos in r else r for r in out]
+    return out
+
+
+def test_server_generate_matches_jax_and_routes(run):
+    jcfg = jtf.TransformerConfig(**{**BASE, "dtype": jnp.float32})
+    tcfg = ttf.TransformerConfig(**bridge.config_kwargs(BASE))
+    jp = jtf.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = bridge.params_from_jax(
+        jax.tree_util.tree_map(np.asarray, jp), "cpu"
+    )
+    rows = np.random.default_rng(0).integers(0, 128, (2, 7)).tolist()
+    greedy_ref = _reference(jp, jcfg, rows, 9)
+    eos = greedy_ref[0][3]
+    eos_ref = _reference(jp, jcfg, rows, 9, eos_id=eos)
+
+    async def scenario():
+        server = InferenceServer(tcfg, tp, "127.0.0.1", 0, MAX_LEN,
+                                 max_batch_rows=8, device="cpu")
+        await server._server.start_tcp("127.0.0.1", 0)
+        port = server._server.bound_port
+        server._batcher.start()
+        try:
+            status, _ = await _http(port, "GET", "/health")
+            assert status == 503  # not warm yet
+            await server.warmup()
+            status, body = await _http(port, "GET", "/health")
+            assert (status, body) == (200, b"ok\n")
+            status, body = await _http(port, "GET", "/v1/model")
+            info = json.loads(body)
+            assert status == 200 and info["n_layers"] == 2
+            assert info["device"] == "cpu" and info["slot_engine"] is None
+            status, body = await _http(port, "POST", "/v1/generate", {
+                "tokens": rows, "max_new_tokens": 9,
+            })
+            assert status == 200
+            assert json.loads(body) == {"tokens": greedy_ref}
+            status, body = await _http(port, "POST", "/v1/generate", {
+                "tokens": rows, "max_new_tokens": 9, "eos_id": eos,
+            })
+            assert json.loads(body) == {"tokens": eos_ref}
+            # n duplicates one row; greedy duplicates are identical
+            status, body = await _http(port, "POST", "/v1/generate", {
+                "tokens": rows[:1], "max_new_tokens": 9, "n": 3,
+            })
+            assert json.loads(body) == {"tokens": [greedy_ref[0]] * 3}
+            # seeded sampling: the same seed gives the same answer
+            req = {"tokens": rows[:1], "max_new_tokens": 6,
+                   "temperature": 1.0, "seed": 4, "top_k": 8}
+            first = await _http(port, "POST", "/v1/generate", req)
+            again = await _http(port, "POST", "/v1/generate", req)
+            assert first == again and first[0] == 200
+            status, body = await _http(port, "POST", "/v1/generate", {
+                "tokens": [[1, 2], [3]], "max_new_tokens": 4,
+            })
+            assert status == 422 and b"share a length" in body
+            status, _ = await _http(port, "POST", "/v1/generate", {
+                "tokens": [[1, 2]], "max_new_tokens": 4, "stream": True,
+            })
+            assert status == 422
+            status, _ = await _http(port, "POST", "/v1/score", {})
+            assert status == 404
+            assert server.batch_stats["calls"] >= 5
+        finally:
+            await server.stop()
+
+    run(scenario(), timeout=120)
+
+
+def test_cli_parses_supported_flags():
+    args = serve_cli.build_arg_parser().parse_args(
+        ["--n-layers", "3", "--int8", "--device", "cpu", "--mux"]
+    )
+    assert args.n_layers == 3 and args.int8 and args.device == "cpu"
+    serve_cli.check_ported(args)  # all supported: no exit
+    cfg, params = serve_cli.load_model(
+        serve_cli.build_arg_parser().parse_args(
+            ["--n-layers", "1", "--d-model", "128", "--n-heads", "2",
+             "--vocab", "64", "--int8", "--device", "cpu"]
+        )
+    )
+    assert cfg.n_layers == 1 and cfg.d_ff == 384
+    assert "wq_q" in params["layers"]
+
+
+@pytest.mark.parametrize("argv,flag", [
+    (["--slots", "2"], "--slots"),
+    (["--prefix-cache", "4"], "--prefix-cache"),
+    (["--kv-int8"], "--kv-int8"),
+    (["--no-mux"], "--mux"),
+    (["--no-adopt-compile-cache"], "--adopt-compile-cache"),
+])
+def test_cli_flag_not_ported_yet_exits(argv, flag):
+    args = serve_cli.build_arg_parser().parse_args(argv)
+    with pytest.raises(SystemExit, match=f"{flag} is not ported yet"):
+        serve_cli.check_ported(args)
+
+
+def test_http_keepalive_serves_two_requests_on_one_connection(run):
+    """The port's plain HTTP/1.1 server keeps a connection open between
+    Content-Length-framed responses, and answers 405/404 by route."""
+    from containerpilot_tpu_torch.utils.http import HTTPServer, Response
+
+    async def scenario():
+        server = HTTPServer()
+
+        async def ok(_req):
+            return Response(200, b"ok\n")
+
+        server.route("GET", "/ok", ok)
+        await server.start_tcp("127.0.0.1", 0)
+        try:
+            reader, writer = await asyncio.open_connection(
+                "127.0.0.1", server.bound_port
+            )
+            statuses = []
+            for path in ("/ok", "/ok", "/missing"):
+                writer.write(f"GET {path} HTTP/1.1\r\nHost: x\r\n\r\n".encode())
+                await writer.drain()
+                head = await reader.readuntil(b"\r\n\r\n")
+                length = int(head.split(b"Content-Length: ")[1].split(b"\r\n")[0])
+                await reader.readexactly(length)
+                statuses.append(int(head.split()[1]))
+            writer.write(b"POST /ok HTTP/1.1\r\nConnection: close\r\n\r\n")
+            await writer.drain()
+            tail = await reader.read()
+            writer.close()
+            return statuses, int(tail.split()[1])
+        finally:
+            await server.stop()
+
+    statuses, last = run(scenario(), timeout=30)
+    assert statuses == [200, 200, 404] and last == 405

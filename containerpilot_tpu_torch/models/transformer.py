@@ -5,8 +5,11 @@ Plain functions over a params dict that keeps the reference's leaf names
 and stacked-per-layer shapes (``wq [L, d, h, hd]``, ``wo [L, h, hd, d]``,
 ...), so a JAX pytree bridges leaf for leaf (``bridge.py``). The
 reference's ``lax.scan`` over layers is a Python loop over the layer
-index. Inference only: there is no autograd path here yet (training is a
-later slice).
+index; its ``jax.checkpoint`` per layer is ``torch.utils.checkpoint``
+(``remat``). Training differentiates the float32 masters through
+autograd: attention at/above the flash threshold is ``flash_attention``
+(K1 forward, K3 + K4 backward on the card) whenever autograd records,
+and the GQA-native forward-only kernel otherwise (serving).
 
 Order of operations follows the reference exactly, because that is
 where bf16 numbers diverge:
@@ -23,15 +26,21 @@ where bf16 numbers diverge:
 """
 from __future__ import annotations
 
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from .. import resolve_device
 from ..ops import tuning
 from ..ops.attention import causal_attention
-from ..ops.flash import flash_attention_forward
+from ..ops.flash import flash_attention, flash_attention_forward
 from .quantized import embed_lookup, maybe_dequant_layer, maybe_dequant_top
 
 
@@ -127,6 +136,8 @@ def init_params(
     dev = resolve_device(device)
     if isinstance(rng, torch.Generator):
         gen = rng
+    elif dev.type == "meta":  # shapes only (checkpoint restore targets)
+        gen = None
     else:
         gen = torch.Generator(device=dev)
         gen.manual_seed(int(rng))
@@ -167,6 +178,30 @@ def layer_params(params: Params, i: int) -> Dict[str, torch.Tensor]:
     return {k: v[i] for k, v in params["layers"].items()}
 
 
+class _MmF32(torch.autograd.Function):
+    """``torch.mm(a, b, out_dtype=float32)`` on the card, which has no
+    derivative of its own: the backward is two bf16 GEMMs with float32
+    accumulation, each gradient in its input's dtype.
+
+    Precision differs from the reference here: the float32 cotangent is
+    rounded to bf16 before both GEMMs, where the reference's transpose
+    contracts the float32 cotangent itself. A float32 GEMM for the
+    activation gradient would cost far more than the step's whole bf16
+    product time; the card's check holds this backward to 1e-2 of the
+    float32 product."""
+
+    @staticmethod
+    def forward(ctx, a, b):
+        ctx.save_for_backward(a, b)
+        return torch.mm(a, b, out_dtype=torch.float32)
+
+    @staticmethod
+    def backward(ctx, grad):
+        a, b = ctx.saved_tensors
+        g = grad.to(a.dtype)
+        return g @ b.t(), a.t() @ g
+
+
 def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     """a [..., k] @ b [k, n] -> float32 without rounding the product to
     a narrower dtype: the reference's einsum with
@@ -176,9 +211,7 @@ def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     if a.dtype == torch.float32:
         return a @ b
     if a.is_cuda:
-        out = torch.mm(
-            a.reshape(-1, a.shape[-1]), b, out_dtype=torch.float32
-        )
+        out = _MmF32.apply(a.reshape(-1, a.shape[-1]), b)
         return out.reshape(*a.shape[:-1], b.shape[-1])
     return a.float() @ b.float()
 
@@ -270,11 +303,18 @@ def _attention(
     q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     cfg: TransformerConfig, kind: str,
 ) -> torch.Tensor:
-    """The auto attention: the flash kernel (GQA-native) at/above the
-    threshold, the plain masked softmax below it."""
+    """The auto attention: flash at/above the threshold, the plain masked
+    softmax below it. While autograd records, flash is the
+    differentiable ``flash_attention`` on k/v repeated to full heads (the
+    reference's ``_layer``); otherwise the GQA-native forward kernel."""
     s = q.shape[1]
     if flash_eligible(cfg, s, kind=kind):
         bq, bk = tuning.pick_blocks(kind, s)
+        if torch.is_grad_enabled():
+            return flash_attention(
+                q, repeat_kv(k, cfg.n_heads), repeat_kv(v, cfg.n_heads),
+                block_q=bq, block_k=bk, window=cfg.window,
+            )
         return flash_attention_forward(
             q, k, v, block_q=bq, block_k=bk, window=cfg.window
         )
@@ -295,19 +335,125 @@ def _layer(
     return _ffn(x, lp, cfg)
 
 
+# the reference's dots_with_no_batch_dims_saveable: keep the outputs of
+# plain 2-D matrix products (the projections), recompute the rest
+_DOTS_SAVEABLE = (torch.ops.aten.mm.default, torch.ops.aten.mm.dtype)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    if op in _DOTS_SAVEABLE:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat_layer(cfg: TransformerConfig):
+    """The per-layer wrapper ``cfg.remat`` asks for: None (save
+    everything), full recompute, or "dots" (keep the projection outputs,
+    recompute only the rest)."""
+    if not cfg.remat or cfg.remat == "none":
+        return None
+    if cfg.remat == "dots":
+        return functools.partial(
+            checkpoint, use_reentrant=False,
+            context_fn=functools.partial(
+                create_selective_checkpoint_contexts, _dots_policy
+            ),
+        )
+    return functools.partial(checkpoint, use_reentrant=False)
+
+
 def forward_hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig):
     """tokens [batch, seq] -> (final normed hidden [batch, seq, d_model],
-    aux_loss)."""
+    aux_loss): everything up to the unembed, so a loss may stream the
+    vocab projection in chunks. While autograd records, each layer runs
+    under ``cfg.remat``'s checkpoint."""
     check_supported(cfg)
     x = embed_lookup(params, tokens, cfg.dtype)
     aux = torch.zeros((), device=x.device)
+    remat = _remat_layer(cfg) if torch.is_grad_enabled() else None
     for i in range(cfg.n_layers):
-        x, layer_aux = _layer(x, layer_params(params, i), cfg)
+        lp = layer_params(params, i)
+        if remat is None:
+            x, layer_aux = _layer(x, lp, cfg)
+        else:
+            x, layer_aux = remat(_layer, x, lp, cfg)
         aux = aux + layer_aux
     return _rms_norm(x, params["norm_out"]), aux
 
 
+def forward_with_aux(
+    params: Params, tokens: torch.Tensor, cfg: TransformerConfig
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """tokens [batch, seq] -> (logits [batch, seq, vocab] float32,
+    aux_loss: MoE load balance, zero for dense models)."""
+    x, aux = forward_hidden(params, tokens, cfg)
+    logits = _dot_f32(x, maybe_dequant_top(params, "unembed", cfg.dtype))
+    return logits, aux
+
+
 def forward(params: Params, tokens: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
     """tokens [batch, seq] -> logits [batch, seq, vocab] float32."""
-    x, _aux = forward_hidden(params, tokens, cfg)
-    return _dot_f32(x, maybe_dequant_top(params, "unembed", cfg.dtype))
+    return forward_with_aux(params, tokens, cfg)[0]
+
+
+def _ce_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
+    """Per-position negative log-likelihood, log-softmax in float32: the
+    one cross-entropy core of the whole-logits and chunked losses."""
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    return -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
+
+
+def next_token_loss(
+    logits: torch.Tensor, aux: torch.Tensor, tokens: torch.Tensor,
+    cfg: TransformerConfig,
+) -> torch.Tensor:
+    """Next-token CE over logits for tokens[:, :-1], plus weighted MoE
+    aux."""
+    return _ce_nll(logits, tokens[:, 1:]).mean() + cfg.moe_aux_weight * aux
+
+
+def _loss_piece(xc, tc, mc, unembed):
+    return (_ce_nll(_dot_f32(xc, unembed), tc) * mc).sum()
+
+
+def _chunked_next_token_loss(
+    params: Params, tokens: torch.Tensor, cfg: TransformerConfig
+) -> torch.Tensor:
+    """CE without materializing the full [b, s, vocab] logits: the
+    unembed + log-softmax + gather run over sequence chunks, each under
+    a checkpoint, so the backward recomputes one chunk's logits at a
+    time. The padded tail of the last chunk is masked out."""
+    x, aux = forward_hidden(params, tokens[:, :-1], cfg)
+    targets = tokens[:, 1:]
+    b, s, _d = x.shape
+    chunk = min(cfg.loss_chunk, s)
+    n = -(-s // chunk)
+    pad = n * chunk - s
+    if pad:
+        x = torch.nn.functional.pad(x, (0, 0, 0, pad))
+        targets = torch.nn.functional.pad(targets, (0, pad))
+    mask = (torch.arange(n * chunk, device=x.device) < s).to(torch.float32)
+    unembed = maybe_dequant_top(params, "unembed", cfg.dtype)
+    total = torch.zeros((), device=x.device)
+    for i in range(n):
+        sl = slice(i * chunk, (i + 1) * chunk)
+        piece = (
+            checkpoint(_loss_piece, x[:, sl], targets[:, sl], mask[sl],
+                       unembed, use_reentrant=False)
+            if torch.is_grad_enabled()
+            else _loss_piece(x[:, sl], targets[:, sl], mask[sl], unembed)
+        )
+        total = total + piece
+    return total / (b * s) + cfg.moe_aux_weight * aux
+
+
+def loss_fn(
+    params: Params, tokens: torch.Tensor, cfg: TransformerConfig
+) -> torch.Tensor:
+    """Next-token cross-entropy of tokens [batch, seq + 1] (+ weighted
+    MoE aux loss). ``cfg.loss_chunk > 0`` streams the vocab projection in
+    sequence chunks instead of materializing full logits."""
+    if cfg.loss_chunk > 0:
+        return _chunked_next_token_loss(params, tokens, cfg)
+    logits, aux = forward_with_aux(params, tokens[:, :-1], cfg)
+    return next_token_loss(logits, aux, tokens, cfg)

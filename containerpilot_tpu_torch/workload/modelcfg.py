@@ -1,11 +1,16 @@
-"""The jax-free flag and request helpers the server needs (copies of
-``containerpilot_tpu/workload/modelcfg.py``'s ``derive_d_ff``,
-``parse_logit_bias`` and ``parse_stop_ids``; the port keeps its own)."""
+"""The flag, request and eval helpers the server and the trainer share
+(counterparts of ``containerpilot_tpu/workload/modelcfg.py``'s
+``derive_d_ff``, ``parse_logit_bias``, ``parse_stop_ids`` and
+``average_eval_loss``; the port keeps its own)."""
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, Callable
+
+import numpy as np
+import torch
 
 from ..models.decode import BIAS_SLOTS_MAX
+from ..models.transformer import loss_fn
 
 
 def derive_d_ff(d_model: int) -> int:
@@ -64,3 +69,18 @@ def parse_stop_ids(raw: Any, vocab_size: int):
             f"1..32 token ids in [0, {vocab_size})"
         )
     return raw
+
+
+@torch.no_grad()
+def average_eval_loss(
+    params, cfg, n: int, batch_at: Callable[[int], np.ndarray]
+) -> float:
+    """The one eval-loss computation (loss_fn averaged over n batches,
+    no autograd) shared by the trainer's in-loop eval and the standalone
+    evaluate CLI, so their numbers are comparable by construction."""
+    device = params["norm_out"].device
+    total = 0.0
+    for i in range(n):
+        toks = torch.as_tensor(np.asarray(batch_at(i))).long().to(device)
+        total += float(loss_fn(params, toks, cfg))
+    return total / n

@@ -1,5 +1,5 @@
 """The kernel build helper of the port, on a machine without nvcc: it
-finds both CUDA sources, names each library by a hash of its source and
+finds every CUDA source, names each library by a hash of its source and
 flags, and fails with a clear message where the toolkit is missing
 (the kernels themselves build and run only on a card)."""
 import os
@@ -10,7 +10,9 @@ from containerpilot_tpu_torch.ops import _build
 
 
 def test_sources_and_content_hashed_targets(tmp_path, monkeypatch):
-    assert _build.sources() == ["flash_fwd", "int8_matmul"]
+    assert _build.sources() == [
+        "flash_bwd_dkdv", "flash_bwd_dq", "flash_fwd", "int8_matmul",
+    ]
     monkeypatch.setenv("CONTAINERPILOT_TORCH_BUILD_DIR", str(tmp_path))
     src, out = _build._target("flash_fwd")
     assert src.endswith(os.path.join("csrc", "flash_fwd.cu"))

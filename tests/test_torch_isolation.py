@@ -38,7 +38,17 @@ def _is_forbidden(name: str) -> bool:
 
 def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
-    assert "containerpilot_tpu_torch.workload.serve" in mods
+    assert {
+        "containerpilot_tpu_torch.workload.serve",
+        "containerpilot_tpu_torch.workload.train",
+        "containerpilot_tpu_torch.workload.evaluate",
+        "containerpilot_tpu_torch.workload.data",
+        "containerpilot_tpu_torch.workload.flops",
+        "containerpilot_tpu_torch.parallel.train",
+        "containerpilot_tpu_torch.parallel.checkpoint",
+        "containerpilot_tpu_torch.client.client",
+        "containerpilot_tpu_torch.utils.httpclient",
+    } <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -94,6 +104,7 @@ def test_default_device_without_a_card_raises(monkeypatch):
         TransformerConfig,
         init_params,
     )
+    from containerpilot_tpu_torch.workload.data import DevicePrefetcher
     from containerpilot_tpu_torch.workload.serve import InferenceServer
 
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -106,4 +117,6 @@ def test_default_device_without_a_card_raises(monkeypatch):
     params = init_params(0, cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferenceServer(cfg, params, "127.0.0.1", 0, 32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        DevicePrefetcher(dataset=None)  # raises before touching the data
     assert resolve_device("cpu").type == "cpu"

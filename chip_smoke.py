@@ -16,7 +16,9 @@ the training phases):
    the same function (the yardstick; never used by the port) and the
    least time the card could take (bytes at 3.35 TB/s or operations at
    989 TFLOP/s, whichever is larger). K3 (flash dq) and K4 (flash dk/dv)
-   share one yardstick: SDPA forward+backward minus SDPA forward;
+   share one yardstick: SDPA forward+backward minus SDPA forward; they
+   are also launched twice on the same inputs and must give the same
+   bits, and report their TFLOP/s (kept pairs' FLOPs over kernel time);
 4. serve_bf16: the 1.2B flagship config (vocab 32768, d_model 2048, 16
    heads, 16 layers, d_ff 8192, max_len 2048), seeded random weights,
    served by the port's InferenceServer over HTTP on 127.0.0.1:0: health,
@@ -93,6 +95,16 @@ CHUNKED_REL_TOL = 2e-2
 TRAIN_CFG = dict(vocab_size=32_768, d_model=1024, n_heads=8, n_layers=8,
                  d_ff=4096, max_seq_len=2048, flash_min_seq=-1, remat="full")
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
+
+# K3/K4 shapes (b, s, h, hd, window); the first is the training path's
+BWD_CASES = [
+    (8, 2048, 8, 128, 0),     # the training path (bench.py:121-133)
+    (1, 1024, 16, 128, 0),    # the flagship's shape
+    (1, 1024, 16, 128, 256),  # sliding window
+    (1, 1024, 16, 128, 64),   # rows fully masked in a visited tile
+    (2, 1024, 8, 64, 0),      # head_dim 64
+    (2, 1024, 8, 64, 64),     # head_dim 64, window 64
+]
 
 
 def emit(obj) -> None:
@@ -229,17 +241,30 @@ def check_flash_bwd(gen, b, s, h, hd, window):
         torch.cuda.synchronize()
         ref = flash.flash_attention_backward_reference(
             q, k, v, out, lse, do, window)
-    errs = {}
-    for name, got, want in zip(("dq", "dk", "dv"), (dq, dk, dv), ref):
-        err = (got.float() - want.float()).abs().max().item()
+        # a second launch on the same inputs gives the same bits: no
+        # atomics, a fixed order of summation
+        again = (flash.flash_backward_dq(q, k, v, do, lse, delta, window),
+                 *flash.flash_backward_dkdv(q, k, v, do, lse, delta, window))
+    errs, rel = {}, {}
+    for name, got, want, rep in zip(("dq", "dk", "dv"), (dq, dk, dv), ref,
+                                    again):
+        diff = (got.float() - want.float()).abs()
+        err = diff.max().item()
         scale = want.float().abs().max().item()
         if not (torch.isfinite(got).all() and scale > 0
                 and err <= FLASH_BWD_REL_TOL * scale):
+            at = [int(i) for i in torch.unravel_index(diff.argmax(), diff.shape)]
             raise AssertionError(
                 f"flash backward {name} disagrees at {(b, s, h, hd, window)}:"
-                f" {err} (tol {FLASH_BWD_REL_TOL} x {scale})"
+                f" {err} (tol {FLASH_BWD_REL_TOL} x {scale}) at [b, s, h, d] "
+                f"{at}: {got[tuple(at)].item()} vs {want[tuple(at)].item()}"
             )
+        if not torch.equal(got, rep):
+            raise AssertionError(
+                f"flash backward {name} changed between two launches at "
+                f"{(b, s, h, hd, window)}")
         errs[name] = err
+        rel[name] = err / scale
     sets = [(q, k, v, do, lse, delta)] + [
         make()[:6] for _ in range(copies_for(q.nbytes * 6) - 1)
     ]
@@ -278,15 +303,18 @@ def check_flash_bwd(gen, b, s, h, hd, window):
     pairs = kept_pairs(s, window) * b * h
     n = q.numel()
     rows_bytes = 2 * lse.numel() * 4
-    dq_bound, dq_by = bound(5 * n * 2 + rows_bytes, 6.0 * hd * pairs)
-    dkdv_bound, dkdv_by = bound(6 * n * 2 + rows_bytes, 8.0 * hd * pairs)
+    dq_flops, dkdv_flops = 6.0 * hd * pairs, 8.0 * hd * pairs
+    dq_bound, dq_by = bound(5 * n * 2 + rows_bytes, dq_flops)
+    dkdv_bound, dkdv_by = bound(6 * n * 2 + rows_bytes, dkdv_flops)
     return {
         "shape": {"b": b, "s": s, "h": h, "hd": hd, "window": window},
-        "max_abs_err": errs, "tol": f"{FLASH_BWD_REL_TOL} x max|ref|",
+        "max_abs_err": errs, "err_over_max_ref": rel,
+        "tol": f"{FLASH_BWD_REL_TOL} x max|ref|", "repeat_bit_equal": True,
         "dq": {"ms": dq_ms, "plain_ms": dq_plain, "bound_ms": dq_bound,
-               "bound_by": dq_by},
+               "bound_by": dq_by, "tflops": dq_flops / dq_ms * 1e-9},
         "dkdv": {"ms": dkdv_ms, "plain_ms": dkdv_plain,
-                 "bound_ms": dkdv_bound, "bound_by": dkdv_by},
+                 "bound_ms": dkdv_bound, "bound_by": dkdv_by,
+                 "tflops": dkdv_flops / dkdv_ms * 1e-9},
         "library_ms_k3_plus_k4": library_ms, "sdpa_fwd_ms": sdpa_fwd,
     }
 
@@ -667,6 +695,8 @@ def main() -> int:
         (1, 1024, 16, 16, 128, 256),  # sliding window
         (1, 1024, 16, 16, 128, 64),   # rows fully masked in a visited tile
         (8, 2048, 8, 8, 128, 0),      # the training path (bench.py:121-133)
+        (2, 1024, 8, 8, 64, 0),       # head_dim 64
+        (2, 1024, 8, 8, 64, 64),      # head_dim 64, window 64
     ]
     flash_rows = [check_flash(gen, *c) for c in flash_cases]
     emit({"phase": "kernels", "kernel": "flash_fwd", "results": flash_rows,
@@ -677,13 +707,7 @@ def main() -> int:
     ]
     emit({"phase": "kernels", "kernel": "int8_matmul", "results": int8_rows,
           **card})
-    bwd_cases = [
-        (8, 2048, 8, 128, 0),     # the training path (bench.py:121-133)
-        (1, 1024, 16, 128, 0),    # the flagship's shape
-        (1, 1024, 16, 128, 256),  # sliding window
-        (1, 1024, 16, 128, 64),   # rows fully masked in a visited tile
-    ]
-    bwd_rows = [check_flash_bwd(gen, *c) for c in bwd_cases]
+    bwd_rows = [check_flash_bwd(gen, *c) for c in BWD_CASES]
     emit({"phase": "kernels", "kernel": "flash_bwd_dq+flash_bwd_dkdv",
           "results": bwd_rows, **card})
 
@@ -807,6 +831,7 @@ def main() -> int:
                 "bound_by": bwd_rows[0][key]["bound_by"],
                 "library_ms": bwd_rows[0]["library_ms_k3_plus_k4"],
                 "library_covers": "K3+K4: SDPA fwd+bwd minus SDPA fwd",
+                "tflops": bwd_rows[0][key]["tflops"],
                 "shape": "b=8 s=2048 h=8 hd=128, one training layer",
             }
             for name, key, replaces, grads in (

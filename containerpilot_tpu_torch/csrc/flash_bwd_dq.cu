@@ -10,226 +10,238 @@
 // h = 8, hd = 128) it does 6 * hd FLOPs per kept (q, k) pair (q.k^T,
 // dO.v^T and ds.k: 0.10 ms at 989 TFLOP/s) against ~0.05 ms of bytes
 // (q, k, v, dO read once, dq written once, lse and D), so it is
-// operations-bound, and more so at longer sequences.
+// operations-bound: the products have to run on the tensor cores.
 //
-// What this simple design does about it: the same shape as K1
-// (csrc/flash_fwd.cu). One block owns one (batch*head row, 64-query
-// tile); the TPU's sequential kv grid axis becomes a loop inside the
-// block from the first kv tile the window needs to the diagonal tile,
-// so the dq accumulator (64 x hd float32, 4 rows x hd/16 columns per
-// thread) stays in registers and is scaled once at the end. Nothing
-// carries across blocks and nothing is atomic, so dq is deterministic.
-// Q (pre-scaled) and dO sit transposed in shared memory for the whole
-// block; each kv tile is loaded transposed (for the score and dP
-// products) and K once more row-major (for ds @ K). Scores,
-// probabilities and ds never reach device memory. Inner products are
-// plain float32 FMAs from shared memory (no tensor cores yet), so the
-// kernel runs far below the tensor-core bound.
+// The design (sm90.cuh holds the TMA, mbarrier and wgmma helpers):
+// - One block owns one (batch*head row, 64-query tile) and loops over
+//   the kv tiles from the first one the window needs to the diagonal,
+//   the TPU's sequential kv grid axis. dq (64 x hd float32) stays in the
+//   registers of one consumer warpgroup; nothing carries across blocks
+//   and nothing is atomic, so dq is the same bits on every run.
+// - All three products are wgmma on bf16 tiles: S = Q.K^T and
+//   dP = dO.V^T with both operands K-major in shared memory, then
+//   dQ += dS.K with dS as the register A operand and the same K tile read
+//   MN-major through wgmma's transpose flag. Each tile lands in shared
+//   memory once, as TMA wrote it (128-byte swizzle), and serves both of
+//   its products; scores, probabilities and dS never leave registers.
+// - A producer warpgroup (one thread of it) brings Q and dO once and
+//   streams K and V through a two-stage ring under mbarriers, so the
+//   next tile's copy overlaps this tile's products; it drops its
+//   register budget (setmaxnreg) and the consumer warpgroup raises its
+//   own. ~97 KB of shared memory at hd = 128, so two blocks share an SM
+//   and hide each other's softmax behind their products.
+// - Only the diagonal tile and a window's edge tiles compare positions;
+//   interior tiles skip the mask.
+// - blockIdx.y runs from the last q tile (the most kv tiles) to the
+//   first, so the longest blocks start first.
 //
-// Numerics copy the reference: s = (q * hd^-0.5) . k in float32,
-// p = exp(s - lse) where the _causal_mask keeps the pair and exactly 0
-// where it does not (the where, never exp(NEG_INF - lse)), ds = p *
-// (dO . v - D), dq = scale * sum ds . k. Rows fully masked inside a
-// visited tile (a window narrower than the tile) add exact zeros.
+// Numerics: s = q.k in float32 (times hd^-0.5), p = exp(s - lse) where
+// the _causal_mask keeps the pair and exactly 0 where it does not (the
+// reference's where, never exp(NEG_INF - lse)), ds = p * (dO.v - D),
+// dq = scale * sum ds.k, accumulated in float32. Precision difference
+// from the reference, as in every tensor-core flash backward: ds is
+// rounded to bf16 before the ds.k product, where the reference contracts
+// it in float32. Rows fully masked inside a visited tile add exact zeros.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "sm90.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per block
-constexpr int BK = 64;   // keys per kv tile
-constexpr int NT = 256;  // threads: 16 row groups x 16 column groups
-
-__device__ __forceinline__ void bf16x8_to_f32(const uint4 raw, float* f) {
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&raw);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    float2 t = __bfloat1622float2(h[i]);
-    f[2 * i] = t.x;
-    f[2 * i + 1] = t.y;
-  }
-}
-
-// Load a [64][HD] bf16 tile (row stride `stride` elements) into shared
-// memory transposed, dst[d * 64 + n] = src[n][d] * mul. Consecutive
-// threads take consecutive rows, so the transposed writes do not
-// conflict.
-template <int HD>
-__device__ __forceinline__ void load_tile_t(const __nv_bfloat16* src, long stride,
-                                            float* dst, float mul) {
-  for (int idx = threadIdx.x; idx < 64 * (HD / 8); idx += NT) {
-    const int n = idx % 64;
-    const int dc = idx / 64;
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + n * stride + dc * 8);
-    float f[8];
-    bf16x8_to_f32(raw, f);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) dst[(dc * 8 + i) * 64 + n] = f[i] * mul;
-  }
-}
-
-// Load a [64][HD] bf16 tile row-major: dst[n * HD + d] = src[n][d] * mul.
-template <int HD>
-__device__ __forceinline__ void load_tile(const __nv_bfloat16* src, long stride,
-                                          float* dst, float mul) {
-  for (int idx = threadIdx.x; idx < 64 * (HD / 8); idx += NT) {
-    const int dc = idx % (HD / 8);
-    const int n = idx / (HD / 8);
-    const uint4 raw = *reinterpret_cast<const uint4*>(src + n * stride + dc * 8);
-    float f[8];
-    bf16x8_to_f32(raw, f);
-    float4* out = reinterpret_cast<float4*>(dst + n * HD + dc * 8);
-    out[0] = make_float4(f[0] * mul, f[1] * mul, f[2] * mul, f[3] * mul);
-    out[1] = make_float4(f[4] * mul, f[5] * mul, f[6] * mul, f[7] * mul);
-  }
-}
-
-// Shared memory (floats): QT, dOT [HD][BQ]; KT, VT [HD][BK]; KS [BK][HD];
-// DST [BK][BQ]
-template <int HD>
-constexpr int smem_floats() {
-  return 2 * HD * BQ + 3 * HD * BK + BK * BQ;
-}
+constexpr int BQ = 64;       // query rows per block (one warpgroup)
+constexpr int BK = 64;       // keys per kv tile
+constexpr int STAGES = 2;    // kv ring depth
+constexpr int NT = 256;      // a consumer and a producer warpgroup
+constexpr int BOX = 64 * 128;  // bytes of one [64][64] bf16 box
+constexpr float LOG2E = 1.4426950408889634f;
+// Register budgets after setmaxnreg. Two blocks of 256 threads share an
+// SM, so every thread starts with 65536 / 512 = 128 registers; the
+// producer warpgroup (one thread of it starts the copies) hands back 104 a
+// thread and the consumer warpgroup takes them: 128 + 104 = 232.
+constexpr int kProducerRegs = 24;
+constexpr int kConsumerRegs = 232;
 
 template <int HD>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const __nv_bfloat16* __restrict__ q,
-                    const __nv_bfloat16* __restrict__ k,
-                    const __nv_bfloat16* __restrict__ v,
-                    const __nv_bfloat16* __restrict__ dout,
+struct Layout {
+  static constexpr int TILE = 64 * HD * 2;  // one [64][HD] bf16 tile
+  static constexpr int Q = 0;
+  static constexpr int DO = TILE;
+  static constexpr int K = 2 * TILE;                // [STAGES] tiles
+  static constexpr int V = K + STAGES * TILE;       // [STAGES] tiles
+  static constexpr int BAR = V + STAGES * TILE;     // 1 + 2 * STAGES mbarriers
+  static constexpr int BYTES = BAR + 64 + 1024;     // + alignment slack
+};
+
+template <int HD>
+__global__ void __launch_bounds__(NT, 2)
+flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq,
+                    const __grid_constant__ CUtensorMap tk,
+                    const __grid_constant__ CUtensorMap tv,
+                    const __grid_constant__ CUtensorMap tdo,
                     const float* __restrict__ lse,
                     const float* __restrict__ delta,
                     __nv_bfloat16* __restrict__ dq, int S, int H, int window,
                     float scale) {
-  constexpr int DPT = HD / 16;  // dq columns per thread
-  extern __shared__ float smem[];
-  float* QT = smem;              // [HD][BQ], q * scale
-  float* dOT = QT + HD * BQ;     // [HD][BQ]
-  float* KT = dOT + HD * BQ;     // [HD][BK]
-  float* VT = KT + HD * BK;      // [HD][BK]
-  float* KS = VT + HD * BK;      // [BK][HD]
-  float* DST = KS + BK * HD;     // [BK][BQ], ds transposed
+  using L = Layout<HD>;
+  constexpr int NB = HD / 64;  // 64-column boxes in a row
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (sm90::smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + STAGES;
 
-  const int t = threadIdx.x;
-  const int ty = t / 16;  // rows ty*4 .. ty*4+3 of the q tile
-  const int tx = t % 16;  // score cols tx*4.., dq cols tx*DPT..
-  const int q_start = blockIdx.x * BQ;
-  const int r = blockIdx.y;  // b * H + head
+  const int r = blockIdx.x;  // b * H + head
+  const int qt = S / BQ - 1 - blockIdx.y;
   const int b = r / H;
   const int head = r % H;
-  const long row_stride = (long)H * HD;
-  const long base = (long)b * S * row_stride + (long)head * HD;
-
-  load_tile_t<HD>(q + base + q_start * row_stride, row_stride, QT, scale);
-  load_tile_t<HD>(dout + base + q_start * row_stride, row_stride, dOT, 1.f);
-
-  float lse_r[4], d_r[4], acc[4][DPT];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q_pos = q_start + ty * 4 + i;
-    lse_r[i] = lse[(long)r * S + q_pos];
-    d_r[i] = delta[(long)r * S + q_pos];
-#pragma unroll
-    for (int d = 0; d < DPT; ++d) acc[i][d] = 0.f;
-  }
-
+  const int q_start = qt * BQ;
+  const int row0 = b * S;      // the map's row of position 0 in batch b
+  const int col0 = head * HD;  // the map's column of this head
   int first_key = 0;
   if (window > 0) {
     first_key = q_start - (window - 1);
     if (first_key < 0) first_key = 0;
   }
   const int kt_first = first_key / BK;
-  const int kt_last = (q_start + BQ - 1) / BK;
+  const int n_tiles = qt - kt_first + 1;  // up to the diagonal tile
 
-  for (int kt = kt_first; kt <= kt_last; ++kt) {
-    const int k_start = kt * BK;
-    __syncthreads();  // the previous tile's reads of KT/VT/KS/DST are done
-    load_tile_t<HD>(k + base + k_start * row_stride, row_stride, KT, 1.f);
-    load_tile_t<HD>(v + base + k_start * row_stride, row_stride, VT, 1.f);
-    load_tile<HD>(k + base + k_start * row_stride, row_stride, KS, 1.f);
-    __syncthreads();
-
-    // s[i][j] = q.k and dp[i][j] = dO.v for rows ty*4+i, keys tx*4+j
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        s[i][j] = 0.f;
-        dp[i][j] = 0.f;
-      }
-#pragma unroll 4
-    for (int d = 0; d < HD; ++d) {
-      const float4 qv = *reinterpret_cast<const float4*>(QT + d * BQ + ty * 4);
-      const float4 ov = *reinterpret_cast<const float4*>(dOT + d * BQ + ty * 4);
-      const float4 kv = *reinterpret_cast<const float4*>(KT + d * BK + tx * 4);
-      const float4 vv = *reinterpret_cast<const float4*>(VT + d * BK + tx * 4);
-      const float qa[4] = {qv.x, qv.y, qv.z, qv.w};
-      const float oa[4] = {ov.x, ov.y, ov.z, ov.w};
-      const float ka[4] = {kv.x, kv.y, kv.z, kv.w};
-      const float va[4] = {vv.x, vv.y, vv.z, vv.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(qa[i], ka[j], s[i][j]);
-          dp[i][j] = fmaf(oa[i], va[j], dp[i][j]);
-        }
+  if (threadIdx.x == 0) {
+    sm90::mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      sm90::mbar_init(&full[s], 1);
+      sm90::mbar_init(&empty[s], 128);
     }
-
-    // p = where(mask, exp(s - lse), 0); ds = p * (dp - D)
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int q_pos = q_start + ty * 4 + i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int k_pos = k_start + tx * 4 + j;
-        bool ok = q_pos >= k_pos;
-        if (window > 0) ok = ok && (q_pos - k_pos < window);
-        const float p = ok ? expf(s[i][j] - lse_r[i]) : 0.f;
-        s[i][j] = p * (dp[i][j] - d_r[i]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      *reinterpret_cast<float4*>(DST + (tx * 4 + j) * BQ + ty * 4) =
-          make_float4(s[0][j], s[1][j], s[2][j], s[3][j]);
-    }
-    __syncthreads();
-
-    // acc += ds @ K
-#pragma unroll 4
-    for (int n = 0; n < BK; ++n) {
-      const float4 dv4 = *reinterpret_cast<const float4*>(DST + n * BQ + ty * 4);
-      const float da[4] = {dv4.x, dv4.y, dv4.z, dv4.w};
-      float ka[DPT];
-#pragma unroll
-      for (int d4 = 0; d4 < DPT / 4; ++d4) {
-        const float4 kk =
-            *reinterpret_cast<const float4*>(KS + n * HD + tx * DPT + d4 * 4);
-        ka[d4 * 4 + 0] = kk.x;
-        ka[d4 * 4 + 1] = kk.y;
-        ka[d4 * 4 + 2] = kk.z;
-        ka[d4 * 4 + 3] = kk.w;
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int d = 0; d < DPT; ++d) acc[i][d] = fmaf(da[i], ka[d], acc[i][d]);
-    }
+    sm90::mbar_fence_init();
   }
+  __syncthreads();
 
-  // dq = acc * scale, bf16
+  if (threadIdx.x >= 128) {
+    // ---- producer warpgroup: one thread brings Q and dO, then the ring
+    sm90::reg_dealloc<kProducerRegs>();
+    if (threadIdx.x == 128) {
+      sm90::mbar_expect_tx(q_full, 2 * L::TILE);
+      for (int c = 0; c < NB; ++c) {
+        sm90::tma_load_2d(smem + L::Q + c * BOX, &tq, q_full, col0 + 64 * c,
+                          row0 + q_start);
+        sm90::tma_load_2d(smem + L::DO + c * BOX, &tdo, q_full, col0 + 64 * c,
+                          row0 + q_start);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % STAGES;
+        sm90::mbar_wait(&empty[s], ((j / STAGES) & 1) ^ 1);
+        const int k_row = row0 + (kt_first + j) * BK;
+        sm90::mbar_expect_tx(&full[s], 2 * L::TILE);
+        for (int c = 0; c < NB; ++c) {
+          sm90::tma_load_2d(smem + L::K + s * L::TILE + c * BOX, &tk, &full[s],
+                            col0 + 64 * c, k_row);
+          sm90::tma_load_2d(smem + L::V + s * L::TILE + c * BOX, &tv, &full[s],
+                            col0 + 64 * c, k_row);
+        }
+      }
+    }
+  } else {
+    // ---- consumer warpgroup: 64 query rows
+    sm90::reg_alloc<kConsumerRegs>();
+    const int t = threadIdx.x;
+    const float scale_log2 = scale * LOG2E;
+    const int r_lo = sm90::acc_row(t, 0);  // this thread's rows: r_lo, r_lo + 8
+    float lse2[2], dd[2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int q_pos = q_start + ty * 4 + i;
-    __nv_bfloat16* row = dq + base + (long)q_pos * row_stride + tx * DPT;
+    for (int h = 0; h < 2; ++h) {
+      const long at = (long)r * S + q_start + r_lo + 8 * h;
+      lse2[h] = lse[at] * LOG2E;
+      dd[h] = delta[at];
+    }
+    float acc[HD / 2];
 #pragma unroll
-    for (int d = 0; d < DPT; d += 2) {
-      *reinterpret_cast<__nv_bfloat162*>(row + d) =
-          __floats2bfloat162_rn(acc[i][d] * scale, acc[i][d + 1] * scale);
+    for (int i = 0; i < HD / 2; ++i) acc[i] = 0.f;
+    const uint64_t q_desc = sm90::desc_sw128(smem + L::Q, 16, 1024);
+    const uint64_t do_desc = sm90::desc_sw128(smem + L::DO, 16, 1024);
+    sm90::mbar_wait(q_full, 0);
+    __syncwarp();
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % STAGES;
+      const int k_start = (kt_first + j) * BK;
+      uint8_t* k_tile = smem + L::K + s * L::TILE;
+      const uint64_t k_desc = sm90::desc_sw128(k_tile, 16, 1024);
+      const uint64_t v_desc = sm90::desc_sw128(smem + L::V + s * L::TILE, 16, 1024);
+      const uint64_t k_mn = sm90::desc_sw128(k_tile, BOX, 1024);
+      sm90::mbar_wait(&full[s], (j / STAGES) & 1);
+      __syncwarp();
+
+      // S = Q.K^T and dP = dO.V^T, 64 x 64 each
+      float sc[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        sc[i] = 0.f;
+        dp[i] = 0.f;
+      }
+      sm90::fence_regs(sc);
+      sm90::fence_regs(dp);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
+        sm90::wgmma_ss_n64(sc, sm90::desc_add(q_desc, off),
+                           sm90::desc_add(k_desc, off), kk > 0);
+      }
+#pragma unroll
+      for (int kk = 0; kk < HD / 16; ++kk) {
+        const uint32_t off = (kk / 4) * BOX + (kk % 4) * 32;
+        sm90::wgmma_ss_n64(dp, sm90::desc_add(do_desc, off),
+                           sm90::desc_add(v_desc, off), kk > 0);
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(sc);
+      sm90::fence_regs(dp);
+
+      // ds = where(mask, exp(s - lse), 0) * (dp - D), into sc
+      const bool edge = k_start == q_start ||
+                        (window > 0 && q_start + BQ - 1 - k_start >= window);
+      if (edge) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int h = (i >> 1) & 1;
+          const int q_pos = q_start + r_lo + 8 * h;
+          const int k_pos = k_start + sm90::acc_col(t, i);
+          bool ok = q_pos >= k_pos;
+          if (window > 0) ok = ok && (q_pos - k_pos < window);
+          const float p = ok ? exp2f(fmaf(sc[i], scale_log2, -lse2[h])) : 0.f;
+          sc[i] = p * (dp[i] - dd[h]);
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int h = (i >> 1) & 1;
+          const float p = exp2f(fmaf(sc[i], scale_log2, -lse2[h]));
+          sc[i] = p * (dp[i] - dd[h]);
+        }
+      }
+      uint32_t a[4][4];
+      sm90::acc_to_a(sc, a);
+
+      // dQ += dS.K: K read MN-major from the same tile
+      sm90::fence_regs(acc);
+      sm90::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        sm90::wgmma_rs_tb<HD>(acc, a[kk], sm90::desc_add(k_mn, kk * 16 * 128));
+      }
+      sm90::wgmma_commit();
+      sm90::wgmma_wait();
+      sm90::fence_regs(acc);
+      sm90::mbar_arrive(&empty[s]);  // this stage's K and V are read
+    }
+
+    // dq = scale * acc, bf16
+#pragma unroll
+    for (int i = 0; i < HD / 2; i += 2) {
+      const int q_pos = q_start + sm90::acc_row(t, i);
+      __nv_bfloat16* out = dq + ((long)(row0 + q_pos) * H + head) * HD +
+                           sm90::acc_col(t, i);
+      *reinterpret_cast<__nv_bfloat162*>(out) =
+          __floats2bfloat162_rn(acc[i] * scale, acc[i + 1] * scale);
     }
   }
 }
@@ -238,7 +250,7 @@ template <int HD>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* dout,
                    const void* lse, const void* delta, void* dq, int B, int S,
                    int H, int window, float scale, cudaStream_t stream) {
-  const int smem = smem_floats<HD>() * (int)sizeof(float);
+  constexpr int smem = Layout<HD>::BYTES;
   static bool configured = false;  // the attribute is per function
   if (!configured) {
     cudaError_t err = cudaFuncSetAttribute(
@@ -247,11 +259,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
     if (err != cudaSuccess) return err;
     configured = true;
   }
-  dim3 grid(S / BQ, B * H);
+  CUtensorMap maps[4];
+  const void* srcs[4] = {q, k, v, dout};
+  for (int i = 0; i < 4; ++i) {
+    cudaError_t err = sm90::make_bshd_map(&maps[i], srcs[i], B, S, H, HD);
+    if (err != cudaSuccess) return err;
+  }
+  dim3 grid(B * H, S / BQ);
   flash_bwd_dq_kernel<HD><<<grid, NT, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
-      static_cast<const __nv_bfloat16*>(v),
-      static_cast<const __nv_bfloat16*>(dout), static_cast<const float*>(lse),
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<__nv_bfloat16*>(dq), S, H,
       window, scale);
   return cudaGetLastError();
@@ -261,9 +277,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* dout
 
 extern "C" {
 
-// q, k, v, dout, dq: [B, S, H, HD] bf16 (contiguous, full heads);
-// lse, delta: [B*H, S] float32. S % 64 == 0, HD in {64, 128}, window >= 0
-// (0 = full causal). Returns the launch's cudaError_t (0 on success).
+// q, k, v, dout, dq: [B, S, H, HD] bf16 (contiguous, full heads, 16-byte
+// aligned); lse, delta: [B*H, S] float32. S % 64 == 0, HD in {64, 128},
+// window >= 0 (0 = full causal). Returns the launch's cudaError_t (0 on
+// success). Allocates nothing and never synchronises, so a CUDA graph
+// can capture it.
 int flash_bwd_dq_bf16(const void* q, const void* k, const void* v,
                       const void* dout, const void* lse, const void* delta,
                       void* dq, int B, int S, int H, int HD, int window,

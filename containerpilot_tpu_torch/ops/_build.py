@@ -9,9 +9,10 @@ use with
 into a git-ignored build directory (``build/kernels`` at the root of the
 checkout, or ``$CONTAINERPILOT_TORCH_BUILD_DIR``), then loads with
 ``ctypes``. No PyTorch headers are included, which keeps a build to
-seconds. The file name carries a hash of the source and the flags, so an
-edited kernel rebuilds and concurrent processes never load a
-half-written library (each writes a temporary file and renames it).
+seconds. The file name carries a hash of the source, every shared
+header (``csrc/*.cuh``) and the flags, so an edited kernel or header
+rebuilds and concurrent processes never load a half-written library
+(each writes a temporary file and renames it).
 
 ``build_all()`` starts one nvcc per source, all at once, and waits for
 them; ``load(name)`` builds one library if it is missing.
@@ -66,13 +67,19 @@ def _nvcc() -> str:
     )
 
 
+def headers() -> List[str]:
+    """The shared headers (``csrc/*.cuh``) any source may include."""
+    return sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+
+
 def _target(name: str) -> Tuple[str, str]:
     src = os.path.join(CSRC, f"{name}.cu")
-    with open(src, "rb") as fh:
-        digest = hashlib.sha256(
-            fh.read() + " ".join(NVCC_FLAGS).encode()
-        ).hexdigest()[:16]
-    return src, os.path.join(build_dir(), f"{name}-{digest}.so")
+    h = hashlib.sha256()
+    for path in [src] + [os.path.join(CSRC, f) for f in headers()]:
+        with open(path, "rb") as fh:
+            h.update(os.path.basename(path).encode() + b"\0" + fh.read())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return src, os.path.join(build_dir(), f"{name}-{h.hexdigest()[:16]}.so")
 
 
 def _start(name: str):

@@ -119,11 +119,14 @@ def _check_kernel_inputs(tensors, hd: int, s: int, what: str) -> None:
 
 
 def _check_rows(name: str, t: torch.Tensor, rows: int, s: int, dev) -> None:
+    """lse/D rows as K3 and K4 read them: K4 copies each 64-value run
+    with one bulk copy, which needs a 16-byte aligned start."""
     if (t.device != dev or t.dtype != torch.float32 or not t.is_contiguous()
-            or t.numel() != rows * s):
+            or t.numel() != rows * s or t.data_ptr() % 16):
         raise ValueError(
-            f"{name} must be a contiguous float32 [{rows}, {s}, 1] tensor "
-            f"on {dev}, got {t.dtype} {tuple(t.shape)} on {t.device}"
+            f"{name} must be a contiguous, 16-byte aligned float32 "
+            f"[{rows}, {s}, 1] tensor on {dev}, got {t.dtype} "
+            f"{tuple(t.shape)} on {t.device}"
         )
 
 

@@ -28,3 +28,25 @@ def test_missing_nvcc_fails_loudly(monkeypatch, tmp_path):
         pytest.skip("a CUDA toolkit is installed here")
     with pytest.raises(RuntimeError, match="nvcc not found"):
         _build.build_all()
+
+
+def test_target_hashes_shared_headers(tmp_path, monkeypatch):
+    """A kernel's library name covers every ``csrc/*.cuh`` beside its own
+    source: an edited header rebuilds, an untouched tree reuses."""
+    csrc = tmp_path / "csrc"
+    csrc.mkdir()
+    (csrc / "kern.cu").write_text('#include "shared.cuh"\n')
+    header = csrc / "shared.cuh"
+    header.write_text("// v1\n")
+    monkeypatch.setattr(_build, "CSRC", str(csrc))
+    monkeypatch.setenv("CONTAINERPILOT_TORCH_BUILD_DIR", str(tmp_path / "b"))
+    assert _build.sources() == ["kern"]
+    assert _build.headers() == ["shared.cuh"]
+    first = _build._target("kern")[1]
+    assert _build._target("kern")[1] == first
+    header.write_text("// v2\n")
+    second = _build._target("kern")[1]
+    assert second != first
+    assert os.path.basename(second).startswith("kern-")
+    (csrc / "other.cuh").write_text("// new\n")
+    assert _build._target("kern")[1] not in (first, second)

@@ -136,3 +136,136 @@ def test_forward_only_kernel_refuses_inputs_that_require_grad(monkeypatch):
         flash.flash_attention_forward(q.detach(), k, v)
     flash.flash_attention_forward(q.detach(), k, v)  # nothing requires grad
     assert launched == [0, 0, 0]
+
+
+def _on_card(shape, dtype=torch.bfloat16, seed=0):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.randn(shape, generator=gen).to(dtype).as_subclass(_OnCard)
+
+
+def _bwd_inputs(shape=(2, 128, 3, 64), kv_heads=None, dtype=torch.bfloat16):
+    b, s, h, hd = shape
+    kv_shape = (b, s, kv_heads or h, hd)
+    q, do = _on_card(shape, dtype, 1), _on_card(shape, dtype, 2)
+    k, v = _on_card(kv_shape, dtype, 3), _on_card(kv_shape, dtype, 4)
+    lse = torch.zeros((b * h, s, 1), dtype=torch.float32)
+    delta = torch.zeros((b * h, s, 1), dtype=torch.float32)
+    return q, k, v, do, lse, delta
+
+
+@pytest.mark.parametrize("fn,name,n_out", [
+    ("flash_backward_dq", "flash_bwd_dq", 1),
+    ("flash_backward_dkdv", "flash_bwd_dkdv", 2),
+])
+@pytest.mark.parametrize("window,passed", [(0, 0), (64, 64), (-3, 0)])
+def test_bwd_wrappers_hand_the_c_entry_its_arguments(monkeypatch, fn, name,
+                                                     n_out, window, passed):
+    """On a card tensor the wrappers validate, allocate the outputs like
+    q/k/v and call the C entry through _launch_bwd with the inputs in the
+    entry's order, (b, s, h, hd), the window (negative means none) and
+    head_dim; each launch adds one to the kernel's count."""
+    calls = []
+    monkeypatch.setattr(flash, "_launch_bwd", lambda *a: calls.append(a))
+    args = _bwd_inputs()
+    counter = "DQ_LAUNCHES" if n_out == 1 else "DKDV_LAUNCHES"
+    before = getattr(flash, counter)
+    out = getattr(flash, fn)(*args, window=window)
+    assert getattr(flash, counter) == before + 1
+    (got_name, inputs, outputs, dims, got_window, hd, dev), = calls
+    assert (got_name, dims, got_window, hd) == (name, (2, 128, 3, 64), passed, 64)
+    assert dev == args[0].device
+    assert all(a is b for a, b in zip(inputs, args)) and len(inputs) == 6
+    outs = (out,) if n_out == 1 else out
+    assert len(outputs) == n_out and all(a is b for a, b in zip(outputs, outs))
+    for o, like in zip(outs, (args[0],) if n_out == 1 else args[1:3]):
+        assert o.shape == like.shape and o.dtype == torch.bfloat16
+        assert o.is_contiguous() and o.data_ptr() != like.data_ptr()
+    if n_out == 2:
+        assert outs[0].data_ptr() != outs[1].data_ptr()
+
+
+class _FakeEntry:
+    """Stands in for a library's C entry: records its argtypes and call."""
+
+    def __init__(self):
+        self.args = None
+
+    def __call__(self, *args):
+        self.args = args
+        return 0
+
+
+@pytest.mark.parametrize("name,n_out", [("flash_bwd_dq", 1), ("flash_bwd_dkdv", 2)])
+def test_launch_bwd_calls_the_entry_in_its_c_order(monkeypatch, name, n_out):
+    """_launch_bwd passes pointers (inputs then outputs), the int dims,
+    the window, scale = hd^-0.5 as a float and the current stream, with
+    ctypes types that match the C signature, then checks the error."""
+    import ctypes
+    import contextlib
+    from containerpilot_tpu_torch.ops import _build
+
+    entry = _FakeEntry()
+    lib = type("Lib", (), {f"{name}_bf16": entry})()
+    checked = []
+    monkeypatch.setattr(_build, "load", lambda n: lib if n == name else None)
+    monkeypatch.setattr(_build, "check", lambda l, n, err: checked.append((n, err)))
+    monkeypatch.setattr(torch.cuda, "device", lambda dev: contextlib.nullcontext())
+    monkeypatch.setattr(
+        torch.cuda, "current_stream",
+        lambda dev=None: type("S", (), {"cuda_stream": 4242})())
+    q, k, v, do, lse, delta = _bwd_inputs((1, 64, 2, 128))
+    outs = tuple(torch.empty_like(q) for _ in range(n_out))
+    flash._launch_bwd(name, (q, k, v, do, lse, delta), outs, (1, 64, 2, 128),
+                      32, 128, q.device)
+    n_ptr = 6 + n_out
+    assert entry.argtypes == ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * 5
+                              + [ctypes.c_float, ctypes.c_void_p])
+    assert entry.restype is ctypes.c_int
+    ptrs = [t.data_ptr() for t in (q, k, v, do, lse, delta, *outs)]
+    assert list(entry.args[:n_ptr]) == ptrs
+    assert entry.args[n_ptr:n_ptr + 5] == (1, 64, 2, 128, 32)
+    assert entry.args[n_ptr + 5] == pytest.approx(128 ** -0.5)
+    assert entry.args[n_ptr + 6] == 4242
+    assert checked == [(name, 0)]
+
+
+@pytest.mark.parametrize("fn", ["flash_backward_dq", "flash_backward_dkdv"])
+@pytest.mark.parametrize("make,error,match", [
+    (lambda: _bwd_inputs((1, 96, 2, 64)), ValueError, "seq % 64"),
+    (lambda: _bwd_inputs((1, 128, 2, 32)), ValueError, "head_dim in"),
+    (lambda: _bwd_inputs((1, 128, 2, 96)), ValueError, "head_dim in"),
+    (lambda: _bwd_inputs(dtype=torch.float32), TypeError, "takes bfloat16"),
+    (lambda: _bwd_inputs(dtype=torch.float16), TypeError, "takes bfloat16"),
+    (lambda: _bwd_inputs((1, 128, 4, 64), kv_heads=2), ValueError, "full-head"),
+])
+def test_bwd_wrappers_refuse_what_the_kernels_do_not_take(monkeypatch, fn, make,
+                                                          error, match):
+    """Ragged seq, head_dim outside {64, 128}, non-bf16 inputs and grouped
+    (GQA) k/v raise before any launch."""
+    calls = []
+    monkeypatch.setattr(flash, "_launch_bwd", lambda *a: calls.append(a))
+    with pytest.raises(error, match=match):
+        getattr(flash, fn)(*make())
+    assert calls == []
+
+
+@pytest.mark.parametrize("fn", ["flash_backward_dq", "flash_backward_dkdv"])
+@pytest.mark.parametrize("which", [4, 5])
+def test_bwd_wrappers_refuse_misaligned_or_wrong_rows(monkeypatch, fn, which):
+    """lse and D must be contiguous float32 rows of the right size whose
+    start is 16-byte aligned (K4 bulk-copies them): a view one value into
+    its storage, a float16 copy and a short tensor all raise."""
+    calls = []
+    monkeypatch.setattr(flash, "_launch_bwd", lambda *a: calls.append(a))
+    args = list(_bwd_inputs())
+    good = args[which]
+    bad_rows = [
+        torch.zeros(good.numel() + 1)[1:].reshape(good.shape),
+        good.to(torch.float16),
+        good[:, :64],
+    ]
+    for bad in bad_rows:
+        args[which] = bad
+        with pytest.raises(ValueError, match="16-byte aligned float32"):
+            getattr(flash, fn)(*args)
+    assert calls == []

@@ -120,3 +120,19 @@ def test_default_device_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DevicePrefetcher(dataset=None)  # raises before touching the data
     assert resolve_device("cpu").type == "cpu"
+
+
+@pytest.mark.parametrize("script", [
+    "chip_smoke.py", os.path.join("scripts", "torch_flash_bwd_check.py"),
+])
+def test_card_scripts_fail_without_a_card(script):
+    """Without CUDA the card scripts exit non-zero and print no
+    result."""
+    if torch.cuda.is_available():
+        pytest.skip("a card is present here")
+    proc = subprocess.run(
+        [sys.executable, os.path.join(ROOT, script)], cwd=ROOT,
+        capture_output=True, text=True, timeout=120,
+    )
+    assert proc.returncode != 0
+    assert '"ok": true' not in proc.stdout and '"failed"' not in proc.stdout

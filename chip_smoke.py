@@ -15,10 +15,12 @@ the training phases):
    it, with its time, the plain version's, one PyTorch call computing
    the same function (the yardstick; never used by the port) and the
    least time the card could take (bytes at 3.35 TB/s or operations at
-   989 TFLOP/s, whichever is larger). K3 (flash dq) and K4 (flash dk/dv)
-   share one yardstick: SDPA forward+backward minus SDPA forward; they
-   are also launched twice on the same inputs and must give the same
-   bits, and report their TFLOP/s (kept pairs' FLOPs over kernel time);
+   989 TFLOP/s, whichever is larger). K1 (flash forward) is timed
+   against SDPA's forward; K3 (flash dq) and K4 (flash dk/dv) share one
+   yardstick: SDPA forward+backward minus SDPA forward. The three flash
+   kernels are also launched twice on the same inputs and must give the
+   same bits, and report their TFLOP/s (kept pairs' FLOPs over kernel
+   time);
 4. serve_bf16: the 1.2B flagship config (vocab 32768, d_model 2048, 16
    heads, 16 layers, d_ff 8192, max_len 2048), seeded random weights,
    served by the port's InferenceServer over HTTP on 127.0.0.1:0: health,
@@ -96,6 +98,20 @@ TRAIN_CFG = dict(vocab_size=32_768, d_model=1024, n_heads=8, n_layers=8,
                  d_ff=4096, max_seq_len=2048, flash_min_seq=-1, remat="full")
 TRAIN_BATCH, TRAIN_SEQ = 8, 2048
 
+# K1 shapes (b, s, h, kv_heads, hd, window); the first is the serving
+# path's, TRAIN_FWD_CASE the training path's
+FWD_CASES = [
+    (1, 1024, 16, 16, 128, 0),    # the serving path's prefill
+    (4, 1024, 16, 16, 128, 0),    # the 4-row batch
+    (1, 1024, 16, 4, 128, 0),     # GQA
+    (1, 1024, 16, 16, 128, 256),  # sliding window
+    (1, 1024, 16, 16, 128, 64),   # rows fully masked in a visited tile
+    (8, 2048, 8, 8, 128, 0),      # the training path (bench.py:121-133)
+    (2, 1024, 8, 8, 64, 0),       # head_dim 64
+    (2, 1024, 8, 8, 64, 64),      # head_dim 64, window 64
+]
+TRAIN_FWD_CASE = FWD_CASES[5]
+
 # K3/K4 shapes (b, s, h, hd, window); the first is the training path's
 BWD_CASES = [
     (8, 2048, 8, 128, 0),     # the training path (bench.py:121-133)
@@ -149,6 +165,13 @@ def bound(nbytes: float, flops: float):
 # phase 3: kernels against their plain versions
 # ---------------------------------------------------------------------------
 
+def kept_pairs(s: int, window: int) -> int:
+    """(q, k) pairs the causal (and window) mask keeps, per head."""
+    pos = torch.arange(s)
+    seen = torch.clamp(pos + 1, max=window) if window > 0 else pos + 1
+    return int(seen.sum())
+
+
 def check_flash(gen, b, s, h, kv, hd, window):
     from containerpilot_tpu_torch.ops import flash
 
@@ -167,11 +190,23 @@ def check_flash(gen, b, s, h, kv, hd, window):
     )
     err = (out.float() - ref.float()).abs().max().item()
     lse_err = (lse - ref_lse).abs().max().item()
-    if not (err <= FLASH_TOL and lse_err <= FLASH_TOL):
+    if not (torch.isfinite(out).all() and err <= FLASH_TOL
+            and lse_err <= FLASH_TOL):
         raise AssertionError(
             f"flash kernel disagrees at {(b, s, h, kv, hd, window)}: "
             f"out {err}, lse {lse_err} (tol {FLASH_TOL})"
         )
+    # a second launch on the same inputs gives the same bits: no
+    # atomics, a fixed order of summation
+    out2, lse2 = flash.flash_attention_forward_with_lse(q, k, v, window=window)
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+        where = (out != out2).nonzero()[:4].tolist()
+        raise AssertionError(
+            f"flash kernel changed between two launches at "
+            f"{(b, s, h, kv, hd, window)}: {int((out != out2).sum())} out "
+            f"values (first at [b, s, h, d] {where}, second launch's error "
+            f"{(out2.float() - ref.float()).abs().max().item()}), "
+            f"{int((lse != lse2).sum())} lse values")
     sets = [(q, k, v)] + [
         make() for _ in range(copies_for(q.nbytes * 4) - 1)
     ]
@@ -196,27 +231,18 @@ def check_flash(gen, b, s, h, kv, hd, window):
         )
 
     library_ms = cuda_ms(sdpa, sdpa_sets)
-    # exact (q, k) pairs this mask keeps, per head
-    pos = torch.arange(s)
-    seen = torch.clamp(pos + 1, max=window) if window > 0 else pos + 1
-    pairs = int(seen.sum())
-    flops = 4.0 * hd * pairs * h * b
+    flops = 4.0 * hd * kept_pairs(s, window) * h * b
     nbytes = 2 * (q.numel() * 2 + k.numel() + v.numel()) + lse.numel() * 4
     bound_ms, bound_by = bound(nbytes, flops)
     return {
         "shape": {"b": b, "s": s, "h": h, "kv": kv, "hd": hd,
                   "window": window},
         "max_abs_err": err, "lse_max_abs_err": lse_err, "tol": FLASH_TOL,
+        "repeat_bit_equal": True,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "tflops": flops / ms * 1e-9,
     }
-
-
-def kept_pairs(s: int, window: int) -> int:
-    """(q, k) pairs the causal (and window) mask keeps, per head."""
-    pos = torch.arange(s)
-    seen = torch.clamp(pos + 1, max=window) if window > 0 else pos + 1
-    return int(seen.sum())
 
 
 def check_flash_bwd(gen, b, s, h, hd, window):
@@ -500,8 +526,10 @@ def drive_training(gen):
                 "dq_launches": flash.DQ_LAUNCHES,
                 "dkdv_launches": flash.DKDV_LAUNCHES}
     n_steps = len(losses)
-    for key in ("dq_launches", "dkdv_launches"):
-        if launches[key] < cfg.n_layers * n_steps:
+    # K1 runs in each layer's forward and again in its remat recompute
+    for key, per_layer in (("k1_launches", 2), ("dq_launches", 1),
+                           ("dkdv_launches", 1)):
+        if launches[key] < per_layer * cfg.n_layers * n_steps:
             raise AssertionError(
                 f"{key} = {launches[key]} over {n_steps} training steps "
                 f"of {cfg.n_layers} layers"
@@ -688,17 +716,7 @@ def main() -> int:
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    flash_cases = [
-        (1, 1024, 16, 16, 128, 0),    # the serving path's prefill
-        (4, 1024, 16, 16, 128, 0),    # the 4-row batch
-        (1, 1024, 16, 4, 128, 0),     # GQA
-        (1, 1024, 16, 16, 128, 256),  # sliding window
-        (1, 1024, 16, 16, 128, 64),   # rows fully masked in a visited tile
-        (8, 2048, 8, 8, 128, 0),      # the training path (bench.py:121-133)
-        (2, 1024, 8, 8, 64, 0),       # head_dim 64
-        (2, 1024, 8, 8, 64, 64),      # head_dim 64, window 64
-    ]
-    flash_rows = [check_flash(gen, *c) for c in flash_cases]
+    flash_rows = [check_flash(gen, *c) for c in FWD_CASES]
     emit({"phase": "kernels", "kernel": "flash_fwd", "results": flash_rows,
           **card})
     proj = {(2048, 2048): 4, (2048, 8192): 2, (8192, 2048): 1}
@@ -798,6 +816,7 @@ def main() -> int:
 
     # ---- summary --------------------------------------------------------
     main_flash = flash_rows[0]
+    train_flash = flash_rows[FWD_CASES.index(TRAIN_FWD_CASE)]
     layer_set = [r for r in int8_rows if r["shape"]["m"] == 1]
     weight = [proj[(r["shape"]["k"], r["shape"]["n"])] for r in layer_set]
 
@@ -815,7 +834,16 @@ def main() -> int:
             "bound_ms": main_flash["bound_ms"],
             "bound_by": main_flash["bound_by"],
             "library_ms": main_flash["library_ms"],
+            "tflops": main_flash["tflops"],
             "shape": "b=1 s=1024 h=16 kv=16 hd=128, one prefill layer",
+            "train_launches": train["k1_launches"],
+            "train_shape": "b=8 s=2048 h=8 hd=128, one training layer",
+            "train_ms": train_flash["ms"],
+            "train_tflops": train_flash["tflops"],
+            "train_plain_ms": train_flash["plain_ms"],
+            "train_library_ms": train_flash["library_ms"],
+            "train_bound_ms": train_flash["bound_ms"],
+            "train_bound_by": train_flash["bound_by"],
         },
         *(
             {

@@ -1,4 +1,4 @@
-// Hopper (sm_90a) building blocks shared by the flash-backward kernels:
+// Hopper (sm_90a) building blocks shared by the flash kernels (K1, K3, K4):
 // TMA tensor maps and copies, mbarriers, warpgroup register budgets and
 // wgmma on bf16 tiles with float32 accumulators. Raw PTX, no CUTLASS, so
 // a kernel that includes this builds in seconds.
@@ -202,6 +202,17 @@ template <int N>
 __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// the same for the A fragments of register-A products: a product reads
+// them asynchronously, so they must stay untouched (and allocated) from
+// before it is issued until its wgmma_wait
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[N][4]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 #define SM90_F8(d, i)                                                       \

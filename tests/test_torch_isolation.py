@@ -123,7 +123,8 @@ def test_default_device_without_a_card_raises(monkeypatch):
 
 
 @pytest.mark.parametrize("script", [
-    "chip_smoke.py", os.path.join("scripts", "torch_flash_bwd_check.py"),
+    "chip_smoke.py", os.path.join("scripts", "torch_flash_check.py"),
+    os.path.join("scripts", "torch_flash_ab.py"),
 ])
 def test_card_scripts_fail_without_a_card(script):
     """Without CUDA the card scripts exit non-zero and print no

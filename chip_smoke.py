@@ -17,19 +17,23 @@ the training phases):
    least time the card could take (bytes at 3.35 TB/s or operations at
    989 TFLOP/s, whichever is larger). K1 (flash forward) is timed
    against SDPA's forward; K3 (flash dq) and K4 (flash dk/dv) share one
-   yardstick: SDPA forward+backward minus SDPA forward. The three flash
-   kernels are also launched twice on the same inputs and must give the
-   same bits, and report their TFLOP/s (kept pairs' FLOPs over kernel
-   time);
+   yardstick: SDPA forward+backward minus SDPA forward; K2 (int8 GEMM)
+   is held at a decode layer's three projection shapes for row counts
+   covering every one of its instantiations, and timed against
+   torch.matmul on bf16 weights. Every kernel is also launched twice on
+   the same inputs and must give the same bits; the flash kernels report
+   their TFLOP/s (kept pairs' FLOPs over kernel time);
 4. serve_bf16: the 1.2B flagship config (vocab 32768, d_model 2048, 16
    heads, 16 layers, d_ff 8192, max_len 2048), seeded random weights,
    served by the port's InferenceServer over HTTP on 127.0.0.1:0: health,
    greedy 1024-token prompts (the flash kernel's path), a repeat, a
-   4-row batch, a seeded sampled request, /v1/model; the flash kernel's
-   launch count is zeroed just before and read just after; the logits
-   through the kernel are held against the plain attention path;
+   4-row batch, an 8-row batch (decode tokens/s at 8 rows), a seeded
+   sampled request, /v1/model; the flash kernel's launch count is zeroed
+   just before and read just after; the logits through the kernel are
+   held against the plain attention path;
 5. serve_int8: the same model after quantize_model_params, the int8
-   kernel's count zeroed before and read after; its decode logits are
+   kernel's count zeroed before and read after; its decode logits at
+   batch 1 and at batch 8 (with a 16-token decode chunk, 128 rows) are
    held against the same model decoded on the CPU (the plain versions);
 6. train: the repo's training configuration (bench.py:121-133: vocab
    32768, d_model 1024, 8 heads, 8 layers, d_ff 4096, seq 2048, batch 8,
@@ -111,6 +115,14 @@ FWD_CASES = [
     (2, 1024, 8, 8, 64, 64),      # head_dim 64, window 64
 ]
 TRAIN_FWD_CASE = FWD_CASES[5]
+
+# K2: a decode layer's projections (k, n) and how many of each (wq, wk,
+# wv, wo; w_gate, w_up; w_down); row counts m covering every rows
+# instantiation (8, 16, 32, 64, and 64-row tiles past 64) and ragged
+# ones; the per-layer summary at INT8_LAYER_M
+INT8_PROJ = {(2048, 2048): 4, (2048, 8192): 2, (8192, 2048): 1}
+INT8_M_CASES = (1, 3, 8, 16, 24, 64, 100, 200, 256)
+INT8_LAYER_M = (1, 8, 16, 256)
 
 # K3/K4 shapes (b, s, h, hd, window); the first is the training path's
 BWD_CASES = [
@@ -346,6 +358,10 @@ def check_flash_bwd(gen, b, s, h, hd, window):
 
 
 def check_int8(gen, m, k, n):
+    """K2 against int8_matmul_kernel_reference at x [m, k], w_q [k, n]:
+    error, a repeat launch's bit equality (the split-k sum runs in a
+    fixed order), kernel ms, GB/s and share of the bound, the plain
+    version's ms and torch.matmul on bf16 weights."""
     from containerpilot_tpu_torch.ops import quant
 
     def make():
@@ -360,11 +376,16 @@ def check_int8(gen, m, k, n):
     ref = quant.int8_matmul_kernel_reference(x, w_q, scales)
     err = (out.float() - ref.float()).abs().max().item()
     scale = ref.float().abs().max().item()
-    if not err <= INT8_REL_TOL * scale:
+    if not (torch.isfinite(out).all() and err <= INT8_REL_TOL * scale):
         raise AssertionError(
             f"int8 kernel disagrees at m={m} k={k} n={n}: {err} "
             f"(tol {INT8_REL_TOL} x {scale})"
         )
+    again = quant.int8_matmul_padded(x, w_q, scales)
+    if not torch.equal(out, again):
+        raise AssertionError(
+            f"int8 kernel changed between two launches at m={m} k={k} n={n}:"
+            f" {int((out != again).sum())} values")
     sets = [(x, w_q, scales)] + [
         (x, *make()) for _ in range(copies_for(k * n) - 1)
     ]
@@ -379,11 +400,26 @@ def check_int8(gen, m, k, n):
     bound_ms, bound_by = bound(nbytes, 2.0 * m * k * n)
     return {
         "shape": {"m": m, "k": k, "n": n},
+        "plan": list(quant._plan(m, k, n)[:3]),
         "max_abs_err": err, "ref_max_abs": scale,
-        "tol": f"{INT8_REL_TOL} x max|ref|",
+        "tol": f"{INT8_REL_TOL} x max|ref|", "repeat_bit_equal": True,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
         "bound_ms": bound_ms, "bound_by": bound_by,
+        "gb_s": nbytes / ms * 1e-6, "bound_share": bound_ms / ms,
     }
+
+
+def int8_per_layer(rows, m):
+    """K2's numbers summed over one decode layer's 7 projections at m
+    rows (``rows`` from check_int8)."""
+    layer = [r for r in rows if r["shape"]["m"] == m
+             and (r["shape"]["k"], r["shape"]["n"]) in INT8_PROJ]
+    weight = [INT8_PROJ[(r["shape"]["k"], r["shape"]["n"])] for r in layer]
+    out = {key: sum(w * r[key] for w, r in zip(weight, layer))
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in layer)
+                       else "operations")
+    return out
 
 
 # ---------------------------------------------------------------------------
@@ -460,6 +496,26 @@ async def drive_server(cfg, params, prompt, label, device="cuda",
         )
         check_rows(rows4, 4, 16, cfg.vocab_size)
         out["request_ms_batch4_prompt1024_new16"] = t4 * 1e3
+        # 8 rows (max_batch_rows) decode together: 8 * 31 tokens over
+        # t(32 new) - t(1 new), each the best of two requests
+        batch8 = [prompt] + [
+            [(t * 7 + r) % cfg.vocab_size for t in prompt]
+            for r in range(1, 8)
+        ]
+        t8 = {}
+        for new in (32, 1):
+            times = []
+            for _ in range(2):
+                rows8, dt = await generate_tokens(
+                    port, {"tokens": batch8, "max_new_tokens": new})
+                check_rows(rows8, 8, new, cfg.vocab_size)
+                times.append(dt)
+            t8[new] = min(times)
+        out.update({
+            "request_ms_batch8_prompt1024_new1": t8[1] * 1e3,
+            "request_ms_batch8_prompt1024_new32": t8[32] * 1e3,
+            "decode_tok_s_batch8": 8 * 31 / (t8[32] - t8[1]),
+        })
         sampled = {"tokens": [prompt[:64]], "max_new_tokens": 16,
                    "temperature": 0.8, "top_k": 40, "seed": 7}
         s1, _ = await generate_tokens(port, sampled)
@@ -719,9 +775,8 @@ def main() -> int:
     flash_rows = [check_flash(gen, *c) for c in FWD_CASES]
     emit({"phase": "kernels", "kernel": "flash_fwd", "results": flash_rows,
           **card})
-    proj = {(2048, 2048): 4, (2048, 8192): 2, (8192, 2048): 1}
     int8_rows = [
-        check_int8(gen, m, k, n) for m in (1, 8, 16, 256) for (k, n) in proj
+        check_int8(gen, m, k, n) for m in INT8_M_CASES for (k, n) in INT8_PROJ
     ]
     emit({"phase": "kernels", "kernel": "int8_matmul", "results": int8_rows,
           **card})
@@ -772,33 +827,46 @@ def main() -> int:
         raise AssertionError(
             f"int8 kernel launched {k2_launches} times on the serving path"
         )
-    # small input: prefill 16 tokens + 3 decode steps on the card (int8
-    # kernel) and on the CPU (its plain version), same weights
+    # small inputs on the card (int8 kernel) and on the CPU (its plain
+    # version), same weights: batch 1, prefill 16 tokens + 3 decode steps
+    # (m = 1); batch 8, prefill 16 tokens, one 16-token decode_chunk
+    # (m = 128) + 3 decode steps (m = 8)
     short = torch.tensor([prompt[:16]])
+    short8 = torch.tensor([[(t * 7 + r) % cfg.vocab_size for t in prompt[:16]]
+                           for r in range(8)])
     cpu_params = {k: v for k, v in qparams.items() if k != "layers"}
     cpu_params = {k: v.cpu() for k, v in cpu_params.items()}
     cpu_params["layers"] = {k: v.cpu() for k, v in qparams["layers"].items()}
-    worst = 0.0
+    worst = {}
     with torch.inference_mode():
-        runs = []
-        for p, dev in ((qparams, "cuda"), (cpu_params, "cpu")):
-            logits, cache = decode.prefill(p, short.to(dev), cfg, 32)
-            steps = []
-            for i in range(3):
-                logits, cache = decode.decode_step(
-                    p, cache, short[:, i].to(dev), cfg
-                )
-                steps.append(logits.float().cpu())
-            runs.append(steps)
-        for gpu_l, cpu_l in zip(*runs):
-            if not torch.isfinite(gpu_l).all():
-                raise AssertionError("non-finite int8 decode logits")
-            worst = max(worst, logits_rel_err(gpu_l, cpu_l))
-    if worst > E2E_REL_TOL:
+        for label, toks, chunk in (("batch1", short, False),
+                                   ("batch8", short8, True)):
+            runs = []
+            for p, dev in ((qparams, "cuda"), (cpu_params, "cpu")):
+                logits, cache = decode.prefill(p, toks.to(dev), cfg, 64)
+                steps = []
+                if chunk:
+                    logits, cache = decode.decode_chunk(
+                        p, cache, toks.to(dev), cfg)
+                    steps.append(logits.float().cpu())
+                for i in range(3):
+                    logits, cache = decode.decode_step(
+                        p, cache, toks[:, i].to(dev), cfg
+                    )
+                    steps.append(logits.float().cpu())
+                runs.append(steps)
+            worst[label] = 0.0
+            for gpu_l, cpu_l in zip(*runs):
+                if not torch.isfinite(gpu_l).all():
+                    raise AssertionError(
+                        f"non-finite int8 decode logits ({label})")
+                worst[label] = max(worst[label], logits_rel_err(gpu_l, cpu_l))
+    if max(worst.values()) > E2E_REL_TOL:
         raise AssertionError(f"int8 decode logits off the CPU path: {worst}")
     serve_int8.update({
         "int8_launches": k2_launches, "flash_launches": flash.LAUNCHES,
-        "decode_logits_rel_err_vs_cpu": worst,
+        "decode_logits_rel_err_vs_cpu": worst["batch1"],
+        "decode_logits_rel_err_vs_cpu_batch8": worst["batch8"],
         "resident_param_bytes": quantized.param_bytes(qparams), **card,
     })
     emit(serve_int8)
@@ -817,12 +885,8 @@ def main() -> int:
     # ---- summary --------------------------------------------------------
     main_flash = flash_rows[0]
     train_flash = flash_rows[FWD_CASES.index(TRAIN_FWD_CASE)]
-    layer_set = [r for r in int8_rows if r["shape"]["m"] == 1]
-    weight = [proj[(r["shape"]["k"], r["shape"]["n"])] for r in layer_set]
-
-    def per_layer(key):
-        return sum(w * r[key] for w, r in zip(weight, layer_set))
-
+    k2_layer = {f"m={m}": int8_per_layer(int8_rows, m) for m in INT8_LAYER_M}
+    k2_main = k2_layer["m=1"]
     kernels = [
         {
             "name": "flash_fwd", "route": "cuda",
@@ -875,11 +939,13 @@ def main() -> int:
             "replaces": "containerpilot_tpu/ops/quant.py:64",
             "launches": k2_launches,
             "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
-            "ms": per_layer("ms"), "plain_ms": per_layer("plain_ms"),
-            "bound_ms": per_layer("bound_ms"), "bound_by": "bytes",
-            "library_ms": per_layer("library_ms"),
+            "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
+            "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
+            "library_ms": k2_main["library_ms"],
+            "library_covers": "torch.matmul on bf16 weights",
             "shape": "m=1, one decode layer's 7 projections "
                      "(4x 2048x2048, 2x 2048x8192, 1x 8192x2048)",
+            "per_layer": k2_layer,
         },
     ]
     emit({"kernels": kernels})

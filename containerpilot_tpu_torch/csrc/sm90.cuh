@@ -1,7 +1,8 @@
-// Hopper (sm_90a) building blocks shared by the flash kernels (K1, K3, K4):
-// TMA tensor maps and copies, mbarriers, warpgroup register budgets and
-// wgmma on bf16 tiles with float32 accumulators. Raw PTX, no CUTLASS, so
-// a kernel that includes this builds in seconds.
+// Hopper (sm_90a) building blocks shared by the flash kernels (K1, K3, K4)
+// and the int8 dequant GEMM (K2): TMA tensor maps and copies, mbarriers,
+// warpgroup register budgets and wgmma on bf16 tiles with float32
+// accumulators. Raw PTX, no CUTLASS, so a kernel that includes this
+// builds in seconds.
 //
 // Tiles live in shared memory exactly as a TMA load with
 // CU_TENSOR_MAP_SWIZZLE_128B writes them: a [rows][64] bf16 box is rows
@@ -72,6 +73,43 @@ inline cudaError_t make_bshd_map(CUtensorMap* map, const void* base, int B,
                     CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                     CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// A map over a contiguous row-major [rows][cols] matrix, 128-byte
+// swizzle, box [box_rows][128 bytes]. A box reaching past the last row
+// reads zeros there (TMA's out-of-bounds fill), and still completes its
+// full byte count on the mbarrier.
+inline cudaError_t make_rows_map(CUtensorMap* map, const void* base,
+                                 CUtensorMapDataType type, int elem_bytes,
+                                 long rows, long cols, int box_rows) {
+  EncodeTiledFn fn = encode_tiled();
+  if (fn == nullptr) return cudaErrorNotSupported;
+  const cuuint64_t dims[2] = {(cuuint64_t)cols, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)cols * elem_bytes};
+  const cuuint32_t box[2] = {(cuuint32_t)(128 / elem_bytes),
+                             (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  CUresult res = fn(map, type, 2, const_cast<void*>(base), dims, strides, box,
+                    elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+                    CU_TENSOR_MAP_SWIZZLE_128B,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                    CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return res == CUDA_SUCCESS ? cudaSuccess : cudaErrorInvalidValue;
+}
+
+// [rows][cols] int8 (e.g. a quantized weight [k, n]), box [box_rows][128]
+inline cudaError_t make_int8_map(CUtensorMap* map, const void* base, long rows,
+                                 long cols, int box_rows) {
+  return make_rows_map(map, base, CU_TENSOR_MAP_DATA_TYPE_UINT8, 1, rows, cols,
+                       box_rows);
+}
+
+// [rows][cols] bf16 (e.g. activations x[m, k]), box [box_rows][64]: a
+// K-major wgmma operand of box_rows rows
+inline cudaError_t make_bf16_map(CUtensorMap* map, const void* base, long rows,
+                                 long cols, int box_rows) {
+  return make_rows_map(map, base, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, rows,
+                       cols, box_rows);
 }
 
 // ---------------------------------------------------------------------------
@@ -195,6 +233,12 @@ __device__ __forceinline__ void wgmma_commit() {
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
 }
+// wait until at most N committed groups of this warpgroup are pending
+// (groups complete in order)
+template <int N>
+__device__ __forceinline__ void wgmma_wait_pending() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
 
 // keeps the compiler from moving accumulator reads or writes across the
 // asynchronous products
@@ -282,6 +326,74 @@ __device__ __forceinline__ void wgmma_rs_n128_tb(float (&d)[64],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+#define SM90_F4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+
+// d[64 x N] (+)= A[64 x 16] . B[16 x N]: A from registers, B K-major in
+// shared memory (stored [N][16..] along the contraction, as x[m, k] is),
+// N in {8, 16, 32, 64}. The dequant GEMM (K2) uses it with the weights
+// as A and the activations as B. Larger N is left out: K2 issues two
+// products a warpgroup, and two 64 x 128 float32 accumulators would take
+// all 128 registers a thread has at two blocks an SM (ptxas caps the
+// whole kernel there; setmaxnreg does not lift it), which spilled.
+template <int N>
+__device__ __forceinline__ void wgmma_rs_kb(float (&d)[N / 2],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int accumulate) {
+  if constexpr (N == 8) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %9, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n8k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3},"
+      " {%4, %5, %6, %7}, %8, p, 1, 1, 0;\n"
+      "}\n"
+      : SM90_F4(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else if constexpr (N == 16) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7},"
+      " {%8, %9, %10, %11}, %12, p, 1, 1, 0;\n"
+      "}\n"
+      : SM90_F8(d, 0)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else if constexpr (N == 32) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15},"
+      " {%16, %17, %18, %19}, %20, p, 1, 1, 0;\n"
+      "}\n"
+      : SM90_F8(d, 0), SM90_F8(d, 8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else if constexpr (N == 64) {
+    asm volatile(
+      "{\n"
+      ".reg .pred p;\n"
+      "setp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31},"
+      " {%32, %33, %34, %35}, %36, p, 1, 1, 0;\n"
+      "}\n"
+      : SM90_F8(d, 0), SM90_F8(d, 8), SM90_F8(d, 16), SM90_F8(d, 24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(accumulate));
+  } else {
+    static_assert(N == 8 || N == 16 || N == 32 || N == 64,
+                  "wgmma_rs_kb: N must be 8, 16, 32 or 64");
+  }
+}
+
+#undef SM90_F4
 #undef SM90_F8
 
 // d[64 x HD] += A . B with B MN-major, HD in {64, 128}

@@ -1,15 +1,17 @@
 """Where a decode step of the PyTorch/CUDA port spends its time on one
 GPU.
 
-    python3 scripts/torch_decode_profile.py [--int8] [--steps 16]
+    python3 scripts/torch_decode_profile.py [--int8] [--batch 1] [--steps 16]
 
 Builds the 1.2B flagship (vocab 32768, d_model 2048, 16 heads, 16
-layers, d_ff 8192; seeded random weights, bf16), prefills a 1024-token
-prompt, then runs ``--steps`` greedy decode steps under
-``torch.profiler`` and prints one JSON line: wall ms per step (host
-clock, synchronized), device kernel ms per step (the sum of CUDA kernel
-times the profiler saw), the device's idle share, kernel launches per
-step, and the ten kernels with the most device time. Needs a card.
+layers, d_ff 8192; seeded random weights, bf16), prefills ``--batch``
+rows of 1024-token prompts, then runs ``--steps`` greedy decode steps
+under ``torch.profiler`` and prints one JSON line: wall ms per step
+(host clock, synchronized), device kernel ms per step (the sum of CUDA
+kernel times the profiler saw), the device's idle share, kernel
+launches per step, the device ms and launches per step of the int8
+kernel K2 (kernels named ``int8_matmul``; 0 without ``--int8``), and
+the ten kernels with the most device time. Needs a card.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ import torch
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     parser.add_argument("--int8", action="store_true")
+    parser.add_argument("--batch", type=int, default=1)
     parser.add_argument("--steps", type=int, default=16)
     args = parser.parse_args()
     if not torch.cuda.is_available():
@@ -47,7 +50,7 @@ def main() -> int:
     params = quantized.cast_params(params, cfg.dtype)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
-    prompt = torch.randint(0, cfg.vocab_size, (1, 1024), generator=gen,
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch, 1024), generator=gen,
                            device="cuda")
     with torch.inference_mode():
         logits, cache = decode.prefill(params, prompt, cfg, 2048)
@@ -73,6 +76,7 @@ def main() -> int:
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:10]
+    k2 = [e for e in kernels if "int8_matmul" in e.name]
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"],
@@ -81,11 +85,15 @@ def main() -> int:
     steps = args.steps
     print(json.dumps({
         "int8": args.int8,
+        "batch": args.batch,
         "steps": steps,
         "wall_ms_per_step": wall * 1e3 / steps,
         "device_kernel_ms_per_step": device_us / 1e3 / steps,
         "device_idle_share": 1.0 - device_us / 1e6 / wall,
         "kernel_launches_per_step": len(kernels) / steps,
+        "int8_matmul_ms_per_step": sum(
+            e.time_range.elapsed_us() for e in k2) / 1e3 / steps,
+        "int8_matmul_launches_per_step": len(k2) / steps,
         "top_kernels_ms_per_step": [
             [name[:80], us / 1e3 / steps] for name, us in top
         ],

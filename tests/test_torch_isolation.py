@@ -125,6 +125,8 @@ def test_default_device_without_a_card_raises(monkeypatch):
 @pytest.mark.parametrize("script", [
     "chip_smoke.py", os.path.join("scripts", "torch_flash_check.py"),
     os.path.join("scripts", "torch_flash_ab.py"),
+    os.path.join("scripts", "torch_int8_check.py"),
+    os.path.join("scripts", "torch_int8_lab.py"),
 ])
 def test_card_scripts_fail_without_a_card(script):
     """Without CUDA the card scripts exit non-zero and print no

@@ -31,11 +31,28 @@ the training phases):
    sampled request, /v1/model; the flash kernel's launch count is zeroed
    just before and read just after; the logits through the kernel are
    held against the plain attention path;
-5. serve_int8: the same model after quantize_model_params, the int8
+5. serve_slots_bf16: the same model served with --slots 8 --slot-chunk 8
+   --slot-window 4 --prefix-cache 4: graphs captured before /health, 8
+   staggered concurrent single-row requests (two 1024-token prompts
+   admitted through the flash kernel, short ones, one sampled) and a
+   prefix hit (a 1024-token prompt plus 16 tokens), each held against
+   solo decoding teacher-forced on the served tokens (at every position
+   the solo's choice or a near tie within NEAR_TIE_TOL; where the output
+   differs from solo generate, the first differing position with the
+   logits' relative error there within E2E_REL_TOL); the same requests
+   through a window-1 engine must give the same bits; decode tokens/s
+   at 8 concurrent requests beside the batcher's 8-row figure,
+   dispatches/token; steady windows dispatched under
+   torch.cuda.set_sync_debug_mode("error"); the K1/K2 counts (graph
+   replays included) zeroed before the requests and read after;
+6. serve_int8: the same model after quantize_model_params, the int8
    kernel's count zeroed before and read after; its decode logits at
    batch 1 and at batch 8 (with a 16-token decode chunk, 128 rows) are
    held against the same model decoded on the CPU (the plain versions);
-6. train: the repo's training configuration (bench.py:121-133: vocab
+7. serve_slots_int8: phase 5 on the int8 model with --prefill-chunk 256:
+   K2 runs the decode replays at m = 8 and the chunked admission's
+   16- and 256-row pieces;
+8. train: the repo's training configuration (bench.py:121-133: vocab
    32768, d_model 1024, 8 heads, 8 layers, d_ff 4096, seq 2048, batch 8,
    flash crossover AUTO, remat "full"), seeded random masters, through
    make_train_step: 2 warm steps, then 5 timed steps on one seeded batch
@@ -45,7 +62,7 @@ the training phases):
    plain attention (flash_min_seq=0) at batch 2, and against itself
    under remat "dots" and with the chunked loss; _dot_f32's gradient
    against the float32 product's;
-7. train_cli: ``python -m containerpilot_tpu_torch.workload.train
+9. train_cli: ``python -m containerpilot_tpu_torch.workload.train
    --device cuda`` at d_model 1024, 2 layers, seq 1024, SIGTERM after
    step 3 (exit 0, "checkpoint saved at step N"), then a restart that
    resumes at step N and finishes; and token-shard batches staged on
@@ -81,6 +98,9 @@ PROMPT_LEN = 1024
 FLASH_TOL = 2e-2      # abs, bf16 outputs of magnitude <~4 (one bf16 step)
 INT8_REL_TOL = 1e-2   # abs err / max|ref|: ~two bf16 rounding steps
 E2E_REL_TOL = 5e-2    # logits, kernel path vs plain path, 16 bf16 layers
+# a served token vs the solo's choice at the same position: two logits,
+# each within E2E_REL_TOL of max|logits| of the solo's
+NEAR_TIE_TOL = 2 * E2E_REL_TOL
 # K3/K4 vs their plain version, abs err / max|ref|: both accumulate in
 # float32 and round once to bf16, so at most a rounding step (2^-8
 # relative) at the largest gradient
@@ -423,7 +443,7 @@ def int8_per_layer(rows, m):
 
 
 # ---------------------------------------------------------------------------
-# phases 4-5: the serving path over HTTP
+# phases 4 and 6: the serving path over HTTP
 # ---------------------------------------------------------------------------
 
 async def http(port, method, path, body=None):
@@ -539,7 +559,351 @@ def logits_rel_err(a, b) -> float:
 
 
 # ---------------------------------------------------------------------------
-# phases 6-7: training
+# phases 5 and 7: the slot engine over HTTP
+# ---------------------------------------------------------------------------
+
+def slot_requests(prompt, vocab):
+    """The 8 concurrent single-row requests of a slot phase: two
+    1024-token prompts (K1 at admission in bf16; 256-row K2 pieces under
+    --prefill-chunk 256), a 300-token prompt (under --prefill-chunk 256:
+    a 12-row, two 16-row and one 256-row piece), short greedy prompts and
+    one short sampled prompt. Prompts shorter than the prefix cache's
+    reuse floor (16) stay out of it, so the 1024-token entries survive
+    for the prefix hit."""
+    def variant(n, r):
+        return [(t * 7 + r) % vocab for t in prompt[:n]]
+
+    return [
+        {"tokens": [prompt], "max_new_tokens": 32},
+        {"tokens": [variant(PROMPT_LEN, 1)], "max_new_tokens": 24},
+        {"tokens": [variant(5, 2)], "max_new_tokens": 40},
+        {"tokens": [variant(9, 3)], "max_new_tokens": 16},
+        {"tokens": [variant(300, 4)], "max_new_tokens": 32},
+        {"tokens": [variant(12, 5)], "max_new_tokens": 28},
+        {"tokens": [variant(15, 6)], "max_new_tokens": 36},
+        {"tokens": [variant(10, 7)], "max_new_tokens": 24,
+         "temperature": 0.8, "top_k": 40, "seed": 7},
+    ]
+
+
+def slot_logits_at(cfg, params, row, emitted, prefill_chunk, base=None):
+    """Logits before token ``len(emitted)`` of a request, two ways on the
+    same inputs: the solo path (one-shot prefill, decode_step) and an
+    eager slot path (the engine's admission policy, prefill_row: a
+    prefix hit on ``base``'s cache when given, else its cold prefill;
+    then a pool of 8 decoded by decode_slots_logits, the step the
+    captured graph replays). A diagnostic beside judge_served: it does
+    not run the served graph."""
+    from containerpilot_tpu_torch.models import decode, slots
+    from containerpilot_tpu_torch.workload.serve_prefix import (
+        PrefixCache,
+        prefill_row,
+    )
+
+    with torch.inference_mode():
+        solo, cache = decode.prefill(
+            params, torch.tensor([row], device="cuda"), cfg, MAX_LEN)
+        pc = None
+        if base is not None:
+            pc = PrefixCache(1)
+            prefill_row(pc, base, cfg, params, MAX_LEN, prefill_chunk)
+        pool_logits, row_cache = prefill_row(pc, row, cfg, params, MAX_LEN,
+                                             prefill_chunk)
+        if base is not None and pc.stats["hits"] != 1:
+            raise AssertionError(f"no prefix hit on the base: {pc.stats}")
+        pool = slots.slot_cache(cfg, 8, MAX_LEN)
+        slots.insert_row(pool, row_cache, 0)
+        del row_cache, pc
+        for t in emitted:
+            solo, cache = decode.decode_step(
+                params, cache, torch.tensor([t], device="cuda"), cfg)
+            step = torch.zeros(8, dtype=torch.int64, device="cuda")
+            step[0] = t
+            pool_logits = slots.decode_slots_logits(params, pool, step, cfg)
+            pool["pos"] += 1
+        return pool_logits[:1].float(), solo.float()
+
+
+def judge_served(cfg, params, body, got):
+    """Hold a served request's own tokens to solo decoding: teacher-force
+    the solo path (one-shot prefill, decode_step) on ``got`` and, at
+    every position, take the solo's own choice there exactly as
+    ``generate`` makes it (argmax; or sample_logits on the request's
+    generator stream, one [vocab] block a step). The served token must
+    be that choice or a near tie with it: greedy, top logit minus the
+    served token's logit <= NEAR_TIE_TOL * max|logits|; sampled, the
+    same on the draw's Gumbel-perturbed scores, scaled by
+    max|logits / T|, with the served token no further below the top-k
+    cut. A replay that writes k/v to the wrong place or reads a stale
+    buffer emits tokens that are not competitive, and fails. Returns
+    the first position where the solo's choice differs (None when every
+    token is the solo's, i.e. the output equals solo ``generate``), the
+    worst gap over all positions, and the median gap of a vocabulary
+    entry at position 0 (what a wrong token would show)."""
+    from containerpilot_tpu_torch.models import decode
+
+    row = body["tokens"][0]
+    temp = float(body.get("temperature", 0.0))
+    top_k = int(body.get("top_k", 0))
+    seed = int(body.get("seed", 0))
+    # twin streams: one for the solo's draw, one for the same uniforms
+    draw, twin = (decode.row_generator(seed, 0, "cuda") for _ in range(2))
+    # generate passes the filters only when one is set (top_p stays 0)
+    knobs = (torch.tensor([temp], device="cuda"),) + (
+        (torch.tensor([top_k], device="cuda"),
+         torch.tensor([0.0], device="cuda")) if top_k else (None, None))
+    tiny = torch.finfo(torch.float32).tiny
+    first, worst, typical = None, 0.0, None
+    with torch.inference_mode():
+        logits, cache = decode.prefill(
+            params, torch.tensor([row], device="cuda"), cfg, MAX_LEN)
+        for i, tok in enumerate(got):
+            raw = logits[0].float()
+            if temp <= 0.0:
+                choice = int(torch.argmax(raw))
+                score, scale, cut_gap = raw, raw.abs().max(), 0.0
+            else:
+                choice = int(decode.sample_logits(logits, [draw], *knobs)[0])
+                x = raw / temp
+                u = torch.rand(cfg.vocab_size, generator=twin,
+                               device="cuda").clamp_min(tiny)
+                score, scale = x - torch.log(-torch.log(u)), x.abs().max()
+                cut = torch.topk(x, top_k).values[-1] if top_k else x.min()
+                cut_gap = float(torch.clamp_min(cut - x[tok], 0) / scale)
+            gaps = (score[choice] - score) / scale
+            if typical is None:
+                typical = float(gaps.median())
+            worst = max(worst, float(gaps[tok]), cut_gap)
+            if first is None and choice != tok:
+                first = i
+            if i + 1 < len(got):
+                logits, cache = decode.decode_step(
+                    params, cache, torch.tensor([tok], device="cuda"), cfg)
+    return first, worst, typical
+
+
+def compare_with_solo(cfg, params, bodies, outs, prefill_chunk, bases):
+    """Each served output held to solo decoding by judge_served: every
+    token the solo's choice or a near tie with it (NEAR_TIE_TOL), and
+    the full length. Where the output differs from solo ``generate``,
+    the first differing position also carries the logits' relative
+    error there between the solo path and an eager slot path
+    (slot_logits_at), within E2E_REL_TOL. ``bases``: the prompt whose
+    cached prefix a request's admission reused, or None."""
+    rows = []
+    for body, got, base in zip(bodies, outs, bases):
+        row = body["tokens"][0]
+        j, worst, typical = judge_served(cfg, params, body, got)
+        entry = {"prompt_len": len(row), "equal": j is None,
+                 "worst_gap": worst, "median_vocab_gap_at_0": typical}
+        if len(got) != body["max_new_tokens"] or worst > NEAR_TIE_TOL:
+            raise AssertionError(
+                f"served tokens off solo decoding (prompt {len(row)}): "
+                f"worst gap {worst} over {NEAR_TIE_TOL}, first differing "
+                f"position {j}, length {len(got)}")
+        if j is not None:
+            pool_l, solo_l = slot_logits_at(cfg, params, row, got[:j],
+                                            prefill_chunk, base)
+            entry.update(first_diff=j,
+                         logits_rel_err=logits_rel_err(pool_l, solo_l))
+            if entry["logits_rel_err"] > E2E_REL_TOL:
+                raise AssertionError(
+                    f"slot logits off solo at {j} (prompt {len(row)}): "
+                    f"rel err {entry['logits_rel_err']}")
+        rows.append(entry)
+    return rows
+
+
+def steady_windows(engine, params, cfg, prompts, n_windows=6):
+    """The server's step program, its engine stopped: 8 slots admitted,
+    then steady fused windows dispatched two at a time (the engine's
+    lookahead) under torch.cuda.set_sync_debug_mode("error"), which
+    raises on a host sync inside dispatch. Returns device ms a window
+    (CUDA events around the windows), host us a dispatch call, and the
+    tokens a window emits."""
+    from containerpilot_tpu_torch.models import decode
+    from containerpilot_tpu_torch.workload.serve_slots import _Request
+
+    engine.stop()
+    program = engine.program
+    program.reset()
+    with torch.inference_mode():
+        for slot, row in enumerate(prompts):
+            logits, cache = decode.prefill(
+                params, torch.tensor([row], device="cuda"), cfg, MAX_LEN)
+            program.admit(slot, _Request(
+                tokens=row, max_new=MAX_LEN - len(row), temperature=0.0,
+                top_k=0, top_p=0.0, eos_id=-1, pad_id=0, seed=0,
+                bias_idx=[-1] * decode.BIAS_SLOTS_MAX,
+                bias_val=[0.0] * decode.BIAS_SLOTS_MAX), logits, cache)
+            del cache
+    budgets = [10 ** 6] * program.slots
+    tokens = host_s = 0
+    pending = []
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(n_windows):
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            t0 = time.perf_counter()
+            pending.append(program.dispatch(budgets, True))
+            host_s += time.perf_counter() - t0
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+        if len(pending) == 2:
+            toks, valid, run = program.tokens(pending.pop(0))
+            tokens += int(valid.sum())
+    end.record()
+    for handle in pending:
+        toks, valid, run = program.tokens(handle)
+        tokens += int(valid.sum())
+    torch.cuda.synchronize()
+    window_ms = start.elapsed_time(end) / n_windows
+    steps = program.rounds * program.chunk
+    return {
+        "steady_windows": n_windows, "sync_free_dispatches": n_windows,
+        "steady_window_ms": window_ms,
+        "steady_step_ms": window_ms / steps,
+        "steady_decode_tok_s": program.slots * steps / window_ms * 1e3,
+        "dispatch_host_us": host_s / n_windows * 1e6,
+        "steady_dispatches_per_token": n_windows / tokens,
+    }
+
+
+async def drive_slots(cfg, params, prompt, label, prefill_chunk=0):
+    """One slot phase: the server with --slots 8 --slot-chunk 8
+    --slot-window 4 --prefix-cache 4 (and --prefill-chunk), 8 staggered
+    concurrent requests and a prefix hit, each held against a solo
+    generate; a window-1 engine's outputs on the same requests, which
+    must be bit-equal; decode tokens/s at 8 concurrent requests; steady
+    windows free of host syncs. The K1/K2 counters are zeroed just
+    before the requests and read just after them."""
+    from containerpilot_tpu_torch.ops import flash, quant
+    from containerpilot_tpu_torch.workload.serve import InferenceServer
+    from containerpilot_tpu_torch.workload.serve_prefix import PrefixCache
+    from containerpilot_tpu_torch.workload.serve_slots import SlotEngine
+
+    t0 = time.perf_counter()
+    server = InferenceServer(
+        cfg, params, "127.0.0.1", 0, MAX_LEN, max_batch_rows=8,
+        device="cuda", slots=8, slot_chunk=8, slot_window=4,
+        prefix_cache_entries=4, prefill_chunk=prefill_chunk,
+    )
+    await server.run()
+    warm_s = time.perf_counter() - t0
+    engine, program = server.slot_engine, server.slot_engine.program
+    out = {"phase": label, "warmup_s": warm_s,
+           "args": {"slots": 8, "slot_chunk": 8, "slot_window": 4,
+                    "prefix_cache": 4, "prefill_chunk": prefill_chunk}}
+    try:
+        port = server.port
+        assert (await http(port, "GET", "/health")) == b"ok\n"
+        if not (program.graphs == 1
+                and program.captured_at < server.ready_at):
+            raise AssertionError(
+                f"{program.graphs} graphs, captured at "
+                f"{program.captured_at}, /health 200 at {server.ready_at}")
+        bodies = slot_requests(prompt, cfg.vocab_size)
+        hit = {"tokens": [prompt + prompt[:16]], "max_new_tokens": 16}
+
+        async def staggered(i, body):
+            await asyncio.sleep(0.03 * i)
+            rows, _ = await generate_tokens(port, body)
+            return rows[0]
+
+        flash.LAUNCHES = quant.LAUNCHES = 0
+        program.replayed_launches = [0] * len(program.replayed_launches)
+        outs = await asyncio.gather(*[staggered(i, b)
+                                      for i, b in enumerate(bodies)])
+        outs.append((await generate_tokens(port, hit))[0][0])
+        k1, k2 = flash.LAUNCHES, quant.LAUNCHES
+        k2_decode = program.replayed_launches[0]
+        info = json.loads(await http(port, "GET", "/v1/model"))
+        pc = info["prefix_cache"]
+        if pc["hits"] < 1 or not info["prefix_digest"].startswith("v"):
+            raise AssertionError(f"no prefix hit: {pc}")
+        for body, got in zip(bodies + [hit], outs):
+            check_rows([got], 1, body["max_new_tokens"], cfg.vocab_size)
+        out.update({
+            "k1_launches": k1, "k2_launches": k2,
+            "k2_launches_decode_replays": k2_decode,
+            "k2_launches_admission": k2 - k2_decode,
+            "k2_per_replay": program.replay_launches[0],
+            "graphs_captured": program.graphs,
+            "capture_s": program.capture_seconds,
+            "prefix_cache": pc, "slot_engine": info["slot_engine"],
+        })
+        # decode tokens/s at 8 concurrent requests: 8 * 63 tokens over
+        # t(64 new) - t(1 new), each the best of two rounds of 8
+        # concurrent requests. The prompts are 15 tokens (under the
+        # prefix cache's floor), so admission is small and steady
+        # beside the decode; the pool's decode step costs the same at
+        # any position (attention over the full max_len)
+        times = {1: [], 64: []}
+        for rep in range(2):
+            for new in (1, 64):
+                t0 = time.perf_counter()
+                d0, n0 = engine.dispatches, engine.tokens_out
+                await asyncio.gather(*[generate_tokens(port, {
+                    "tokens": [[(t * 7 + r + 16 * rep + new)
+                                % cfg.vocab_size for t in prompt[:15]]],
+                    "max_new_tokens": new}) for r in range(8)])
+                times[new].append(time.perf_counter() - t0)
+                if new == 64:
+                    out["dispatches_per_token"] = (
+                        (engine.dispatches - d0) / (engine.tokens_out - n0))
+        times = {new: min(ts) for new, ts in times.items()}
+        out.update({
+            "request_ms_8x_prompt15_new1": times[1] * 1e3,
+            "request_ms_8x_prompt15_new64": times[64] * 1e3,
+            "decode_tok_s_8_concurrent": 8 * 63 / (times[64] - times[1]),
+            "window_wall_ms_median": sorted(engine.round_times_ms())[
+                len(engine.round_times_ms()) // 2],
+            "window_host_ms_median": sorted(engine.round_host_ms())[
+                len(engine.round_host_ms()) // 2],
+        })
+    finally:
+        await server.stop()
+    if program.graphs != 1:
+        raise AssertionError("a graph was captured after /health")
+    out["solo"] = compare_with_solo(
+        cfg, params, bodies + [hit], outs, prefill_chunk,
+        [None] * len(bodies) + [prompt])
+    out.update(steady_windows(engine, params, cfg,
+                              [b["tokens"][0] for b in bodies]))
+    del engine, program, server
+    torch.cuda.empty_cache()
+
+    # the same requests through a window-1 engine (one chunk a dispatch)
+    one = SlotEngine(cfg, params, MAX_LEN, slots=8, chunk=8, window=1,
+                     prefill_chunk=prefill_chunk,
+                     prefix_cache=PrefixCache(4))
+    try:
+        futs = [one.submit(b["tokens"][0], b["max_new_tokens"],
+                           **{k: b[k] for k in ("temperature", "top_k",
+                                                "seed") if k in b})
+                for b in bodies]
+        outs1 = [f.result(timeout=300) for f in futs]
+        outs1.append(one.submit(hit["tokens"][0], 16).result(timeout=300))
+    finally:
+        one.stop()
+    if outs1 != outs:
+        diff = [i for i, (a, b) in enumerate(zip(outs1, outs)) if a != b]
+        raise AssertionError(f"window-4 output differs from window-1 in "
+                             f"requests {diff}")
+    out["window4_bit_equal_window1"] = True
+    if not (out["steady_decode_tok_s"] > 0 and all(
+            math.isfinite(v) for v in (out["decode_tok_s_8_concurrent"],))):
+        raise AssertionError(f"no decode rate: {out}")
+    del one
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 8-9: training
 # ---------------------------------------------------------------------------
 
 def rel_norm_err(a, b) -> float:
@@ -811,7 +1175,20 @@ def main() -> int:
         "resident_param_bytes": quantized.param_bytes(params), **card,
     })
     emit(serve_bf16)
-    del params, via_kernel, via_plain
+    del via_kernel, via_plain
+
+    # ---- serve slots, bf16 ----------------------------------------------
+    slots_bf16 = asyncio.run(drive_slots(cfg, params, prompt,
+                                         "serve_slots_bf16"))
+    if slots_bf16["k1_launches"] < cfg.n_layers:
+        raise AssertionError(
+            f"K1 launched {slots_bf16['k1_launches']} times on the slot "
+            "path (1024-token admissions)")
+    slots_bf16.update({
+        "batcher_decode_tok_s_batch8": serve_bf16["decode_tok_s_batch8"],
+        **card})
+    emit(slots_bf16)
+    del params
 
     # ---- serve int8 -----------------------------------------------------
     qparams = quantized.cast_params(
@@ -870,8 +1247,24 @@ def main() -> int:
         "resident_param_bytes": quantized.param_bytes(qparams), **card,
     })
     emit(serve_int8)
+    del cpu_params
 
-    del qparams, cpu_params
+    # ---- serve slots, int8 ----------------------------------------------
+    slots_int8 = asyncio.run(drive_slots(cfg, qparams, prompt,
+                                         "serve_slots_int8",
+                                         prefill_chunk=256))
+    if not (slots_int8["k2_launches_decode_replays"] > 0
+            and slots_int8["k2_launches_admission"] > 0):
+        raise AssertionError(
+            f"K2 on the int8 slot path: {slots_int8['k2_launches']} "
+            f"launches, {slots_int8['k2_launches_decode_replays']} in "
+            "decode replays")
+    slots_int8.update({
+        "batcher_decode_tok_s_batch8": serve_int8["decode_tok_s_batch8"],
+        **card})
+    emit(slots_int8)
+
+    del qparams
     torch.cuda.empty_cache()
 
     # ---- train ----------------------------------------------------------
@@ -908,6 +1301,8 @@ def main() -> int:
             "train_library_ms": train_flash["library_ms"],
             "train_bound_ms": train_flash["bound_ms"],
             "train_bound_by": train_flash["bound_by"],
+            "slot_launches": {"serve_slots_bf16": slots_bf16["k1_launches"],
+                              "serve_slots_int8": slots_int8["k1_launches"]},
         },
         *(
             {
@@ -946,6 +1341,14 @@ def main() -> int:
             "shape": "m=1, one decode layer's 7 projections "
                      "(4x 2048x2048, 2x 2048x8192, 1x 8192x2048)",
             "per_layer": k2_layer,
+            "slot_launches": {
+                "serve_slots_int8": slots_int8["k2_launches"],
+                "serve_slots_int8_decode_replays":
+                    slots_int8["k2_launches_decode_replays"],
+                "serve_slots_int8_admission":
+                    slots_int8["k2_launches_admission"],
+                "serve_slots_bf16": slots_bf16["k2_launches"],
+            },
         },
     ]
     emit({"kernels": kernels})

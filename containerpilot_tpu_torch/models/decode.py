@@ -157,14 +157,22 @@ def decode_chunk(
         weights = torch.softmax(scores, dim=-1).to(cfg.dtype)
         attn = torch.einsum("bcgqk,bkcd->bqcgd", weights, values)
         attn = attn.to(cfg.dtype).reshape(b, m, cfg.n_heads, hd)
-        if fused:
-            x = fused_attn_out(x, attn, lp, cfg)
-            x = fused_mlp(x, lp, cfg)
-        else:
-            x = _attn_out(x, attn, lp, cfg)
-            x, _aux = _ffn(x, lp, cfg)
+        x = layer_out(x, attn, lp, cfg, fused)
     cache["pos"] = end
     return _logits(params, x, cfg), cache
+
+
+def layer_out(
+    x: torch.Tensor, attn: torch.Tensor, lp, cfg: TransformerConfig,
+    fused: bool,
+) -> torch.Tensor:
+    """Output projection + residual, then the feed-forward half: int8
+    fused (K2 on the card) or dense (``lp`` already dequantized). Shared
+    by ``decode_chunk`` and the slot pool's step (``models/slots.py``)."""
+    if fused:
+        return fused_mlp(fused_attn_out(x, attn, lp, cfg), lp, cfg)
+    x, _aux = _ffn(_attn_out(x, attn, lp, cfg), lp, cfg)
+    return x
 
 
 def decode_step(
@@ -175,6 +183,66 @@ def decode_step(
     [batch, vocab], cache); the m=1 case of decode_chunk."""
     logits, cache = decode_chunk(params, cache, token[:, None], cfg)
     return logits[:, 0, :], cache
+
+
+def extend(
+    params: Params, cache: Cache, tokens: torch.Tensor,
+    cfg: TransformerConfig,
+) -> Tuple[torch.Tensor, Cache]:
+    """Consume a token chunk [b, m] against the cache -> (last logits
+    [b, vocab], cache): the counterpart of the reference's
+    ``_jitted_extend``. The cache is extended IN PLACE (the reference's
+    extend never donates its operand); a caller that must keep the old
+    cache (a prefix-cache entry) copies it first."""
+    logits, cache = decode_chunk(params, cache, tokens, cfg)
+    return logits[:, -1, :], cache
+
+
+def piece_plan(s: int, chunk_len: int) -> List[int]:
+    """The chunked-prefill piece lengths for s tokens: the ragged
+    remainder first, as at most one sub-16 piece plus 16-token pieces,
+    then full chunks, so lengths come from {1..15, 16, chunk_len}."""
+    bucket = min(16, chunk_len)
+    lead = s % chunk_len
+    plan = [lead % bucket] if lead % bucket else []
+    plan += [bucket] * (lead // bucket)
+    return plan + [chunk_len] * (s // chunk_len)
+
+
+def extend_pieces(
+    params: Params, cache: Cache, tokens: torch.Tensor,
+    cfg: TransformerConfig, chunk_len: int,
+) -> Tuple[torch.Tensor, Cache]:
+    """Extend ``tokens`` [b, s] into ``cache`` in bounded pieces
+    (``piece_plan``), so peak activation memory is O(chunk_len). Also
+    applied by the prefix-hit path to a long cached-hit suffix.
+    Returns (last logits, cache)."""
+    logits = None
+    start = 0
+    for piece in piece_plan(tokens.shape[1], chunk_len):
+        logits, cache = extend(
+            params, cache, tokens[:, start:start + piece], cfg
+        )
+        start += piece
+    return logits, cache
+
+
+def chunked_prefill(
+    params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+    max_len: int, chunk_len: int = 512,
+) -> Tuple[torch.Tensor, Cache]:
+    """``prefill`` in fixed-size pieces: the prompt streams through
+    ``decode_chunk`` (plain attention, the int8 kernel K2 for quantized
+    weights at up to 256 rows a piece) ``piece_plan`` at a time.
+    Numerics match ``prefill``'s masked path."""
+    if chunk_len < 1:
+        raise ValueError("chunk_len must be >= 1")
+    if tokens.shape[1] > max_len:
+        raise ValueError(
+            f"prompt_len {tokens.shape[1]} exceeds max_len {max_len}"
+        )
+    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+    return extend_pieces(params, cache, tokens, cfg, chunk_len)
 
 
 # ---------------------------------------------------------------------------
@@ -192,11 +260,19 @@ def _mix64(x: int) -> int:
     return x ^ (x >> 31)
 
 
+def row_seed(seed: int, row: int) -> int:
+    """The generator seed of row ``row`` of a request seeded ``seed``."""
+    return _mix64(_mix64(int(seed) & _MASK64) ^ int(row)) >> 1
+
+
 def row_generator(seed: int, row: int, device) -> torch.Generator:
     """The sampling generator of row ``row`` of a request seeded
-    ``seed`` (the counterpart of ``fold_in(PRNGKey(seed), row)``)."""
+    ``seed`` (the counterpart of ``fold_in(PRNGKey(seed), row)``). The
+    slot engine re-seeds a slot's own generator with the same
+    ``row_seed(seed, 0)`` at admission, so a request draws the same
+    stream in a slot as in a solo ``generate``."""
     gen = torch.Generator(device=torch.device(device))
-    gen.manual_seed(_mix64(_mix64(int(seed) & _MASK64) ^ int(row)) >> 1)
+    gen.manual_seed(row_seed(seed, row))
     return gen
 
 
@@ -298,6 +374,16 @@ def count_token(
         torch.arange(vocab, device=counts.device)[None, :] == token[:, None]
     ).to(counts.dtype)
     return counts + onehot * alive.to(counts.dtype)[:, None]
+
+
+def seed_counts_row(vocab_size: int, first: torch.Tensor, eos_id) -> torch.Tensor:
+    """The generated-token counts row right after sample 0: the drawn
+    token (a device scalar) counts once unless it ended the row, as
+    ``generate``'s loop counts it. Built on the device, so seeding a
+    slot's counts needs no host round trip."""
+    row = torch.zeros((vocab_size,), dtype=torch.float32, device=first.device)
+    first = first.reshape(1).long()
+    return row.scatter_(0, first, (first != eos_id).to(torch.float32))
 
 
 def normalize_logit_bias(cfg, b: int, logit_bias, slots: int = None):
@@ -527,6 +613,46 @@ def generate(
         )
     greedy, filtered, penalized, biased, ops = ops_tuple
     logits, cache = prefill(params, prompt.to(device), cfg, max_len)
+    return _sampling_loop(
+        params, cache, logits, cfg, max_new_tokens, greedy, filtered,
+        penalized, biased, ops,
+    )
+
+
+@torch.inference_mode()
+def generate_from_cache(
+    params: Params,
+    cache: Cache,
+    logits: torch.Tensor,
+    cfg: TransformerConfig,
+    max_new_tokens: int,
+    temperature=0.0,
+    rng: Rng = None,
+    top_k=0,
+    top_p=0.0,
+    eos_id=-1,
+    pad_id=0,
+    min_new_tokens=0,
+    presence_penalty=0.0,
+    frequency_penalty=0.0,
+    logit_bias=None,
+) -> torch.Tensor:
+    """``generate`` from an existing (cache, next-token logits [b,
+    vocab]) pair: the prefix-cache and chunked-prefill serving paths
+    (the caller restored, extended or streamed the prompt's cache). Same
+    sampling contract as ``generate``; the cache is decoded into in
+    place. Raises when the decode would run past the cache's length."""
+    length = cache["k"].shape[2]
+    if cache["pos"] + max_new_tokens > length:
+        raise ValueError(
+            f"cache pos {cache['pos']} + max_new_tokens {max_new_tokens} "
+            f"exceeds cache length {length}"
+        )
+    greedy, filtered, penalized, biased, ops = _normalize_sampling(
+        cfg, logits.shape[0], max_new_tokens, temperature, rng, top_k,
+        top_p, eos_id, pad_id, min_new_tokens, presence_penalty,
+        frequency_penalty, logit_bias, device=logits.device,
+    )
     return _sampling_loop(
         params, cache, logits, cfg, max_new_tokens, greedy, filtered,
         penalized, biased, ops,

@@ -171,10 +171,10 @@ def _fused_proj(
 
 def fused_qkv(
     x: torch.Tensor, layer_params: Dict[str, torch.Tensor], cfg: Any,
-    offset: int,
+    offset,
 ):
-    """The _qkv contract (pre-norm, projections, RoPE) with int8-fused
-    projections."""
+    """The _qkv contract (pre-norm, projections, RoPE at an int or
+    [batch] per-row ``offset``) with int8-fused projections."""
     from .transformer import _rms_norm, _rope
 
     b, s, d = x.shape
@@ -212,3 +212,48 @@ def fused_mlp(
     act = (torch.nn.functional.silu(gate) * up).to(cfg.dtype)
     down = _fused_proj(act, layer_params, "w_down").reshape(b, s, d)
     return x + down
+
+
+# ---------------------------------------------------------------------------
+# step-program face: int8 weights under the slot engine
+# ---------------------------------------------------------------------------
+
+# Defined lazily (module __getattr__): transformer.py imports this module
+# at its top, and the step-program base lives in stepprog.py, which
+# imports transformer; an eager subclass here would close that cycle.
+_QUANTIZED_PROGRAM = None
+
+
+def _quantized_program_class():
+    global _QUANTIZED_PROGRAM
+    if _QUANTIZED_PROGRAM is not None:
+        return _QUANTIZED_PROGRAM
+    from .stepprog import PlainStepProgram
+
+    class QuantizedStepProgram(PlainStepProgram):
+        """Weight-only-int8 step program for the slot engine: the same
+        step body and captured round as the plain program. Its pool
+        step runs every projection through ``fused_qkv``,
+        ``fused_attn_out`` and ``fused_mlp`` (K2 at m = S on the card)
+        whenever ``can_fuse_int8`` holds for S rows, and dequantizes one
+        layer at a time otherwise. It refuses params that are not
+        quantized, so a mis-wired full-precision dict fails at startup
+        rather than as 4x the expected memory at first decode."""
+
+        def __init__(self, cfg, params, max_len, slots, chunk, rounds=1):
+            if not is_quantized(params):
+                raise ValueError(
+                    "QuantizedStepProgram needs quantize_model_params "
+                    "output (no *_q leaves found)"
+                )
+            super().__init__(cfg, params, max_len, slots, chunk,
+                             rounds=rounds)
+
+    _QUANTIZED_PROGRAM = QuantizedStepProgram
+    return _QUANTIZED_PROGRAM
+
+
+def __getattr__(name: str):
+    if name == "QuantizedStepProgram":
+        return _quantized_program_class()
+    raise AttributeError(name)

@@ -1,0 +1,442 @@
+"""Slot-based continuous decode (counterpart of
+``containerpilot_tpu/models/slots.py``): a fixed pool of S slots, each
+owning one cache row and its own position, advanced together one token
+a step, so a request joins a running decode at the next chunk boundary.
+
+Intended differences from the reference:
+
+- Everything is updated IN PLACE: the pool cache (k/v [L, S, max_len,
+  kv, hd], pos [S]) and the per-slot sampling state are static device
+  buffers, which is what lets the step program (``stepprog.py``) capture
+  the step in a CUDA graph and replay it.
+- The S rows are one batch of the decode step (``decode_slots_logits``),
+  not a vmap of the single-row step: every projection is one [S, d]
+  product (the int8 kernel K2 at m = S), and each row's RoPE, k/v write
+  and attention mask use that row's own position. Attention runs over
+  the full ``max_len`` masked per row (the shape stays static), as the
+  reference's non-ring ``decode_chunk`` does. The pool keeps heads
+  before positions (k/v [L, S, kv, max_len, hd]).
+- ``state["keys"]`` holds one ``torch.Generator`` per slot (the
+  reference's per-slot PRNG keys). Admission re-seeds the slot's
+  generator with ``row_seed(seed, 0)``, the seed a solo ``generate``
+  gives row 0, and every step draws one [vocab] block from each slot's
+  generator, as ``generate`` does, so a request samples the same stream
+  in a slot as alone.
+- The window's early exit is a device-side live flag, not a loop exit:
+  ``round_step`` gated by ``live`` keeps last/done/pos/step_idx/counts
+  and emits pad when no slot is live (``~done & run*chunk < budget``),
+  so K gated rounds give the reference's while-loop result with
+  ``rounds_run`` counted on the device. Rounds past the exit still
+  compute (and draw) but change nothing a live request reads.
+
+Dead slots (finished, not yet reused) keep decoding garbage; their k/v
+writes clamp to the row's last position and the row is overwritten
+wholesale by the next admission (``insert_row``).
+"""
+from __future__ import annotations
+
+from typing import Sequence, Tuple
+
+import torch
+
+from .. import resolve_device
+from ..ops.attention import NEG_INF
+from .decode import (
+    BIAS_SLOTS_MAX,
+    Cache,
+    _logits,
+    apply_logit_bias,
+    apply_token_penalties,
+    count_token,
+    layer_out,
+    mask_eos_before_min,
+    row_seed,
+    sample_logits,
+    seed_counts_row,
+)
+from .quantized import (
+    can_fuse_int8,
+    embed_lookup,
+    fused_qkv,
+    maybe_dequant_layer,
+)
+from .transformer import (
+    Params,
+    TransformerConfig,
+    _qkv,
+    check_supported,
+    layer_params,
+)
+
+# The per-slot sampling state carried between chunk rounds: everything
+# the step reads besides params and the pool. It changes only at
+# admission (one row) and retirement (one done flag); step_idx, last,
+# done and counts advance inside the step.
+SLOT_STATE_KEYS = (
+    "last", "keys", "step_idx", "temperature", "top_k", "top_p",
+    "eos_id", "pad_id", "min_new", "presence", "frequency",
+    "bias_idx", "bias_val", "counts", "done",
+)
+
+
+def append_chunk(emitted, toks, max_new: int, eos_id: int) -> bool:
+    """The one chunk-append convention of the slot engine: append
+    ``toks`` into ``emitted`` capped at ``max_new``, stopping at eos
+    inclusive. Returns whether the row ended."""
+    for t in toks:
+        if len(emitted) >= max_new:
+            break
+        emitted.append(int(t))
+        if int(t) == eos_id:
+            break
+    return (
+        len(emitted) >= max_new
+        or (eos_id >= 0 and eos_id in emitted)
+    )
+
+
+@torch.inference_mode()
+def init_slot_state(cfg: TransformerConfig, slots: int, device="cuda") -> dict:
+    """Fresh per-slot sampling state on ``device`` (all slots empty,
+    hence done). See SLOT_STATE_KEYS."""
+    dev = resolve_device(device)
+
+    def full(shape, value, dtype):
+        return torch.full(shape, value, dtype=dtype, device=dev)
+
+    keys = [torch.Generator(device=dev) for _ in range(slots)]
+    for g in keys:
+        g.manual_seed(0)
+    return {
+        "last": full((slots,), 0, torch.int64),
+        "keys": keys,
+        "step_idx": full((slots,), 0, torch.int64),
+        "temperature": full((slots,), 0.0, torch.float32),
+        "top_k": full((slots,), 0, torch.int64),
+        "top_p": full((slots,), 0.0, torch.float32),
+        "eos_id": full((slots,), -1, torch.int64),
+        "pad_id": full((slots,), 0, torch.int64),
+        "min_new": full((slots,), 0, torch.int64),
+        "presence": full((slots,), 0.0, torch.float32),
+        "frequency": full((slots,), 0.0, torch.float32),
+        "bias_idx": full((slots, BIAS_SLOTS_MAX), -1, torch.int64),
+        "bias_val": full((slots, BIAS_SLOTS_MAX), 0.0, torch.float32),
+        "counts": full((slots, cfg.vocab_size), 0.0, torch.float32),
+        "done": full((slots,), True, torch.bool),
+    }
+
+
+@torch.inference_mode()
+def clear_slot_state(state: dict) -> None:
+    """Bring a state dict back to ``init_slot_state``'s values in place
+    (its buffers keep their addresses, which a captured graph holds)."""
+    for name, value in (
+        ("last", 0), ("step_idx", 0), ("temperature", 0.0), ("top_k", 0),
+        ("top_p", 0.0), ("eos_id", -1), ("pad_id", 0), ("min_new", 0),
+        ("presence", 0.0), ("frequency", 0.0), ("bias_idx", -1),
+        ("bias_val", 0.0), ("counts", 0.0), ("done", True),
+    ):
+        state[name].fill_(value)
+    for g in state["keys"]:
+        g.manual_seed(0)
+
+
+def seed_slot(state: dict, slot: int, seed: int) -> torch.Generator:
+    """Re-seed ``slot``'s generator for a request seeded ``seed`` (the
+    stream ``row_generator(seed, 0)`` gives a solo ``generate``) and
+    return it; ``first_sample`` draws token 0 from it."""
+    gen = state["keys"][slot]
+    gen.manual_seed(row_seed(seed, 0))
+    return gen
+
+
+@torch.inference_mode()
+def admit_slot_state(
+    state: dict, slot: int, cfg: TransformerConfig, *,
+    last, temperature, top_k, top_p, eos_id, pad_id, min_new, presence,
+    frequency, bias_idx, bias_val, done, step_idx: int = 1,
+) -> dict:
+    """Write one admitted request's sampling knobs into row ``slot`` of
+    every state leaf, in place. ``last`` is the first sampled token (a
+    device scalar or an int); the slot's counts row seeds from it on the
+    device. The slot's generator was re-seeded by ``seed_slot`` before
+    token 0 was drawn."""
+    dev = state["last"].device
+    last = torch.as_tensor(last, device=dev).reshape(())
+    state["last"][slot] = last
+    for name, value in (
+        ("step_idx", step_idx), ("temperature", temperature),
+        ("top_k", top_k), ("top_p", top_p), ("eos_id", eos_id),
+        ("pad_id", pad_id), ("min_new", min_new), ("presence", presence),
+        ("frequency", frequency), ("done", bool(done)),
+    ):
+        state[name][slot] = value
+    for name, row in (("bias_idx", bias_idx), ("bias_val", bias_val)):
+        state[name][slot].copy_(
+            torch.as_tensor(row, dtype=state[name].dtype).reshape(-1)
+        )
+    state["counts"][slot] = seed_counts_row(cfg.vocab_size, last, eos_id)
+    return state
+
+
+@torch.inference_mode()
+def retire_slot(state: dict, slot: int) -> dict:
+    """Mark ``slot`` done (harvested or cancelled): it emits pad from
+    here until re-admission. Only the done leaf is touched."""
+    state["done"][slot] = True
+    return state
+
+
+@torch.inference_mode()
+def slot_cache(cfg: TransformerConfig, slots: int, max_len: int,
+               device="cuda") -> Cache:
+    """A pool of ``slots`` cache rows: k/v [layers, S, kv_heads, max_len,
+    head_dim] in the compute dtype, zeroed, and ``pos`` [S] int64 on the
+    device (each row's tokens cached). Heads come before positions
+    (``prefill``'s row cache is [layers, 1, max_len, kv_heads, head_dim])
+    so every head's keys are one contiguous [max_len, head_dim] block:
+    the pool attention's products read them in place, where a
+    position-major pool would be copied to that order every step."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (cfg.n_layers, slots, cfg.kv_heads, max_len, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+        "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
+        "pos": torch.zeros((slots,), dtype=torch.int64, device=dev),
+    }
+
+
+@torch.inference_mode()
+def insert_row(pool: Cache, row: Cache, slot: int) -> Cache:
+    """Copy a freshly prefilled single-row cache (``prefill``'s layout,
+    pos a Python int) into ``slot``, WHOLESALE: the full row and its
+    position, so a reused slot holds nothing of its previous occupant,
+    and the pool never aliases the row (a prefix-cache entry stays
+    standalone)."""
+    if row["k"].shape[2] != pool["k"].shape[3]:
+        raise ValueError(
+            f"row cache length {row['k'].shape[2]} != pool length "
+            f"{pool['k'].shape[3]}"
+        )
+    pool["k"][:, slot].copy_(row["k"][:, 0].transpose(1, 2))
+    pool["v"][:, slot].copy_(row["v"][:, 0].transpose(1, 2))
+    pool["pos"][slot] = int(row["pos"])
+    return pool
+
+
+@torch.inference_mode()
+def decode_slots_logits(
+    params: Params, pool: Cache, tokens: torch.Tensor,
+    cfg: TransformerConfig,
+) -> torch.Tensor:
+    """One decode step of the whole pool: tokens [S] (slot i's token at
+    position pool['pos'][i]) -> logits [S, vocab] float32. Writes each
+    row's k/v at its own position, in place (clamped to the row's last
+    position, which only a dead slot reaches), and does NOT advance pos
+    (``round_step`` does). The arithmetic is ``decode_chunk``'s at m = 1
+    per row (``pool_attention``), over the full row length with keys
+    past the row's position masked; on the card the projections are one
+    [S, d] product each (K2 at m = S for quantized weights)."""
+    k_pool, v_pool, pos = pool["k"], pool["v"], pool["pos"]
+    _layers, slots, kvh, length, hd = k_pool.shape
+    dev = tokens.device
+    x = embed_lookup(params, tokens[:, None], cfg.dtype)  # [S, 1, d]
+    key_pos = torch.arange(length, device=dev)
+    valid = (key_pos[None, :] <= pos[:, None])[:, None, None, :]
+    # row (slot, head, position) of the pool's [S * kv * max_len, hd] view
+    rows = (
+        (torch.arange(slots, device=dev)[:, None] * kvh
+         + torch.arange(kvh, device=dev)[None, :]) * length
+        + torch.clamp(pos, max=length - 1)[:, None]
+    ).reshape(-1)
+    fused = can_fuse_int8(params["layers"], cfg, rows=slots)
+    for i in range(cfg.n_layers):
+        lp = layer_params(params, i)
+        if fused:
+            q, k, v = fused_qkv(x, lp, cfg, offset=pos)
+        else:
+            lp = maybe_dequant_layer(lp, cfg.dtype)
+            q, k, v = _qkv(x, lp, cfg, offset=pos)
+        k_pool[i].view(-1, hd).index_copy_(0, rows, k.reshape(-1, hd))
+        v_pool[i].view(-1, hd).index_copy_(0, rows, v.reshape(-1, hd))
+        attn = pool_attention(q, k_pool[i], v_pool[i], valid, cfg)
+        x = layer_out(x, attn, lp, cfg, fused)
+    return _logits(params, x, cfg)[:, 0, :]
+
+
+def pool_attention(
+    q: torch.Tensor, keys: torch.Tensor, values: torch.Tensor,
+    valid: torch.Tensor, cfg: TransformerConfig,
+) -> torch.Tensor:
+    """``decode_chunk``'s attention at one query a row, on the pool's
+    head-major layout: q [S, 1, h, hd],
+    keys/values [S, kv, max_len, hd], ``valid`` [S, 1, 1, max_len]. The
+    same arithmetic: float32 scores from q * hd**-0.5 and float32 keys,
+    NEG_INF mask, float32 softmax cast to the compute dtype, value
+    product with float32 accumulation; query head j = kv * group + g
+    reads kv head j // group."""
+    slots, kvh, _length, hd = keys.shape
+    qg = (q.float() * hd ** -0.5).reshape(slots, kvh, -1, hd)
+    scores = torch.matmul(qg, keys.float().transpose(-1, -2))
+    scores = torch.where(valid, scores, NEG_INF)
+    weights = torch.softmax(scores, dim=-1).to(cfg.dtype)
+    attn = torch.matmul(weights, values)  # [S, kv, group, hd]
+    return attn.to(cfg.dtype).reshape(slots, 1, cfg.n_heads, hd)
+
+
+@torch.inference_mode()
+def round_step(
+    params: Params, pool: Cache, state: dict, cfg: TransformerConfig,
+    live: torch.Tensor,
+) -> torch.Tensor:
+    """THE per-token step body (the reference's ``_round_step_body``)
+    shared by the chunk and the window programs, so a window is the
+    same computation as K chunks by construction. For every slot at
+    once: the decode step, then penalties, logit_bias, the min_new eos
+    mask, the sample, pad after done, done, counts, and step_idx/pos
+    + 1 — all in place. Returns the emitted tokens [S].
+
+    ``live`` (a device bool scalar): when false the step keeps
+    last/done/counts/step_idx/pos and emits pad. The k/v write at the
+    unchanged position is harmless: the next real step overwrites it
+    before anything reads it."""
+    logits = decode_slots_logits(params, pool, state["last"], cfg)
+    idx = state["step_idx"]
+    masked = apply_token_penalties(
+        logits, state["counts"], state["presence"], state["frequency"]
+    )
+    # always on (one program for every request): unused entries (idx -1)
+    # add exactly zero
+    masked = apply_logit_bias(masked, state["bias_idx"], state["bias_val"])
+    masked = mask_eos_before_min(
+        masked, idx, state["min_new"], state["eos_id"]
+    )
+    nxt = sample_logits(
+        masked, state["keys"], state["temperature"], state["top_k"],
+        state["top_p"],
+    )
+    pad, done = state["pad_id"], state["done"]
+    nxt = torch.where(done, pad, nxt)
+    new_done = done | (nxt == state["eos_id"])
+    counts = count_token(state["counts"], nxt, ~new_done)
+    state["last"].copy_(torch.where(live, nxt, state["last"]))
+    state["done"].copy_(torch.where(live, new_done, done))
+    state["counts"].copy_(torch.where(live, counts, state["counts"]))
+    step = live.to(torch.int64)
+    state["step_idx"].add_(step)
+    pool["pos"].add_(step)
+    return torch.where(live, nxt, pad)
+
+
+@torch.inference_mode()
+def window_buffers(slots: int, chunk: int, rounds: int, device) -> dict:
+    """The window program's own device buffers: the budget gate [S], the
+    rounds run so far (scalar), the force flag (a chunk dispatch always
+    runs its round) and the token block [S, rounds * chunk]."""
+    dev = resolve_device(device)
+    return {
+        "budget": torch.zeros((slots,), dtype=torch.int64, device=dev),
+        "run": torch.zeros((), dtype=torch.int64, device=dev),
+        "force": torch.zeros((), dtype=torch.bool, device=dev),
+        "toks": torch.zeros((slots, rounds * chunk), dtype=torch.int64,
+                            device=dev),
+        "cols": torch.arange(chunk, device=dev),
+    }
+
+
+@torch.inference_mode()
+def begin_window(state: dict, win: dict, force: bool) -> None:
+    """Start a dispatch: no rounds run yet, every token column pad."""
+    win["run"].zero_()
+    win["force"].fill_(force)
+    win["toks"].copy_(state["pad_id"][:, None].expand_as(win["toks"]))
+
+
+@torch.inference_mode()
+def gated_round(
+    params: Params, pool: Cache, state: dict, cfg: TransformerConfig,
+    chunk: int, win: dict,
+) -> None:
+    """One chunk-round of the window program, with the early exit on the
+    device: the round is live when forced or when some slot is not done
+    and still has budget (``~done & run * chunk < budget``, the
+    reference's while-loop test). A live round advances the state
+    ``chunk`` steps and writes its tokens at columns ``run * chunk``;
+    a round that is not live changes nothing and leaves pad. ``run``
+    counts the rounds that ran. The unit a CUDA graph captures."""
+    live = win["force"] | (
+        ~state["done"] & (win["run"] * chunk < win["budget"])
+    ).any()
+    toks = [round_step(params, pool, state, cfg, live) for _ in range(chunk)]
+    win["toks"].index_copy_(
+        1, win["run"] * chunk + win["cols"], torch.stack(toks, dim=1)
+    )
+    win["run"].add_(live.to(torch.int64))
+
+
+@torch.inference_mode()
+def decode_slots_chunk(
+    params: Params, pool: Cache, state: dict, cfg: TransformerConfig,
+    chunk: int,
+) -> Tuple[Cache, dict, torch.Tensor]:
+    """Advance the whole pool ``chunk`` tokens, unconditionally, in
+    place; returns (pool, state, tokens [S, chunk]). Eager: the step
+    program replays the same rounds from a captured graph on the card."""
+    slots = state["last"].shape[0]
+    win = window_buffers(slots, chunk, 1, state["last"].device)
+    begin_window(state, win, force=True)
+    gated_round(params, pool, state, cfg, chunk, win)
+    return pool, state, win["toks"]
+
+
+@torch.inference_mode()
+def decode_slots_window(
+    params: Params, pool: Cache, state: dict, cfg: TransformerConfig,
+    chunk: int, rounds: int, budget: Sequence[int],
+) -> Tuple[Cache, dict, torch.Tensor, torch.Tensor]:
+    """Advance the pool up to ``rounds`` chunk-rounds with the early exit
+    (``gated_round``): ``budget`` [S] is each slot's remaining max_new
+    allowance, which gates only the exit test, never the emission.
+    Returns (pool, state, tokens [S, rounds*chunk], rounds_run as a
+    device scalar); rounds not run leave pad and the state advances by
+    exactly rounds_run chunks."""
+    slots = state["last"].shape[0]
+    win = window_buffers(slots, chunk, rounds, state["last"].device)
+    win["budget"].copy_(torch.as_tensor(budget, dtype=torch.int64))
+    begin_window(state, win, force=False)
+    for _ in range(rounds):
+        gated_round(params, pool, state, cfg, chunk, win)
+    return pool, state, win["toks"], win["run"]
+
+
+@torch.inference_mode()
+def first_sample(
+    logits: torch.Tensor, generator: torch.Generator, temperature, top_k,
+    top_p, eos_id: int = -1, min_new: int = 0, bias_idx=None,
+    bias_val=None,
+) -> torch.Tensor:
+    """Token 0 from prefill logits [1, vocab] -> a device scalar, as
+    ``generate`` samples it: logit_bias, the min_new eos mask at step 0,
+    then one draw from ``generator`` (counts are empty at sample 0, so
+    penalties are a no-op)."""
+    dev = logits.device
+
+    def row(v, dtype):
+        return torch.as_tensor(v, dtype=dtype).reshape(1).to(dev)
+
+    if bias_idx is None:
+        bias_idx = [-1] * BIAS_SLOTS_MAX
+        bias_val = [0.0] * BIAS_SLOTS_MAX
+    masked = apply_logit_bias(
+        logits.float(),
+        torch.as_tensor(bias_idx, dtype=torch.int64).reshape(1, -1).to(dev),
+        torch.as_tensor(bias_val, dtype=torch.float32).reshape(1, -1).to(dev),
+    )
+    masked = mask_eos_before_min(
+        masked, 0, row(min_new, torch.int64), row(eos_id, torch.int64)
+    )
+    return sample_logits(
+        masked, [generator], row(temperature, torch.float32),
+        row(top_k, torch.int64), row(top_p, torch.float32),
+    )[0]

@@ -221,19 +221,31 @@ def _rms_norm(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:
     return (x * torch.rsqrt(var + 1e-6).to(x.dtype)) * scale.to(x.dtype)
 
 
-def _rope(x: torch.Tensor, theta: float, offset: int = 0) -> torch.Tensor:
+def _rope(
+    x: torch.Tensor, theta: float, offset: Union[int, torch.Tensor] = 0
+) -> torch.Tensor:
     """Rotary embedding over head_dim, half-split form. x: [batch, seq,
-    heads, head_dim]; ``offset`` shifts the absolute positions."""
+    heads, head_dim]; ``offset`` shifts the absolute positions: an int
+    for the whole batch (prefill, decode chunks), or a [batch] integer
+    tensor of per-row positions on x's device (a slot pool, where every
+    row sits at its own position). Both forms compute the same float32
+    angles for the same position."""
     b, s, h, hd = x.shape
     half = hd // 2
     dev = x.device
     freqs = theta ** (
         -torch.arange(0, half, dtype=torch.float32, device=dev) / half
     )
-    positions = offset + torch.arange(s, dtype=torch.float32, device=dev)
-    angles = positions[:, None] * freqs[None, :]
-    cos = torch.cos(angles)[None, :, None, :].to(x.dtype)
-    sin = torch.sin(angles)[None, :, None, :].to(x.dtype)
+    steps = torch.arange(s, dtype=torch.float32, device=dev)
+    if isinstance(offset, torch.Tensor):
+        positions = offset.to(torch.float32)[:, None] + steps[None, :]
+        angles = positions[:, :, None] * freqs
+        cos = torch.cos(angles)[:, :, None, :].to(x.dtype)
+        sin = torch.sin(angles)[:, :, None, :].to(x.dtype)
+    else:
+        angles = (offset + steps)[:, None] * freqs[None, :]
+        cos = torch.cos(angles)[None, :, None, :].to(x.dtype)
+        sin = torch.sin(angles)[None, :, None, :].to(x.dtype)
     x1, x2 = x[..., :half], x[..., half:]
     return torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
 
@@ -246,10 +258,10 @@ def _proj(h: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 def _qkv(
     x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: TransformerConfig,
-    offset: int = 0,
+    offset: Union[int, torch.Tensor] = 0,
 ):
-    """Pre-norm + q/k/v projections with RoPE at ``offset``; k/v keep
-    ``cfg.kv_heads`` heads."""
+    """Pre-norm + q/k/v projections with RoPE at ``offset`` (an int, or
+    [batch] per-row positions); k/v keep ``cfg.kv_heads`` heads."""
     dt = cfg.dtype
     b, s, _ = x.shape
     h = _rms_norm(x, lp["norm_attn"])

@@ -1,5 +1,5 @@
 """The inference server of the port (counterpart of
-``containerpilot_tpu/workload/serve.py``), default-flag serving only.
+``containerpilot_tpu/workload/serve.py``).
 
 API (token-level):
 
@@ -10,9 +10,15 @@ API (token-level):
     GET /v1/model -> config summary (the reference's schema; the
                      features not ported yet report None)
 
-Every request goes through the continuous batcher (serve_batcher.py)
-into ``models.decode.generate``. Generation runs on one worker thread,
-so the event loop (health checks included) never waits on the device.
+Single-row requests route as the reference routes them: the slot
+engine (``--slots``, serve_slots.py: continuous admission into a pool
+decoded by CUDA-graph replays), then a prefix-cache hit
+(``--prefix-cache``, serve_prefix.py), then chunked prefill
+(``--prefill-chunk``, serve_strategies.py); everything else goes through
+the continuous batcher (serve_batcher.py) into ``models.decode.generate``.
+Generation runs on worker threads, so the event loop (health checks
+included) never waits on the device. Every CUDA graph of the slot engine
+is captured while the server is built, before ``/health`` turns 200.
 The other reference routes (SSE streaming, /v1/score, /metrics,
 /v1/completions, the fleet and KV verbs) answer 404 until they are
 ported (ROADMAP.md). Unlike the reference, ``max_new_tokens`` is not
@@ -27,6 +33,7 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List
 
@@ -36,11 +43,18 @@ from .. import resolve_device
 from ..models.decode import generate
 from ..models.transformer import TransformerConfig
 from ..utils.http import HTTPServer, Request, Response
+from . import serve_strategies
 from .modelcfg import parse_logit_bias, parse_stop_ids
 from .serve_batcher import Batcher, GenJob
 from .serve_cli import main  # noqa: F401  (one import path for the CLI)
+from .serve_prefix import MIN_REUSE, PrefixCache, generate_with_prefix
 
 log = logging.getLogger("containerpilot.serve")
+
+# warmup()'s slot-engine request: this many prompt ids + (chunk+1) new
+# tokens (chunk+2 with fused windows). The construction-time max_len
+# guard and the warm request itself must agree.
+WARMUP_PROMPT_LEN = 4
 
 
 def _parse_token_rows(body: Dict[str, Any], vocab: int, min_row_len: int):
@@ -76,6 +90,11 @@ class InferenceServer:
         max_len: int,
         max_batch_rows: int = 16,
         device="cuda",
+        prefix_cache_entries: int = 0,
+        prefill_chunk: int = 0,
+        slots: int = 0,
+        slot_chunk: int = 8,
+        slot_window: int = 4,
     ) -> None:
         self.device = resolve_device(device)
         if params["norm_out"].device != self.device:
@@ -89,7 +108,49 @@ class InferenceServer:
         self.port = port
         self.max_len = max_len
         self.ready = False
+        # time.monotonic() when /health turned 200 (None before)
+        self.ready_at = None
         self.max_batch_rows = max_batch_rows
+        if prefill_chunk < 0:
+            raise ValueError("prefill_chunk must be >= 0")
+        # prompts longer than this stream through decode_chunk pieces
+        # (peak prefill activations O(chunk) instead of O(prompt))
+        self.prefill_chunk = prefill_chunk
+        self.prefix_cache = (
+            PrefixCache(prefix_cache_entries)
+            if prefix_cache_entries > 0 else None
+        )
+        # continuous decode admission: single-row requests join a running
+        # chunk loop over a fixed slot pool (serve_slots.py)
+        self.slot_engine = None
+        if slot_window < 1:
+            raise ValueError("slot_window must be >= 1")
+        if slots > 0:
+            # warmup() pushes a request of WARMUP_PROMPT_LEN prompt ids +
+            # (chunk+1) new tokens through the engine; a legal but tiny
+            # --max-len must fail here with a clean message
+            if WARMUP_PROMPT_LEN + slot_chunk + 1 > max_len:
+                raise ValueError(
+                    f"--slots requires max_len >= slot_chunk + "
+                    f"{WARMUP_PROMPT_LEN + 1} (warmup request needs "
+                    f"{WARMUP_PROMPT_LEN} prompt ids + "
+                    f"chunk+1={slot_chunk + 1} new tokens; max_len is "
+                    f"{max_len})"
+                )
+            # fused windows need a warmup request that rides one pure-
+            # decode cycle (chunk+2 new tokens); a max_len too tight for
+            # that clamps the engine to one-round dispatches, as the
+            # reference does (its fused program would otherwise compile
+            # under a live request)
+            if WARMUP_PROMPT_LEN + slot_chunk + 2 > max_len:
+                slot_window = 1
+            from .serve_slots import SlotEngine
+
+            self.slot_engine = SlotEngine(
+                cfg, params, max_len, slots=slots, chunk=slot_chunk,
+                window=slot_window, prefill_chunk=prefill_chunk,
+                prefix_cache=self.prefix_cache,
+            )
         self._executor = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="inference"
         )
@@ -125,10 +186,20 @@ class InferenceServer:
                 "device_calls": self.batch_stats["calls"],
                 "rows": self.batch_stats["rows"],
             },
-            "prefix_cache": None,
-            "prefix_digest": None,
+            "prefix_cache": (
+                {"entries": self.prefix_cache.entries,
+                 **self.prefix_cache.stats}
+                if self.prefix_cache is not None else None
+            ),
+            "prefix_digest": (
+                self.prefix_cache.digest()
+                if self.prefix_cache is not None else None
+            ),
             "kv_spill": None,
-            "slot_engine": None,
+            "slot_engine": (
+                self.slot_engine.stats
+                if self.slot_engine is not None else None
+            ),
             "stream": False,
             "draining": False,
             "cp": None,
@@ -241,21 +312,69 @@ class InferenceServer:
                 tokens = [list(tokens[0]) for _ in range(p["n"])]
         except (ValueError, KeyError, TypeError) as exc:
             return Response(422, f"{exc}\n".encode())
-        job = GenJob(
-            rows=tokens, prompt_len=prompt_len, max_new=p["max_new"],
-            temperature=p["temperature"], top_k=p["top_k"],
-            top_p=p["top_p"], eos_id=p["eos_id"], seed=p["seed"],
-            min_new=p["min_new"], presence=p["presence"],
-            frequency=p["frequency"], logit_bias=p["logit_bias"],
-            future=asyncio.get_running_loop().create_future(),
-        )
-        generated = await self._batcher.submit(job)
+        generated = await self._dispatch_generate(tokens, prompt_len, p)
         generated = self._trim(generated, p["max_new_requested"], p["eos_id"])
         generated = self._trim_stops(generated, p["stop"])
         return Response(
             200, json.dumps({"tokens": generated}).encode(),
             content_type="application/json",
         )
+
+    async def _dispatch_generate(
+        self, tokens: List[List[int]], prompt_len: int, p: Dict[str, Any]
+    ) -> List[List[int]]:
+        """Route a validated request to its decode strategy (the
+        reference's order: slot engine, prefix hit, chunked prefill,
+        batcher) -> the untrimmed generated rows."""
+        loop = asyncio.get_running_loop()
+        single = len(tokens) == 1
+        if self.slot_engine is not None and single:
+            # joins the running chunk loop at the next boundary; output
+            # is already pad-trimmed at eos
+            fut = self.slot_engine.submit(
+                tokens[0], p["max_new_requested"],
+                temperature=p["temperature"], top_k=p["top_k"],
+                top_p=p["top_p"], eos_id=p["eos_id"], seed=p["seed"],
+                min_new=p["min_new"],
+                presence_penalty=p["presence"],
+                frequency_penalty=p["frequency"],
+                logit_bias=p["logit_bias"],
+            )
+            return [await asyncio.wrap_future(fut)]
+        if (
+            self.prefix_cache is not None
+            and single
+            and (
+                self.prefix_cache.match_len(tokens[0]) >= MIN_REUSE
+                or self._batcher.idle()
+            )
+        ):
+            # hit -> reuse; miss -> still seed the cache, but only when
+            # nothing is queued for the batcher
+            return await loop.run_in_executor(
+                self._executor, generate_with_prefix, self, tokens[0],
+                p["max_new"], p["temperature"], p["top_k"], p["top_p"],
+                p["eos_id"], p["seed"], p["min_new"], p["presence"],
+                p["frequency"], p["logit_bias"],
+            )
+        if self.prefill_chunk > 0 and single and (
+                prompt_len > self.prefill_chunk):
+            return await loop.run_in_executor(
+                self._executor, serve_strategies.run_chunked, self,
+                tokens, prompt_len, p["max_new"], p["temperature"],
+                p["top_k"], p["top_p"], p["eos_id"], p["seed"],
+                p["min_new"], p["presence"], p["frequency"],
+                p["logit_bias"],
+            )
+        job = GenJob(
+            rows=tokens, prompt_len=prompt_len, max_new=p["max_new"],
+            temperature=p["temperature"], top_k=p["top_k"],
+            top_p=p["top_p"], eos_id=p["eos_id"], seed=p["seed"],
+            min_new=p["min_new"], presence=p["presence"],
+            frequency=p["frequency"], logit_bias=p["logit_bias"],
+            future=loop.create_future(),
+        )
+        return await self._batcher.submit(job)
 
     # -- lifecycle ------------------------------------------------------
 
@@ -281,11 +400,20 @@ class InferenceServer:
 
     async def warmup(self) -> None:
         """Build the kernels and run the default-shaped requests once
-        before reporting healthy."""
+        before reporting healthy; with a slot engine, one request through
+        it (admission, a chunk and, with windows, a fused window: chunk+2
+        new tokens leave one token past the admission round) on graphs
+        captured when the engine was built."""
         await asyncio.get_running_loop().run_in_executor(
             self._executor, self._warm
         )
+        engine = self.slot_engine
+        if engine is not None:
+            warm_new = engine.chunk + (2 if engine.window > 1 else 1)
+            fut = engine.submit([0] * WARMUP_PROMPT_LEN, max_new=warm_new)
+            await asyncio.wrap_future(fut)
         self.ready = True
+        self.ready_at = time.monotonic()
         log.info("serve: default shapes warm; accepting traffic")
 
     async def run(self) -> None:
@@ -296,6 +424,10 @@ class InferenceServer:
         await self.warmup()
 
     async def stop(self) -> None:
+        if self.slot_engine is not None:
+            await asyncio.get_running_loop().run_in_executor(
+                None, self.slot_engine.stop
+            )
         await self._batcher.stop()
         await self._server.stop()
         self._executor.shutdown(wait=True)

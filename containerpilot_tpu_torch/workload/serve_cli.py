@@ -2,10 +2,11 @@
 ``containerpilot_tpu/workload/serve_cli.py``).
 
 ``python -m containerpilot_tpu_torch.workload.serve`` lands here. The
-flags this slice runs: --host, --port, --max-len, --d-model,
---n-layers, --n-heads, --n-kv-heads, --vocab, --int8,
---max-batch-rows, and --device (default cuda; the part JAX_PLATFORMS
-plays for the reference). Every other reference flag is accepted with
+flags the port runs: --host, --port, --max-len, --d-model, --n-layers,
+--n-heads, --n-kv-heads, --vocab, --int8, --max-batch-rows,
+--prefill-chunk, --prefix-cache, --slots, --slot-chunk, --slot-window,
+and --device (default cuda; the part JAX_PLATFORMS plays for the
+reference). Every other reference flag is accepted with
 its reference default and exits with a "not ported yet" message when
 set to anything else. Weights come from a seeded initialization
 (checkpoints are a later slice).
@@ -28,13 +29,8 @@ _NOT_PORTED: Dict[str, Tuple[str, Any]] = {
     "lora_rank": ("--lora-rank", 0),
     "draft_layers": ("--draft-layers", 0),
     "speculate": ("--speculate", 4),
-    "prefill_chunk": ("--prefill-chunk", 0),
-    "prefix_cache": ("--prefix-cache", 0),
     "kv_spill_mb": ("--kv-spill-mb", 0.0),
     "text": ("--text", False),
-    "slots": ("--slots", 0),
-    "slot_chunk": ("--slot-chunk", 8),
-    "slot_window": ("--slot-window", 4),
     "tp": ("--tp", 1),
     "cp": ("--cp", 1),
     "cp_min_len": ("--cp-min-len", 0),
@@ -72,6 +68,34 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "--max-batch-rows", type=int, default=16,
         help="continuous batching: max sequences coalesced into one "
         "device call",
+    )
+    parser.add_argument(
+        "--prefill-chunk", type=int, default=0,
+        help="stream prompts longer than N through chunked prefill "
+        "(peak prefill activations O(N) instead of O(prompt)); 0 = "
+        "one-shot prefill",
+    )
+    parser.add_argument(
+        "--prefix-cache", type=int, default=0,
+        help="prefix KV reuse: keep the KV caches of the last N prompts "
+        "and re-prefill only the unseen suffix of single-row requests "
+        "sharing a prefix; 0 = off",
+    )
+    parser.add_argument(
+        "--slots", type=int, default=0,
+        help="continuous decode admission: single-row requests join a "
+        "running chunked decode over a pool of N slots (on the card, "
+        "each chunk is a CUDA-graph replay); 0 = off. Composes with "
+        "--prefill-chunk and --prefix-cache",
+    )
+    parser.add_argument(
+        "--slot-chunk", type=int, default=8,
+        help="tokens decoded per slot-engine chunk between admissions",
+    )
+    parser.add_argument(
+        "--slot-window", type=int, default=4,
+        help="decode chunk-rounds per dispatch with an early exit on the "
+        "device; 1 = one dispatch per chunk",
     )
     parser.add_argument(
         "--device", default="cuda",
@@ -154,6 +178,9 @@ def main(argv=None) -> int:
     server = InferenceServer(
         cfg, params, args.host, args.port, args.max_len,
         max_batch_rows=args.max_batch_rows, device=args.device,
+        prefix_cache_entries=args.prefix_cache,
+        prefill_chunk=args.prefill_chunk, slots=args.slots,
+        slot_chunk=args.slot_chunk, slot_window=args.slot_window,
     )
 
     async def serve() -> None:

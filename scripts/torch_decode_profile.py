@@ -2,6 +2,7 @@
 GPU.
 
     python3 scripts/torch_decode_profile.py [--int8] [--batch 1] [--steps 16]
+    python3 scripts/torch_decode_profile.py --slots 8 [--int8] [--windows 4]
 
 Builds the 1.2B flagship (vocab 32768, d_model 2048, 16 heads, 16
 layers, d_ff 8192; seeded random weights, bf16), prefills ``--batch``
@@ -12,6 +13,14 @@ kernel times the profiler saw), the device's idle share, kernel
 launches per step, the device ms and launches per step of the int8
 kernel K2 (kernels named ``int8_matmul``; 0 without ``--int8``), and
 the ten kernels with the most device time. Needs a card.
+
+With ``--slots S`` it profiles the slot engine's step program instead:
+S slots (chunk 8, window 4) admitted with 1024-token prompts, one warm
+window, then ``--windows`` steady windows dispatched as the engine
+dispatches them (each window four replays of the captured round graph,
+the next window enqueued before the previous one's tokens are fetched).
+The same numbers come per decode step (one token for every slot), plus
+launches per window.
 """
 from __future__ import annotations
 
@@ -25,33 +34,14 @@ import time
 import torch
 
 
-def main() -> int:
-    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    parser.add_argument("--int8", action="store_true")
-    parser.add_argument("--batch", type=int, default=1)
-    parser.add_argument("--steps", type=int, default=16)
-    args = parser.parse_args()
-    if not torch.cuda.is_available():
-        print("needs a CUDA card", file=sys.stderr)
-        return 2
-    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+def profile_steps(args, cfg, params, gen):
+    """``--steps`` eager decode steps of a ``--batch``-row batch."""
     from torch.profiler import ProfilerActivity, profile
 
-    from containerpilot_tpu_torch.models import decode, quantized
-    from containerpilot_tpu_torch.models import transformer as tf
-    from containerpilot_tpu_torch.ops import _build
+    from containerpilot_tpu_torch.models import decode
 
-    _build.build_all()
-    cfg = tf.TransformerConfig(vocab_size=32768, d_model=2048, n_heads=16,
-                               n_layers=16, d_ff=8192, max_seq_len=2048)
-    params = tf.init_params(0, cfg, device="cuda")
-    if args.int8:
-        params = quantized.quantize_model_params(params)
-    params = quantized.cast_params(params, cfg.dtype)
-    gen = torch.Generator(device="cuda")
-    gen.manual_seed(1)
-    prompt = torch.randint(0, cfg.vocab_size, (args.batch, 1024), generator=gen,
-                           device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (args.batch, 1024),
+                           generator=gen, device="cuda")
     with torch.inference_mode():
         logits, cache = decode.prefill(params, prompt, cfg, 2048)
         token = torch.argmax(logits, dim=-1)
@@ -67,6 +57,78 @@ def main() -> int:
                 token = torch.argmax(logits, dim=-1)
             torch.cuda.synchronize()
             wall = time.perf_counter() - t0
+    return prof, wall, args.steps
+
+
+def profile_slots(args, cfg, params, gen):
+    """``--windows`` steady windows of the slot engine's step program
+    with ``--slots`` slots admitted; returns (profiler, wall seconds,
+    decode steps, windows)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from containerpilot_tpu_torch.models import decode, stepprog
+    from containerpilot_tpu_torch.workload.serve_slots import _Request
+
+    prog = stepprog.make_step_program(cfg, params, 2048, args.slots, 8,
+                                      rounds=4)
+    with torch.inference_mode():
+        for slot in range(args.slots):
+            prompt = torch.randint(0, cfg.vocab_size, (1, 1024),
+                                   generator=gen, device="cuda")
+            logits, cache = decode.prefill(params, prompt, cfg, 2048)
+            prog.admit(slot, _Request(
+                tokens=prompt[0].tolist(), max_new=1024, temperature=0.0,
+                top_k=0, top_p=0.0, eos_id=-1, pad_id=0, seed=0,
+                bias_idx=[-1] * decode.BIAS_SLOTS_MAX,
+                bias_val=[0.0] * decode.BIAS_SLOTS_MAX), logits, cache)
+            del cache
+    budgets = [1024] * args.slots
+    prog.tokens(prog.dispatch(budgets, True))  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pending = prog.dispatch(budgets, True)
+        for _ in range(args.windows - 1):
+            nxt = prog.dispatch(budgets, True)
+            prog.tokens(pending)
+            pending = nxt
+        prog.tokens(pending)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    return prof, wall, args.windows * prog.rounds * prog.chunk, args.windows
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--int8", action="store_true")
+    parser.add_argument("--batch", type=int, default=1)
+    parser.add_argument("--steps", type=int, default=16)
+    parser.add_argument("--slots", type=int, default=0)
+    parser.add_argument("--windows", type=int, default=4)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("needs a CUDA card", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    from containerpilot_tpu_torch.models import quantized
+    from containerpilot_tpu_torch.models import transformer as tf
+    from containerpilot_tpu_torch.ops import _build
+
+    _build.build_all()
+    cfg = tf.TransformerConfig(vocab_size=32768, d_model=2048, n_heads=16,
+                               n_layers=16, d_ff=8192, max_seq_len=2048)
+    params = tf.init_params(0, cfg, device="cuda")
+    if args.int8:
+        params = quantized.quantize_model_params(params)
+    params = quantized.cast_params(params, cfg.dtype)
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(1)
+    if args.slots:
+        prof, wall, steps, windows = profile_slots(args, cfg, params, gen)
+    else:
+        prof, wall, steps = profile_steps(args, cfg, params, gen)
+        windows = 0
     kernels = [
         e for e in prof.events()
         if e.device_type == torch.autograd.DeviceType.CUDA
@@ -82,11 +144,14 @@ def main() -> int:
          "--format=csv,noheader"],
         capture_output=True, text=True, timeout=60, check=True,
     ).stdout.strip().splitlines()[0]
-    steps = args.steps
     print(json.dumps({
         "int8": args.int8,
-        "batch": args.batch,
+        "batch": args.slots or args.batch,
+        "slots": args.slots,
         "steps": steps,
+        "windows": windows,
+        "kernel_launches_per_window": len(kernels) / windows if windows
+        else None,
         "wall_ms_per_step": wall * 1e3 / steps,
         "device_kernel_ms_per_step": device_us / 1e3 / steps,
         "device_idle_share": 1.0 - device_us / 1e6 / wall,

@@ -40,6 +40,12 @@ def test_importing_every_port_module_loads_no_jax():
     mods = _port_modules()
     assert {
         "containerpilot_tpu_torch.workload.serve",
+        "containerpilot_tpu_torch.workload.serve_slots",
+        "containerpilot_tpu_torch.workload.serve_prefix",
+        "containerpilot_tpu_torch.workload.serve_strategies",
+        "containerpilot_tpu_torch.models.slots",
+        "containerpilot_tpu_torch.models.stepprog",
+        "containerpilot_tpu_torch.kvtier.digest",
         "containerpilot_tpu_torch.workload.train",
         "containerpilot_tpu_torch.workload.evaluate",
         "containerpilot_tpu_torch.workload.data",
@@ -117,6 +123,18 @@ def test_default_device_without_a_card_raises(monkeypatch):
     params = init_params(0, cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferenceServer(cfg, params, "127.0.0.1", 0, 32)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        InferenceServer(cfg, params, "127.0.0.1", 0, 32, slots=2,
+                        slot_chunk=4, prefix_cache_entries=2)
+    from containerpilot_tpu_torch.models.slots import (
+        init_slot_state,
+        slot_cache,
+    )
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        slot_cache(cfg, 2, 8)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_slot_state(cfg, 2)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         DevicePrefetcher(dataset=None)  # raises before touching the data
     assert resolve_device("cpu").type == "cpu"

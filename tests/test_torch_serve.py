@@ -118,9 +118,13 @@ def test_server_generate_matches_jax_and_routes(run):
 
 def test_cli_parses_supported_flags():
     args = serve_cli.build_arg_parser().parse_args(
-        ["--n-layers", "3", "--int8", "--device", "cpu", "--mux"]
+        ["--n-layers", "3", "--int8", "--device", "cpu", "--mux",
+         "--slots", "4", "--slot-chunk", "2", "--slot-window", "3",
+         "--prefix-cache", "5", "--prefill-chunk", "64"]
     )
     assert args.n_layers == 3 and args.int8 and args.device == "cpu"
+    assert (args.slots, args.slot_chunk, args.slot_window,
+            args.prefix_cache, args.prefill_chunk) == (4, 2, 3, 5, 64)
     serve_cli.check_ported(args)  # all supported: no exit
     cfg, params = serve_cli.load_model(
         serve_cli.build_arg_parser().parse_args(
@@ -133,8 +137,8 @@ def test_cli_parses_supported_flags():
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["--slots", "2"], "--slots"),
-    (["--prefix-cache", "4"], "--prefix-cache"),
+    (["--kv-spill-mb", "8"], "--kv-spill-mb"),
+    (["--draft-layers", "1"], "--draft-layers"),
     (["--kv-int8"], "--kv-int8"),
     (["--no-mux"], "--mux"),
     (["--no-adopt-compile-cache"], "--adopt-compile-cache"),

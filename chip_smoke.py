@@ -22,7 +22,10 @@ the training phases):
    covering every one of its instantiations, and timed against
    torch.matmul on bf16 weights. Every kernel is also launched twice on
    the same inputs and must give the same bits; the flash kernels report
-   their TFLOP/s (kept pairs' FLOPs over kernel time);
+   their TFLOP/s (kept pairs' FLOPs over kernel time). The windowed
+   cases (K1 at the windowed prefill and training shapes, K3/K4 at the
+   windowed training shape) are timed against SDPA with an explicit
+   window mask, which is not a flash path;
 4. serve_bf16: the 1.2B flagship config (vocab 32768, d_model 2048, 16
    heads, 16 layers, d_ff 8192, max_len 2048), seeded random weights,
    served by the port's InferenceServer over HTTP on 127.0.0.1:0: health,
@@ -45,14 +48,37 @@ the training phases):
    dispatches/token; steady windows dispatched under
    torch.cuda.set_sync_debug_mode("error"); the K1/K2 counts (graph
    replays included) zeroed before the requests and read after;
-6. serve_int8: the same model after quantize_model_params, the int8
+6. serve_window: the bf16 flagship with --window 1024 at max_len 4096,
+   served by the Batcher over HTTP, once with the ring alone and once
+   with --kv-int8: a greedy 3072-token prompt (windowed K1; the ring
+   wraps during prefill) with 64 new tokens, a 4-row batch of 1024-token
+   prompts, and a logprobs request whose echo must equal /v1/score on
+   the same sequence to 1e-5. The greedy request's logits, teacher-forced
+   through the served path, are held against one plain windowed forward
+   (flash_min_seq=0, no cache) over prompt + served tokens: the ring
+   alone within E2E_REL_TOL, with --kv-int8 within NEAR_TIE_TOL (its
+   quantization error). Also the row cache's bytes against a linear
+   bf16 cache at max_len;
+7. serve_int8: the same model after quantize_model_params, the int8
    kernel's count zeroed before and read after; its decode logits at
    batch 1 and at batch 8 (with a 16-token decode chunk, 128 rows) are
    held against the same model decoded on the CPU (the plain versions);
-7. serve_slots_int8: phase 5 on the int8 model with --prefill-chunk 256:
+8. serve_slots_int8: phase 5 on the int8 model with --prefill-chunk 256:
    K2 runs the decode replays at m = 8 and the chunked admission's
    16- and 256-row pieces;
-8. train: the repo's training configuration (bench.py:121-133: vocab
+9. serve_slots_window_int8: the int8 flagship with --window 1024
+   --kv-int8 --slots 8 --slot-chunk 8 --slot-window 4 --prefill-chunk
+   256 at max_len 4096 (constructing it with --prefix-cache must
+   raise): 8 staggered concurrent requests (the 3072-token prompt, a
+   1000-token prompt whose decode crosses the ring, short ones, one
+   sampled, one streamed over SSE), each judged against solo decoding
+   under the same config; the streamed deltas equal the same request
+   not streamed; a second stream dropped after its first event frees
+   its slot within a few windows; steady windows free of host syncs,
+   with device ms a step and the idle share under the profiler; one
+   graph replay at the slots' positions bit-equal to the eager round;
+   and the same steady windows with the ring alone (kv_int8 off);
+10. train: the repo's training configuration (bench.py:121-133: vocab
    32768, d_model 1024, 8 heads, 8 layers, d_ff 4096, seq 2048, batch 8,
    flash crossover AUTO, remat "full"), seeded random masters, through
    make_train_step: 2 warm steps, then 5 timed steps on one seeded batch
@@ -62,11 +88,20 @@ the training phases):
    plain attention (flash_min_seq=0) at batch 2, and against itself
    under remat "dots" and with the chunked loss; _dot_f32's gradient
    against the float32 product's;
-9. train_cli: ``python -m containerpilot_tpu_torch.workload.train
-   --device cuda`` at d_model 1024, 2 layers, seq 1024, SIGTERM after
-   step 3 (exit 0, "checkpoint saved at step N"), then a restart that
-   resumes at step N and finishes; and token-shard batches staged on
-   the card by the data prefetcher equal the dataset's.
+11. train_window: the same configuration with window 1024 (K1, K3 and
+   K4 windowed): 2 warm and 3 timed steps, the launch counts around
+   them, the loss falls, and one loss value+grad at batch 2 against
+   plain windowed attention;
+12. train_cli: ``python -m containerpilot_tpu_torch.workload.train
+   --device cuda`` at d_model 1024, 2 layers, seq 1024, with
+   --ema-decay 0.99, SIGTERM after step 3 (exit 0, "checkpoint saved at
+   step N"), then a restart that resumes at step N and finishes; and
+   token-shard batches staged on the card by the data prefetcher equal
+   the dataset's;
+13. serve_ckpt: ``python -m containerpilot_tpu_torch.workload.serve
+   --checkpoint-dir`` on that checkpoint, once with the raw params and
+   once with --use-ema: a greedy request's tokens equal an in-process
+   generate on restore_params(prefer_ema=...).
 
 Then the kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -133,8 +168,11 @@ FWD_CASES = [
     (8, 2048, 8, 8, 128, 0),      # the training path (bench.py:121-133)
     (2, 1024, 8, 8, 64, 0),       # head_dim 64
     (2, 1024, 8, 8, 64, 64),      # head_dim 64, window 64
+    (1, 3072, 16, 16, 128, 1024),  # the windowed serving path's prefill
+    (8, 2048, 8, 8, 128, 1024),   # the windowed training path
 ]
 TRAIN_FWD_CASE = FWD_CASES[5]
+WINDOW_PREFILL_CASE, WINDOW_TRAIN_CASE = FWD_CASES[8], FWD_CASES[9]
 
 # K2: a decode layer's projections (k, n) and how many of each (wq, wk,
 # wv, wo; w_gate, w_up; w_down); row counts m covering every rows
@@ -152,7 +190,17 @@ BWD_CASES = [
     (1, 1024, 16, 128, 64),   # rows fully masked in a visited tile
     (2, 1024, 8, 64, 0),      # head_dim 64
     (2, 1024, 8, 64, 64),     # head_dim 64, window 64
+    (8, 2048, 8, 128, 1024),  # the windowed training path
 ]
+WINDOW_BWD_CASE = BWD_CASES[6]
+
+# the sliding-window phases: Mistral 7B's and Gemma 2's local layers use
+# a 4096-token window; the repo's long-context measurement uses window
+# 1024 at 8k (bench.py:303-330). Served at max_len 4096 with a 3072-token
+# prompt, so the ring wraps during prefill.
+WINDOW = 1024
+WINDOW_MAX_LEN = 4096
+WINDOW_PROMPT_LEN = 3072
 
 
 def emit(obj) -> None:
@@ -272,9 +320,18 @@ def check_flash(gen, b, s, h, kv, hd, window):
         "max_abs_err": err, "lse_max_abs_err": lse_err, "tol": FLASH_TOL,
         "repeat_bit_equal": True,
         "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "library": ("SDPA with an explicit window mask (not the flash "
+                    "path)" if window else "SDPA, is_causal"),
         "bound_ms": bound_ms, "bound_by": bound_by,
         "tflops": flops / ms * 1e-9,
     }
+
+
+def kernel_case(row):
+    """A check_flash row's numbers for the summary line."""
+    return {key: row[key] for key in (
+        "shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+        "library", "tflops", "max_abs_err")}
 
 
 def check_flash_bwd(gen, b, s, h, hd, window):
@@ -374,6 +431,9 @@ def check_flash_bwd(gen, b, s, h, hd, window):
                  "bound_ms": dkdv_bound, "bound_by": dkdv_by,
                  "tflops": dkdv_flops / dkdv_ms * 1e-9},
         "library_ms_k3_plus_k4": library_ms, "sdpa_fwd_ms": sdpa_fwd,
+        "library": ("SDPA fwd+bwd minus fwd, explicit window mask (not "
+                    "the flash path)" if window
+                    else "SDPA fwd+bwd minus fwd, is_causal"),
     }
 
 
@@ -443,7 +503,7 @@ def int8_per_layer(rows, m):
 
 
 # ---------------------------------------------------------------------------
-# phases 4 and 6: the serving path over HTTP
+# phases 4 and 7: the serving path over HTTP
 # ---------------------------------------------------------------------------
 
 async def http(port, method, path, body=None):
@@ -559,7 +619,7 @@ def logits_rel_err(a, b) -> float:
 
 
 # ---------------------------------------------------------------------------
-# phases 5 and 7: the slot engine over HTTP
+# phases 5 and 8: the slot engine over HTTP
 # ---------------------------------------------------------------------------
 
 def slot_requests(prompt, vocab):
@@ -586,7 +646,8 @@ def slot_requests(prompt, vocab):
     ]
 
 
-def slot_logits_at(cfg, params, row, emitted, prefill_chunk, base=None):
+def slot_logits_at(cfg, params, row, emitted, prefill_chunk, base=None,
+                   max_len=MAX_LEN):
     """Logits before token ``len(emitted)`` of a request, two ways on the
     same inputs: the solo path (one-shot prefill, decode_step) and an
     eager slot path (the engine's admission policy, prefill_row: a
@@ -602,16 +663,16 @@ def slot_logits_at(cfg, params, row, emitted, prefill_chunk, base=None):
 
     with torch.inference_mode():
         solo, cache = decode.prefill(
-            params, torch.tensor([row], device="cuda"), cfg, MAX_LEN)
+            params, torch.tensor([row], device="cuda"), cfg, max_len)
         pc = None
         if base is not None:
             pc = PrefixCache(1)
-            prefill_row(pc, base, cfg, params, MAX_LEN, prefill_chunk)
-        pool_logits, row_cache = prefill_row(pc, row, cfg, params, MAX_LEN,
+            prefill_row(pc, base, cfg, params, max_len, prefill_chunk)
+        pool_logits, row_cache = prefill_row(pc, row, cfg, params, max_len,
                                              prefill_chunk)
         if base is not None and pc.stats["hits"] != 1:
             raise AssertionError(f"no prefix hit on the base: {pc.stats}")
-        pool = slots.slot_cache(cfg, 8, MAX_LEN)
+        pool = slots.slot_cache(cfg, 8, max_len)
         slots.insert_row(pool, row_cache, 0)
         del row_cache, pc
         for t in emitted:
@@ -624,7 +685,7 @@ def slot_logits_at(cfg, params, row, emitted, prefill_chunk, base=None):
         return pool_logits[:1].float(), solo.float()
 
 
-def judge_served(cfg, params, body, got):
+def judge_served(cfg, params, body, got, max_len=MAX_LEN):
     """Hold a served request's own tokens to solo decoding: teacher-force
     the solo path (one-shot prefill, decode_step) on ``got`` and, at
     every position, take the solo's own choice there exactly as
@@ -656,7 +717,7 @@ def judge_served(cfg, params, body, got):
     first, worst, typical = None, 0.0, None
     with torch.inference_mode():
         logits, cache = decode.prefill(
-            params, torch.tensor([row], device="cuda"), cfg, MAX_LEN)
+            params, torch.tensor([row], device="cuda"), cfg, max_len)
         for i, tok in enumerate(got):
             raw = logits[0].float()
             if temp <= 0.0:
@@ -682,7 +743,8 @@ def judge_served(cfg, params, body, got):
     return first, worst, typical
 
 
-def compare_with_solo(cfg, params, bodies, outs, prefill_chunk, bases):
+def compare_with_solo(cfg, params, bodies, outs, prefill_chunk, bases,
+                      max_len=MAX_LEN):
     """Each served output held to solo decoding by judge_served: every
     token the solo's choice or a near tie with it (NEAR_TIE_TOL), and
     the full length. Where the output differs from solo ``generate``,
@@ -693,7 +755,7 @@ def compare_with_solo(cfg, params, bodies, outs, prefill_chunk, bases):
     rows = []
     for body, got, base in zip(bodies, outs, bases):
         row = body["tokens"][0]
-        j, worst, typical = judge_served(cfg, params, body, got)
+        j, worst, typical = judge_served(cfg, params, body, got, max_len)
         entry = {"prompt_len": len(row), "equal": j is None,
                  "worst_gap": worst, "median_vocab_gap_at_0": typical}
         if len(got) != body["max_new_tokens"] or worst > NEAR_TIE_TOL:
@@ -703,7 +765,7 @@ def compare_with_solo(cfg, params, bodies, outs, prefill_chunk, bases):
                 f"position {j}, length {len(got)}")
         if j is not None:
             pool_l, solo_l = slot_logits_at(cfg, params, row, got[:j],
-                                            prefill_chunk, base)
+                                            prefill_chunk, base, max_len)
             entry.update(first_diff=j,
                          logits_rel_err=logits_rel_err(pool_l, solo_l))
             if entry["logits_rel_err"] > E2E_REL_TOL:
@@ -714,7 +776,8 @@ def compare_with_solo(cfg, params, bodies, outs, prefill_chunk, bases):
     return rows
 
 
-def steady_windows(engine, params, cfg, prompts, n_windows=6):
+def steady_windows(engine, params, cfg, prompts, n_windows=6,
+                   max_len=MAX_LEN, idle_share=False):
     """The server's step program, its engine stopped: 8 slots admitted,
     then steady fused windows dispatched two at a time (the engine's
     lookahead) under torch.cuda.set_sync_debug_mode("error"), which
@@ -730,9 +793,9 @@ def steady_windows(engine, params, cfg, prompts, n_windows=6):
     with torch.inference_mode():
         for slot, row in enumerate(prompts):
             logits, cache = decode.prefill(
-                params, torch.tensor([row], device="cuda"), cfg, MAX_LEN)
+                params, torch.tensor([row], device="cuda"), cfg, max_len)
             program.admit(slot, _Request(
-                tokens=row, max_new=MAX_LEN - len(row), temperature=0.0,
+                tokens=row, max_new=max_len - len(row), temperature=0.0,
                 top_k=0, top_p=0.0, eos_id=-1, pad_id=0, seed=0,
                 bias_idx=[-1] * decode.BIAS_SLOTS_MAX,
                 bias_val=[0.0] * decode.BIAS_SLOTS_MAX), logits, cache)
@@ -762,13 +825,48 @@ def steady_windows(engine, params, cfg, prompts, n_windows=6):
     torch.cuda.synchronize()
     window_ms = start.elapsed_time(end) / n_windows
     steps = program.rounds * program.chunk
-    return {
+    out = {
         "steady_windows": n_windows, "sync_free_dispatches": n_windows,
         "steady_window_ms": window_ms,
         "steady_step_ms": window_ms / steps,
         "steady_decode_tok_s": program.slots * steps / window_ms * 1e3,
         "dispatch_host_us": host_s / n_windows * 1e6,
         "steady_dispatches_per_token": n_windows / tokens,
+    }
+    if idle_share:
+        out.update(profile_windows(program, budgets))
+    return out
+
+
+def profile_windows(program, budgets, n_windows=2):
+    """Steady windows dispatched as the engine dispatches them (the next
+    enqueued before the previous one's tokens are fetched) under
+    torch.profiler: device kernel ms a step and the device's idle share
+    (1 - kernel time / wall), as scripts/torch_decode_profile.py
+    --slots reports them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        pending = program.dispatch(budgets, True)
+        for _ in range(n_windows - 1):
+            nxt = program.dispatch(budgets, True)
+            program.tokens(pending)
+            pending = nxt
+        program.tokens(pending)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    device_us = sum(e.time_range.elapsed_us() for e in kernels)
+    steps = n_windows * program.rounds * program.chunk
+    return {
+        "profiled_windows": n_windows,
+        "profiled_wall_ms_per_step": wall * 1e3 / steps,
+        "device_kernel_ms_per_step": device_us / 1e3 / steps,
+        "device_idle_share": 1.0 - device_us / 1e6 / wall,
+        "kernel_launches_per_step": len(kernels) / steps,
     }
 
 
@@ -903,17 +1001,388 @@ async def drive_slots(cfg, params, prompt, label, prefill_chunk=0):
 
 
 # ---------------------------------------------------------------------------
-# phases 8-9: training
+# phases 6 and 9: a sliding window's ring cache and the int8 KV cache
+# ---------------------------------------------------------------------------
+
+async def read_sse(port, body, abort_after=None):
+    """POST a streamed /v1/generate and read its SSE events (one JSON
+    object each); with ``abort_after``, drop the connection after that
+    many events."""
+    reader, writer = await asyncio.open_connection("127.0.0.1", port)
+    payload = json.dumps(body).encode()
+    writer.write(
+        f"POST /v1/generate HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+        f"Content-Length: {len(payload)}\r\n\r\n".encode() + payload)
+    await writer.drain()
+    head = await reader.readuntil(b"\r\n\r\n")
+    if int(head.split()[1]) != 200:
+        raise AssertionError(f"stream -> {head[:100]!r} "
+                             f"{(await reader.read())[:200]!r}")
+    events, buf = [], b""
+    try:
+        while abort_after is None or len(events) < abort_after:
+            chunk = await reader.read(65536)
+            if not chunk:
+                break
+            buf += chunk
+            while b"\n\n" in buf:
+                event, buf = buf.split(b"\n\n", 1)
+                events.append(json.loads(event[len(b"data: "):]))
+    finally:
+        writer.close()
+        await writer.wait_closed()
+    return events
+
+
+def ring_logits(cfg, params, prompt, served, max_len):
+    """The served path's logits, teacher-forced: prefill of the prompt
+    (the ring and, under kv_int8, the quantized cache), then decode_step
+    on each served token -> [len(served), vocab] float32, row i the
+    logits that chose served[i]."""
+    from containerpilot_tpu_torch.models import decode
+
+    with torch.inference_mode():
+        logits, cache = decode.prefill(
+            params, torch.tensor([prompt], device="cuda"), cfg, max_len)
+        rows = [logits[0].float()]
+        for tok in served[:-1]:
+            logits, cache = decode.decode_step(
+                params, cache, torch.tensor([tok], device="cuda"), cfg)
+            rows.append(logits[0].float())
+        return torch.stack(rows)
+
+
+def plain_window_logits(cfg, params, prompt, served):
+    """The independent reference: one forward with plain windowed
+    attention (flash_min_seq=0, no cache, no int8 KV) over prompt +
+    served tokens -> the same rows as ring_logits."""
+    import dataclasses
+
+    from containerpilot_tpu_torch.models import transformer as tf
+
+    plain = dataclasses.replace(cfg, flash_min_seq=0, kv_int8=False)
+    seq = torch.tensor([prompt + served[:-1]], device="cuda")
+    with torch.inference_mode():
+        return tf.forward(params, seq, plain)[0, len(prompt) - 1:].float()
+
+
+async def serve_window_requests(cfg, params, prompt):
+    """The window config served by the Batcher over HTTP: a greedy
+    3072-token prompt (windowed K1; the ring wraps during prefill) with
+    64 new tokens, a 4-row batch of 1024-token prompts, and a logprobs
+    request whose echo must equal /v1/score on the same sequence."""
+    from containerpilot_tpu_torch.workload.serve import InferenceServer
+
+    vocab = cfg.vocab_size
+    server = InferenceServer(cfg, params, "127.0.0.1", 0, WINDOW_MAX_LEN,
+                             max_batch_rows=8, device="cuda")
+    t0 = time.perf_counter()
+    await server.run()
+    out = {"warmup_s": time.perf_counter() - t0}
+    try:
+        port = server.port
+        rows, t_long = await generate_tokens(
+            port, {"tokens": [prompt], "max_new_tokens": 64})
+        check_rows(rows, 1, 64, vocab)
+        batch = [[(t * 7 + r) % vocab for t in prompt[:PROMPT_LEN]]
+                 for r in range(4)]
+        rows4, t4 = await generate_tokens(
+            port, {"tokens": batch, "max_new_tokens": 16})
+        check_rows(rows4, 4, 16, vocab)
+        head = prompt[:PROMPT_LEN]
+        echo = json.loads(await http(port, "POST", "/v1/generate", {
+            "tokens": [head], "max_new_tokens": 16, "logprobs": True}))
+        gen = echo["tokens"][0]
+        score = json.loads(await http(port, "POST", "/v1/score",
+                                      {"tokens": [head + gen]}))
+        tail = score["logprobs"][0][-len(gen):]
+        gap = max(abs(a - b) for a, b in zip(echo["logprobs"][0], tail))
+        if len(echo["logprobs"][0]) != len(gen) or not gap <= 1e-5:
+            raise AssertionError(
+                f"logprobs echo off /v1/score by {gap}: "
+                f"{echo['logprobs'][0][:4]} vs {tail[:4]}")
+        info = json.loads(await http(port, "GET", "/v1/model"))
+        if info["stream"] or server.cfg != cfg:
+            raise AssertionError(f"/v1/model says {info}")
+        out.update({
+            "request_ms_prompt3072_new64": t_long * 1e3,
+            "request_ms_batch4_prompt1024_new16": t4 * 1e3,
+            "logprobs_echo_vs_score_max_abs": gap,
+            "greedy_tokens_head": rows[0][:8],
+        })
+        return out, rows[0]
+    finally:
+        await server.stop()
+
+
+def drive_window_server(cfg_int8, params, prompt):
+    """serve_window: the bf16 flagship with --window 1024 at max_len
+    4096, served by the Batcher, once with the ring alone and once with
+    --kv-int8. Each time the greedy 3072-token request's logits,
+    teacher-forced through the served path, are held against one plain
+    windowed forward over prompt + served tokens: the ring alone within
+    E2E_REL_TOL, with kv_int8 within NEAR_TIE_TOL (its quantization
+    error). K1 must launch n_layers times a windowed prefill."""
+    import dataclasses
+
+    from containerpilot_tpu_torch.models import decode
+    from containerpilot_tpu_torch.ops import flash
+
+    out = {"phase": "serve_window", "window": WINDOW,
+           "max_len": WINDOW_MAX_LEN, "prompt_len": len(prompt)}
+    for label, cfg in (("ring", dataclasses.replace(cfg_int8, kv_int8=False)),
+                       ("ring_kv_int8", cfg_int8)):
+        flash.LAUNCHES = 0
+        served, tokens = asyncio.run(serve_window_requests(cfg, params, prompt))
+        k1 = flash.LAUNCHES
+        # a windowed prefill of the 3072- and the 1024-token prompts
+        if k1 < 2 * cfg.n_layers:
+            raise AssertionError(
+                f"{label}: K1 launched {k1} times for the windowed prefills")
+        got = ring_logits(cfg, params, prompt, tokens, WINDOW_MAX_LEN)
+        want = plain_window_logits(cfg, params, prompt, tokens)
+        err = logits_rel_err(got, want)
+        limit = E2E_REL_TOL if not cfg.kv_int8 else NEAR_TIE_TOL
+        agree = int((got.argmax(-1) == torch.tensor(tokens, device="cuda"))
+                    .sum())
+        if not (torch.isfinite(got).all() and err <= limit):
+            raise AssertionError(
+                f"{label}: served path's logits off the plain windowed "
+                f"forward by {err} (limit {limit})")
+        out[label] = {**served, "k1_launches": k1,
+                      "logits_rel_err_vs_plain_forward": err,
+                      "limit": limit,
+                      "served_tokens_argmax_of_served_path": agree}
+        del got, want
+        torch.cuda.empty_cache()
+    row = decode.init_cache(cfg_int8, 1, WINDOW_MAX_LEN, device="cuda")
+    out["row_cache_bytes"] = sum(v.nbytes for k, v in row.items()
+                                 if k != "pos")
+    out["linear_bf16_row_cache_bytes_at_max_len"] = (
+        2 * cfg_int8.n_layers * WINDOW_MAX_LEN * cfg_int8.kv_heads
+        * cfg_int8.head_dim * 2)
+    return out
+
+
+def window_slot_requests(prompt, vocab):
+    """The 8 concurrent single-row requests of the windowed slot phase:
+    the 3072-token prompt (chunked admission in 256-row pieces; the ring
+    wraps during prefill), a 1000-token prompt whose decode crosses the
+    ring's end, a 300-token prompt (index 4, the streamed one), short
+    greedy prompts and one short sampled prompt."""
+    def variant(n, r):
+        return [(t * 7 + r) % vocab for t in prompt[:n]]
+
+    return [
+        {"tokens": [prompt], "max_new_tokens": 32},
+        {"tokens": [variant(1000, 1)], "max_new_tokens": 48},
+        {"tokens": [variant(5, 2)], "max_new_tokens": 40},
+        {"tokens": [variant(9, 3)], "max_new_tokens": 16},
+        {"tokens": [variant(300, 4)], "max_new_tokens": 32},
+        {"tokens": [variant(12, 5)], "max_new_tokens": 28},
+        {"tokens": [variant(15, 6)], "max_new_tokens": 36},
+        {"tokens": [variant(10, 7)], "max_new_tokens": 24,
+         "temperature": 0.8, "top_k": 40, "seed": 7},
+    ]
+
+
+STREAMED = 4  # the index of window_slot_requests' streamed request
+
+
+def replay_matches_eager(program, params, cfg):
+    """One captured round replayed from the program's state (slots at
+    the positions admission and the steady windows left them, none of
+    them the capture's) against the same round run eagerly
+    (slots.gated_round) on a copy of that state: the tokens and every
+    pool leaf must be bit-equal. A position frozen into the graph at
+    capture would write and mask the wrong slots. The slots decode
+    greedily, so the copies' generators only need to exist."""
+    from containerpilot_tpu_torch.models import slots
+
+    pool = {k: v.clone() for k, v in program._pool.items()}
+    state = {k: (v.clone() if torch.is_tensor(v) else v)
+             for k, v in program._state.items()}
+    state["keys"] = [torch.Generator(device="cuda")
+                     for _ in state["keys"]]
+    if state["temperature"].any():
+        raise AssertionError("replay check needs greedy slots")
+    positions = pool["pos"].tolist()
+    toks, _valid, _run = program.tokens(
+        program.dispatch([10 ** 6] * program.slots, False))
+    win = slots.window_buffers(program.slots, program.chunk, 1, "cuda")
+    with torch.inference_mode():
+        slots.begin_window(state, win, force=True)
+        slots.gated_round(params, pool, state, cfg, program.chunk, win)
+    torch.cuda.synchronize()
+    differ = [name for name in pool
+              if not torch.equal(pool[name], program._pool[name])]
+    if differ or not (win["toks"].cpu().numpy() == toks).all():
+        raise AssertionError(
+            f"graph replay differs from the eager round at positions "
+            f"{positions}: pool leaves {differ}, tokens "
+            f"{(win['toks'].cpu().numpy() != toks).sum()}")
+    return {"replay_bit_equal_eager_at_positions": positions}
+
+
+async def serve_slots_window_requests(cfg, params, prompt):
+    """The windowed int8 flagship through the slot engine over HTTP:
+    the 8 staggered requests (one streamed over SSE), the streamed
+    request again without streaming, and a second stream dropped after
+    its first event. K1/K2 counts are zeroed just before the 8 requests
+    and read just after."""
+    from containerpilot_tpu_torch.ops import flash, quant
+    from containerpilot_tpu_torch.workload.serve import InferenceServer
+
+    try:
+        InferenceServer(cfg, params, "127.0.0.1", 0, WINDOW_MAX_LEN,
+                        device="cuda", slots=8, prefix_cache_entries=4)
+    except ValueError as exc:
+        refused = str(exc)
+    else:
+        raise AssertionError("--prefix-cache with --window was accepted")
+    t0 = time.perf_counter()
+    server = InferenceServer(
+        cfg, params, "127.0.0.1", 0, WINDOW_MAX_LEN, max_batch_rows=8,
+        device="cuda", slots=8, slot_chunk=8, slot_window=4,
+        prefill_chunk=256,
+    )
+    await server.run()
+    engine, program = server.slot_engine, server.slot_engine.program
+    out = {"warmup_s": time.perf_counter() - t0,
+           "prefix_cache_refused": refused,
+           "args": {"slots": 8, "slot_chunk": 8, "slot_window": 4,
+                    "prefill_chunk": 256, "window": cfg.window,
+                    "kv_int8": cfg.kv_int8, "max_len": WINDOW_MAX_LEN}}
+    try:
+        port = server.port
+        if not (program.graphs == 1
+                and program.captured_at < server.ready_at):
+            raise AssertionError("the round graph was not captured before "
+                                 "/health")
+        bodies = window_slot_requests(prompt, cfg.vocab_size)
+
+        async def staggered(i, body):
+            await asyncio.sleep(0.03 * i)
+            if i != STREAMED:
+                return (await generate_tokens(port, body))[0][0]
+            events = await read_sse(port, {**body, "stream": True})
+            if not events[-1].get("done"):
+                raise AssertionError(f"stream ended without done: {events}")
+            got = sum((e["tokens"] for e in events if "tokens" in e), [])
+            if events[-1]["count"] != len(got):
+                raise AssertionError(f"stream count {events[-1]}")
+            return got, len(events) - 1
+
+        flash.LAUNCHES = quant.LAUNCHES = 0
+        program.replayed_launches = [0] * len(program.replayed_launches)
+        outs = await asyncio.gather(*[staggered(i, b)
+                                      for i, b in enumerate(bodies)])
+        k1, k2 = flash.LAUNCHES, quant.LAUNCHES
+        k2_decode = program.replayed_launches[0]
+        outs[STREAMED], deltas = outs[STREAMED]
+        twin = (await generate_tokens(port, bodies[STREAMED]))[0][0]
+        if twin != outs[STREAMED]:
+            raise AssertionError(
+                f"streamed tokens {outs[STREAMED]} differ from the same "
+                f"request not streamed {twin}")
+        for body, got in zip(bodies, outs):
+            check_rows([got], 1, body["max_new_tokens"], cfg.vocab_size)
+        # a stream dropped after its first event frees its slot
+        dropped = {"tokens": [[(t * 7 + 9) % cfg.vocab_size
+                               for t in prompt[:20]]],
+                   "max_new_tokens": WINDOW_MAX_LEN - 20, "stream": True}
+        first = await read_sse(port, dropped, abort_after=1)
+        t_drop = time.perf_counter()
+        while engine.stats["active"] and time.perf_counter() - t_drop < 30:
+            await asyncio.sleep(0.002)
+        free_ms = (time.perf_counter() - t_drop) * 1e3
+        walls = sorted(engine.round_times_ms())
+        window_ms = walls[len(walls) // 2]
+        if engine.stats["active"] or free_ms > max(3 * window_ms, 1000.0):
+            raise AssertionError(
+                f"dropped stream's slot freed after {free_ms} ms (window "
+                f"{window_ms} ms), active {engine.stats['active']}")
+        info = json.loads(await http(port, "GET", "/v1/model"))
+        if not info["stream"] or info["prefix_cache"] is not None:
+            raise AssertionError(f"/v1/model says {info}")
+        out.update({
+            "k1_launches": k1, "k2_launches": k2,
+            "k2_launches_decode_replays": k2_decode,
+            "k2_launches_admission": k2 - k2_decode,
+            "k2_per_replay": program.replay_launches[0],
+            "graphs_captured": program.graphs,
+            "capture_s": program.capture_seconds,
+            "streamed_events": deltas, "stream_equals_not_streamed": True,
+            "dropped_stream_first_event": first[0],
+            "dropped_stream_slot_freed_ms": free_ms,
+            "window_wall_ms_median": window_ms,
+            "slot_engine": info["slot_engine"],
+        })
+    finally:
+        await server.stop()
+    if program.graphs != 1:
+        raise AssertionError("a graph was captured after /health")
+    return out, bodies, outs, engine
+
+
+def drive_slots_window(cfg, params, prompt):
+    """serve_slots_window_int8: the int8 flagship with --window 1024
+    --kv-int8 at max_len 4096 through the slot engine (--slots 8
+    --slot-chunk 8 --slot-window 4 --prefill-chunk 256). Every served
+    token is judged against solo decoding under the same config; then
+    steady windows (device ms a step, idle share under the profiler, no
+    host sync in a dispatch) and one replay against the eager round."""
+    out, bodies, outs, engine = asyncio.run(
+        serve_slots_window_requests(cfg, params, prompt))
+    out = {"phase": "serve_slots_window_int8", **out}
+    out["solo"] = compare_with_solo(cfg, params, bodies, outs, 256,
+                                    [None] * len(bodies), WINDOW_MAX_LEN)
+    out.update(steady_windows(engine, params, cfg,
+                              [b["tokens"][0] for b in bodies],
+                              max_len=WINDOW_MAX_LEN, idle_share=True))
+    out.update(replay_matches_eager(engine.program, params, cfg))
+    del engine
+    torch.cuda.empty_cache()
+    out["ring_only"] = steady_ring_only(cfg, params,
+                                        [b["tokens"][0] for b in bodies])
+    return out
+
+
+def steady_ring_only(cfg, params, prompts):
+    """The same steady windows with the ring alone (kv_int8 off, bf16
+    k/v): separates the ring's pool length from the int8 cache's
+    dequantization in the step's device time."""
+    import dataclasses
+
+    from containerpilot_tpu_torch.workload.serve_slots import SlotEngine
+
+    ring = dataclasses.replace(cfg, kv_int8=False)
+    engine = SlotEngine(ring, params, WINDOW_MAX_LEN, slots=8, chunk=8,
+                        window=4)
+    try:
+        out = steady_windows(engine, params, ring, prompts,
+                             max_len=WINDOW_MAX_LEN, idle_share=True)
+    finally:
+        engine.stop()
+    del engine
+    torch.cuda.empty_cache()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 10-13: training, and serving its checkpoint
 # ---------------------------------------------------------------------------
 
 def rel_norm_err(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def drive_training(gen):
+def drive_training(gen, label="train", over=None, n_timed=5, extra=True):
     """The training path at full width: make_train_step on the repo's
-    training configuration, the kernels' launch counts around the timed
-    run, and the kernel path held against plain attention."""
+    training configuration (with ``over`` applied, e.g. a window), the
+    kernels' launch counts around the timed run, and the kernel path
+    held against plain attention; with ``extra``, also remat "dots",
+    the chunked loss and _dot_f32's gradient against the main path."""
     from containerpilot_tpu_torch.models import transformer as tf
     from containerpilot_tpu_torch.ops import flash
     from containerpilot_tpu_torch.parallel import train as tr
@@ -922,7 +1391,8 @@ def drive_training(gen):
         train_flops_per_token,
     )
 
-    cfg = tf.TransformerConfig(**TRAIN_CFG)
+    train_cfg = {**TRAIN_CFG, **(over or {})}
+    cfg = tf.TransformerConfig(**train_cfg)
     state = tr.init_train_state(0, cfg, "cuda")
     step = tr.make_train_step(cfg)
     tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
@@ -935,7 +1405,6 @@ def drive_training(gen):
         state, loss = step(state, tokens)
         losses.append(loss)
     torch.cuda.synchronize()
-    n_timed = 5
     t0 = time.perf_counter()
     for _ in range(n_timed):
         state, loss = step(state, tokens)
@@ -960,7 +1429,7 @@ def drive_training(gen):
     tokens_s = TRAIN_BATCH * TRAIN_SEQ / step_s
     flops_per_token = train_flops_per_token(cfg, n_params, TRAIN_SEQ)
     out = {
-        "phase": "train", "config": TRAIN_CFG, "batch": TRAIN_BATCH,
+        "phase": label, "config": train_cfg, "batch": TRAIN_BATCH,
         "seq": TRAIN_SEQ, "params": n_params, "steps": n_steps,
         "step_ms": step_s * 1e3, "tokens_per_s": tokens_s,
         "mfu": tokens_s * flops_per_token / BF16_FLOP_PER_S,
@@ -975,9 +1444,11 @@ def drive_training(gen):
     params = state.params
     leaves = tr.tree_leaves(params)
     results = []
-    for over in ({}, {"flash_min_seq": 0}, {"remat": "dots"},
-                 {"loss_chunk": 512}):
-        c = tf.TransformerConfig(**{**TRAIN_CFG, **over})
+    variants = [{}, {"flash_min_seq": 0}]
+    if extra:
+        variants += [{"remat": "dots"}, {"loss_chunk": 512}]
+    for variant in variants:
+        c = tf.TransformerConfig(**{**train_cfg, **variant})
         loss = tf.loss_fn(params, tokens[:2], c)
         results.append(
             (float(loss.detach()), torch.autograd.grad(loss, leaves)))
@@ -988,6 +1459,17 @@ def drive_training(gen):
                 max(rel_norm_err(a, b) for a, b in zip(g_a, g_b)))
 
     loss_rel, grad_rel = rel(0, 1)
+    if not extra:
+        if not (loss_rel <= TRAIN_LOSS_REL_TOL
+                and grad_rel <= TRAIN_GRAD_REL_TOL):
+            raise AssertionError(
+                f"{label}: kernel path vs plain attention: loss rel "
+                f"{loss_rel}, worst grad leaf rel {grad_rel}")
+        out.update({"kernel_vs_plain_loss_rel": loss_rel,
+                    "kernel_vs_plain_worst_grad_rel": grad_rel})
+        del results, state, params, leaves
+        torch.cuda.empty_cache()
+        return out
     dots, chunked = rel(2, 0), rel(3, 0)
     if not (loss_rel <= TRAIN_LOSS_REL_TOL and grad_rel <= TRAIN_GRAD_REL_TOL
             and max(dots) <= REMAT_REL_TOL
@@ -1080,14 +1562,128 @@ def check_prefetcher(tmp):
         prefetcher.stop()
 
 
+def _serve_cli_tokens(args, body, timeout=300):
+    """Start ``python -m containerpilot_tpu_torch.workload.serve`` with
+    ``args`` on a free port, POST ``body`` to /v1/generate once it is
+    healthy, stop it with SIGTERM -> (tokens, /v1/model, its output)."""
+    import socket
+    import urllib.request
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "containerpilot_tpu_torch.workload.serve",
+         "--host", "127.0.0.1", "--port", str(port), *args],
+        cwd=root, env={**os.environ, "PYTHONPATH": root},
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+    )
+    url = f"http://127.0.0.1:{port}"
+    try:
+        deadline = time.monotonic() + timeout
+        while True:
+            if proc.poll() is not None:
+                raise AssertionError(
+                    f"serve CLI exited {proc.returncode}: "
+                    f"{proc.communicate()[0][-2000:]}")
+            try:
+                with urllib.request.urlopen(url + "/health", timeout=5) as r:
+                    if r.status == 200:
+                        break
+            except OSError:
+                pass
+            if time.monotonic() > deadline:
+                raise AssertionError("serve CLI never became healthy")
+            time.sleep(0.2)
+        req = urllib.request.Request(url + "/v1/generate",
+                                     data=json.dumps(body).encode())
+        with urllib.request.urlopen(req, timeout=120) as r:
+            tokens = json.loads(r.read())["tokens"]
+        with urllib.request.urlopen(url + "/v1/model", timeout=30) as r:
+            info = json.loads(r.read())
+    finally:
+        if proc.poll() is None:
+            proc.send_signal(signal.SIGTERM)
+        try:
+            out, _ = proc.communicate(timeout=60)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            out, _ = proc.communicate()
+    return tokens, info, out
+
+
+def serve_checkpoint(ckpt, model_args, vocab):
+    """The serving CLI on the trainer's checkpoint, once with the raw
+    params and once with --use-ema: each greedy request's tokens must
+    equal an in-process generate on restore_params(prefer_ema=...),
+    and the server must say which weights it loaded."""
+    from containerpilot_tpu_torch.models import decode, quantized
+    from containerpilot_tpu_torch.models import transformer as tf
+    from containerpilot_tpu_torch.parallel import (
+        abstract_train_state,
+        restore_params,
+    )
+    from containerpilot_tpu_torch.parallel.train import tree_leaves
+    from containerpilot_tpu_torch.workload.modelcfg import derive_d_ff
+
+    d_model = int(model_args[model_args.index("--d-model") + 1])
+    cfg = tf.TransformerConfig(
+        vocab_size=vocab, d_model=d_model,
+        n_heads=int(model_args[model_args.index("--n-heads") + 1]),
+        n_layers=int(model_args[model_args.index("--n-layers") + 1]),
+        d_ff=derive_d_ff(d_model), max_seq_len=1024)
+    prompt = [(7 * i + 3) % vocab for i in range(48)]
+    body = {"tokens": [prompt], "max_new_tokens": 24}
+    out = {}
+    for ema in (False, True):
+        served, info, log_text = _serve_cli_tokens(
+            ["--device", "cuda", "--checkpoint-dir", ckpt, "--max-len",
+             "1024", "--vocab", str(vocab), *model_args]
+            + (["--use-ema"] if ema else []), body)
+        restored = restore_params(ckpt, abstract_train_state(cfg),
+                                  prefer_ema=ema, device="cuda")
+        params = quantized.cast_params(restored[0], cfg.dtype)
+        with torch.inference_mode():
+            local = decode.generate(params, torch.tensor([prompt],
+                                                         device="cuda"),
+                                    cfg, 24, 1024).tolist()
+        said = f"serving checkpoint step {restored[1]}" + (
+            " (EMA weights)" if ema else "")
+        if not (restored.ema == ema and info["checkpoint"] == {
+                "step": restored[1], "ema": ema} and said in log_text):
+            raise AssertionError(
+                f"serve --checkpoint-dir (ema={ema}) loaded "
+                f"{info['checkpoint']}, restore says step {restored[1]} "
+                f"ema={restored.ema}:\n{log_text[-1500:]}")
+        if served != local:
+            raise AssertionError(
+                f"served checkpoint tokens (ema={ema}) {served} differ from "
+                f"in-process generate {local}")
+        out["ema" if ema else "raw"] = {
+            "step": restored[1], "tokens_equal_in_process": True,
+            "tokens_head": served[0][:8]}
+        del params, restored
+    raw, ema = (restore_params(ckpt, abstract_train_state(cfg),
+                               prefer_ema=e, device="cuda")[0]
+                for e in (False, True))
+    out["ema_vs_raw_max_abs_param_diff"] = max(
+        (a - b).abs().max().item() for a, b in zip(
+            tree_leaves(raw), tree_leaves(ema)))
+    return out
+
+
 def drive_train_cli():
     """The trainer CLI on the card: SIGTERM mid-run saves and exits 0; a
-    restart resumes at exactly that step and finishes. Also the data
-    prefetcher's staging onto the card."""
+    restart resumes at exactly that step and finishes (with an EMA
+    shadow, --ema-decay 0.99). Also the data prefetcher's staging onto
+    the card; then the serving CLI on the checkpoint (serve_checkpoint),
+    returned as a phase of its own."""
     with tempfile.TemporaryDirectory() as tmp:
         check_prefetcher(tmp)
-        base = ["--device", "cuda", "--d-model", "1024", "--n-layers", "2",
-                "--n-heads", "8", "--seq-len", "1024", "--batch", "4",
+        model = ["--d-model", "1024", "--n-layers", "2", "--n-heads", "8"]
+        base = ["--device", "cuda", *model, "--seq-len", "1024",
+                "--batch", "4", "--ema-decay", "0.99",
                 "--checkpoint-dir", os.path.join(tmp, "ckpt"),
                 "--checkpoint-every", "1000",
                 "--progress-file", os.path.join(tmp, "progress.json")]
@@ -1104,10 +1700,15 @@ def drive_train_cli():
             final = json.load(fh)
         if final["step"] != at + 2 or not math.isfinite(final["loss"]):
             raise AssertionError(f"resumed trainer ended at {final}")
-    return {"phase": "train_cli", "prefetched_batches_equal": True,
-            "preempted_at_step": at,
+        train_cli = {
+            "phase": "train_cli", "prefetched_batches_equal": True,
+            "preempted_at_step": at, "ema_decay": 0.99,
             "resumed_to_step": final["step"], "final_loss": final["loss"],
             "seconds": time.perf_counter() - t0}
+        t0 = time.perf_counter()
+        ckpt = serve_checkpoint(os.path.join(tmp, "ckpt"), model, 1024)
+    return train_cli, {"phase": "serve_ckpt", **ckpt,
+                       "seconds": time.perf_counter() - t0}
 
 
 def main() -> int:
@@ -1188,6 +1789,17 @@ def main() -> int:
         "batcher_decode_tok_s_batch8": serve_bf16["decode_tok_s_batch8"],
         **card})
     emit(slots_bf16)
+
+    # ---- serve a sliding window: ring, then ring + int8 KV --------------
+    cfg_w = tf.TransformerConfig(**{**FLAGSHIP,
+                                    "max_seq_len": WINDOW_MAX_LEN},
+                                 window=WINDOW, kv_int8=True)
+    long_prompt = torch.randint(
+        0, cfg.vocab_size, (WINDOW_PROMPT_LEN,), generator=gen, device="cuda"
+    ).tolist()
+    serve_window = drive_window_server(cfg_w, params, long_prompt)
+    serve_window.update(card)
+    emit(serve_window)
     del params
 
     # ---- serve int8 -----------------------------------------------------
@@ -1264,6 +1876,18 @@ def main() -> int:
         **card})
     emit(slots_int8)
 
+    # ---- serve slots, int8 weights, window ring + int8 KV ---------------
+    slots_window = drive_slots_window(cfg_w, qparams, long_prompt)
+    if not (slots_window["k2_launches_decode_replays"] > 0
+            and slots_window["k2_launches_admission"] > 0):
+        raise AssertionError(
+            f"K2 on the windowed int8 slot path: "
+            f"{slots_window['k2_launches']} launches")
+    slots_window.update({
+        "steady_step_ms_int8_max_len_2048": slots_int8["steady_step_ms"],
+        **card})
+    emit(slots_window)
+
     del qparams
     torch.cuda.empty_cache()
 
@@ -1272,12 +1896,21 @@ def main() -> int:
     train.update(card)
     emit(train)
 
-    # ---- train CLI: preempt and resume ----------------------------------
-    emit({**drive_train_cli(), **card})
+    # ---- train with a sliding window ------------------------------------
+    train_window = drive_training(gen, "train_window", {"window": WINDOW},
+                                  n_timed=3, extra=False)
+    train_window.update(card)
+    emit(train_window)
+
+    # ---- train CLI: preempt and resume; serve its checkpoint -----------
+    train_cli, serve_ckpt = drive_train_cli()
+    emit({**train_cli, **card})
+    emit({**serve_ckpt, **card})
 
     # ---- summary --------------------------------------------------------
     main_flash = flash_rows[0]
     train_flash = flash_rows[FWD_CASES.index(TRAIN_FWD_CASE)]
+    window_bwd = bwd_rows[BWD_CASES.index(WINDOW_BWD_CASE)]
     k2_layer = {f"m={m}": int8_per_layer(int8_rows, m) for m in INT8_LAYER_M}
     k2_main = k2_layer["m=1"]
     kernels = [
@@ -1303,6 +1936,19 @@ def main() -> int:
             "train_bound_by": train_flash["bound_by"],
             "slot_launches": {"serve_slots_bf16": slots_bf16["k1_launches"],
                               "serve_slots_int8": slots_int8["k1_launches"]},
+            "windowed": {
+                "prefill": kernel_case(flash_rows[FWD_CASES.index(
+                    WINDOW_PREFILL_CASE)]),
+                "train": kernel_case(flash_rows[FWD_CASES.index(
+                    WINDOW_TRAIN_CASE)]),
+                "launches": {
+                    "serve_window_ring": serve_window["ring"]["k1_launches"],
+                    "serve_window_ring_kv_int8":
+                        serve_window["ring_kv_int8"]["k1_launches"],
+                    "serve_slots_window_int8": slots_window["k1_launches"],
+                    "train_window": train_window["k1_launches"],
+                },
+            },
         },
         *(
             {
@@ -1320,6 +1966,20 @@ def main() -> int:
                 "library_covers": "K3+K4: SDPA fwd+bwd minus SDPA fwd",
                 "tflops": bwd_rows[0][key]["tflops"],
                 "shape": "b=8 s=2048 h=8 hd=128, one training layer",
+                "windowed": {
+                    "train": {
+                        "shape": window_bwd["shape"],
+                        **{f: window_bwd[key][f] for f in (
+                            "ms", "plain_ms", "bound_ms", "bound_by",
+                            "tflops")},
+                        "library_ms": window_bwd["library_ms_k3_plus_k4"],
+                        "library": window_bwd["library"],
+                        "max_abs_err": max(window_bwd["max_abs_err"][g]
+                                           for g in grads),
+                    },
+                    "launches": {"train_window":
+                                 train_window[f"{key}_launches"]},
+                },
             }
             for name, key, replaces, grads in (
                 ("flash_bwd_dq", "dq",
@@ -1349,6 +2009,13 @@ def main() -> int:
                     slots_int8["k2_launches_admission"],
                 "serve_slots_bf16": slots_bf16["k2_launches"],
             },
+            "windowed": {"launches": {
+                "serve_slots_window_int8": slots_window["k2_launches"],
+                "serve_slots_window_int8_decode_replays":
+                    slots_window["k2_launches_decode_replays"],
+                "serve_slots_window_int8_admission":
+                    slots_window["k2_launches_admission"],
+            }},
         },
     ]
     emit({"kernels": kernels})

@@ -5,9 +5,13 @@ Intended differences from the reference:
 
 - The cache is updated IN PLACE. JAX's ``dynamic_update_slice`` returns
   a new array each step; here prefill and every decode step write their
-  k/v into the preallocated [L, B, max_len, kv_heads, hd] tensors, and
+  k/v into the preallocated [L, B, length, kv_heads, hd] tensors (a
+  linear cache of ``max_len``, or a sliding window's ring), and
   ``cache["pos"]`` is a Python int. Callers that need the old cache must
   copy it first.
+- A linear cache's attention reads only the positions written so far
+  (``:pos + m``): the rest are masked and contribute exactly zero, so
+  under ``kv_int8`` only those are dequantized.
 - Eager torch runs no fixed-length scan: ``generate`` stops once every
   row has emitted eos (rows already done would only emit pad) and fills
   the rest with pad, which returns the same tokens.
@@ -28,6 +32,7 @@ from .. import resolve_device
 from ..ops import tuning
 from ..ops.attention import NEG_INF, causal_attention
 from ..ops.flash import flash_attention_forward
+from ..ops.quant import quantize_int8_axes
 from .quantized import (
     can_fuse_int8,
     embed_lookup,
@@ -57,17 +62,70 @@ Cache = Dict[str, Any]
 def init_cache(
     cfg: TransformerConfig, batch: int, max_len: int, device="cuda"
 ) -> Cache:
-    """Zeroed linear KV cache: k/v [layers, batch, max_len, kv_heads,
-    head_dim] in the compute dtype, ``pos`` (tokens cached) a Python
-    int. The window ring and the int8 cache are a later slice."""
+    """Zeroed KV cache: k/v [layers, batch, length, kv_heads, head_dim]
+    and ``pos`` (tokens cached) a Python int.
+
+    With a sliding window (cfg.window > 0) the cache is a RING of
+    ``min(window, max_len)`` entries: position p lives at slot
+    ``p % length``, so decode KV memory is bounded by the window, not
+    the generation length. With ``cfg.kv_int8`` k/v are int8 with a
+    float32 scale per (token, head) over head_dim (``k_scale`` /
+    ``v_scale`` [layers, batch, length, kv_heads]); otherwise they are
+    in the compute dtype."""
     check_supported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.kv_heads, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-        "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-        "pos": 0,
-    }
+    shape = (cfg.n_layers, batch, ring_length(cfg, max_len), cfg.kv_heads,
+             cfg.head_dim)
+    cache: Cache = {"pos": 0}
+    if cfg.kv_int8:
+        for name in ("k", "v"):
+            cache[name] = torch.zeros(shape, dtype=torch.int8, device=dev)
+            cache[f"{name}_scale"] = torch.zeros(
+                shape[:-1], dtype=torch.float32, device=dev
+            )
+    else:
+        for name in ("k", "v"):
+            cache[name] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    return cache
+
+
+def ring_length(cfg: TransformerConfig, max_len: int) -> int:
+    """Positions a cache row holds: ``max_len``, or a window's ring of
+    ``min(window, max_len)``."""
+    return max_len if cfg.window <= 0 else min(cfg.window, max_len)
+
+
+def kv_quant(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 over head_dim with the package's one quantization
+    formula (``ops/quant.py``) -> (int8 like x, float32 scale without
+    the trailing axis)."""
+    q, scale = quantize_int8_axes(x, (-1,))
+    return q, scale[..., 0]
+
+
+def kv_dequant(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    return (q.float() * scale[..., None]).to(dtype)
+
+
+def kv_leaves(cfg: TransformerConfig, k: torch.Tensor,
+              v: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """The cache leaves that store k/v [..., kv, hd]: themselves, or
+    under ``kv_int8`` the int8 values and their scales."""
+    if not cfg.kv_int8:
+        return {"k": k, "v": v}
+    k_q, k_s = kv_quant(k)
+    v_q, v_s = kv_quant(v)
+    return {"k": k_q, "v": v_q, "k_scale": k_s, "v_scale": v_s}
+
+
+def _read_back(cfg: TransformerConfig, leaves: Dict[str, torch.Tensor]):
+    """k/v in the compute dtype from cache leaves (``kv_leaves``'
+    layout, any slice of positions): under ``kv_int8`` dequantized, the
+    quantization roundtrip attention reads."""
+    if not cfg.kv_int8:
+        return leaves["k"], leaves["v"]
+    return (kv_dequant(leaves["k"], leaves["k_scale"], cfg.dtype),
+            kv_dequant(leaves["v"], leaves["v_scale"], cfg.dtype))
 
 
 def _logits(params: Params, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
@@ -82,29 +140,45 @@ def prefill(
     """Process the prompt -> (logits for the last position [b, vocab],
     cache). tokens: [batch, prompt_len] int64 on the params' device.
     Prompts at/above the flash threshold (and 128-aligned) run the flash
-    kernel, GQA-native; shorter ones the plain masked softmax."""
+    kernel, GQA-native and windowed with ``cfg.window``; shorter ones
+    the plain masked softmax. Under ``kv_int8`` attention reads the
+    quantization roundtrip of k/v, exactly what later decode steps read
+    from the cache. A prompt longer than a window's ring keeps its last
+    ``length`` positions, each at slot ``p % length``."""
     check_supported(cfg)
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt_len {s} exceeds max_len {max_len}")
     x = embed_lookup(params, tokens, cfg.dtype)
     cache = init_cache(cfg, b, max_len, device=x.device)
+    length = cache["k"].shape[2]
+    wraps = s > length
+    if wraps:
+        slots = torch.arange(s - length, s, device=x.device) % length
     gqa_flash = flash_eligible(cfg, s, kind="fwd")
     if gqa_flash:
         fq, fk = tuning.pick_blocks("fwd", s)
     for i in range(cfg.n_layers):
         lp = maybe_dequant_layer(layer_params(params, i), cfg.dtype)
         q, k, v = _qkv(x, lp, cfg)
+        writes = kv_leaves(cfg, k, v)
+        k, v = _read_back(cfg, writes)
         if gqa_flash:
-            attn = flash_attention_forward(q, k, v, block_q=fq, block_k=fk)
+            attn = flash_attention_forward(
+                q, k, v, block_q=fq, block_k=fk, window=cfg.window
+            )
         else:
             attn = causal_attention(
-                q, repeat_kv(k, cfg.n_heads), repeat_kv(v, cfg.n_heads)
+                q, repeat_kv(k, cfg.n_heads), repeat_kv(v, cfg.n_heads),
+                window=cfg.window,
             )
         x, _aux = _ffn(_attn_out(x, attn, lp, cfg), lp, cfg)
         # in place: the cache stores the unrepeated kv heads
-        cache["k"][i, :, :s] = k
-        cache["v"][i, :, :s] = v
+        for name, value in writes.items():
+            if wraps:
+                cache[name][i].index_copy_(1, slots, value[:, s - length:])
+            else:
+                cache[name][i, :, :s] = value
     cache["pos"] = s
     return _logits(params, x[:, -1:, :], cfg)[:, 0, :], cache
 
@@ -115,26 +189,53 @@ def decode_chunk(
 ) -> Tuple[torch.Tensor, Cache]:
     """Process m tokens against the cache in one forward (``tokens[:, i]``
     sits at position pos + i) -> (logits [b, m, vocab], cache). Writes
-    the chunk's k/v into the cache in place and advances ``pos``.
+    the chunk's k/v into the cache in place (quantized under
+    ``kv_int8``, and read back through the roundtrip) and advances
+    ``pos``.
 
     Attention over the cache is plain torch, as in the reference (not a
     Pallas kernel there): float32 scores from q * hd**-0.5, NEG_INF mask,
     float32 softmax cast to the compute dtype, value product with float32
-    accumulation. Keys past pos + m are all masked, contribute exactly
-    zero and are not read."""
+    accumulation. A linear cache reads only ``:pos + m`` (later keys are
+    all masked and contribute exactly zero). A window's ring reads every
+    slot, each masked by the newest position it holds
+    (``pos - 1 - ((pos - 1 - j) mod length)``, negative = never
+    written), with the chunk's own k/v concatenated after it, so no
+    query reads a slot the chunk is about to overwrite; a chunk longer
+    than the ring is refused."""
     check_supported(cfg)
     pos = cache["pos"]
     b, m = tokens.shape
     length = cache["k"].shape[2]
-    if pos + m > length:
+    ring = cfg.window > 0
+    if ring and m > length:
+        raise ValueError(
+            f"decode chunk of {m} tokens exceeds the {length}-slot "
+            "window ring; chunk at most `window` tokens"
+        )
+    if not ring and pos + m > length:
         raise ValueError(
             f"cache pos {pos} + {m} tokens exceeds cache length {length}"
         )
     end = pos + m
     dev = tokens.device
     x = embed_lookup(params, tokens, cfg.dtype)  # [b, m, d]
-    q_pos = pos + torch.arange(m, device=dev)
-    valid = torch.arange(end, device=dev)[None, :] <= q_pos[:, None]
+    q_idx = torch.arange(m, device=dev)
+    q_pos = pos + q_idx
+    if ring:
+        ring_pos = pos - 1 - torch.remainder(
+            pos - 1 - torch.arange(length, device=dev), length
+        )
+        ring_ok = (ring_pos[None, :] >= 0) & (
+            ring_pos[None, :] > q_pos[:, None] - cfg.window
+        )
+        chunk_ok = (q_idx[None, :] <= q_idx[:, None]) & (
+            q_idx[:, None] - q_idx[None, :] < cfg.window
+        )
+        valid = torch.cat([ring_ok, chunk_ok], dim=1)
+        slots = torch.remainder(q_pos, length)
+    else:
+        valid = torch.arange(end, device=dev)[None, :] <= q_pos[:, None]
     fused = can_fuse_int8(params["layers"], cfg, rows=b * m)
     kvh, hd = cfg.kv_heads, cfg.head_dim
     group = cfg.n_heads // kvh
@@ -145,10 +246,20 @@ def decode_chunk(
         else:
             lp = maybe_dequant_layer(lp, cfg.dtype)
             q, k, v = _qkv(x, lp, cfg, offset=pos)
-        cache["k"][i, :, pos:end] = k
-        cache["v"][i, :, pos:end] = v
-        keys = cache["k"][i, :, :end]      # [b, end, kv, hd]
-        values = cache["v"][i, :, :end]
+        writes = kv_leaves(cfg, k, v)
+        if ring:
+            k, v = _read_back(cfg, writes)
+            cached_k, cached_v = _read_back(
+                cfg, {name: cache[name][i] for name in writes})
+            keys = torch.cat([cached_k, k], dim=1)    # [b, length + m, kv, hd]
+            values = torch.cat([cached_v, v], dim=1)
+            for name, value in writes.items():
+                cache[name][i].index_copy_(1, slots, value)
+        else:
+            for name, value in writes.items():
+                cache[name][i, :, pos:end] = value
+            keys, values = _read_back(  # [b, end, kv, hd]
+                cfg, {name: cache[name][i, :, :end] for name in writes})
         # GQA without a repeat_kv copy: query head j = kv * group + g
         # reads kv head j // group, the reference's repeat order
         qg = (q.float() * hd ** -0.5).reshape(b, m, kvh, group, hd)
@@ -234,7 +345,8 @@ def chunked_prefill(
     """``prefill`` in fixed-size pieces: the prompt streams through
     ``decode_chunk`` (plain attention, the int8 kernel K2 for quantized
     weights at up to 256 rows a piece) ``piece_plan`` at a time.
-    Numerics match ``prefill``'s masked path."""
+    Numerics match ``prefill``'s masked path. With a sliding window,
+    pieces are capped at the ring length."""
     if chunk_len < 1:
         raise ValueError("chunk_len must be >= 1")
     if tokens.shape[1] > max_len:
@@ -242,6 +354,8 @@ def chunked_prefill(
             f"prompt_len {tokens.shape[1]} exceeds max_len {max_len}"
         )
     cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+    if cfg.window > 0:
+        chunk_len = min(chunk_len, cache["k"].shape[2])
     return extend_pieces(params, cache, tokens, cfg, chunk_len)
 
 
@@ -641,9 +755,14 @@ def generate_from_cache(
     vocab]) pair: the prefix-cache and chunked-prefill serving paths
     (the caller restored, extended or streamed the prompt's cache). Same
     sampling contract as ``generate``; the cache is decoded into in
-    place. Raises when the decode would run past the cache's length."""
+    place. Raises when the decode would run past the cache's length: a
+    linear cache, or a TRUNCATED ring (``window > max_len`` shrank it to
+    ``max_len`` slots, so wrapping would overwrite keys still inside the
+    window). A full ring (length == window) decodes past its length:
+    every slot it overwrites is already outside the window."""
     length = cache["k"].shape[2]
-    if cache["pos"] + max_new_tokens > length:
+    if (cfg.window <= 0 or length < cfg.window) and (
+            cache["pos"] + max_new_tokens > length):
         raise ValueError(
             f"cache pos {cache['pos']} + max_new_tokens {max_new_tokens} "
             f"exceeds cache length {length}"

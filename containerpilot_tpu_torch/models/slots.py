@@ -5,17 +5,24 @@ a step, so a request joins a running decode at the next chunk boundary.
 
 Intended differences from the reference:
 
-- Everything is updated IN PLACE: the pool cache (k/v [L, S, max_len,
-  kv, hd], pos [S]) and the per-slot sampling state are static device
+- Everything is updated IN PLACE: the pool cache (k/v [L, S, kv,
+  length, hd], pos [S]) and the per-slot sampling state are static device
   buffers, which is what lets the step program (``stepprog.py``) capture
   the step in a CUDA graph and replay it.
 - The S rows are one batch of the decode step (``decode_slots_logits``),
   not a vmap of the single-row step: every projection is one [S, d]
   product (the int8 kernel K2 at m = S), and each row's RoPE, k/v write
   and attention mask use that row's own position. Attention runs over
-  the full ``max_len`` masked per row (the shape stays static), as the
-  reference's non-ring ``decode_chunk`` does. The pool keeps heads
-  before positions (k/v [L, S, kv, max_len, hd]).
+  the full row length (``max_len``, or a window's ring) masked per row
+  (the shape stays static). The pool keeps heads before positions (k/v
+  [L, S, kv, length, hd]; under ``kv_int8`` int8 with float32 scales
+  [L, S, kv, length]).
+- A step writes each row's new k/v first and then reads the row at one
+  query, where the reference's ring step concatenates the new k/v after
+  the ring. The two agree because the slot overwritten (position
+  ``pos - length``) is outside the window of a full ring, and a
+  truncated ring (window > max_len) never wraps: the engine refuses a
+  request that would decode past its length.
 - ``state["keys"]`` holds one ``torch.Generator`` per slot (the
   reference's per-slot PRNG keys). Admission re-seeds the slot's
   generator with ``row_seed(seed, 0)``, the seed a solo ``generate``
@@ -30,8 +37,9 @@ Intended differences from the reference:
   compute (and draw) but change nothing a live request reads.
 
 Dead slots (finished, not yet reused) keep decoding garbage; their k/v
-writes clamp to the row's last position and the row is overwritten
-wholesale by the next admission (``insert_row``).
+writes clamp to the row's last position (a ring's wrap within the row)
+and the row is overwritten wholesale by the next admission
+(``insert_row``).
 """
 from __future__ import annotations
 
@@ -48,8 +56,11 @@ from .decode import (
     apply_logit_bias,
     apply_token_penalties,
     count_token,
+    kv_dequant,
+    kv_leaves,
     layer_out,
     mask_eos_before_min,
+    ring_length,
     row_seed,
     sample_logits,
     seed_counts_row,
@@ -190,39 +201,66 @@ def retire_slot(state: dict, slot: int) -> dict:
 @torch.inference_mode()
 def slot_cache(cfg: TransformerConfig, slots: int, max_len: int,
                device="cuda") -> Cache:
-    """A pool of ``slots`` cache rows: k/v [layers, S, kv_heads, max_len,
-    head_dim] in the compute dtype, zeroed, and ``pos`` [S] int64 on the
-    device (each row's tokens cached). Heads come before positions
-    (``prefill``'s row cache is [layers, 1, max_len, kv_heads, head_dim])
-    so every head's keys are one contiguous [max_len, head_dim] block:
-    the pool attention's products read them in place, where a
-    position-major pool would be copied to that order every step."""
+    """A pool of ``slots`` cache rows: k/v [layers, S, kv_heads, length,
+    head_dim], zeroed, with ``length`` = ``max_len`` or a window's ring
+    (``min(window, max_len)``), in the compute dtype or, under
+    ``kv_int8``, int8 with float32 ``k_scale``/``v_scale`` [layers, S,
+    kv_heads, length]; and ``pos`` [S] int64 on the device (each row's
+    tokens cached). Heads come before positions (``prefill``'s row cache
+    is [layers, 1, length, kv_heads, head_dim]) so every head's keys are
+    one contiguous [length, head_dim] block: the pool attention's
+    products read them in place, where a position-major pool would be
+    copied to that order every step."""
     check_supported(cfg)
     dev = resolve_device(device)
-    shape = (cfg.n_layers, slots, cfg.kv_heads, max_len, cfg.head_dim)
-    return {
-        "k": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-        "v": torch.zeros(shape, dtype=cfg.dtype, device=dev),
-        "pos": torch.zeros((slots,), dtype=torch.int64, device=dev),
-    }
+    shape = (cfg.n_layers, slots, cfg.kv_heads, ring_length(cfg, max_len),
+             cfg.head_dim)
+    pool: Cache = {}
+    for name in ("k", "v"):
+        if cfg.kv_int8:
+            pool[name] = torch.zeros(shape, dtype=torch.int8, device=dev)
+            pool[f"{name}_scale"] = torch.zeros(
+                shape[:-1], dtype=torch.float32, device=dev)
+        else:
+            pool[name] = torch.zeros(shape, dtype=cfg.dtype, device=dev)
+    pool["pos"] = torch.zeros((slots,), dtype=torch.int64, device=dev)
+    return pool
 
 
 @torch.inference_mode()
 def insert_row(pool: Cache, row: Cache, slot: int) -> Cache:
     """Copy a freshly prefilled single-row cache (``prefill``'s layout,
-    pos a Python int) into ``slot``, WHOLESALE: the full row and its
-    position, so a reused slot holds nothing of its previous occupant,
-    and the pool never aliases the row (a prefix-cache entry stays
-    standalone)."""
+    pos a Python int) into ``slot``, WHOLESALE: the full row (ring and
+    scales included) and its position, so a reused slot holds nothing
+    of its previous occupant, and the pool never aliases the row (a
+    prefix-cache entry stays standalone)."""
     if row["k"].shape[2] != pool["k"].shape[3]:
         raise ValueError(
             f"row cache length {row['k'].shape[2]} != pool length "
             f"{pool['k'].shape[3]}"
         )
-    pool["k"][:, slot].copy_(row["k"][:, 0].transpose(1, 2))
-    pool["v"][:, slot].copy_(row["v"][:, 0].transpose(1, 2))
+    for name in pool:
+        if name != "pos":
+            # [L, 1, length, kv, ...] -> [L, kv, length, ...]
+            pool[name][:, slot].copy_(row[name][:, 0].transpose(1, 2))
     pool["pos"][slot] = int(row["pos"])
     return pool
+
+
+def pool_mask(pos: torch.Tensor, length: int,
+              cfg: TransformerConfig) -> torch.Tensor:
+    """The keys each row's query at ``pos`` [S] sees, after the step
+    wrote its own k/v -> [S, 1, 1, length] bool, from device tensors
+    only (a captured graph replays it at every position). Linear: slots
+    ``<= pos``. A ring: slot j holds position ``pos - ((pos - j) mod
+    length)`` (negative = never written), kept inside the window."""
+    key = torch.arange(length, device=pos.device)[None, :]
+    if cfg.window <= 0:
+        valid = key <= pos[:, None]
+    else:
+        held = pos[:, None] - torch.remainder(pos[:, None] - key, length)
+        valid = (held >= 0) & (held > pos[:, None] - cfg.window)
+    return valid[:, None, None, :]
 
 
 @torch.inference_mode()
@@ -232,23 +270,26 @@ def decode_slots_logits(
 ) -> torch.Tensor:
     """One decode step of the whole pool: tokens [S] (slot i's token at
     position pool['pos'][i]) -> logits [S, vocab] float32. Writes each
-    row's k/v at its own position, in place (clamped to the row's last
-    position, which only a dead slot reaches), and does NOT advance pos
-    (``round_step`` does). The arithmetic is ``decode_chunk``'s at m = 1
-    per row (``pool_attention``), over the full row length with keys
-    past the row's position masked; on the card the projections are one
-    [S, d] product each (K2 at m = S for quantized weights)."""
-    k_pool, v_pool, pos = pool["k"], pool["v"], pool["pos"]
-    _layers, slots, kvh, length, hd = k_pool.shape
+    row's k/v at its own position, in place (quantized under
+    ``kv_int8``; a linear row clamps at its last position, which only a
+    dead slot reaches; a ring row writes slot ``pos % length``), and
+    does NOT advance pos (``round_step`` does). The arithmetic is
+    ``decode_chunk``'s at m = 1 per row (``pool_attention``), over the
+    full row length masked by ``pool_mask``; on the card the
+    projections are one [S, d] product each (K2 at m = S for quantized
+    weights)."""
+    pos = pool["pos"]
+    _layers, slots, kvh, length, hd = pool["k"].shape
     dev = tokens.device
     x = embed_lookup(params, tokens[:, None], cfg.dtype)  # [S, 1, d]
-    key_pos = torch.arange(length, device=dev)
-    valid = (key_pos[None, :] <= pos[:, None])[:, None, None, :]
-    # row (slot, head, position) of the pool's [S * kv * max_len, hd] view
+    valid = pool_mask(pos, length, cfg)
+    at = (torch.remainder(pos, length) if cfg.window > 0
+          else torch.clamp(pos, max=length - 1))
+    # row (slot, head, position) of the pool's [S * kv * length, ...] view
     rows = (
         (torch.arange(slots, device=dev)[:, None] * kvh
          + torch.arange(kvh, device=dev)[None, :]) * length
-        + torch.clamp(pos, max=length - 1)[:, None]
+        + at[:, None]
     ).reshape(-1)
     fused = can_fuse_int8(params["layers"], cfg, rows=slots)
     for i in range(cfg.n_layers):
@@ -258,9 +299,14 @@ def decode_slots_logits(
         else:
             lp = maybe_dequant_layer(lp, cfg.dtype)
             q, k, v = _qkv(x, lp, cfg, offset=pos)
-        k_pool[i].view(-1, hd).index_copy_(0, rows, k.reshape(-1, hd))
-        v_pool[i].view(-1, hd).index_copy_(0, rows, v.reshape(-1, hd))
-        attn = pool_attention(q, k_pool[i], v_pool[i], valid, cfg)
+        for name, value in kv_leaves(cfg, k, v).items():
+            flat = pool[name][i].view(-1, *value.shape[3:])
+            flat.index_copy_(0, rows, value.reshape(-1, *value.shape[3:]))
+        keys, values = pool["k"][i], pool["v"][i]
+        if cfg.kv_int8:
+            keys = kv_dequant(keys, pool["k_scale"][i], cfg.dtype)
+            values = kv_dequant(values, pool["v_scale"][i], cfg.dtype)
+        attn = pool_attention(q, keys, values, valid, cfg)
         x = layer_out(x, attn, lp, cfg, fused)
     return _logits(params, x, cfg)[:, 0, :]
 
@@ -271,11 +317,11 @@ def pool_attention(
 ) -> torch.Tensor:
     """``decode_chunk``'s attention at one query a row, on the pool's
     head-major layout: q [S, 1, h, hd],
-    keys/values [S, kv, max_len, hd], ``valid`` [S, 1, 1, max_len]. The
-    same arithmetic: float32 scores from q * hd**-0.5 and float32 keys,
-    NEG_INF mask, float32 softmax cast to the compute dtype, value
-    product with float32 accumulation; query head j = kv * group + g
-    reads kv head j // group."""
+    keys/values [S, kv, length, hd] in the compute dtype, ``valid``
+    [S, 1, 1, length]. The same arithmetic: float32 scores from
+    q * hd**-0.5 and float32 keys, NEG_INF mask, float32 softmax cast to
+    the compute dtype, value product with float32 accumulation; query
+    head j = kv * group + g reads kv head j // group."""
     slots, kvh, _length, hd = keys.shape
     qg = (q.float() * hd ** -0.5).reshape(slots, kvh, -1, hd)
     scores = torch.matmul(qg, keys.float().transpose(-1, -2))

@@ -2,9 +2,9 @@
 ``containerpilot_tpu/models/stepprog.py``).
 
 A step program owns the device state of a fixed pool of S slots (the
-pool cache, the per-slot sampling state, the window buffers) with
-static shapes per ``(config, S, chunk, K)``, and exposes the
-reference's verbs:
+pool cache, with a window's ring and the int8 cache's scales, the
+per-slot sampling state, the window buffers) with static shapes per
+``(config, S, chunk, K)``, and exposes the reference's verbs:
 
 - ``admit(slot, req, logits, row_cache)``: sample token 0 from the
   engine's prefill (one draw from the slot's re-seeded generator), copy
@@ -32,6 +32,10 @@ pinned buffers, enqueued right after its replays, with an event that
 graph's static token buffer without racing the previous window's copy.
 There is no fallback: on CUDA the program captures or raises. On the
 CPU it runs the same round eagerly.
+
+The graph reads every position from the pool's device ``pos`` (RoPE,
+the write slot, the ring mask), never from a host value, so one capture
+serves every admission at every position.
 
 Each slot's torch.Generator is registered with the graph, so a replay
 draws each slot's stream from its generator's current state and
@@ -203,8 +207,8 @@ class PlainStepProgram:
         if self.device.type == "cuda":
             # a failed dispatch may leave copies in flight on the handles
             torch.cuda.synchronize(self.device)
-        for name in ("k", "v", "pos"):
-            self._pool[name].zero_()
+        for leaf in self._pool.values():
+            leaf.zero_()
         clear_slot_state(self._state)
         self._win["budget"].zero_()
         begin_window(self._state, self._win, force=False)

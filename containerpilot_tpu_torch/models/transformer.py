@@ -100,16 +100,12 @@ FLASH_BLOCK = 128
 
 
 def check_supported(cfg: TransformerConfig) -> None:
-    """The model features this slice of the port does not run yet."""
-    for flag, name, item in (
-        (cfg.moe_experts > 0, "moe_experts > 0", "mixture-of-experts"),
-        (cfg.window > 0, "window > 0", "window ring and kv_int8 decode"),
-        (cfg.kv_int8, "kv_int8", "window ring and kv_int8 decode"),
-    ):
-        if flag:
-            raise NotImplementedError(
-                f"{name} is not ported yet (ROADMAP.md queue 1: {item})"
-            )
+    """The model features this port does not run yet."""
+    if cfg.moe_experts > 0:
+        raise NotImplementedError(
+            "moe_experts > 0 is not ported yet (ROADMAP.md queue 1: "
+            "mixture-of-experts)"
+        )
 
 
 def flash_eligible(cfg: TransformerConfig, seq: int, kind: str = "train") -> bool:

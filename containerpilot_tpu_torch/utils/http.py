@@ -1,17 +1,27 @@
-"""Minimal asyncio HTTP/1.1 server with keep-alive: the plain part of
-``containerpilot_tpu/utils/http.py`` (the port keeps its own copy; the
-cp-mux/1 upgrade, streaming responses and tracing hooks are not ported
-yet).
+"""Minimal asyncio HTTP/1.1 server with keep-alive and streaming
+responses: the plain part of ``containerpilot_tpu/utils/http.py`` (the
+port keeps its own copy; the cp-mux/1 upgrade and the tracing hooks are
+not ported yet).
 
 Buffered responses are Content-Length-framed and the connection stays
 open unless the client asks to close (HTTP/1.0 without keep-alive, or
-``Connection: close``). Protocol errors (400/408) answer and close.
+``Connection: close``). A ``StreamingResponse`` is close-delimited and
+ends its connection. Protocol errors (400/408) answer and close.
 """
 from __future__ import annotations
 
 import asyncio
 import logging
-from typing import Awaitable, Callable, Dict, Optional, Set, Tuple
+from typing import (
+    AsyncIterator,
+    Awaitable,
+    Callable,
+    Dict,
+    Optional,
+    Set,
+    Tuple,
+    Union,
+)
 from urllib.parse import urlsplit
 
 log = logging.getLogger("containerpilot.http")
@@ -58,7 +68,36 @@ _REASONS = {
     503: "Service Unavailable",
 }
 
-Handler = Callable[[Request], Awaitable[Response]]
+
+class StreamingResponse:
+    """A response whose body arrives incrementally from an async
+    iterator of byte chunks (SSE events). Sent with ``Connection:
+    close`` and no Content-Length: the closing connection delimits the
+    stream, so a stream always ends its connection.
+
+    A client disconnect is seen at once (the request side of the socket
+    reaches EOF) and the iterator is ``aclose()``d, so a handler
+    generator's ``finally`` can release what the request holds (free a
+    slot mid-generation). ``close`` is called however the stream ends,
+    also when the iterator never started (``aclose()`` of an unstarted
+    async generator skips its body), so it must be idempotent."""
+
+    def __init__(
+        self,
+        chunks: AsyncIterator[bytes],
+        status: int = 200,
+        content_type: str = "text/event-stream",
+        headers: Optional[Dict[str, str]] = None,
+        close: Optional[Callable[[], None]] = None,
+    ) -> None:
+        self.status = status
+        self.chunks = chunks
+        self.content_type = content_type
+        self.headers = headers or {}
+        self.close = close
+
+
+Handler = Callable[[Request], Awaitable[Union[Response, StreamingResponse]]]
 
 
 class HTTPServer:
@@ -169,6 +208,10 @@ class HTTPServer:
                 # a boundary that must keep serving: log, answer 500
                 log.exception("request handling failed")
                 response = Response(500, b"internal server error\n")
+            if isinstance(response, StreamingResponse):
+                # close-delimited by contract; ends the connection
+                await self._write_stream(reader, writer, response)
+                return
             if not await self._write_response(writer, response, close=not keep):
                 return
             if not keep:
@@ -194,6 +237,75 @@ class HTTPServer:
             return True
         except (ConnectionError, BrokenPipeError):
             return False
+
+    async def _write_stream(self, reader: asyncio.StreamReader,
+                            writer: asyncio.StreamWriter,
+                            response: StreamingResponse) -> None:
+        """Send the head, then relay chunks as they arrive; stop the
+        moment the client goes away. Each chunk wait races a read on the
+        request side of the socket: EOF there is the earliest reliable
+        disconnect signal (a write fails only later)."""
+        async def client_gone() -> None:
+            # only EOF means the client left: a pipelined request puts
+            # bytes on the read side and must not abort the stream
+            while await reader.read(65536):
+                pass
+
+        chunks = response.chunks
+        gone = asyncio.ensure_future(client_gone())
+        try:
+            reason = _REASONS.get(response.status, "Unknown")
+            headers = {
+                "Content-Type": response.content_type,
+                "Cache-Control": "no-store",
+                "Connection": "close",
+                **response.headers,
+            }
+            head = f"HTTP/1.1 {response.status} {reason}\r\n" + "".join(
+                f"{k}: {v}\r\n" for k, v in headers.items()
+            )
+            writer.write(head.encode() + b"\r\n")
+            await writer.drain()
+            while True:
+                nxt = asyncio.ensure_future(chunks.__anext__())
+                await asyncio.wait({nxt, gone},
+                                   return_when=asyncio.FIRST_COMPLETED)
+                if gone.done():
+                    nxt.cancel()
+                    try:
+                        await nxt
+                    except (StopAsyncIteration, asyncio.CancelledError,
+                            Exception):
+                        pass
+                    break
+                writer.write(nxt.result())  # raises StopAsyncIteration
+                await writer.drain()
+        except StopAsyncIteration:
+            pass
+        except (ConnectionError, BrokenPipeError):
+            pass
+        except Exception:
+            log.exception("stream write failed")
+        finally:
+            gone.cancel()
+            try:
+                await gone
+            except (asyncio.CancelledError, Exception):
+                pass
+            try:
+                await chunks.aclose()  # run the generator's cleanup
+            except Exception:
+                log.exception("stream close failed")
+            if response.close is not None:
+                try:
+                    response.close()
+                except Exception:
+                    log.exception("stream close callback failed")
+            try:
+                writer.close()
+                await writer.wait_closed()
+            except Exception:
+                pass
 
     async def _read_request(self, reader: asyncio.StreamReader,
                             request_line: bytes):

@@ -13,8 +13,8 @@ N``) and prints one JSON line:
 ``--eval-holdout`` is required and must equal the trainer's value. The
 loss is ``modelcfg.average_eval_loss``, the trainer's in-loop eval, so
 the numbers are comparable by construction. Only the params leave disk
-(the checkpoint is memory-mapped). ``--lora-dir``/``--lora-rank``,
-``--window`` and ``--moe-experts`` are not ported yet and exit.
+(the checkpoint is memory-mapped). ``--lora-dir``/``--lora-rank`` and
+``--moe-experts`` are not ported yet and exit.
 """
 from __future__ import annotations
 
@@ -37,6 +37,9 @@ def main(argv=None) -> int:
     parser.add_argument("--n-kv-heads", type=int, default=0)
     parser.add_argument("--vocab", type=int, default=32_000)
     parser.add_argument("--loss-chunk", type=int, default=0)
+    parser.add_argument("--window", type=int, default=0,
+                        help="sliding-window attention (must match the "
+                        "checkpoint)")
     parser.add_argument(
         "--eval-holdout", type=int, required=True,
         help="score the dataset's LAST N windows; MUST equal the trainer's "
@@ -49,13 +52,12 @@ def main(argv=None) -> int:
     not_ported = parser.add_argument_group(
         "reference flags not ported yet (any value but the default exits)"
     )
-    not_ported.add_argument("--window", type=int, default=0)
     not_ported.add_argument("--moe-experts", type=int, default=0)
     not_ported.add_argument("--lora-dir", default="")
     not_ported.add_argument("--lora-rank", type=int, default=0)
     args = parser.parse_args(argv)
     for flag, value, default in (
-        ("--window", args.window, 0), ("--moe-experts", args.moe_experts, 0),
+        ("--moe-experts", args.moe_experts, 0),
         ("--lora-dir", args.lora_dir, ""), ("--lora-rank", args.lora_rank, 0),
     ):
         if value != default:
@@ -80,6 +82,7 @@ def main(argv=None) -> int:
         d_ff=derive_d_ff(args.d_model),
         max_seq_len=args.seq_len,
         loss_chunk=args.loss_chunk,
+        window=args.window,
     )
     restored = restore_params(
         args.checkpoint_dir, abstract_train_state(cfg),

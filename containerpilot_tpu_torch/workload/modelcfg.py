@@ -1,7 +1,8 @@
-"""The flag, request and eval helpers the server and the trainer share
-(counterparts of ``containerpilot_tpu/workload/modelcfg.py``'s
-``derive_d_ff``, ``parse_logit_bias``, ``parse_stop_ids`` and
-``average_eval_loss``; the port keeps its own)."""
+"""The flag, request, scoring and eval helpers the server and the
+trainer share (counterparts of ``containerpilot_tpu/workload/modelcfg.py``'s
+``derive_d_ff``, ``parse_logit_bias``, ``parse_stop_ids``,
+``score_logprobs_fn`` and ``average_eval_loss``; the port keeps its
+own)."""
 from __future__ import annotations
 
 from typing import Any, Callable
@@ -10,13 +11,34 @@ import numpy as np
 import torch
 
 from ..models.decode import BIAS_SLOTS_MAX
-from ..models.transformer import loss_fn
+from ..models.transformer import FLASH_BLOCK, forward, loss_fn
 
 
 def derive_d_ff(d_model: int) -> int:
     """The shared SwiGLU width rule: ~3x d_model, floored to a 128
     multiple, never 0."""
     return d_model * 3 // 128 * 128 or 128
+
+
+def score_logprobs_fn(cfg: Any) -> Callable:
+    """The one teacher-forced scoring function: ``score(params, toks)``
+    -> per-token logprobs [b, n - 1] float32 of toks[:, 1:] from a
+    forward over toks[:, :-1] (a float32 log-softmax, then a gather).
+    The forward's length is padded to a multiple of the flash block, so
+    a long row takes the flash kernel (K1 on the card); causal attention
+    leaves every real position unchanged by the pad."""
+
+    @torch.inference_mode()
+    def score(params, toks: torch.Tensor) -> torch.Tensor:
+        s = toks.shape[1] - 1
+        inputs = torch.nn.functional.pad(
+            toks[:, :-1], (0, -s % FLASH_BLOCK)
+        )
+        logits = forward(params, inputs, cfg)[:, :s]
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        return torch.gather(logp, -1, toks[:, 1:, None].long())[..., 0]
+
+    return score
 
 
 def parse_logit_bias(raw: Any, vocab_size: int):

@@ -6,6 +6,12 @@ API (token-level):
     POST /v1/generate {"tokens": [[1,2,3]], "max_new_tokens": 16,
                        "temperature": 0.0, "n": 1, ...}
         -> {"tokens": [[...generated ids...]]}
+        ("logprobs": true echoes per-token logprobs of the trimmed
+        generated ids; "stream": true, with --slots, answers with SSE
+        events {"tokens": [delta]} ... {"done": true, "count": n})
+    POST /v1/score {"tokens": [[...]]}
+        -> {"logprobs": [[lp(t1|t0), lp(t2|t0..1), ...]],
+            "sums": [total lp per row]}   (teacher-forced scoring)
     GET /health   -> 200 once warm
     GET /v1/model -> config summary (the reference's schema; the
                      features not ported yet report None)
@@ -19,11 +25,11 @@ the continuous batcher (serve_batcher.py) into ``models.decode.generate``.
 Generation runs on worker threads, so the event loop (health checks
 included) never waits on the device. Every CUDA graph of the slot engine
 is captured while the server is built, before ``/health`` turns 200.
-The other reference routes (SSE streaming, /v1/score, /metrics,
-/v1/completions, the fleet and KV verbs) answer 404 until they are
-ported (ROADMAP.md). Unlike the reference, ``max_new_tokens`` is not
-bucketed to a multiple of 16 (eager torch compiles nothing); the
-trimmed output is the same.
+The other reference routes (/metrics, /v1/completions, the fleet and KV
+verbs) answer 404, and ``beam_width`` a 422, until they are ported
+(ROADMAP.md). Unlike the reference, ``max_new_tokens`` is not bucketed
+to a multiple of 16 (eager torch compiles nothing); the trimmed output
+is the same.
 
 ``python -m containerpilot_tpu_torch.workload.serve`` runs the CLI
 (serve_cli.py).
@@ -33,18 +39,19 @@ from __future__ import annotations
 import asyncio
 import json
 import logging
+import threading
 import time
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import torch
 
 from .. import resolve_device
 from ..models.decode import generate
 from ..models.transformer import TransformerConfig
-from ..utils.http import HTTPServer, Request, Response
+from ..utils.http import HTTPServer, Request, Response, StreamingResponse
 from . import serve_strategies
-from .modelcfg import parse_logit_bias, parse_stop_ids
+from .modelcfg import parse_logit_bias, parse_stop_ids, score_logprobs_fn
 from .serve_batcher import Batcher, GenJob
 from .serve_cli import main  # noqa: F401  (one import path for the CLI)
 from .serve_prefix import MIN_REUSE, PrefixCache, generate_with_prefix
@@ -95,6 +102,7 @@ class InferenceServer:
         slots: int = 0,
         slot_chunk: int = 8,
         slot_window: int = 4,
+        checkpoint: Optional[Dict[str, Any]] = None,
     ) -> None:
         self.device = resolve_device(device)
         if params["norm_out"].device != self.device:
@@ -111,6 +119,15 @@ class InferenceServer:
         # time.monotonic() when /health turned 200 (None before)
         self.ready_at = None
         self.max_batch_rows = max_batch_rows
+        # what the weights came from: {"step": n, "ema": bool} for a
+        # restored checkpoint, None for the seeded initialization
+        self.checkpoint = checkpoint
+        if prefix_cache_entries > 0 and cfg.window > 0:
+            raise ValueError(
+                "--prefix-cache does not compose with --window (a "
+                "ring cache's stale rows are live window context, so "
+                "a shorter-prefix rewind cannot reuse them)"
+            )
         if prefill_chunk < 0:
             raise ValueError("prefill_chunk must be >= 0")
         # prompts longer than this stream through decode_chunk pieces
@@ -158,6 +175,8 @@ class InferenceServer:
         self._server.route("GET", "/health", self._health)
         self._server.route("GET", "/v1/model", self._model_info)
         self._server.route("POST", "/v1/generate", self._generate)
+        self._server.route("POST", "/v1/score", self._score)
+        self._score_fn = score_logprobs_fn(cfg)
         self._batcher = Batcher(
             params, cfg, max_len, max_batch_rows, self._executor
         )
@@ -178,6 +197,7 @@ class InferenceServer:
             "n_kv_heads": self.cfg.kv_heads,
             "n_layers": self.cfg.n_layers,
             "max_len": self.max_len,
+            "checkpoint": self.checkpoint,
             "mesh": None,
             "text": False,
             "speculative": None,
@@ -200,7 +220,7 @@ class InferenceServer:
                 self.slot_engine.stats
                 if self.slot_engine is not None else None
             ),
-            "stream": False,
+            "stream": self.slot_engine is not None,
             "draining": False,
             "cp": None,
             "device": str(self.device),
@@ -227,14 +247,14 @@ class InferenceServer:
             "logit_bias": parse_logit_bias(
                 body.get("logit_bias"), self.cfg.vocab_size
             ),
+            "logprobs": bool(body.get("logprobs", False)),
+            "beam_width": int(body.get("beam_width", 0)),
         }
-        for key, what in (("beam_width", "beam search"),
-                          ("logprobs", "logprobs"),
-                          ("stream", "SSE streaming")):
-            if body.get(key):
-                raise ValueError(
-                    f"{what} is not ported yet (ROADMAP.md queue 1)"
-                )
+        if p["beam_width"] and not body.get("stream"):
+            # a stream refuses beams with the reference's own message
+            raise ValueError(
+                "beam search is not ported yet (ROADMAP.md queue 1)"
+            )
         p["n"] = int(body.get("n", 1))
         if not 1 <= p["n"] <= self.max_batch_rows:
             raise ValueError(
@@ -300,23 +320,160 @@ class InferenceServer:
             out.append(row[:cut])
         return out
 
-    async def _generate(self, req: Request) -> Response:
+    async def _generate(self, req: Request):
         try:
             body = json.loads(req.body.decode() or "{}")
             tokens, prompt_len = _parse_token_rows(
                 body, self.cfg.vocab_size, min_row_len=1
             )
             p = self._parse_sampling(body, tokens, prompt_len)
+            stream = bool(body.get("stream", False))
             if p["n"] > 1:
+                if stream:
+                    # the client sent ONE row; blame the actual conflict
+                    raise ValueError(
+                        "n does not compose with stream (one SSE "
+                        "stream carries one row)"
+                    )
                 # one prompt, n samples; row i draws from (seed, i)
                 tokens = [list(tokens[0]) for _ in range(p["n"])]
+            if stream:
+                return self._stream_response(tokens, p)
         except (ValueError, KeyError, TypeError) as exc:
             return Response(422, f"{exc}\n".encode())
         generated = await self._dispatch_generate(tokens, prompt_len, p)
         generated = self._trim(generated, p["max_new_requested"], p["eos_id"])
         generated = self._trim_stops(generated, p["stop"])
+        payload: Dict[str, Any] = {"tokens": generated}
+        if p["logprobs"]:
+            payload["logprobs"] = await asyncio.get_running_loop(
+            ).run_in_executor(
+                self._executor, self._echo_logprobs, tokens, generated
+            )
         return Response(
-            200, json.dumps({"tokens": generated}).encode(),
+            200, json.dumps(payload).encode(),
+            content_type="application/json",
+        )
+
+    def _stream_response(
+        self, tokens: List[List[int]], p: Dict[str, Any]
+    ) -> StreamingResponse:
+        """SSE token streaming over the slot engine's window boundaries:
+        each emitted delta is one ``data:`` event and the last event
+        carries ``done``; the deltas concatenate to the non-streamed
+        row (the engine's emission is the trimmed output). The engine's
+        worker thread hands deltas to the event loop with
+        ``call_soon_threadsafe``. A client disconnect sets the
+        request's cancel, and the engine frees the slot at the next
+        window boundary instead of decoding to the end."""
+        if len(tokens) != 1:
+            raise ValueError("stream serves a single row per request")
+        if self.slot_engine is None:
+            raise ValueError(
+                "stream requires --slots (token streaming rides the "
+                "slot engine's chunk boundaries)"
+            )
+        for knob, why in (
+            ("logprobs", "echo logprobs need the full row"),
+            ("beam_width", "beams have no incremental prefix"),
+            ("stop", "stop sequences need whole-row trimming"),
+        ):
+            if p[knob]:
+                raise ValueError(
+                    f"stream does not compose with {knob} ({why})"
+                )
+        loop = asyncio.get_running_loop()
+        deltas: "asyncio.Queue" = asyncio.Queue()
+        finished = object()
+        cancel = threading.Event()
+
+        def on_tokens(delta: List[int]) -> None:  # the engine's thread
+            loop.call_soon_threadsafe(deltas.put_nowait, delta)
+
+        fut = self.slot_engine.submit(
+            tokens[0], p["max_new_requested"],
+            temperature=p["temperature"], top_k=p["top_k"],
+            top_p=p["top_p"], eos_id=p["eos_id"], seed=p["seed"],
+            min_new=p["min_new"], presence_penalty=p["presence"],
+            frequency_penalty=p["frequency"], logit_bias=p["logit_bias"],
+            on_tokens=on_tokens, cancel=cancel,
+        )
+        fut.add_done_callback(
+            lambda _f: loop.call_soon_threadsafe(deltas.put_nowait, finished)
+        )
+
+        def sse(payload: Dict[str, Any]) -> bytes:
+            return b"data: " + json.dumps(payload).encode() + b"\n\n"
+
+        async def events():
+            sent = 0
+            try:
+                while True:
+                    delta = await deltas.get()
+                    if delta is finished:
+                        break
+                    sent += len(delta)
+                    yield sse({"tokens": delta})
+                yield sse({"done": True, "count": sent})
+            finally:
+                cancel.set()  # completion, or the client left
+
+        # cancel.set is idempotent: it also covers a disconnect before
+        # the generator ever started
+        return StreamingResponse(events(), close=cancel.set)
+
+    def _echo_logprobs(
+        self, prompts: List[List[int]], generated: List[List[int]]
+    ) -> List[List[float]]:
+        """Per-token logprobs of the TRIMMED generated ids, from one
+        teacher-forced pass over prompt + generated (runs on the
+        inference thread). Rows pad to the longest with zeros: causal
+        attention leaves the real positions unchanged. With
+        ``--kv-int8`` the echo is approximate: the scorer reads full
+        precision k/v where decode read the quantized cache."""
+        rows = [q + g for q, g in zip(prompts, generated)]
+        width = max(len(r) for r in rows)
+        padded = torch.tensor(
+            [r + [0] * (width - len(r)) for r in rows], dtype=torch.int64,
+            device=self.device,
+        )
+        picked = self._score_fn(self.params, padded).cpu().double().numpy()
+        out: List[List[float]] = []
+        for row_lp, prompt, gen in zip(picked, prompts, generated):
+            # lp[i] scores token i + 1; generated token j sits at
+            # len(prompt) + j
+            start = len(prompt) - 1
+            out.append([round(float(x), 6)
+                        for x in row_lp[start:start + len(gen)]])
+        return out
+
+    async def _score(self, req: Request) -> Response:
+        """Teacher-forced per-token logprobs of the given sequences (no
+        sampling)."""
+        try:
+            body = json.loads(req.body.decode() or "{}")
+            tokens, row_len = _parse_token_rows(
+                body, self.cfg.vocab_size, min_row_len=2
+            )
+            if row_len > self.max_len:
+                raise ValueError(f"row length exceeds max_len {self.max_len}")
+        except (ValueError, KeyError, TypeError) as exc:
+            return Response(422, f"{exc}\n".encode())
+
+        def run() -> Any:
+            toks = torch.tensor(tokens, dtype=torch.int64, device=self.device)
+            return self._score_fn(self.params, toks).cpu().double().numpy()
+
+        picked = await asyncio.get_running_loop().run_in_executor(
+            self._executor, run
+        )
+        return Response(
+            200,
+            json.dumps({
+                "logprobs": [[round(float(x), 6) for x in row]
+                             for row in picked],
+                "sums": [round(float(row.sum()), 6) for row in picked],
+            }).encode(),
             content_type="application/json",
         )
 

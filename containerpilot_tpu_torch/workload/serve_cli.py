@@ -3,13 +3,18 @@
 
 ``python -m containerpilot_tpu_torch.workload.serve`` lands here. The
 flags the port runs: --host, --port, --max-len, --d-model, --n-layers,
---n-heads, --n-kv-heads, --vocab, --int8, --max-batch-rows,
---prefill-chunk, --prefix-cache, --slots, --slot-chunk, --slot-window,
-and --device (default cuda; the part JAX_PLATFORMS plays for the
-reference). Every other reference flag is accepted with
-its reference default and exits with a "not ported yet" message when
-set to anything else. Weights come from a seeded initialization
-(checkpoints are a later slice).
+--n-heads, --n-kv-heads, --window, --vocab, --checkpoint-dir,
+--use-ema, --int8, --kv-int8, --max-batch-rows, --prefill-chunk,
+--prefix-cache, --slots, --slot-chunk, --slot-window, and --device
+(default cuda; the part JAX_PLATFORMS plays for the reference). Every
+other reference flag is accepted with its reference default and exits
+with a "not ported yet" message when set to anything else.
+
+Weights come from the latest ``step_<n>/`` checkpoint of the port's
+trainer under --checkpoint-dir (params only: the optimizer moments stay
+on disk; the EMA shadow with --use-ema), or from a seeded
+initialization when there is none. Model flags that disagree with the
+checkpoint fail at startup.
 """
 from __future__ import annotations
 
@@ -21,10 +26,6 @@ from typing import Any, Dict, Tuple
 _NOT_PORTED: Dict[str, Tuple[str, Any]] = {
     "mux": ("--mux", True),
     "moe_experts": ("--moe-experts", 0),
-    "window": ("--window", 0),
-    "checkpoint_dir": ("--checkpoint-dir", ""),
-    "use_ema": ("--use-ema", False),
-    "kv_int8": ("--kv-int8", False),
     "lora_dir": ("--lora-dir", ""),
     "lora_rank": ("--lora-rank", 0),
     "draft_layers": ("--draft-layers", 0),
@@ -58,11 +59,30 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--n-layers", type=int, default=2)
     parser.add_argument("--n-heads", type=int, default=4)
     parser.add_argument("--n-kv-heads", type=int, default=0,
-                        help="GQA kv heads (0 = full multi-head)")
+                        help="GQA kv heads (0 = full multi-head); must "
+                        "match the checkpoint being served")
+    parser.add_argument("--window", type=int, default=0,
+                        help="sliding-window attention; must match the "
+                        "checkpoint being served. Decode KV memory "
+                        "becomes a ring of `window` slots")
     parser.add_argument("--vocab", type=int, default=1024)
+    parser.add_argument(
+        "--checkpoint-dir", default="",
+        help="load trained params from the latest checkpoint",
+    )
+    parser.add_argument(
+        "--use-ema", action="store_true",
+        help="serve the EMA shadow weights from the checkpoint "
+        "(trained with --ema-decay) instead of the raw params",
+    )
     parser.add_argument(
         "--int8", action="store_true",
         help="weight-only int8; decode projections run the int8 kernel",
+    )
+    parser.add_argument(
+        "--kv-int8", action="store_true",
+        help="int8 KV cache: halves decode KV memory vs bf16 "
+        "(per-token-per-head scales; composes with GQA and --window)",
     )
     parser.add_argument(
         "--max-batch-rows", type=int, default=16,
@@ -131,15 +151,20 @@ def check_ported(args: argparse.Namespace) -> None:
 
 
 def load_model(args: argparse.Namespace):
-    """-> (cfg, params) per the flags: seeded float32 masters,
-    quantized under --int8 (on the masters), then cast once to the
-    compute dtype."""
+    """-> (cfg, params, checkpoint) per the flags: float32 masters from
+    the latest checkpoint under --checkpoint-dir (its EMA shadow with
+    --use-ema, the raw params with a warning when it has none) or, with
+    no checkpoint there, seeded; quantized under --int8 (on the
+    masters), then cast once to the compute dtype. ``checkpoint`` is
+    {"step", "ema"} of what was restored, None for the seeded init."""
+    from .. import resolve_device
     from ..models.quantized import (
         cast_params,
         param_bytes,
         quantize_model_params,
     )
     from ..models.transformer import TransformerConfig, init_params
+    from ..parallel import abstract_train_state, restore_params
     from .modelcfg import derive_d_ff
 
     cfg = TransformerConfig(
@@ -150,8 +175,23 @@ def load_model(args: argparse.Namespace):
         n_layers=args.n_layers,
         d_ff=derive_d_ff(args.d_model),
         max_seq_len=args.max_len,
+        window=args.window,
+        kv_int8=args.kv_int8,
     )
-    params = init_params(0, cfg, device=args.device)
+    params, checkpoint = None, None
+    if args.checkpoint_dir:
+        # params only: serving never pays train-state memory
+        restored = restore_params(
+            args.checkpoint_dir, abstract_train_state(cfg),
+            prefer_ema=args.use_ema, device=resolve_device(args.device),
+        )
+        if restored is not None:
+            params, step = restored
+            checkpoint = {"step": int(step), "ema": restored.ema}
+            print(f"serving checkpoint step {step}"
+                  + (" (EMA weights)" if restored.ema else ""))
+    if params is None:
+        params = init_params(0, cfg, device=args.device)
     if args.int8:
         dense = param_bytes(cast_params(params, cfg.dtype))
         params = quantize_model_params(params)
@@ -160,7 +200,7 @@ def load_model(args: argparse.Namespace):
             f"int8: resident params {dense} -> {quant} bytes "
             f"({dense / quant:.1f}x smaller)"
         )
-    return cfg, cast_params(params, cfg.dtype)
+    return cfg, cast_params(params, cfg.dtype), checkpoint
 
 
 def main(argv=None) -> int:
@@ -174,9 +214,10 @@ def main(argv=None) -> int:
     )
     args = build_arg_parser().parse_args(argv)
     check_ported(args)
-    cfg, params = load_model(args)
+    cfg, params, checkpoint = load_model(args)
     server = InferenceServer(
         cfg, params, args.host, args.port, args.max_len,
+        checkpoint=checkpoint,
         max_batch_rows=args.max_batch_rows, device=args.device,
         prefix_cache_entries=args.prefix_cache,
         prefill_chunk=args.prefill_chunk, slots=args.slots,

@@ -127,13 +127,14 @@ def plan_reuse(pc: PrefixCache, row: List[int]):
 
 def _rewound_copy(base: Any, reuse: int) -> dict:
     """A fresh row cache holding ``base``'s first ``reuse`` positions
-    (zeros past them, as a fresh cache has) at pos ``reuse``: the stored
-    entry is never written."""
+    (k/v, and their scales under kv_int8; zeros past them, as a fresh
+    cache has) at pos ``reuse``: the stored entry is never written."""
     out = {"pos": reuse}
-    for name in ("k", "v"):
-        fresh = torch.zeros_like(base[name])
-        fresh[:, :, :reuse].copy_(base[name][:, :, :reuse])
-        out[name] = fresh
+    for name, leaf in base.items():
+        if name != "pos":
+            fresh = torch.zeros_like(leaf)
+            fresh[:, :, :reuse].copy_(leaf[:, :, :reuse])
+            out[name] = fresh
     return out
 
 
@@ -215,7 +216,8 @@ def generate_with_prefix(
         srv.prefix_cache, row, srv.cfg, srv.params, srv.max_len,
         srv.prefill_chunk,
     )
-    cache = {**stored, "k": stored["k"].clone(), "v": stored["v"].clone()}
+    cache = {name: leaf if name == "pos" else leaf.clone()
+             for name, leaf in stored.items()}
     srv.batch_stats["calls"] += 1
     srv.batch_stats["rows"] += 1
     out = generate_from_cache(

@@ -125,6 +125,17 @@ class SlotEngine:
         # reuse_admission extends a copy and insert_row copies the row
         # into the pool
         self.prefix_cache = prefix_cache
+        if prefix_cache is not None and cfg.window > 0:
+            raise ValueError(
+                "prefix cache does not compose with sliding "
+                "windows (a ring cache's stale rows are live "
+                "window context)"
+            )
+        # sliding windows compose: each slot's ring is row-local and
+        # admission copies the prefilled row wholesale (insert_row), so
+        # a reused slot carries no context of its previous occupant;
+        # chunked admission caps its pieces at the ring
+        # (chunked_prefill)
         # dispatch accounting (the dispatches/token series): one bump per
         # device dispatch (an admission counts one), one add per token
         self.dispatches = 0

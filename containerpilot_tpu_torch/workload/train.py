@@ -22,8 +22,8 @@ jit-compiled here (the CUDA kernels build once into ``build/kernels``).
     python -m containerpilot_tpu_torch.workload.train --steps 20
 
 Reference flags for work that is not ported yet (LoRA, pipeline and
-tensor parallelism with its microbatches, zero1, fsdp, MoE, sliding
-windows) exit with "not ported yet" when set.
+tensor parallelism with its microbatches, zero1, fsdp, MoE) exit with
+"not ported yet" when set.
 """
 from __future__ import annotations
 
@@ -50,7 +50,6 @@ _NOT_PORTED = {
     "fsdp": ("--fsdp", False),
     "moe_experts": ("--moe-experts", 0),
     "moe_capacity": ("--moe-capacity", 0.0),
-    "window": ("--window", 0),
     "microbatches": ("--microbatches", 4),
 }
 
@@ -67,6 +66,11 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--n-heads", type=int, default=4)
     parser.add_argument("--n-kv-heads", type=int, default=0,
                         help="GQA kv heads (0 = full multi-head)")
+    parser.add_argument("--window", type=int, default=0,
+                        help="sliding-window attention: each position "
+                        "attends the last N positions only (0 = full "
+                        "causal); bounds attention FLOPs and the "
+                        "serving KV cache")
     parser.add_argument("--loss-chunk", type=int, default=0,
                         help="stream the vocab projection + softmax over "
                         "sequence chunks of N (0 = whole-logits loss)")
@@ -182,6 +186,7 @@ def main(argv=None) -> int:
         d_ff=derive_d_ff(args.d_model),
         max_seq_len=args.seq_len,
         loss_chunk=args.loss_chunk,
+        window=args.window,
     )
     print(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"

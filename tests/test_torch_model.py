@@ -162,8 +162,11 @@ def test_cast_params_keeps_scales_and_int8():
     assert cast["unembed_s"].dtype == torch.float32
 
 
+# windows and the int8 KV cache run (tests/test_torch_window.py); MoE
+# stays refused, also beside them
 @pytest.mark.parametrize("over", [
-    {"moe_experts": 2}, {"window": 8}, {"kv_int8": True},
+    {"moe_experts": 2}, {"moe_experts": 4, "window": 8},
+    {"moe_experts": 2, "kv_int8": True},
 ])
 def test_unported_model_features_raise(over):
     _, tcfg = configs(SMALL, **over)

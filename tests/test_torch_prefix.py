@@ -7,6 +7,7 @@ a prefix hit leaves the stored entry bit-unchanged (the port extends
 caches in place), and the engine, the prefix path and the chunked path
 match solo generate, also through the server's routing."""
 import asyncio
+import dataclasses
 import json
 
 import jax
@@ -26,6 +27,7 @@ from containerpilot_tpu_torch.workload import serve_prefix
 from containerpilot_tpu_torch.workload.serve import InferenceServer
 from containerpilot_tpu_torch.workload.serve_prefix import (
     PrefixCache,
+    generate_with_prefix,
     plan_reuse,
     reuse_admission,
 )
@@ -254,3 +256,48 @@ def test_server_routes_prefix_and_chunked_without_slots(run, params,
     assert outs[0] == [solo(params, base, 5)]
     assert taken == ["run_chunked", "run_chunked"]
     assert info["prefix_cache"] is None and info["slot_engine"] is None
+
+
+def solo_cfg(params, tokens, max_new, cfg):
+    return tdecode.generate(params, torch.tensor([tokens]), cfg, max_new,
+                            MAX_LEN)[0].tolist()
+
+
+def test_prefix_cache_with_kv_int8_keeps_entries_and_matches_generate():
+    """Under kv_int8 a prefix hit copies the int8 k/v AND their scales
+    up to the reused length, and the Batcher-side prefix path decodes a
+    copy of every leaf: repeated hits decode solo generate's tokens and
+    leave the stored entry's leaves bit-unchanged."""
+    cfg = dataclasses.replace(CFG, kv_int8=True)
+    params = ttf.init_params(2, cfg, device="cpu")
+    pc = PrefixCache(entries=2)
+    eng = SlotEngine(cfg, params, MAX_LEN, slots=2, chunk=3, prefix_cache=pc)
+    try:
+        base = [(i * 3 + 1) % 64 for i in range(20)]
+        for _ in range(3):
+            got = eng.submit(base, max_new=6).result(timeout=WAIT)
+            assert got == solo_cfg(params, base, 6, cfg)
+        entry = pc.get(tuple(base))
+        assert set(entry) == {"k", "v", "k_scale", "v_scale", "pos"}
+        snapshot = {k: v.clone() for k, v in entry.items() if k != "pos"}
+        turn2 = base + [9, 9, 5]
+        got = eng.submit(turn2, max_new=6).result(timeout=WAIT)
+        assert got == solo_cfg(params, turn2, 6, cfg)
+        assert pc.stats["hits"] == 3
+        for name, leaf in snapshot.items():
+            assert torch.equal(entry[name], leaf), name
+    finally:
+        eng.stop()
+
+    class _Srv:  # the fields generate_with_prefix reads
+        pass
+
+    srv = _Srv()
+    srv.prefix_cache, srv.cfg, srv.params = pc, cfg, params
+    srv.max_len, srv.prefill_chunk = MAX_LEN, 0
+    srv.batch_stats = {"calls": 0, "rows": 0}
+    for _ in range(2):
+        out = generate_with_prefix(srv, base, 6, 0.0, 0, 0.0, -1, 0)
+        assert out[0] == solo_cfg(params, base, 6, cfg)
+    for name, leaf in snapshot.items():
+        assert torch.equal(entry[name], leaf), name

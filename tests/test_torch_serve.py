@@ -1,9 +1,11 @@
 """The port's InferenceServer over real HTTP on 127.0.0.1:0 with
 device="cpu": health after warmup, /v1/model, /v1/generate JSON equal to
-JAX ``generate`` tokens after the same trim, a 422 for a bad row, 404
-for a route not ported yet, and the CLI's flag surface."""
+JAX ``generate`` tokens after the same trim, a 422 for a bad row,
+/v1/score against JAX's ``score_logprobs_fn``, the CLI's flag surface,
+and serving the trainer's checkpoints (raw and EMA)."""
 import asyncio
 import json
+import os
 
 import jax
 import jax.numpy as jnp
@@ -12,6 +14,7 @@ import pytest
 
 from containerpilot_tpu.models import decode as jdecode
 from containerpilot_tpu.models import transformer as jtf
+from containerpilot_tpu.workload import modelcfg as jmodelcfg
 from containerpilot_tpu_torch import bridge
 from containerpilot_tpu_torch.models import transformer as ttf
 from containerpilot_tpu_torch.workload import serve_cli
@@ -60,6 +63,9 @@ def test_server_generate_matches_jax_and_routes(run):
     )
     rows = np.random.default_rng(0).integers(0, 128, (2, 7)).tolist()
     greedy_ref = _reference(jp, jcfg, rows, 9)
+    jax_lp = np.asarray(jmodelcfg.score_logprobs_fn(jcfg)(
+        jp, jnp.asarray([rows[0] + greedy_ref[0]], jnp.int32)
+    ))[0, len(rows[0]) - 1:]
     eos = greedy_ref[0][3]
     eos_ref = _reference(jp, jcfg, rows, 9, eos_id=eos)
 
@@ -107,8 +113,18 @@ def test_server_generate_matches_jax_and_routes(run):
                 "tokens": [[1, 2]], "max_new_tokens": 4, "stream": True,
             })
             assert status == 422
-            status, _ = await _http(port, "POST", "/v1/score", {})
-            assert status == 404
+            status, body = await _http(port, "POST", "/v1/score", {
+                "tokens": [rows[0] + greedy_ref[0]],
+            })
+            assert status == 200
+            scored = json.loads(body)
+            np.testing.assert_allclose(
+                scored["logprobs"][0][len(rows[0]) - 1:], jax_lp,
+                rtol=1e-4, atol=1e-4)
+            status, body = await _http(port, "POST", "/v1/score", {
+                "tokens": [[5]],
+            })
+            assert status == 422 and b">= 2 ids" in body
             assert server.batch_stats["calls"] >= 5
         finally:
             await server.stop()
@@ -126,20 +142,20 @@ def test_cli_parses_supported_flags():
     assert (args.slots, args.slot_chunk, args.slot_window,
             args.prefix_cache, args.prefill_chunk) == (4, 2, 3, 5, 64)
     serve_cli.check_ported(args)  # all supported: no exit
-    cfg, params = serve_cli.load_model(
+    cfg, params, checkpoint = serve_cli.load_model(
         serve_cli.build_arg_parser().parse_args(
             ["--n-layers", "1", "--d-model", "128", "--n-heads", "2",
              "--vocab", "64", "--int8", "--device", "cpu"]
         )
     )
     assert cfg.n_layers == 1 and cfg.d_ff == 384
-    assert "wq_q" in params["layers"]
+    assert "wq_q" in params["layers"] and checkpoint is None
 
 
 @pytest.mark.parametrize("argv,flag", [
     (["--kv-spill-mb", "8"], "--kv-spill-mb"),
     (["--draft-layers", "1"], "--draft-layers"),
-    (["--kv-int8"], "--kv-int8"),
+    (["--lora-rank", "4"], "--lora-rank"),
     (["--no-mux"], "--mux"),
     (["--no-adopt-compile-cache"], "--adopt-compile-cache"),
 ])
@@ -184,3 +200,102 @@ def test_http_keepalive_serves_two_requests_on_one_connection(run):
 
     statuses, last = run(scenario(), timeout=30)
     assert statuses == [200, 200, 404] and last == 405
+
+
+MODEL_FLAGS = ["--d-model", "64", "--n-layers", "1", "--n-heads", "2",
+               "--vocab", "128"]
+
+
+@pytest.fixture(scope="module")
+def trained_checkpoint(tmp_path_factory):
+    """A checkpoint of a few CPU training steps with an EMA shadow."""
+    from containerpilot_tpu_torch.workload import train as ttrain_cli
+
+    ckpt = str(tmp_path_factory.mktemp("serve_ckpt") / "ckpt")
+    assert ttrain_cli.main([
+        "--device", "cpu", "--batch", "2", "--seq-len", "32", *MODEL_FLAGS,
+        "--steps", "6", "--ema-decay", "0.5", "--learning-rate", "1e-2",
+        "--checkpoint-dir", ckpt, "--checkpoint-every", "6",
+    ]) == 0
+    return ckpt
+
+
+@pytest.mark.parametrize("use_ema", [False, True])
+def test_serve_checkpoint_greedy_equals_in_process_generate(
+        run, trained_checkpoint, use_ema):
+    """--checkpoint-dir serves the trainer's step_<n>/ params (the EMA
+    shadow with --use-ema): the server's greedy tokens equal an
+    in-process generate on restore_params(prefer_ema=...), and
+    /v1/model says which weights it loaded."""
+    import torch
+
+    from containerpilot_tpu_torch.models import decode as tdecode
+    from containerpilot_tpu_torch.parallel import (
+        abstract_train_state,
+        restore_params,
+    )
+
+    argv = ["--device", "cpu", "--max-len", "64", *MODEL_FLAGS,
+            "--checkpoint-dir", trained_checkpoint]
+    args = serve_cli.build_arg_parser().parse_args(
+        argv + (["--use-ema"] if use_ema else []))
+    serve_cli.check_ported(args)
+    cfg, params, checkpoint = serve_cli.load_model(args)
+    assert checkpoint == {"step": 6, "ema": use_ema}
+    restored = restore_params(trained_checkpoint, abstract_train_state(cfg),
+                              prefer_ema=use_ema, device="cpu")
+    other = restore_params(trained_checkpoint, abstract_train_state(cfg),
+                           prefer_ema=not use_ema, device="cpu")
+    # the EMA shadow is not the raw params: the flag picks a weight set
+    assert not torch.equal(restored[0]["unembed"], other[0]["unembed"])
+    prompt = [[3, 1, 4, 1, 5, 9, 2, 6]]
+    want = tdecode.generate(restored[0], torch.tensor(prompt), cfg, 12,
+                            64).tolist()
+
+    async def scenario():
+        server = InferenceServer(cfg, params, "127.0.0.1", 0, 64,
+                                 device="cpu", checkpoint=checkpoint)
+        await server._server.start_tcp("127.0.0.1", 0)
+        port = server._server.bound_port
+        server._batcher.start()
+        try:
+            await server.warmup()
+            status, body = await _http(port, "POST", "/v1/generate", {
+                "tokens": prompt, "max_new_tokens": 12})
+            _, info = await _http(port, "GET", "/v1/model")
+            return status, json.loads(body), json.loads(info)
+        finally:
+            await server.stop()
+
+    status, body, info = run(scenario(), timeout=120)
+    assert status == 200 and body["tokens"] == want
+    assert info["checkpoint"] == {"step": 6, "ema": use_ema}
+
+
+def test_serve_checkpoint_with_other_model_flags_fails(trained_checkpoint):
+    """A model flag that disagrees with the checkpoint fails at startup,
+    and a directory without a step_<n>/ serves the seeded init."""
+    args = serve_cli.build_arg_parser().parse_args([
+        "--device", "cpu", "--d-model", "64", "--n-layers", "2",
+        "--n-heads", "2", "--vocab", "128",
+        "--checkpoint-dir", trained_checkpoint])
+    with pytest.raises(ValueError, match="checkpoint params"):
+        serve_cli.load_model(args)
+    empty = os.path.join(os.path.dirname(trained_checkpoint), "empty")
+    os.makedirs(empty, exist_ok=True)
+    args = serve_cli.build_arg_parser().parse_args(
+        ["--device", "cpu", *MODEL_FLAGS, "--checkpoint-dir", empty])
+    _cfg, _params, checkpoint = serve_cli.load_model(args)
+    assert checkpoint is None
+
+
+@pytest.mark.parametrize("argv,dest,value", [
+    (["--window", "16"], "window", 16),
+    (["--kv-int8"], "kv_int8", True),
+])
+def test_cli_window_and_kv_int8_configure_the_model(argv, dest, value):
+    args = serve_cli.build_arg_parser().parse_args(
+        ["--device", "cpu", *MODEL_FLAGS, *argv])
+    serve_cli.check_ported(args)
+    cfg, _params, _ckpt = serve_cli.load_model(args)
+    assert getattr(cfg, dest) == value

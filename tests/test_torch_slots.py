@@ -4,11 +4,13 @@ reference tests' tiny config: per-request parity with the port's solo
 ``generate`` (greedy and sampled), staggered admission, eos trim, more
 requests than slots, validation, recovery from a failed dispatch,
 chunked admission, min_new, penalties, stream deltas, cancel, and the
-server over HTTP. Cross-package: greedy tokens equal the JAX
-``SlotEngine``'s on the same staggered requests. Mirrors
-tests/test_slots.py (without its streaming-server, cp, tp and window
-cases)."""
+server over HTTP; a window's ring pools and the int8 KV pool.
+Cross-package: greedy tokens equal the JAX ``SlotEngine``'s on the same
+staggered requests, and JAX ``generate``'s on a windowed config. Mirrors
+tests/test_slots.py (without its streaming-server, cp and tp cases;
+streaming is tests/test_torch_stream.py)."""
 import asyncio
+import dataclasses
 import json
 import threading
 import time
@@ -19,6 +21,7 @@ import numpy as np
 import pytest
 import torch
 
+from containerpilot_tpu.models import decode as jdecode
 from containerpilot_tpu.models import transformer as jtf
 from containerpilot_tpu.workload.serve_slots import SlotEngine as JaxSlotEngine
 from containerpilot_tpu_torch import bridge
@@ -26,6 +29,7 @@ from containerpilot_tpu_torch.models import decode as tdecode
 from containerpilot_tpu_torch.models import stepprog
 from containerpilot_tpu_torch.models import transformer as ttf
 from containerpilot_tpu_torch.workload.serve import InferenceServer
+from containerpilot_tpu_torch.workload.serve_prefix import PrefixCache
 from containerpilot_tpu_torch.workload.serve_slots import SlotEngine
 
 BASE = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=1, d_ff=64,
@@ -402,3 +406,95 @@ def test_concurrent_submitters_each_get_their_own_tokens(params, engine):
     for (tokens, kw), out in zip(reqs, got):
         kw = dict(kw)
         assert out == solo(params, tokens, kw.pop("max_new"), **kw)
+
+
+@pytest.fixture(scope="module")
+def window_setup(params):
+    """A sliding-window engine (ring pools) over the same params: the
+    solo reference runs the same windowed config's ring cache."""
+    cfg = dataclasses.replace(CFG, window=8)
+    eng = SlotEngine(cfg, params, MAX_LEN, slots=2, chunk=3)
+    yield cfg, eng
+    eng.stop()
+
+
+def test_window_long_prompt_and_decode_cross_the_ring(params, jax_params,
+                                                      window_setup):
+    """A prompt longer than the window and a decode past the wrap point:
+    every ring write of the pool matches solo generate, and the greedy
+    tokens equal JAX generate's on the windowed config
+    (tests/test_slots.py:169)."""
+    cfg, eng = window_setup
+    tokens = list(range(1, 13))  # 12 > window 8
+    got = eng.submit(tokens, max_new=9).result(timeout=WAIT)
+    assert got == solo(params, tokens, 9, cfg=cfg)
+    jcfg = dataclasses.replace(jax_params[0], window=8)
+    ref = jdecode.generate(jax_params[1], jnp.asarray([tokens], jnp.int32),
+                           jcfg, max_new_tokens=9, max_len=MAX_LEN)
+    assert got == np.asarray(ref)[0].tolist()
+
+
+def test_window_slot_reuse_carries_no_stale_context(params, window_setup):
+    """A freed ring slot's rows are not zeroed: re-admission must
+    overwrite the row wholesale (insert_row) so nothing of the previous
+    occupant survives. Fill both slots, finish them, then reuse them
+    with fresh prompts (tests/test_slots.py:178)."""
+    cfg, eng = window_setup
+    first = [
+        eng.submit([1, 2, 3, 4, 5, 6, 7, 8, 9], max_new=6, seed=1),
+        eng.submit([9, 8, 7], max_new=6, seed=2),
+    ]
+    for fut in first:
+        fut.result(timeout=WAIT)
+    reused = [
+        ([5, 4, 3, 2], dict(max_new=10, seed=7)),
+        ([2, 2], dict(max_new=10, temperature=0.8, top_k=16, seed=4)),
+    ]
+    futs = [eng.submit(p, **kw) for p, kw in reused]
+    for (p, kw), fut in zip(reused, futs):
+        kw = dict(kw)
+        assert fut.result(timeout=WAIT) == solo(
+            params, p, kw.pop("max_new"), cfg=cfg, **kw)
+
+
+def test_prefix_cache_refuses_window(params):
+    """A ring cache's stale rows are live window context, so the prefix
+    cache refuses a window at construction, in the engine and in the
+    server (tests/test_slots.py:703)."""
+    win_cfg = dataclasses.replace(CFG, window=8)
+    with pytest.raises(ValueError, match="window"):
+        SlotEngine(win_cfg, params, MAX_LEN, slots=2, chunk=3,
+                   prefix_cache=PrefixCache(2))
+    with pytest.raises(ValueError, match="--prefix-cache does not compose"):
+        InferenceServer(win_cfg, params, "127.0.0.1", 0, MAX_LEN,
+                        device="cpu", slots=2, prefix_cache_entries=2)
+
+
+@pytest.mark.parametrize("over", [
+    {"kv_int8": True},
+    {"kv_int8": True, "window": 8},
+    {"kv_int8": True, "n_heads": 4, "n_kv_heads": 2},
+])
+def test_kv_int8_pool_tokens_equal_solo_generate(over):
+    """The int8 KV pool (int8 k/v, float32 scales, quantized on write):
+    staggered requests, one sampled, one past a window's ring and one
+    through chunked admission, equal solo generate's tokens on the same
+    config."""
+    cfg = ttf.TransformerConfig(**{**bridge.config_kwargs(BASE), **over})
+    params = ttf.init_params(5, cfg, device="cpu")
+    eng = SlotEngine(cfg, params, MAX_LEN, slots=2, chunk=3,
+                     prefill_chunk=5)
+    try:
+        pool = eng.program._pool
+        assert pool["k"].dtype == torch.int8
+        assert pool["k_scale"].shape == pool["k"].shape[:-1]
+        reqs = [(list(range(3, 16)), dict(max_new=12)),
+                ([4, 5], dict(max_new=9, temperature=0.8, seed=6)),
+                ([7, 7, 7], dict(max_new=7))]
+        futs = [eng.submit(p, **kw) for p, kw in reqs]
+        got = [f.result(timeout=WAIT) for f in futs]
+    finally:
+        eng.stop()
+    for (p, kw), out in zip(reqs, got):
+        kw = dict(kw)
+        assert out == solo(params, p, kw.pop("max_new"), cfg=cfg, **kw)

@@ -4,8 +4,9 @@ chunks in its tokens and in every state leaf, the early exit on budget
 and on done leaves pad and advances by exactly rounds_run, engine
 parity at K=1 vs K>1, honest dispatch counters, cancel mid-window, the
 quantized program and the tiny-max_len clamp; the program's dispatch
-handles under lookahead. Mirrors tests/test_stepprog.py (without its
+handles under lookahead; windows over a ring and the int8 KV leaves. Mirrors tests/test_stepprog.py (without its
 speculative cases)."""
+import dataclasses
 import threading
 import time
 
@@ -53,17 +54,18 @@ def solo(params, tokens, max_new, **kw):
 
 
 @torch.inference_mode()
-def admitted_pool(params, tokens, seed=7, temperature=0.8, top_k=12):
+def admitted_pool(params, tokens, seed=7, temperature=0.8, top_k=12,
+                  cfg=CFG):
     """A 2-slot pool with one sampled request admitted at slot 0."""
-    pool = tslots.slot_cache(CFG, 2, MAX_LEN, device="cpu")
-    state = tslots.init_slot_state(CFG, 2, device="cpu")
-    logits, row = tdecode.prefill(params, torch.tensor([tokens]), CFG,
+    pool = tslots.slot_cache(cfg, 2, MAX_LEN, device="cpu")
+    state = tslots.init_slot_state(cfg, 2, device="cpu")
+    logits, row = tdecode.prefill(params, torch.tensor([tokens]), cfg,
                                   MAX_LEN)
     gen = tslots.seed_slot(state, 0, seed)
     first = tslots.first_sample(logits, gen, temperature, top_k, 0.0)
     tslots.insert_row(pool, row, 0)
     tslots.admit_slot_state(
-        state, 0, CFG, last=first, temperature=temperature, top_k=top_k,
+        state, 0, cfg, last=first, temperature=temperature, top_k=top_k,
         top_p=0.0, eos_id=-1, pad_id=0, min_new=0, presence=0.0,
         frequency=0.0, bias_idx=[-1] * tdecode.BIAS_SLOTS_MAX,
         bias_val=[0.0] * tdecode.BIAS_SLOTS_MAX, done=False,
@@ -115,6 +117,39 @@ def test_window_matches_sequential_chunks(params):
     # and slot 0's stream is its solo generate's
     first = solo(params, [1, 2, 3, 4], 1 + chunk * k_rounds,
                  temperature=0.8, top_k=12, seed=7)
+    assert toks[0].tolist() == first[1:]
+
+
+@pytest.mark.parametrize("over", [
+    {"window": 8}, {"window": 8, "kv_int8": True}, {"kv_int8": True},
+])
+def test_window_program_with_ring_and_int8_leaves_matches_chunks(params,
+                                                                 over):
+    """The same identity with a window's ring and the int8 KV leaves
+    (k/v int8, k_scale/v_scale): a prompt longer than the ring, then
+    4 rounds of 3 tokens that wrap it; and slot 0's stream is its solo
+    generate's on that config."""
+    cfg = dataclasses.replace(CFG, **over)
+    chunk, k_rounds = 3, 4
+    prompt = list(range(1, 11))
+    pool, state = admitted_pool(params, prompt, cfg=cfg)
+    if cfg.kv_int8:
+        assert pool["k"].dtype == torch.int8 and "v_scale" in pool
+    seq = []
+    for _ in range(k_rounds):
+        pool, state, toks = tslots.decode_slots_chunk(
+            params, pool, state, cfg, chunk)
+        seq.append(toks.clone())
+    want = leaves(pool, state)
+    pool2, state2 = admitted_pool(params, prompt, cfg=cfg)
+    pool2, state2, toks, run = tslots.decode_slots_window(
+        params, pool2, state2, cfg, chunk, k_rounds, [chunk * k_rounds, 0])
+    assert int(run) == k_rounds
+    assert torch.equal(toks, torch.cat(seq, dim=1))
+    assert_same(leaves(pool2, state2), want)
+    first = tdecode.generate(
+        params, torch.tensor([prompt]), cfg, 1 + chunk * k_rounds, MAX_LEN,
+        temperature=0.8, top_k=12, rng=7)[0].tolist()
     assert toks[0].tolist() == first[1:]
 
 

@@ -80,6 +80,11 @@ def port_value_and_grad(tparams, toks, tcfg):
     ({"flash_min_seq": 128}, 128),                   # flash fwd + bwd
     ({"flash_min_seq": 128, "n_heads": 4, "n_kv_heads": 2,
       "remat": "dots", "loss_chunk": 48}, 128),      # flash, GQA, dots, chunks
+    # sliding windows (tests/test_window.py:74, 106): plain attention,
+    # and the windowed flash forward + backward over whole skipped blocks
+    ({"window": 8}, 32),
+    ({"window": 128, "flash_min_seq": 128, "max_seq_len": 384,
+      "n_layers": 1, "n_heads": 4, "n_kv_heads": 2}, 384),
 ])
 def test_loss_fn_value_and_grads_match_jax(over, seq):
     jcfg, tcfg = configs(**over)

@@ -93,7 +93,7 @@ def test_sigterm_saves_exits_zero_and_resume_equals_uninterrupted(
     ["--lora-rank", "4"], ["--base-checkpoint-dir", "/x"],
     ["--pipeline-stages", "2"], ["--tensor-parallel", "2"], ["--zero1"],
     ["--fsdp"], ["--moe-experts", "2"], ["--moe-capacity", "1.5"],
-    ["--window", "64"], ["--microbatches", "2"],
+    ["--moe-experts", "4", "--window", "64"], ["--microbatches", "2"],
 ])
 def test_unported_train_flags_exit(flag):
     with pytest.raises(SystemExit, match="not ported yet"):
@@ -101,8 +101,8 @@ def test_unported_train_flags_exit(flag):
 
 
 @pytest.mark.parametrize("flag", [
-    ["--window", "64"], ["--moe-experts", "2"], ["--lora-dir", "/x"],
-    ["--lora-rank", "2"],
+    ["--moe-experts", "2", "--window", "64"], ["--moe-experts", "2"],
+    ["--lora-dir", "/x"], ["--lora-rank", "2"],
 ])
 def test_unported_evaluate_flags_exit(flag):
     with pytest.raises(SystemExit, match="not ported yet"):
@@ -159,3 +159,33 @@ def test_metrics_profile_eval_and_the_evaluator(tmp_path, capsys):
     assert report["checkpoint_step"] == 10 and report["ema"] is True
     assert report["split"] == "holdout" and report["batches"] == 3
     assert report["eval_loss"] == pytest.approx(eval_loss, abs=1e-4)
+
+
+def test_window_trains_and_the_evaluator_scores_it(tmp_path, capsys):
+    """--window runs in the trainer and the evaluator: the evaluator's
+    loss equals the trainer's in-loop eval with the same window, and
+    the full-causal score of the same checkpoint differs (the window's
+    mask is live at seq 32 > window 8)."""
+    data = str(tmp_path / "shards")
+    write_token_shards(np.random.default_rng(1).integers(0, 128, 4000), data,
+                       shard_size=1000)
+    ckpt = str(tmp_path / "ckpt")
+    assert ttrain_cli.main(TINY + [
+        "--window", "8", "--steps", "4", "--data-dir", data,
+        "--eval-holdout", "6", "--eval-every", "4",
+        "--checkpoint-dir", ckpt, "--checkpoint-every", "4",
+    ]) == 0
+    out = capsys.readouterr().out
+    eval_loss = float(re.search(r"step 4: eval_loss=([\d.]+)", out).group(1))
+    scores = {}
+    for window in ("8", "0"):
+        assert teval.main([
+            "--device", "cpu", "--checkpoint-dir", ckpt, "--data-dir", data,
+            "--eval-holdout", "6", "--batch", "2", "--seq-len", "32",
+            "--d-model", "64", "--n-layers", "1", "--n-heads", "2",
+            "--vocab", "128", "--window", window,
+        ]) == 0
+        report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+        scores[window] = report["eval_loss"]
+    assert scores["8"] == pytest.approx(eval_loss, abs=1e-4)
+    assert abs(scores["0"] - scores["8"]) > 1e-4

@@ -3,8 +3,8 @@
     python3 chip_smoke.py
 
 Run from the root of a checkout, on a machine with a card and the CUDA
-toolkit. Phases, each printing one JSON line (the serving phases, then
-the training phases):
+toolkit. Phases, each printing one JSON line (the serving phases, the
+training phases, then beams, speculative decoding and LoRA):
 
 1. device: the card's name, and its name and power limit as nvidia-smi
    reports them;
@@ -101,7 +101,37 @@ the training phases):
 13. serve_ckpt: ``python -m containerpilot_tpu_torch.workload.serve
    --checkpoint-dir`` on that checkpoint, once with the raw params and
    once with --use-ema: a greedy request's tokens equal an in-process
-   generate on restore_params(prefer_ema=...).
+   generate on restore_params(prefer_ema=...);
+14. serve_beam: the flagship again (phase 4's seeded weights), bf16 and
+   then int8, served with --draft-layers 4 --speculate 4 (beams route
+   first): beam_width 4 on the 1024-token prompt with 32 new tokens (K1
+   in the prefill, K2 at m = 4 under int8), twice and against one new
+   token (beam step ms), the same search in-process, whose score must
+   match /v1/score's teacher-forced sum over its tokens within
+   BEAM_SCORE_REL_TOL, and beam_width 1 judged against solo greedy
+   (judge_served); the bf16 run also times one beam reorder of the
+   4-row cache; K1/K2 counts (K2 by row count) around the requests;
+15. serve_speculative: the same servers, a greedy 64-token request on
+   the 1024-token prompt through the speculative engine, judged against
+   solo decoding and compared with the same server's plain greedy
+   request (min_new_tokens 1 routes it to the Batcher): rounds, accepted
+   drafts a round, tokens/s of both, /v1/model's speculative entry, K1
+   in the target and draft prefills, K2 at m = 1 (draft steps) and
+   m = k+1 (verify chunks) under int8; then, in-process, 16 tokens with
+   the target as its own draft, whose rounds must accept drafts (the
+   accept-and-rewind path), judged the same way;
+16. train_lora: the training configuration with rank-16 LoRA adapters
+   on wq and wv over a frozen base (make_lora_train_step): with B = 0
+   the loss equals the base model's bit for bit; 2 warm and 3 timed
+   steps (step ms, tokens/s, MFU with the frozen base billed 4 FLOPs a
+   parameter) with the K1/K3/K4 counts around them; the loss falls and
+   the base keeps its bits; one adapter gradient at batch 2 against
+   plain attention within phase 10's bounds;
+17. serve_lora: the train CLI fine-tunes rank-16 adapters on phase 12's
+   checkpoint (--base-checkpoint-dir), the serve CLI merges them
+   (--lora-dir, in bf16 and with --int8: merged, then quantized) and
+   its greedy tokens equal an in-process generate on the same params;
+   the evaluate CLI's --lora-dir loss equals the in-process one.
 
 Then the kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -201,6 +231,22 @@ WINDOW_BWD_CASE = BWD_CASES[6]
 WINDOW = 1024
 WINDOW_MAX_LEN = 4096
 WINDOW_PROMPT_LEN = 3072
+
+# the beam and speculative phases (the flagship, 1024-token prompt): 4
+# beams; a draft of the first 4 of 16 layers proposing 4 tokens a round
+BEAM_WIDTH = 4
+DRAFT_LAYERS, SPECULATE = 4, 4
+SPEC_NEW = 64
+SELF_DRAFT_NEW = 16  # tokens of the in-process run whose draft is the target
+# the beam's score (a sum of 32 float32 log-probs from decode-path
+# logits) vs /v1/score's teacher-forced sum over the same tokens: each
+# log-prob moves with its position's logits, which agree within a few
+# bf16 rounding steps of max|logits| (E2E_REL_TOL bounds the worst), and
+# the independent errors partly cancel in the sum
+BEAM_SCORE_REL_TOL = 1e-2
+# LoRA on the training configuration (rank 16 on wq and wv)
+LORA_RANK = 16
+LORA_LR = 1e-3
 
 
 def emit(obj) -> None:
@@ -1504,13 +1550,14 @@ def drive_training(gen, label="train", over=None, n_timed=5, extra=True):
     return out
 
 
-def _run_train_cli(args, stop_after=None, timeout=600):
-    """Run the train CLI; with ``stop_after``, SIGTERM it once its
-    progress file reports that step. Returns (exit code, stdout)."""
+def _run_cli(module, args, stop_after=None, timeout=600):
+    """Run ``python -m containerpilot_tpu_torch.workload.<module>``; with
+    ``stop_after``, SIGTERM it once its progress file reports that step.
+    Returns (exit code, stdout)."""
     root = os.path.dirname(os.path.abspath(__file__))
     env = {**os.environ, "PYTHONPATH": root}
     proc = subprocess.Popen(
-        [sys.executable, "-m", "containerpilot_tpu_torch.workload.train",
+        [sys.executable, "-m", f"containerpilot_tpu_torch.workload.{module}",
          *args], cwd=root, env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True,
     )
@@ -1673,42 +1720,484 @@ def serve_checkpoint(ckpt, model_args, vocab):
     return out
 
 
-def drive_train_cli():
+# the train_cli phase's model, whose checkpoint the serve_ckpt and
+# serve_lora phases serve
+CLI_MODEL = ["--d-model", "1024", "--n-layers", "2", "--n-heads", "8"]
+
+
+def drive_train_cli(tmp):
     """The trainer CLI on the card: SIGTERM mid-run saves and exits 0; a
     restart resumes at exactly that step and finishes (with an EMA
-    shadow, --ema-decay 0.99). Also the data prefetcher's staging onto
-    the card; then the serving CLI on the checkpoint (serve_checkpoint),
-    returned as a phase of its own."""
-    with tempfile.TemporaryDirectory() as tmp:
-        check_prefetcher(tmp)
-        model = ["--d-model", "1024", "--n-layers", "2", "--n-heads", "8"]
-        base = ["--device", "cuda", *model, "--seq-len", "1024",
-                "--batch", "4", "--ema-decay", "0.99",
-                "--checkpoint-dir", os.path.join(tmp, "ckpt"),
-                "--checkpoint-every", "1000",
-                "--progress-file", os.path.join(tmp, "progress.json")]
-        t0 = time.perf_counter()
-        rc, out = _run_train_cli(base + ["--steps", "1000"], stop_after=3)
-        saved = re.search(r"checkpoint saved at step (\d+)", out)
-        if rc != 0 or saved is None:
-            raise AssertionError(f"preempted trainer: exit {rc}\n{out[-2000:]}")
-        at = int(saved.group(1))
-        rc, out2 = _run_train_cli(base + ["--steps", str(at + 2)])
-        if rc != 0 or f"resumed from checkpoint at step {at}" not in out2:
-            raise AssertionError(f"resumed trainer: exit {rc}\n{out2[-2000:]}")
-        with open(os.path.join(tmp, "progress.json")) as fh:
-            final = json.load(fh)
-        if final["step"] != at + 2 or not math.isfinite(final["loss"]):
-            raise AssertionError(f"resumed trainer ended at {final}")
-        train_cli = {
-            "phase": "train_cli", "prefetched_batches_equal": True,
-            "preempted_at_step": at, "ema_decay": 0.99,
-            "resumed_to_step": final["step"], "final_loss": final["loss"],
-            "seconds": time.perf_counter() - t0}
-        t0 = time.perf_counter()
-        ckpt = serve_checkpoint(os.path.join(tmp, "ckpt"), model, 1024)
+    shadow, --ema-decay 0.99), leaving its checkpoint in ``tmp``/ckpt
+    and token shards in ``tmp``/shards. Also the data prefetcher's
+    staging onto the card; then the serving CLI on the checkpoint
+    (serve_checkpoint), returned as a phase of its own."""
+    check_prefetcher(tmp)
+    model = CLI_MODEL
+    base = ["--device", "cuda", *model, "--seq-len", "1024",
+            "--batch", "4", "--ema-decay", "0.99",
+            "--checkpoint-dir", os.path.join(tmp, "ckpt"),
+            "--checkpoint-every", "1000",
+            "--progress-file", os.path.join(tmp, "progress.json")]
+    t0 = time.perf_counter()
+    rc, out = _run_cli("train", base + ["--steps", "1000"], stop_after=3)
+    saved = re.search(r"checkpoint saved at step (\d+)", out)
+    if rc != 0 or saved is None:
+        raise AssertionError(f"preempted trainer: exit {rc}\n{out[-2000:]}")
+    at = int(saved.group(1))
+    rc, out2 = _run_cli("train", base + ["--steps", str(at + 2)])
+    if rc != 0 or f"resumed from checkpoint at step {at}" not in out2:
+        raise AssertionError(f"resumed trainer: exit {rc}\n{out2[-2000:]}")
+    with open(os.path.join(tmp, "progress.json")) as fh:
+        final = json.load(fh)
+    if final["step"] != at + 2 or not math.isfinite(final["loss"]):
+        raise AssertionError(f"resumed trainer ended at {final}")
+    train_cli = {
+        "phase": "train_cli", "prefetched_batches_equal": True,
+        "preempted_at_step": at, "ema_decay": 0.99,
+        "resumed_to_step": final["step"], "final_loss": final["loss"],
+        "seconds": time.perf_counter() - t0}
+    t0 = time.perf_counter()
+    ckpt = serve_checkpoint(os.path.join(tmp, "ckpt"), model, 1024)
     return train_cli, {"phase": "serve_ckpt", **ckpt,
                        "seconds": time.perf_counter() - t0}
+
+
+# ---------------------------------------------------------------------------
+# phases 14 and 15: beam search and self-speculative decoding over HTTP
+# ---------------------------------------------------------------------------
+
+class RowTally:
+    """K2 launches by row count m, counted where ``ops.quant._launch``
+    runs (beside its own LAUNCHES count). Only around eager paths: a
+    CUDA graph replay launches without calling it."""
+
+    def __enter__(self):
+        import collections
+
+        from containerpilot_tpu_torch.ops import quant
+
+        self.counts = collections.Counter()
+        self._quant, self._launch = quant, quant._launch
+
+        def launch(x, w_q, scales):
+            out = self._launch(x, w_q, scales)
+            self.counts[x.shape[0]] += 1
+            return out
+
+        quant._launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self._quant._launch = self._launch
+
+    def by_rows(self):
+        return {f"m={m}": n for m, n in sorted(self.counts.items())}
+
+
+def gather_ms(cfg, width=BEAM_WIDTH, max_len=MAX_LEN, iters=10):
+    """Device ms of one beam reorder (models/beam.py::_gather_beams) of a
+    ``width``-row cache at ``max_len``, and the bytes it reads."""
+    from containerpilot_tpu_torch.models import beam, decode
+
+    cache = decode.init_cache(cfg, width, max_len, device="cuda")
+    idx = torch.tensor([1, 0, 3, 2][:width], device="cuda")
+    beam._gather_beams(cache, idx)
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        cache = beam._gather_beams(cache, idx)
+    end.record()
+    torch.cuda.synchronize()
+    nbytes = sum(t.nbytes for k, t in cache.items() if k != "pos")
+    ms = start.elapsed_time(end) / iters
+    del cache
+    torch.cuda.empty_cache()
+    return {"gather_ms": ms, "gather_cache_bytes": nbytes,
+            "gather_gb_s": 2 * nbytes / ms / 1e6,
+            "gather_bound_ms": 2 * nbytes / HBM_BYTES_PER_S * 1e3}
+
+
+async def beam_requests(cfg, params, server, prompt):
+    """The beam half of a dtype's run: width 4 on the 1024-token prompt
+    (32 and 1 new tokens, each twice; step ms from the difference), the
+    same search in-process for its score, which /v1/score's
+    teacher-forced sum over the same tokens must match within
+    BEAM_SCORE_REL_TOL, and width 1 judged against solo greedy."""
+    from containerpilot_tpu_torch.models import beam
+    from containerpilot_tpu_torch.ops import flash, quant
+
+    port = server.port
+    body = {"tokens": [prompt], "max_new_tokens": 32,
+            "beam_width": BEAM_WIDTH}
+    flash.LAUNCHES = quant.LAUNCHES = 0
+    with RowTally() as rows:
+        times = {32: [], 1: []}
+        outs = []
+        for _ in range(2):
+            for new in (32, 1):
+                got, dt = await generate_tokens(
+                    port, {**body, "max_new_tokens": new})
+                times[new].append(dt)
+                if new == 32:
+                    outs.append(got[0])
+        width1, _ = await generate_tokens(port, {**body, "beam_width": 1})
+    k1, k2 = flash.LAUNCHES, quant.LAUNCHES
+    if outs[0] != outs[1]:
+        raise AssertionError("repeated beam request gave other tokens")
+    check_rows([outs[0]], 1, 32, cfg.vocab_size)
+    t32, t1 = min(times[32]), min(times[1])
+    with torch.inference_mode():
+        local, score = beam.beam_search(
+            params, torch.tensor([prompt], device="cuda"), cfg, 32, MAX_LEN,
+            beam_width=BEAM_WIDTH)
+    if local.tolist() != outs[0]:
+        raise AssertionError("in-process beam search gave other tokens "
+                             "than the server")
+    scored = json.loads(await http(port, "POST", "/v1/score", {
+        "tokens": [prompt + outs[0]]}))["logprobs"][0]
+    teacher = sum(scored[len(prompt) - 1:])
+    score_rel = abs(score - teacher) / abs(teacher)
+    if not (math.isfinite(score) and score_rel <= BEAM_SCORE_REL_TOL):
+        raise AssertionError(f"beam score {score} vs teacher-forced sum "
+                             f"{teacher}: rel {score_rel}")
+    greedy_body = {"tokens": [prompt], "max_new_tokens": 32}
+    first, worst, typical = judge_served(cfg, params, greedy_body,
+                                         width1[0])
+    if len(width1[0]) != 32 or worst > NEAR_TIE_TOL:
+        raise AssertionError(f"beam width 1 off greedy decoding: worst gap "
+                             f"{worst}, first difference {first}")
+    return {
+        "beam_width": BEAM_WIDTH, "prompt_len": len(prompt),
+        "request_ms_new1": t1 * 1e3, "request_ms_new32": t32 * 1e3,
+        "beam_step_ms": (t32 - t1) * 1e3 / 31,
+        "beam_tokens_per_s": 31 / (t32 - t1),
+        "score": score, "teacher_forced_sum": teacher,
+        "score_rel_err": score_rel, "score_rel_tol": BEAM_SCORE_REL_TOL,
+        "width1_first_diff_vs_greedy": first, "width1_worst_gap": worst,
+        "median_vocab_gap_at_0": typical,
+        "k1_launches": k1, "k2_launches": k2, "k2_by_rows": rows.by_rows(),
+        "tokens_head": outs[0][:8],
+    }
+
+
+async def speculative_requests(cfg, params, server, prompt):
+    """The speculative half: a greedy request of SPEC_NEW new tokens on
+    the 1024-token prompt through the speculative engine (and one of a
+    single token: tokens/s from the difference), judged against solo
+    decoding; rounds and accepted drafts from the engine's dispatches
+    (one an admission, two a round); then the same server's plain greedy
+    figure through the Batcher (min_new_tokens 1 keeps the request off
+    the speculative route and changes no token); last, in-process, the
+    target drafting for itself, so that rounds accept (random weights
+    leave a 4-layer draft's proposals rejected), judged the same way."""
+    from containerpilot_tpu_torch.ops import flash, quant
+
+    port, engine = server.port, server.spec_engine
+    body = {"tokens": [prompt], "max_new_tokens": SPEC_NEW}
+    flash.LAUNCHES = quant.LAUNCHES = 0
+    with RowTally() as rows:
+        d0 = engine.dispatches
+        spec, t_new = await generate_tokens(port, body)
+        dispatches = engine.dispatches - d0
+        _, t_one = await generate_tokens(port, {**body, "max_new_tokens": 1})
+    k1, k2 = flash.LAUNCHES, quant.LAUNCHES
+    spec = spec[0]
+    check_rows([spec], 1, SPEC_NEW, cfg.vocab_size)
+    rounds = (dispatches - 1) // 2
+    accepted = SPEC_NEW - 1 - rounds
+    plain_body = {**body, "min_new_tokens": 1}
+    plain, p_new = await generate_tokens(port, plain_body)
+    _, p_one = await generate_tokens(port, {**plain_body,
+                                            "max_new_tokens": 1})
+    plain = plain[0]
+    info = json.loads(await http(port, "GET", "/v1/model"))["speculative"]
+    first, worst, typical = judge_served(cfg, params, body, spec)
+    if worst > NEAR_TIE_TOL:
+        raise AssertionError(f"speculative tokens off solo decoding: worst "
+                             f"gap {worst}, first difference {first}")
+    diff = next((i for i, (a, b) in enumerate(zip(spec, plain)) if a != b),
+                None)
+    # the accept path on the card: the target drafting for itself agrees
+    # with its own verify chunk up to rounding, so whole rounds accept
+    from containerpilot_tpu_torch.models import speculative
+
+    self_toks, self_stats = speculative.speculative_generate(
+        params, params, torch.tensor([prompt], device="cuda"), cfg, cfg,
+        SELF_DRAFT_NEW, MAX_LEN, speculate=SPECULATE)
+    self_toks = self_toks[0].tolist()
+    self_first, self_worst, _ = judge_served(
+        cfg, params, {**body, "max_new_tokens": SELF_DRAFT_NEW}, self_toks)
+    if self_stats["accepted_drafts"] < 1 or self_worst > NEAR_TIE_TOL:
+        raise AssertionError(f"self-drafted speculative decoding: "
+                             f"{self_stats}, worst gap {self_worst}")
+    return {
+        "draft_layers": DRAFT_LAYERS, "speculate": SPECULATE,
+        "prompt_len": len(prompt), "max_new_tokens": SPEC_NEW,
+        "rounds": rounds, "accepted_drafts": accepted,
+        "accepted_per_round": accepted / rounds,
+        "tokens_per_round": (SPEC_NEW - 1) / rounds,
+        "request_ms_new1": t_one * 1e3,
+        f"request_ms_new{SPEC_NEW}": t_new * 1e3,
+        "speculative_tok_s": (SPEC_NEW - 1) / (t_new - t_one),
+        "round_ms": (t_new - t_one) * 1e3 / rounds,
+        "plain_greedy_tok_s": (SPEC_NEW - 1) / (p_new - p_one),
+        "tokens_equal_plain_greedy": sum(a == b for a, b in zip(spec,
+                                                                plain)),
+        "first_diff_vs_plain_greedy": diff,
+        "judge_first_diff": first, "judge_worst_gap": worst,
+        "median_vocab_gap_at_0": typical,
+        "v1_model_speculative": info,
+        "k1_launches": k1, "k2_launches": k2, "k2_by_rows": rows.by_rows(),
+        "self_draft": {**self_stats, "judge_first_diff": self_first,
+                       "judge_worst_gap": self_worst},
+    }
+
+
+async def drive_beam_spec(cfg, params, prompt):
+    """One server with --draft-layers DRAFT_LAYERS --speculate SPECULATE
+    (max_batch_rows 8): beams route before the speculative engine, so
+    both halves share its warm-up. Returns (beam, speculative) dicts."""
+    from containerpilot_tpu_torch.workload.serve import InferenceServer
+
+    t0 = time.perf_counter()
+    server = InferenceServer(cfg, params, "127.0.0.1", 0, MAX_LEN,
+                             max_batch_rows=8, device="cuda",
+                             draft_layers=DRAFT_LAYERS, speculate=SPECULATE)
+    await server.run()
+    warm_s = time.perf_counter() - t0
+    try:
+        assert (await http(server.port, "GET", "/health")) == b"ok\n"
+        beam = await beam_requests(cfg, params, server, prompt)
+        spec = await speculative_requests(cfg, params, server, prompt)
+    finally:
+        await server.stop()
+    spec["warmup_s"] = warm_s
+    return beam, spec
+
+
+def serve_beam_spec(cfg, masters, prompt, card):
+    """Phases 14 and 15 on the flagship, bf16 then int8 (the same
+    seeded masters, quantized): K1 in the beam, target and draft
+    prefills of the 1024-token prompt; under int8, K2 at m = 4 for the
+    beams, m = 1 for the draft's steps and m = k+1 for verify chunks."""
+    from containerpilot_tpu_torch.models import quantized
+
+    beam_out = {"phase": "serve_beam", **card}
+    spec_out = {"phase": "serve_speculative", **card}
+    for label in ("bf16", "int8"):
+        params = masters if label == "bf16" else (
+            quantized.quantize_model_params(masters))
+        params = quantized.cast_params(params, cfg.dtype)
+        beam, spec = asyncio.run(drive_beam_spec(cfg, params, prompt))
+        if label == "bf16":
+            beam.update(gather_ms(cfg))
+        prefill_k1 = cfg.n_layers + DRAFT_LAYERS
+        if beam["k1_launches"] < cfg.n_layers or (
+                spec["k1_launches"] < prefill_k1):
+            raise AssertionError(
+                f"{label}: K1 launched {beam['k1_launches']} times for the "
+                f"beam requests, {spec['k1_launches']} for the speculative "
+                "ones")
+        if label == "int8":
+            by_m = spec["k2_by_rows"]
+            verify = sum(n for m, n in by_m.items()
+                         if 2 <= int(m[2:]) <= SPECULATE + 1)
+            if not (beam["k2_by_rows"].get(f"m={BEAM_WIDTH}", 0) > 0
+                    and by_m.get("m=1", 0) > 0 and verify > 0):
+                raise AssertionError(
+                    f"K2 rows: beams {beam['k2_by_rows']}, speculative "
+                    f"{by_m}")
+        beam_out[label] = beam
+        spec_out[label] = spec
+        del params
+        torch.cuda.empty_cache()
+    return beam_out, spec_out
+
+
+# ---------------------------------------------------------------------------
+# phases 16 and 17: LoRA fine-tuning, then the adapter served
+# ---------------------------------------------------------------------------
+
+def drive_train_lora(gen):
+    """make_lora_train_step at the training configuration (rank
+    LORA_RANK on wq and wv, base frozen): with B = 0 the loss equals the
+    base model's bit for bit; 2 warm and 3 timed steps with the K1/K3/K4
+    counts around them; the loss falls and the base keeps its bits; one
+    adapter gradient through the kernels against plain attention at
+    batch 2."""
+    from containerpilot_tpu_torch.models import lora
+    from containerpilot_tpu_torch.models import transformer as tf
+    from containerpilot_tpu_torch.ops import flash
+    from containerpilot_tpu_torch.parallel import train as tr
+    from containerpilot_tpu_torch.workload.flops import (
+        count_params,
+        train_flops_per_token,
+    )
+
+    cfg = tf.TransformerConfig(**TRAIN_CFG)
+    base = tf.init_params(0, cfg, "cuda")
+    init_fn, step, _abstract = tr.make_lora_train_step(
+        cfg, LORA_RANK, learning_rate=LORA_LR)
+    state = init_fn(1, "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
+                           generator=gen, device="cuda")
+    with torch.no_grad():
+        base_loss = tf.loss_fn(base, tokens, cfg)
+        zero_loss = tf.loss_fn(lora.apply_lora(base, state.params, cfg),
+                               tokens, cfg)
+    if not torch.equal(base_loss, zero_loss):
+        raise AssertionError(f"B = 0 adapter moved the loss: "
+                             f"{base_loss.item()} vs {zero_loss.item()}")
+    before = [t.clone() for t in tr.tree_leaves(base)]
+    n_base, n_lora = count_params(base), count_params(state.params)
+    torch.cuda.reset_peak_memory_stats()
+    flash.LAUNCHES = flash.DQ_LAUNCHES = flash.DKDV_LAUNCHES = 0
+    losses = []
+    for _ in range(2):
+        state, loss = step(state, base, tokens)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        state, loss = step(state, base, tokens)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / 3
+    launches = {"k1_launches": flash.LAUNCHES,
+                "dq_launches": flash.DQ_LAUNCHES,
+                "dkdv_launches": flash.DKDV_LAUNCHES}
+    for key, per_layer in (("k1_launches", 2), ("dq_launches", 1),
+                           ("dkdv_launches", 1)):
+        if launches[key] < per_layer * cfg.n_layers * len(losses):
+            raise AssertionError(f"LoRA training: {key} = {launches[key]}")
+    losses = [float(x) for x in losses]
+    if not (all(math.isfinite(x) for x in losses) and losses[-1] < losses[0]):
+        raise AssertionError(f"LoRA training loss did not fall: {losses}")
+    if not all(torch.equal(a, b) for a, b in zip(before,
+                                                 tr.tree_leaves(base))):
+        raise AssertionError("LoRA training changed the frozen base")
+    if any(t.requires_grad for t in tr.tree_leaves(base)):
+        raise AssertionError("the frozen base requires grad")
+    del before
+    peak = torch.cuda.max_memory_allocated()
+
+    # one adapter gradient through the kernels vs plain attention, batch 2
+    results = []
+    for variant in ({}, {"flash_min_seq": 0}):
+        c = tf.TransformerConfig(**{**TRAIN_CFG, **variant})
+        loss = tf.loss_fn(lora.apply_lora(base, state.params, c),
+                          tokens[:2], c)
+        results.append((float(loss.detach()), torch.autograd.grad(
+            loss, tr.tree_leaves(state.params))))
+    (l_k, g_k), (l_p, g_p) = results
+    loss_rel = abs(l_k - l_p) / abs(l_p)
+    grad_rel = max(rel_norm_err(a, b) for a, b in zip(g_k, g_p))
+    if not (loss_rel <= TRAIN_LOSS_REL_TOL and grad_rel <= TRAIN_GRAD_REL_TOL):
+        raise AssertionError(f"LoRA gradient, kernels vs plain attention: "
+                             f"loss rel {loss_rel}, worst leaf {grad_rel}")
+    tokens_s = TRAIN_BATCH * TRAIN_SEQ / step_s
+    flops = train_flops_per_token(cfg, n_base + n_lora, TRAIN_SEQ,
+                                  n_frozen=n_base)
+    del results, state, base
+    torch.cuda.empty_cache()
+    return {
+        "phase": "train_lora", "config": TRAIN_CFG, "rank": LORA_RANK,
+        "learning_rate": LORA_LR, "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+        "base_params": n_base, "adapter_params": n_lora,
+        "zero_adapter_loss_equals_base": True,
+        "base_loss": base_loss.item(), "losses": losses,
+        "step_ms": step_s * 1e3, "tokens_per_s": tokens_s,
+        "mfu": tokens_s * flops / BF16_FLOP_PER_S, "flops_per_token": flops,
+        "peak_memory_bytes": peak, "base_bits_unchanged": True,
+        "kernel_vs_plain_loss_rel": loss_rel,
+        "kernel_vs_plain_worst_grad_rel": grad_rel, **launches,
+    }
+
+
+def drive_serve_lora(tmp, model):
+    """The LoRA chain through the CLIs over the train_cli phase's
+    checkpoint: the trainer fine-tunes rank-LORA_RANK adapters on that
+    frozen base; the serve CLI merges them (bf16, then --int8: merged,
+    then quantized), and its greedy tokens equal an in-process generate
+    on the same params; the evaluator's --lora-dir loss equals the
+    in-process one."""
+    from containerpilot_tpu_torch.models import decode, quantized
+    from containerpilot_tpu_torch.models import transformer as tf
+    from containerpilot_tpu_torch.workload.modelcfg import (
+        average_eval_loss,
+        derive_d_ff,
+        restore_merged_params,
+    )
+    from containerpilot_tpu_torch.workload.data import TokenShardDataset
+
+    ckpt, adapter = os.path.join(tmp, "ckpt"), os.path.join(tmp, "adapter")
+    shards = os.path.join(tmp, "shards")
+    lora_flags = ["--lora-dir", adapter, "--lora-rank", str(LORA_RANK)]
+    t0 = time.perf_counter()
+    rc, out = _run_cli("train", [
+        "--device", "cuda", *model, "--seq-len", "1024", "--batch", "4",
+        "--lora-rank", str(LORA_RANK), "--base-checkpoint-dir", ckpt,
+        "--checkpoint-dir", adapter, "--steps", "4", "--checkpoint-every",
+        "4", "--learning-rate", str(LORA_LR)])
+    base_step = re.search(r"lora: frozen base from checkpoint step (\d+)",
+                          out)
+    if rc != 0 or base_step is None or "lora: rank" not in out:
+        raise AssertionError(f"LoRA trainer: exit {rc}\n{out[-2000:]}")
+    d_model = int(model[model.index("--d-model") + 1])
+    cfg = tf.TransformerConfig(
+        vocab_size=1024, d_model=d_model,
+        n_heads=int(model[model.index("--n-heads") + 1]),
+        n_layers=int(model[model.index("--n-layers") + 1]),
+        d_ff=derive_d_ff(d_model), max_seq_len=1024)
+    merged = restore_merged_params(cfg, ckpt, lora_dir=adapter,
+                                   lora_rank=LORA_RANK, device="cuda")[0]
+    prompt = [(5 * i + 1) % 1024 for i in range(40)]
+    body = {"tokens": [prompt], "max_new_tokens": 24}
+    result = {"phase": "serve_lora", "rank": LORA_RANK,
+              "base_step": int(base_step.group(1)),
+              "train_s": time.perf_counter() - t0}
+    for label, extra in (("bf16", []), ("int8", ["--int8"])):
+        served, _info, log_text = _serve_cli_tokens(
+            ["--device", "cuda", "--checkpoint-dir", ckpt, "--max-len",
+             "1024", "--vocab", "1024", *model, *lora_flags, *extra], body)
+        if f"merged lora adapter (rank {LORA_RANK}, step 4)" not in log_text:
+            raise AssertionError(f"serve --lora-dir ({label}):\n"
+                                 f"{log_text[-1500:]}")
+        params = merged if not extra else quantized.quantize_model_params(
+            merged)
+        params = quantized.cast_params(params, cfg.dtype)
+        with torch.inference_mode():
+            local = decode.generate(params, torch.tensor([prompt],
+                                                         device="cuda"),
+                                    cfg, 24, 1024).tolist()
+        if served != local:
+            raise AssertionError(f"served LoRA tokens ({label}) {served} "
+                                 f"differ from in-process {local}")
+        result[label] = {"tokens_equal_in_process": True,
+                         "tokens_head": served[0][:8]}
+        del params
+    rc, out = _run_cli("evaluate", [
+        "--device", "cuda", "--checkpoint-dir", ckpt, *lora_flags,
+        "--data-dir", shards, "--eval-holdout", "4", "--batch", "2",
+        "--seq-len", "1024", "--vocab", "1024", *model])
+    if rc != 0:
+        raise AssertionError(f"evaluate --lora-dir: exit {rc}\n{out[-2000:]}")
+    report = json.loads(out.strip().splitlines()[-1])
+    data = TokenShardDataset(shards, 1024, 2, vocab_size=1024,
+                             holdout_windows=4)
+    want = average_eval_loss(merged, cfg, data.n_eval_batches,
+                             data.eval_batch)
+    if not (report["lora"] and report["eval_loss"] == round(want, 6)):
+        raise AssertionError(f"evaluate --lora-dir said {report}, "
+                             f"in-process {want}")
+    result.update({"evaluate": report, "in_process_eval_loss": want,
+                   "seconds": time.perf_counter() - t0})
+    del merged
+    torch.cuda.empty_cache()
+    return result
 
 
 def main() -> int:
@@ -1902,10 +2391,26 @@ def main() -> int:
     train_window.update(card)
     emit(train_window)
 
-    # ---- train CLI: preempt and resume; serve its checkpoint -----------
-    train_cli, serve_ckpt = drive_train_cli()
-    emit({**train_cli, **card})
-    emit({**serve_ckpt, **card})
+    with tempfile.TemporaryDirectory() as tmp:
+        # ---- train CLI: preempt and resume; serve its checkpoint -------
+        train_cli, serve_ckpt = drive_train_cli(tmp)
+        emit({**train_cli, **card})
+        emit({**serve_ckpt, **card})
+
+        # ---- beams and speculative decoding, bf16 then int8 ------------
+        masters = tf.init_params(0, cfg, device="cuda")  # phase 4's weights
+        serve_beam, serve_spec = serve_beam_spec(cfg, masters, prompt, card)
+        emit(serve_beam)
+        emit(serve_spec)
+        del masters
+        torch.cuda.empty_cache()
+
+        # ---- LoRA: fine-tune at full width, then the CLI chain ---------
+        train_lora = drive_train_lora(gen)
+        train_lora.update(card)
+        emit(train_lora)
+        serve_lora = drive_serve_lora(tmp, CLI_MODEL)
+        emit({**serve_lora, **card})
 
     # ---- summary --------------------------------------------------------
     main_flash = flash_rows[0]
@@ -1949,6 +2454,13 @@ def main() -> int:
                     "train_window": train_window["k1_launches"],
                 },
             },
+            "beam_speculative_lora_launches": {
+                **{f"{phase['phase']}_{label}":
+                   phase[label]["k1_launches"]
+                   for phase in (serve_beam, serve_spec)
+                   for label in ("bf16", "int8")},
+                "train_lora": train_lora["k1_launches"],
+            },
         },
         *(
             {
@@ -1980,6 +2492,7 @@ def main() -> int:
                     "launches": {"train_window":
                                  train_window[f"{key}_launches"]},
                 },
+                "train_lora_launches": train_lora[f"{key}_launches"],
             }
             for name, key, replaces, grads in (
                 ("flash_bwd_dq", "dq",
@@ -2016,6 +2529,12 @@ def main() -> int:
                 "serve_slots_window_int8_admission":
                     slots_window["k2_launches_admission"],
             }},
+            "beam_speculative_launches": {
+                f"{phase['phase']}_int8": {
+                    "launches": phase["int8"]["k2_launches"],
+                    "by_rows": phase["int8"]["k2_by_rows"]}
+                for phase in (serve_beam, serve_spec)
+            },
         },
     ]
     emit({"kernels": kernels})

@@ -7,6 +7,8 @@ quantized layouts alike (``*_q`` int8 leaves plus ``*_s`` float32
 scales). bf16 arrives as ``ml_dtypes.bfloat16`` numpy, which torch
 cannot read directly; it goes through its bit pattern
 (``.view(np.uint16)`` -> ``torch.from_numpy`` -> ``.view(torch.bfloat16)``).
+LoRA adapters bridge the same way (``lora_from_jax``), so an adapter
+trained or merged in one package can be held against the other.
 """
 from __future__ import annotations
 
@@ -58,6 +60,23 @@ def params_from_jax(
         return t.to(dev)
 
     return {k: convert(k, v) for k, v in numpy_tree.items()}
+
+
+def lora_from_jax(numpy_tree: Dict[str, Any], device) -> Dict[str, Any]:
+    """The port's LoRA adapter from a JAX adapter pytree already turned
+    into numpy (``init_lora_params`` or a LoRA TrainState's params):
+    ``{target}_a [L, d, r]`` and ``{target}_b [L, r, n]`` as float32
+    tensors on ``device``, names and shapes kept."""
+    dev = resolve_device(device)
+    out = {}
+    for name, leaf in numpy_tree.items():
+        arr = np.asarray(leaf)
+        if name.rpartition("_")[2] not in ("a", "b") or arr.ndim != 3:
+            raise ValueError(
+                f"not a LoRA adapter leaf: {name} {tuple(arr.shape)}"
+            )
+        out[name] = _to_torch(arr).float().to(dev)
+    return out
 
 
 def config_kwargs(cfg_dict: Dict[str, Any]) -> Dict[str, Any]:

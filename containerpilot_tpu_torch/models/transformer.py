@@ -184,7 +184,8 @@ class _MmF32(torch.autograd.Function):
     contracts the float32 cotangent itself. A float32 GEMM for the
     activation gradient would cost far more than the step's whole bf16
     product time; the card's check holds this backward to 1e-2 of the
-    float32 product."""
+    float32 product. A frozen operand (the unembed under LoRA) costs no
+    GEMM."""
 
     @staticmethod
     def forward(ctx, a, b):
@@ -195,7 +196,9 @@ class _MmF32(torch.autograd.Function):
     def backward(ctx, grad):
         a, b = ctx.saved_tensors
         g = grad.to(a.dtype)
-        return g @ b.t(), a.t() @ g
+        need_a, need_b = ctx.needs_input_grad
+        return (g @ b.t() if need_a else None,
+                a.t() @ g if need_b else None)
 
 
 def _dot_f32(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,5 @@
-"""Training state, optimizer, train step and checkpoints on one device
-(counterpart of ``containerpilot_tpu/parallel``; meshes, sharding,
+"""Training state, optimizer, train and LoRA steps and checkpoints on one
+device (counterpart of ``containerpilot_tpu/parallel``; meshes, sharding,
 context and pipeline parallelism are not ported yet)."""
 from .checkpoint import (
     latest_step,
@@ -13,7 +13,9 @@ from .train import (
     abstract_train_state,
     ema_params,
     init_train_state,
+    lora_abstract_state,
     lr_schedule,
+    make_lora_train_step,
     make_optimizer,
     make_train_step,
     with_ema,
@@ -25,7 +27,9 @@ __all__ = [
     "ema_params",
     "init_train_state",
     "latest_step",
+    "lora_abstract_state",
     "lr_schedule",
+    "make_lora_train_step",
     "make_optimizer",
     "make_train_step",
     "restore_checkpoint",

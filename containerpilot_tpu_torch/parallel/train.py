@@ -18,7 +18,9 @@ reference's ``optax.chain(clip_by_global_norm, adamw)`` written out with
 
 Unlike optax, the state is mutable: ``update`` rewrites the params, the
 moments and the EMA shadow in place, which keeps one copy of each in
-device memory. zero1, fsdp, pipeline and LoRA steps are not ported yet.
+device memory. ``make_lora_train_step`` trains LoRA adapters over a
+frozen base with the same optimizer. zero1, fsdp and pipeline steps are
+not ported yet.
 """
 from __future__ import annotations
 
@@ -270,3 +272,55 @@ def make_train_step(
         return TrainState(state.params, opt_state, state.step + 1), loss
 
     return step
+
+
+def lora_abstract_state(cfg: TransformerConfig, rank: int, optimizer=None,
+                        learning_rate: float = 1e-4) -> TrainState:
+    """A LoRA TrainState's structure on the meta device (the adapter
+    pairs and the optimizer's state over them): the restore target of
+    the trainer's resume and of serving's params-only adapter restore."""
+    from ..models.lora import init_lora_params
+
+    lora = init_lora_params(0, cfg, rank, device="meta")
+    optimizer = optimizer or make_optimizer(learning_rate)
+    return TrainState(params=lora, opt_state=optimizer.init(lora), step=0)
+
+
+def make_lora_train_step(
+    cfg: TransformerConfig,
+    rank: int,
+    learning_rate: float = 1e-4,
+    optimizer=None,
+    alpha: float = 2.0,
+):
+    """LoRA fine-tuning -> ``(init_fn, step_fn, abstract)``.
+
+    ``init_fn(rng, device)`` makes the TrainState, whose params are the
+    adapter pairs (float32, requiring grad). ``step_fn(state, base,
+    tokens) -> (state, loss)`` differentiates ``loss_fn(apply_lora(base,
+    lora), tokens)`` with respect to the adapters only and updates them
+    and the optimizer's state (and EMA, where asked) in place; the base
+    rides along detached, so it never requires grad and gets no gradient
+    buffers. ``abstract`` is the checkpoint-restore target
+    (``lora_abstract_state``)."""
+    from ..models.lora import apply_lora, init_lora_params
+
+    optimizer = optimizer or make_optimizer(learning_rate)
+    abstract = lora_abstract_state(cfg, rank, optimizer, learning_rate)
+
+    def init_fn(rng, device="cuda") -> TrainState:
+        lora = _master(init_lora_params(rng, cfg, rank, device=device))
+        return TrainState(params=lora, opt_state=optimizer.init(lora),
+                          step=0)
+
+    def step_fn(state: TrainState, base: Params, tokens: torch.Tensor):
+        frozen = tree_map(torch.Tensor.detach, base)
+        leaves = tree_leaves(state.params)
+        loss = loss_fn(apply_lora(frozen, state.params, cfg, alpha),
+                       tokens, cfg)
+        grads = list(torch.autograd.grad(loss, leaves))
+        opt_state = optimizer.update(grads, state.opt_state, state.params)
+        state = TrainState(state.params, opt_state, state.step + 1)
+        return state, loss.detach()
+
+    return init_fn, step_fn, abstract

@@ -1,10 +1,11 @@
 """Standalone evaluation: checkpoint + token shards -> loss/perplexity
 (counterpart of ``containerpilot_tpu/workload/evaluate.py``).
 
-Scores the latest checkpoint of a trainer run (the raw params, or the
-EMA shadow with ``--use-ema``) over a dataset's held-out windows (or the
-training stream from its head with ``--eval-holdout 0 --max-batches
-N``) and prints one JSON line:
+Scores the latest checkpoint of a trainer run (the raw params, the EMA
+shadow with ``--use-ema``, or a LoRA-adapted base with ``--lora-dir``
+and ``--lora-rank``: the adapter merged into the checkpoint's params)
+over a dataset's held-out windows (or the training stream from its head
+with ``--eval-holdout 0 --max-batches N``) and prints one JSON line:
 
     python -m containerpilot_tpu_torch.workload.evaluate \\
         --checkpoint-dir /ckpt --data-dir /data --eval-holdout 64 \\
@@ -13,8 +14,8 @@ N``) and prints one JSON line:
 ``--eval-holdout`` is required and must equal the trainer's value. The
 loss is ``modelcfg.average_eval_loss``, the trainer's in-loop eval, so
 the numbers are comparable by construction. Only the params leave disk
-(the checkpoint is memory-mapped). ``--lora-dir``/``--lora-rank`` and
-``--moe-experts`` are not ported yet and exit.
+(the checkpoint is memory-mapped). ``--moe-experts`` is not ported yet
+and exits.
 """
 from __future__ import annotations
 
@@ -49,28 +50,26 @@ def main(argv=None) -> int:
                         help="cap scored batches (0 = the whole split)")
     parser.add_argument("--use-ema", action="store_true",
                         help="score the checkpoint's EMA shadow weights")
+    parser.add_argument("--lora-dir", default="",
+                        help="merge the trained LoRA adapter of this "
+                        "checkpoint dir into the params before scoring")
+    parser.add_argument("--lora-rank", type=int, default=0,
+                        help="rank of the adapter in --lora-dir")
     not_ported = parser.add_argument_group(
         "reference flags not ported yet (any value but the default exits)"
     )
     not_ported.add_argument("--moe-experts", type=int, default=0)
-    not_ported.add_argument("--lora-dir", default="")
-    not_ported.add_argument("--lora-rank", type=int, default=0)
     args = parser.parse_args(argv)
-    for flag, value, default in (
-        ("--moe-experts", args.moe_experts, 0),
-        ("--lora-dir", args.lora_dir, ""), ("--lora-rank", args.lora_rank, 0),
-    ):
-        if value != default:
-            raise SystemExit(
-                f"{flag} is not ported yet to the PyTorch/CUDA evaluator "
-                "(see ROADMAP.md)"
-            )
+    if args.moe_experts != 0:
+        raise SystemExit(
+            "--moe-experts is not ported yet to the PyTorch/CUDA evaluator "
+            "(see ROADMAP.md)"
+        )
 
     from .. import resolve_device
     from ..models.transformer import TransformerConfig
-    from ..parallel import abstract_train_state, restore_params
     from .data import TokenShardDataset
-    from .modelcfg import average_eval_loss, derive_d_ff
+    from .modelcfg import average_eval_loss, derive_d_ff, restore_merged_params
 
     device = resolve_device(args.device)
     cfg = TransformerConfig(
@@ -84,9 +83,9 @@ def main(argv=None) -> int:
         loss_chunk=args.loss_chunk,
         window=args.window,
     )
-    restored = restore_params(
-        args.checkpoint_dir, abstract_train_state(cfg),
-        prefer_ema=args.use_ema, device=device,
+    restored = restore_merged_params(
+        cfg, args.checkpoint_dir, use_ema=args.use_ema,
+        lora_dir=args.lora_dir, lora_rank=args.lora_rank, device=device,
     )
     if restored is None:
         raise SystemExit(f"no checkpoint in {args.checkpoint_dir}")
@@ -115,7 +114,7 @@ def main(argv=None) -> int:
         "tokens": n * args.batch * args.seq_len,
         "split": "holdout" if args.eval_holdout > 0 else "head",
         "ema": restored.ema,
-        "lora": False,
+        "lora": bool(args.lora_dir),
     }))
     return 0
 

@@ -1,11 +1,12 @@
-"""The flag, request, scoring and eval helpers the server and the
-trainer share (counterparts of ``containerpilot_tpu/workload/modelcfg.py``'s
-``derive_d_ff``, ``parse_logit_bias``, ``parse_stop_ids``,
-``score_logprobs_fn`` and ``average_eval_loss``; the port keeps its
-own)."""
+"""The flag, request, scoring, eval and LoRA-merge helpers the server,
+the trainer and the evaluator share (counterparts of
+``containerpilot_tpu/workload/modelcfg.py``'s ``derive_d_ff``,
+``parse_logit_bias``, ``parse_stop_ids``, ``score_logprobs_fn``,
+``average_eval_loss``, ``validate_lora_flags``, ``merge_lora`` and
+``restore_merged_params``; the port keeps its own)."""
 from __future__ import annotations
 
-from typing import Any, Callable
+from typing import Any, Callable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -106,3 +107,51 @@ def average_eval_loss(
         toks = torch.as_tensor(np.asarray(batch_at(i))).long().to(device)
         total += float(loss_fn(params, toks, cfg))
     return total / n
+
+
+def validate_lora_flags(lora_dir: str, lora_rank: int) -> None:
+    """Clean SystemExit for the flag-misuse cases every CLI shares."""
+    if lora_rank > 0 and not lora_dir:
+        raise SystemExit("--lora-rank without --lora-dir does nothing; "
+                         "pass the adapter checkpoint dir")
+    if lora_dir and lora_rank < 1:
+        raise SystemExit("--lora-dir requires --lora-rank")
+
+
+def merge_lora(params, cfg, lora_dir: str, lora_rank: int,
+               device=None) -> Tuple[Any, int]:
+    """Restore a trained adapter (params only) from the latest
+    checkpoint under ``lora_dir`` onto ``device`` (default: the params')
+    and fold it into the base weights -> (merged params, adapter step).
+    Merge before any quantization: an int8 base is not adaptable."""
+    from ..models.lora import apply_lora
+    from ..parallel import lora_abstract_state, restore_params
+
+    adapter = restore_params(
+        lora_dir, lora_abstract_state(cfg, lora_rank),
+        device=device or params["norm_out"].device,
+    )
+    if adapter is None:
+        raise SystemExit(f"no adapter checkpoint in {lora_dir}")
+    return apply_lora(params, adapter[0], cfg), int(adapter[1])
+
+
+def restore_merged_params(cfg, checkpoint_dir: str, use_ema: bool = False,
+                          lora_dir: str = "", lora_rank: int = 0,
+                          device="cuda") -> Optional[Any]:
+    """A params-only restore of the latest checkpoint plus an optional
+    ``merge_lora``: what the evaluate CLI scores. Returns
+    ``RestoredParams`` (params, checkpoint step, with ``.ema`` from the
+    base restore), or None when no checkpoint exists."""
+    from ..parallel import abstract_train_state, restore_params
+    from ..parallel.checkpoint import RestoredParams
+
+    validate_lora_flags(lora_dir, lora_rank)
+    restored = restore_params(checkpoint_dir, abstract_train_state(cfg),
+                              prefer_ema=use_ema, device=device)
+    if restored is None:
+        return None
+    params, step = restored
+    if lora_dir:
+        params, _ = merge_lora(params, cfg, lora_dir, lora_rank, device)
+    return RestoredParams(params, step, restored.ema)

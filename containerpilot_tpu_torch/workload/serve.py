@@ -8,7 +8,9 @@ API (token-level):
         -> {"tokens": [[...generated ids...]]}
         ("logprobs": true echoes per-token logprobs of the trimmed
         generated ids; "stream": true, with --slots, answers with SSE
-        events {"tokens": [delta]} ... {"done": true, "count": n})
+        events {"tokens": [delta]} ... {"done": true, "count": n};
+        "beam_width": W, with "length_penalty", returns the best of W
+        beams for one prompt row)
     POST /v1/score {"tokens": [[...]]}
         -> {"logprobs": [[lp(t1|t0), lp(t2|t0..1), ...]],
             "sums": [total lp per row]}   (teacher-forced scoring)
@@ -16,20 +18,24 @@ API (token-level):
     GET /v1/model -> config summary (the reference's schema; the
                      features not ported yet report None)
 
-Single-row requests route as the reference routes them: the slot
-engine (``--slots``, serve_slots.py: continuous admission into a pool
-decoded by CUDA-graph replays), then a prefix-cache hit
-(``--prefix-cache``, serve_prefix.py), then chunked prefill
-(``--prefill-chunk``, serve_strategies.py); everything else goes through
-the continuous batcher (serve_batcher.py) into ``models.decode.generate``.
-Generation runs on worker threads, so the event loop (health checks
-included) never waits on the device. Every CUDA graph of the slot engine
-is captured while the server is built, before ``/health`` turns 200.
-The other reference routes (/metrics, /v1/completions, the fleet and KV
-verbs) answer 404, and ``beam_width`` a 422, until they are ported
-(ROADMAP.md). Unlike the reference, ``max_new_tokens`` is not bucketed
-to a multiple of 16 (eager torch compiles nothing); the trimmed output
-is the same.
+Requests route as the reference routes them: beams first
+(serve_strategies.run_beam, models/beam.py); then greedy, penalty-free,
+bias-free single rows through the speculative engine (``--draft-layers``
+and ``--speculate``: a slot engine over models/speculative.py's
+SpeculativeStepProgram, the target's first N layers drafting); then
+single rows through the slot engine (``--slots``, serve_slots.py:
+continuous admission into a pool decoded by CUDA-graph replays), a
+prefix-cache hit (``--prefix-cache``, serve_prefix.py) or chunked
+prefill (``--prefill-chunk``, serve_strategies.py); everything else goes
+through the continuous batcher (serve_batcher.py) into
+``models.decode.generate``. Generation runs on worker threads, so the
+event loop (health checks included) never waits on the device. Every
+CUDA graph of the slot engine is captured, and every speculative round
+shape run, while the server warms, before ``/health`` turns 200. The
+other reference routes (/metrics, /v1/completions, the fleet and KV
+verbs) answer 404 until they are ported (ROADMAP.md). Unlike the
+reference, ``max_new_tokens`` is not bucketed to a multiple of 16 (eager
+torch compiles nothing); the trimmed output is the same.
 
 ``python -m containerpilot_tpu_torch.workload.serve`` runs the CLI
 (serve_cli.py).
@@ -47,7 +53,9 @@ from typing import Any, Dict, List, Optional
 import torch
 
 from .. import resolve_device
+from ..models.beam import validate_beam_args
 from ..models.decode import generate
+from ..models.speculative import warm_speculative
 from ..models.transformer import TransformerConfig
 from ..utils.http import HTTPServer, Request, Response, StreamingResponse
 from . import serve_strategies
@@ -103,6 +111,8 @@ class InferenceServer:
         slot_chunk: int = 8,
         slot_window: int = 4,
         checkpoint: Optional[Dict[str, Any]] = None,
+        draft_layers: int = 0,
+        speculate: int = 4,
     ) -> None:
         self.device = resolve_device(device)
         if params["norm_out"].device != self.device:
@@ -122,6 +132,17 @@ class InferenceServer:
         # what the weights came from: {"step": n, "ema": bool} for a
         # restored checkpoint, None for the seeded initialization
         self.checkpoint = checkpoint
+        # self-speculative decoding: a layer-prefix draft speeds up greedy
+        # single-row generation, output unchanged
+        self.draft_params = self.draft_cfg = None
+        self.speculate = speculate
+        if draft_layers > 0 and speculate < 1:
+            raise ValueError("speculate must be >= 1")
+        if draft_layers > 0 and cfg.window > 0:
+            raise ValueError(
+                "--draft-layers does not compose with --window "
+                "(speculative rollback cannot undo ring-cache writes)"
+            )
         if prefix_cache_entries > 0 and cfg.window > 0:
             raise ValueError(
                 "--prefix-cache does not compose with --window (a "
@@ -168,6 +189,27 @@ class InferenceServer:
                 window=slot_window, prefill_chunk=prefill_chunk,
                 prefix_cache=self.prefix_cache,
             )
+        self.spec_engine = None
+        if draft_layers > 0:
+            from ..models.speculative import (
+                SpeculativeStepProgram,
+                layer_prefix_draft,
+            )
+            from .serve_slots import SlotEngine
+
+            self.draft_params, self.draft_cfg = layer_prefix_draft(
+                params, cfg, draft_layers
+            )
+            # speculative decoding rides a slot engine of its own as a
+            # step program: one slot, the verify rollback a per-sequence
+            # pos rewind
+            self.spec_engine = SlotEngine(
+                cfg, params, max_len, prefill_chunk=prefill_chunk,
+                program=SpeculativeStepProgram(
+                    cfg, self.draft_cfg, params, self.draft_params,
+                    max_len, speculate=speculate,
+                ),
+            )
         self._executor = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="inference"
         )
@@ -200,7 +242,12 @@ class InferenceServer:
             "checkpoint": self.checkpoint,
             "mesh": None,
             "text": False,
-            "speculative": None,
+            "speculative": (
+                {"draft_layers": self.draft_cfg.n_layers,
+                 "speculate": self.speculate,
+                 "engine": self.spec_engine.stats}
+                if self.draft_cfg is not None else None
+            ),
             "batching": {
                 "max_batch_rows": self.max_batch_rows,
                 "device_calls": self.batch_stats["calls"],
@@ -249,21 +296,40 @@ class InferenceServer:
             ),
             "logprobs": bool(body.get("logprobs", False)),
             "beam_width": int(body.get("beam_width", 0)),
+            "length_penalty": float(body.get("length_penalty", 0.0)),
         }
-        if p["beam_width"] and not body.get("stream"):
-            # a stream refuses beams with the reference's own message
-            raise ValueError(
-                "beam search is not ported yet (ROADMAP.md queue 1)"
-            )
+        if p["logit_bias"] and p["beam_width"]:
+            raise ValueError("logit_bias does not apply to beam search")
         p["n"] = int(body.get("n", 1))
         if not 1 <= p["n"] <= self.max_batch_rows:
             raise ValueError(
                 f"n must be in [1, --max-batch-rows {self.max_batch_rows}]"
             )
-        if p["n"] > 1 and len(tokens) != 1:
-            raise ValueError(
-                "n > 1 takes a single prompt row (it IS the row multiplier)"
-            )
+        if p["n"] > 1:
+            if len(tokens) != 1:
+                raise ValueError(
+                    "n > 1 takes a single prompt row (it IS the row "
+                    "multiplier)"
+                )
+            if p["beam_width"]:
+                raise ValueError(
+                    "n does not compose with beam search (beams already "
+                    "return one best row)"
+                )
+        if p["beam_width"]:
+            if p["temperature"] > 0.0 or p["top_k"] or p["top_p"]:
+                raise ValueError(
+                    "beam search is deterministic; drop "
+                    "temperature/top_k/top_p"
+                )
+            validate_beam_args(self.cfg, len(tokens), p["beam_width"])
+            if p["beam_width"] > self.max_batch_rows:
+                # beams tile the KV cache: one request must not exceed
+                # the server's device-row budget
+                raise ValueError(
+                    f"beam_width capped at --max-batch-rows "
+                    f"({self.max_batch_rows})"
+                )
         if (not 0 <= p["top_k"] <= self.cfg.vocab_size
                 or not 0.0 <= p["top_p"] <= 1.0):
             raise ValueError(
@@ -274,10 +340,14 @@ class InferenceServer:
             raise ValueError(f"eos_id must be < vocab {self.cfg.vocab_size}")
         if not 0 <= p["min_new"] <= max(p["max_new_requested"], 0):
             raise ValueError("min_new_tokens must be in [0, max_new_tokens]")
+        if p["min_new"] and p["beam_width"]:
+            raise ValueError("min_new_tokens does not apply to beam search")
         if not (abs(p["presence"]) <= 100 and abs(p["frequency"]) <= 100):
             raise ValueError(
                 "presence/frequency penalties must be in [-100, 100]"
             )
+        if (p["presence"] or p["frequency"]) and p["beam_width"]:
+            raise ValueError("penalties do not apply to beam search")
         if prompt_len + p["max_new_requested"] > self.max_len:
             raise ValueError(
                 f"prompt_len + max_new_tokens exceeds max_len {self.max_len}"
@@ -481,10 +551,32 @@ class InferenceServer:
         self, tokens: List[List[int]], prompt_len: int, p: Dict[str, Any]
     ) -> List[List[int]]:
         """Route a validated request to its decode strategy (the
-        reference's order: slot engine, prefix hit, chunked prefill,
-        batcher) -> the untrimmed generated rows."""
+        reference's order: beams, the speculative engine, the slot
+        engine, prefix hit, chunked prefill, batcher) -> the untrimmed
+        generated rows."""
         loop = asyncio.get_running_loop()
         single = len(tokens) == 1
+        if p["beam_width"]:
+            return await loop.run_in_executor(
+                self._executor, serve_strategies.run_beam, self, tokens,
+                p["max_new_requested"], p["beam_width"], p["eos_id"],
+                p["length_penalty"],
+            )
+        if (
+            self.spec_engine is not None
+            and p["temperature"] <= 0.0
+            and p["min_new"] == 0
+            and not p["presence"] and not p["frequency"]
+            and not p["logit_bias"]
+            and single
+        ):
+            # greedy single row: draft-and-verify through the speculative
+            # engine, whose emission is eos-capped at the exact max_new
+            fut = self.spec_engine.submit(
+                tokens[0], p["max_new_requested"], eos_id=p["eos_id"],
+                seed=p["seed"],
+            )
+            return [await asyncio.wrap_future(fut)]
         if self.slot_engine is not None and single:
             # joins the running chunk loop at the next boundary; output
             # is already pad-trimmed at eos
@@ -552,6 +644,12 @@ class InferenceServer:
                 self.params, prompt, self.cfg, max_new_tokens=16,
                 max_len=self.max_len,
             )
+            if self.draft_params is not None and prompt_len == 4:
+                # every draft/verify round shape, before /health
+                warm_speculative(
+                    self.params, self.draft_params, self.cfg,
+                    self.draft_cfg, self.speculate, self.max_len,
+                )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -560,7 +658,8 @@ class InferenceServer:
         before reporting healthy; with a slot engine, one request through
         it (admission, a chunk and, with windows, a fused window: chunk+2
         new tokens leave one token past the admission round) on graphs
-        captured when the engine was built."""
+        captured when the engine was built; with a draft, every
+        speculative round shape and one request through its engine."""
         await asyncio.get_running_loop().run_in_executor(
             self._executor, self._warm
         )
@@ -569,6 +668,13 @@ class InferenceServer:
             warm_new = engine.chunk + (2 if engine.window > 1 else 1)
             fut = engine.submit([0] * WARMUP_PROMPT_LEN, max_new=warm_new)
             await asyncio.wrap_future(fut)
+        if self.spec_engine is not None:
+            spec_new = min(self.speculate + 2,
+                           self.max_len - WARMUP_PROMPT_LEN)
+            if spec_new >= 1:
+                fut = self.spec_engine.submit([0] * WARMUP_PROMPT_LEN,
+                                              max_new=spec_new)
+                await asyncio.wrap_future(fut)
         self.ready = True
         self.ready_at = time.monotonic()
         log.info("serve: default shapes warm; accepting traffic")
@@ -581,10 +687,11 @@ class InferenceServer:
         await self.warmup()
 
     async def stop(self) -> None:
-        if self.slot_engine is not None:
-            await asyncio.get_running_loop().run_in_executor(
-                None, self.slot_engine.stop
-            )
+        for engine in (self.slot_engine, self.spec_engine):
+            if engine is not None:
+                await asyncio.get_running_loop().run_in_executor(
+                    None, engine.stop
+                )
         await self._batcher.stop()
         await self._server.stop()
         self._executor.shutdown(wait=True)

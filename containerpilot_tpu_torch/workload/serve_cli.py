@@ -4,17 +4,19 @@
 ``python -m containerpilot_tpu_torch.workload.serve`` lands here. The
 flags the port runs: --host, --port, --max-len, --d-model, --n-layers,
 --n-heads, --n-kv-heads, --window, --vocab, --checkpoint-dir,
---use-ema, --int8, --kv-int8, --max-batch-rows, --prefill-chunk,
---prefix-cache, --slots, --slot-chunk, --slot-window, and --device
-(default cuda; the part JAX_PLATFORMS plays for the reference). Every
-other reference flag is accepted with its reference default and exits
-with a "not ported yet" message when set to anything else.
+--use-ema, --int8, --kv-int8, --lora-dir, --lora-rank, --draft-layers,
+--speculate, --max-batch-rows, --prefill-chunk, --prefix-cache, --slots,
+--slot-chunk, --slot-window, and --device (default cuda; the part
+JAX_PLATFORMS plays for the reference). Every other reference flag is
+accepted with its reference default and exits with a "not ported yet"
+message when set to anything else.
 
 Weights come from the latest ``step_<n>/`` checkpoint of the port's
 trainer under --checkpoint-dir (params only: the optimizer moments stay
 on disk; the EMA shadow with --use-ema), or from a seeded
-initialization when there is none. Model flags that disagree with the
-checkpoint fail at startup.
+initialization when there is none; a LoRA adapter under --lora-dir is
+merged into those float32 weights before --int8 quantizes them. Model
+flags that disagree with the checkpoint fail at startup.
 """
 from __future__ import annotations
 
@@ -26,10 +28,6 @@ from typing import Any, Dict, Tuple
 _NOT_PORTED: Dict[str, Tuple[str, Any]] = {
     "mux": ("--mux", True),
     "moe_experts": ("--moe-experts", 0),
-    "lora_dir": ("--lora-dir", ""),
-    "lora_rank": ("--lora-rank", 0),
-    "draft_layers": ("--draft-layers", 0),
-    "speculate": ("--speculate", 4),
     "kv_spill_mb": ("--kv-spill-mb", 0.0),
     "text": ("--text", False),
     "tp": ("--tp", 1),
@@ -83,6 +81,26 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "--kv-int8", action="store_true",
         help="int8 KV cache: halves decode KV memory vs bf16 "
         "(per-token-per-head scales; composes with GQA and --window)",
+    )
+    parser.add_argument(
+        "--lora-dir", default="",
+        help="merge a trained LoRA adapter checkpoint into the base "
+        "weights at startup (zero runtime overhead); requires "
+        "--lora-rank to match the adapter",
+    )
+    parser.add_argument(
+        "--lora-rank", type=int, default=0,
+        help="rank of the adapter in --lora-dir",
+    )
+    parser.add_argument(
+        "--draft-layers", type=int, default=0,
+        help="self-speculative decoding: draft with the model's first "
+        "N layers; greedy single-sequence requests decode several "
+        "tokens per target pass with identical output (0 = off)",
+    )
+    parser.add_argument(
+        "--speculate", type=int, default=4,
+        help="draft tokens proposed per verify round",
     )
     parser.add_argument(
         "--max-batch-rows", type=int, default=16,
@@ -154,9 +172,10 @@ def load_model(args: argparse.Namespace):
     """-> (cfg, params, checkpoint) per the flags: float32 masters from
     the latest checkpoint under --checkpoint-dir (its EMA shadow with
     --use-ema, the raw params with a warning when it has none) or, with
-    no checkpoint there, seeded; quantized under --int8 (on the
-    masters), then cast once to the compute dtype. ``checkpoint`` is
-    {"step", "ema"} of what was restored, None for the seeded init."""
+    no checkpoint there, seeded; a --lora-dir adapter merged into them;
+    quantized under --int8 (on the merged masters), then cast once to
+    the compute dtype. ``checkpoint`` is {"step", "ema"} of what was
+    restored, None for the seeded init."""
     from .. import resolve_device
     from ..models.quantized import (
         cast_params,
@@ -165,7 +184,7 @@ def load_model(args: argparse.Namespace):
     )
     from ..models.transformer import TransformerConfig, init_params
     from ..parallel import abstract_train_state, restore_params
-    from .modelcfg import derive_d_ff
+    from .modelcfg import derive_d_ff, merge_lora, validate_lora_flags
 
     cfg = TransformerConfig(
         vocab_size=args.vocab,
@@ -192,6 +211,12 @@ def load_model(args: argparse.Namespace):
                   + (" (EMA weights)" if restored.ema else ""))
     if params is None:
         params = init_params(0, cfg, device=args.device)
+    validate_lora_flags(args.lora_dir, args.lora_rank)
+    if args.lora_dir:
+        params, lora_step = merge_lora(params, cfg, args.lora_dir,
+                                       args.lora_rank)
+        print(f"merged lora adapter (rank {args.lora_rank}, "
+              f"step {lora_step})")
     if args.int8:
         dense = param_bytes(cast_params(params, cfg.dtype))
         params = quantize_model_params(params)
@@ -222,6 +247,7 @@ def main(argv=None) -> int:
         prefix_cache_entries=args.prefix_cache,
         prefill_chunk=args.prefill_chunk, slots=args.slots,
         slot_chunk=args.slot_chunk, slot_window=args.slot_window,
+        draft_layers=args.draft_layers, speculate=args.speculate,
     )
 
     async def serve() -> None:

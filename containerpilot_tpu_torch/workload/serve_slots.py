@@ -102,6 +102,7 @@ class SlotEngine:
         prefill_chunk: int = 0,
         prefix_cache=None,
         ledger=None,
+        program=None,
     ) -> None:
         if slots < 1 or chunk < 1:
             raise ValueError("slots and chunk must be >= 1")
@@ -145,13 +146,18 @@ class SlotEngine:
         self.max_len = max_len
         self.device = params["norm_out"].device
         # the step program (models/stepprog.py): the pool, the per-slot
-        # sampling state and, on a card, the captured round graph
-        self.program = make_step_program(
-            cfg, params, max_len, slots, chunk, rounds=window
-        )
-        self.slots = slots
-        self.chunk = chunk
-        self.window = window
+        # sampling state and, on a card, the captured round graph. None
+        # builds the default for the params (plain or quantized); an
+        # explicit program (e.g. speculative) brings its own slots and
+        # chunk, which win
+        if program is None:
+            program = make_step_program(
+                cfg, params, max_len, slots, chunk, rounds=window
+            )
+        self.program = program
+        self.slots = program.slots
+        self.chunk = program.chunk
+        self.window = program.rounds
         self._active: List[Optional[_Slot]] = [None] * self.slots
         # wall and host-only seconds of recent decode-only rounds
         self._round_times: "deque[float]" = deque(maxlen=1024)
@@ -440,10 +446,13 @@ class SlotEngine:
             # one-window lookahead: with no decision pending, dispatch
             # window N+1 before fetching window N's tokens, so the fetch
             # and the bookkeeping below overlap N+1's device work; not
-            # when window N already covers every slot's budget
-            ahead = self._budgets(handle.rounds * self.chunk)
+            # when window N already covers every slot's budget, and not
+            # for a program whose next dispatch depends on this one's
+            # tokens (speculative acceptance)
+            ahead = (self._budgets(handle.rounds * self.chunk)
+                     if program.supports_lookahead else None)
             if (
-                program.supports_lookahead
+                ahead is not None
                 and ahead.any()
                 and self._queue.empty()
                 and not self._cancel_pending()

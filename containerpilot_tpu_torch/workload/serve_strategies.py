@@ -1,12 +1,34 @@
 """Non-batched decode strategies for the inference server (counterpart
-of ``containerpilot_tpu/workload/serve_strategies.py``): chunked
-prefill only so far. Beam search and context-parallel prefill are not
-ported yet (ROADMAP.md queue 1)."""
+of ``containerpilot_tpu/workload/serve_strategies.py``): beam search and
+chunked prefill. Each runs on the inference thread and returns the
+generated rows. Context-parallel prefill is not ported yet (ROADMAP.md
+queue 1); speculative decoding rides a slot engine (serve_slots.py)."""
 from __future__ import annotations
 
 from typing import Any, List
 
 import torch
+
+
+def run_beam(
+    srv: Any, tokens: List[List[int]], max_new_requested: int,
+    beam_width: int, eos_id: int, length_penalty: float,
+) -> List[List[int]]:
+    """One prompt row through ``beam_search`` at the requested length
+    (a beam's best 16 tokens do not start with its best 6, so the
+    length is never bucketed)."""
+    from ..models.beam import beam_search
+
+    out, _score = beam_search(
+        srv.params, torch.tensor(tokens, dtype=torch.int64,
+                                 device=srv.device),
+        srv.cfg, max_new_tokens=max_new_requested, max_len=srv.max_len,
+        beam_width=beam_width, eos_id=eos_id,
+        length_penalty=length_penalty, prefill_chunk=srv.prefill_chunk,
+    )
+    srv.batch_stats["calls"] += 1
+    srv.batch_stats["rows"] += 1
+    return [out.tolist()]
 
 
 @torch.inference_mode()

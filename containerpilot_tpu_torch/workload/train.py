@@ -11,7 +11,12 @@ What a job's ``exec`` points at, supervised by containerpilot-tpu:
   (``--data-dir``) on one device: ``--device cuda`` (the default; raises
   without a card) or ``--device cpu``;
 - on SIGTERM finishes the in-flight step, saves a checkpoint and exits 0;
-  a restart resumes at exactly that step and replays the same data.
+  a restart resumes at exactly that step and replays the same data;
+- with ``--lora-rank R`` fine-tunes rank-R LoRA adapters on attention q/v
+  over a frozen base: the params of the latest checkpoint under
+  ``--base-checkpoint-dir`` (a params-only restore), or a fresh init
+  ("demo mode") without it; eval, checkpoints, SIGTERM and resume then
+  cover the adapters.
 
 Synthetic tokens for step N come from a ``torch.Generator`` seeded from
 (1, N), so a resumed run replays its stream exactly; the stream differs
@@ -21,9 +26,9 @@ jit-compiled here (the CUDA kernels build once into ``build/kernels``).
 
     python -m containerpilot_tpu_torch.workload.train --steps 20
 
-Reference flags for work that is not ported yet (LoRA, pipeline and
-tensor parallelism with its microbatches, zero1, fsdp, MoE) exit with
-"not ported yet" when set.
+Reference flags for work that is not ported yet (pipeline and tensor
+parallelism with its microbatches, zero1, fsdp, MoE) exit with "not
+ported yet" when set.
 """
 from __future__ import annotations
 
@@ -42,8 +47,6 @@ import torch
 # other value exits ("--pipeline-stages 1" means no pipeline, as in the
 # reference)
 _NOT_PORTED = {
-    "lora_rank": ("--lora-rank", 0),
-    "base_checkpoint_dir": ("--base-checkpoint-dir", ""),
     "pipeline_stages": ("--pipeline-stages", 0),
     "tensor_parallel": ("--tensor-parallel", 0),
     "zero1": ("--zero1", False),
@@ -99,6 +102,14 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--ema-decay", type=float, default=0.0,
                         help="maintain an EMA shadow of the params; eval "
                         "and the checkpoint carry it; 0 = off")
+    parser.add_argument("--lora-rank", type=int, default=0,
+                        help="LoRA fine-tuning: train rank-R adapters on "
+                        "attention q/v with the base frozen (0 = full "
+                        "training)")
+    parser.add_argument("--base-checkpoint-dir", default="",
+                        help="with --lora-rank: frozen base weights from "
+                        "this checkpoint (params-only restore); default is "
+                        "a fresh init (demo)")
     parser.add_argument("--accum-steps", type=int, default=1,
                         help="gradient accumulation: split each batch into "
                         "N sequential chunks (batch must divide)")
@@ -198,21 +209,27 @@ def main(argv=None) -> int:
     )
     if args.ema_decay:
         optimizer = with_ema(optimizer, args.ema_decay)
-    train_step = make_train_step(cfg, optimizer, accum_steps=args.accum_steps)
+    base_params = None
+    if args.lora_rank > 0:
+        base_params, lora_init, train_step, abstract = _lora_setup(
+            args, cfg, optimizer, device)
+    else:
+        train_step = make_train_step(cfg, optimizer,
+                                     accum_steps=args.accum_steps)
+        abstract = abstract_train_state(cfg, optimizer)
 
     state = None
     start_step = 0
     if args.checkpoint_dir:
         # restore into a meta-device skeleton: no throwaway init
-        state = restore_checkpoint(
-            args.checkpoint_dir, abstract_train_state(cfg, optimizer),
-            device=device,
-        )
+        state = restore_checkpoint(args.checkpoint_dir, abstract,
+                                   device=device)
         if state is not None:
             start_step = state.step
             print(f"resumed from checkpoint at step {start_step}", flush=True)
     if state is None:
-        state = init_train_state(0, cfg, device, optimizer=optimizer)
+        state = (lora_init(0, device) if base_params is not None
+                 else init_train_state(0, cfg, device, optimizer=optimizer))
 
     client = None
     if args.control_socket:
@@ -250,7 +267,13 @@ def main(argv=None) -> int:
                   "resume; nothing will be profiled", flush=True)
 
         n_params = count_params(state.params)
-        flops_per_token = train_flops_per_token(cfg, n_params, args.seq_len)
+        n_frozen = 0
+        if base_params is not None:
+            # the frozen base forwards and carries gradients, trains nothing
+            n_frozen = count_params(base_params)
+            n_params += n_frozen
+        flops_per_token = train_flops_per_token(cfg, n_params, args.seq_len,
+                                                n_frozen=n_frozen)
         peak = (peak_flops(torch.cuda.get_device_name(device))
                 if device.type == "cuda" else None)
 
@@ -306,6 +329,10 @@ def main(argv=None) -> int:
             if args.eval_every > 0 and (step + 1) % args.eval_every == 0:
                 params = (ema_params(state) if args.ema_decay
                           else state.params)
+                if base_params is not None:
+                    from ..models.lora import apply_lora
+
+                    params = apply_lora(base_params, params, cfg)
                 eval_loss = average_eval_loss(
                     params, cfg, dataset.n_eval_batches, dataset.eval_batch
                 )
@@ -332,6 +359,45 @@ def main(argv=None) -> int:
                     "async checkpoint commit failed"
                 )
     return 0
+
+
+def _lora_setup(args, cfg, optimizer, device):
+    """The frozen base (restored params-only from --base-checkpoint-dir,
+    else a fresh init) and the LoRA step over it -> (base, init_fn,
+    train_step, abstract state)."""
+    from ..models.transformer import init_params
+    from ..parallel import (
+        abstract_train_state,
+        make_lora_train_step,
+        restore_params,
+    )
+
+    if args.accum_steps > 1:
+        raise SystemExit(
+            "--lora-rank composes with the plain trainer only (the adapter "
+            "state is tiny; zero1/fsdp/accum/pipeline solve problems LoRA "
+            "doesn't have)"
+        )
+    if args.base_checkpoint_dir:
+        restored = restore_params(args.base_checkpoint_dir,
+                                  abstract_train_state(cfg), device=device)
+        if restored is None:
+            raise SystemExit(f"no checkpoint in {args.base_checkpoint_dir}")
+        base, base_step = restored
+        print(f"lora: frozen base from checkpoint step {base_step}",
+              flush=True)
+    else:
+        base = init_params(0, cfg, device)
+        print("lora: fresh-init frozen base (demo mode)", flush=True)
+    lora_init, lora_step, abstract = make_lora_train_step(
+        cfg, args.lora_rank, args.learning_rate, optimizer=optimizer)
+    print(f"lora: rank {args.lora_rank} adapters on attention q/v",
+          flush=True)
+
+    def train_step(state, tokens):
+        return lora_step(state, base, tokens)
+
+    return base, lora_init, train_step, abstract
 
 
 def _post(client, metrics) -> None:

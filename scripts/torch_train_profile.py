@@ -2,15 +2,18 @@
 GPU.
 
     python3 scripts/torch_train_profile.py [--steps 3] [--remat full]
+        [--lora-rank 16]
 
 Builds the training configuration and batch that ``chip_smoke.py``
 trains (its ``TRAIN_CFG``, ``TRAIN_BATCH`` and ``TRAIN_SEQ``: bench.py:
 121-133, vocab 32768, d_model 1024, 8 heads, 8 layers, d_ff 4096, seq
 2048, batch 8, flash crossover AUTO; seeded random float32 masters),
 with ``--remat`` in place of its remat, runs two warm steps of
-``parallel.train.make_train_step``, then ``--steps`` steps under
-``torch.profiler`` and prints one JSON line: wall ms per step (host
-clock, synchronized), device kernel ms per step, the device's idle
+``parallel.train.make_train_step`` (with ``--lora-rank R``,
+``make_lora_train_step``: rank-R adapters over the frozen masters),
+then ``--steps`` steps timed without the profiler and ``--steps`` under
+``torch.profiler``, and prints one JSON line: wall ms per step (host
+clock, synchronized) of both, device kernel ms per step, the device's idle
 share, kernel launches per step, device ms per step by group (the
 hand-written kernels K1/K3/K4, matrix products, everything else) and
 the ten kernels with the most device time. Needs a card.
@@ -51,6 +54,7 @@ def main() -> int:
     parser.add_argument("--steps", type=int, default=3)
     parser.add_argument("--remat", default="full",
                         choices=("full", "dots", "none"))
+    parser.add_argument("--lora-rank", type=int, default=0)
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("needs a CUDA card", file=sys.stderr)
@@ -66,8 +70,16 @@ def main() -> int:
 
     _build.build_all()
     cfg = tf.TransformerConfig(**{**TRAIN_CFG, "remat": args.remat})
-    state = tr.init_train_state(0, cfg, "cuda")
-    step = tr.make_train_step(cfg)
+    if args.lora_rank:
+        base = tf.init_params(0, cfg, "cuda")
+        init_fn, lora_step, _ = tr.make_lora_train_step(cfg, args.lora_rank)
+        state = init_fn(1, "cuda")
+
+        def step(state, tokens):
+            return lora_step(state, base, tokens)
+    else:
+        state = tr.init_train_state(0, cfg, "cuda")
+        step = tr.make_train_step(cfg)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(1)
     tokens = torch.randint(0, cfg.vocab_size, (TRAIN_BATCH, TRAIN_SEQ + 1),
@@ -75,6 +87,11 @@ def main() -> int:
     for _ in range(2):  # warm
         state, loss = step(state, tokens)
     torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(args.steps):
+        state, loss = step(state, tokens)
+    torch.cuda.synchronize()
+    unprofiled = time.perf_counter() - t0
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -102,8 +119,10 @@ def main() -> int:
     steps = args.steps
     print(json.dumps({
         "remat": args.remat,
+        "lora_rank": args.lora_rank,
         "steps": steps,
         "loss": float(loss),
+        "unprofiled_wall_ms_per_step": unprofiled * 1e3 / steps,
         "wall_ms_per_step": wall * 1e3 / steps,
         "device_kernel_ms_per_step": device_us / 1e3 / steps,
         "device_idle_share": 1.0 - device_us / 1e6 / wall,

@@ -45,6 +45,9 @@ def test_importing_every_port_module_loads_no_jax():
         "containerpilot_tpu_torch.workload.serve_strategies",
         "containerpilot_tpu_torch.models.slots",
         "containerpilot_tpu_torch.models.stepprog",
+        "containerpilot_tpu_torch.models.beam",
+        "containerpilot_tpu_torch.models.speculative",
+        "containerpilot_tpu_torch.models.lora",
         "containerpilot_tpu_torch.kvtier.digest",
         "containerpilot_tpu_torch.workload.train",
         "containerpilot_tpu_torch.workload.evaluate",
@@ -120,6 +123,10 @@ def test_default_device_without_a_card_raises(monkeypatch):
         init_params(0, cfg)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         init_cache(cfg, 1, 8)
+    from containerpilot_tpu_torch.models.lora import init_lora_params
+
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        init_lora_params(0, cfg, 4)
     params = init_params(0, cfg, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         InferenceServer(cfg, params, "127.0.0.1", 0, 32)

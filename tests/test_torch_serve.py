@@ -154,8 +154,8 @@ def test_cli_parses_supported_flags():
 
 @pytest.mark.parametrize("argv,flag", [
     (["--kv-spill-mb", "8"], "--kv-spill-mb"),
-    (["--draft-layers", "1"], "--draft-layers"),
-    (["--lora-rank", "4"], "--lora-rank"),
+    (["--draft-layers", "1", "--text"], "--text"),
+    (["--lora-rank", "4", "--tp", "2"], "--tp"),
     (["--no-mux"], "--mux"),
     (["--no-adopt-compile-cache"], "--adopt-compile-cache"),
 ])

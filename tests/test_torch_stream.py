@@ -170,7 +170,8 @@ def test_stream_disconnect_frees_the_slot(run, bridged):
     ({"stream": True, "beam_width": 2}, 1,
      "stream does not compose with beam_width"),
     ({"stream": True, "n": 2}, 1, "n does not compose with stream"),
-    ({"beam_width": 2}, 1, "beam search is not ported yet"),
+    ({"beam_width": 2, "temperature": 0.5}, 1,
+     "beam search is deterministic"),
 ])
 def test_bad_compositions_are_refused(run, bridged, body, slots, match):
     """Each refusal is a 422 with the reference's message before any

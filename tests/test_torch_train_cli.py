@@ -90,7 +90,7 @@ def test_sigterm_saves_exits_zero_and_resume_equals_uninterrupted(
 
 
 @pytest.mark.parametrize("flag", [
-    ["--lora-rank", "4"], ["--base-checkpoint-dir", "/x"],
+    ["--lora-rank", "4", "--zero1"], ["--base-checkpoint-dir", "/x", "--fsdp"],
     ["--pipeline-stages", "2"], ["--tensor-parallel", "2"], ["--zero1"],
     ["--fsdp"], ["--moe-experts", "2"], ["--moe-capacity", "1.5"],
     ["--moe-experts", "4", "--window", "64"], ["--microbatches", "2"],
@@ -102,7 +102,8 @@ def test_unported_train_flags_exit(flag):
 
 @pytest.mark.parametrize("flag", [
     ["--moe-experts", "2", "--window", "64"], ["--moe-experts", "2"],
-    ["--lora-dir", "/x"], ["--lora-rank", "2"],
+    ["--lora-dir", "/x", "--moe-experts", "2"],
+    ["--lora-rank", "2", "--moe-experts", "3"],
 ])
 def test_unported_evaluate_flags_exit(flag):
     with pytest.raises(SystemExit, match="not ported yet"):

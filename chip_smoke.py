@@ -131,7 +131,23 @@ training phases, then beams, speculative decoding and LoRA):
    checkpoint (--base-checkpoint-dir), the serve CLI merges them
    (--lora-dir, in bf16 and with --int8: merged, then quantized) and
    its greedy tokens equal an in-process generate on the same params;
-   the evaluate CLI's --lora-dir loss equals the in-process one.
+   the evaluate CLI's --lora-dir loss equals the in-process one;
+18. serve_fleet_face: the serve CLI (serve_cli.main, its K1/K2 counters
+   zeroed and read through signals) at the flagship's width and depth,
+   d_ff 6144 as the CLI derives it, with --slots 8 --text --mux, bf16
+   and then --int8: 8 concurrent /v1/completions (a 1023-byte prompt, so
+   K1 runs at admission; six short; one streamed) as streams on ONE
+   cp-mux/1 connection of the port's MuxConnection and over HTTP/1.1, in
+   turns (mux, HTTP/1.1, HTTP/1.1, mux), each with an X-CP-Trace id; every completion equals /v1/generate
+   greedy on the encoded ids or passes judge_served, its text is the
+   decoded tokens and a stream's text concatenates to it; /metrics counts
+   exactly the requests sent by endpoint and code, the ledger's stages
+   sum to its uptime within LEDGER_REL_TOL, /v1/goodput's dispatches and
+   tokens equal the engine's, /v1/traces holds every id sent with its
+   slot_queue_wait, prefill and decode spans; the wall per request over
+   each transport, the /metrics scrape ms, the slot step with and
+   without the device-time ledger (in-process, in turns), and K2 against
+   its plain version at the CLI model's MLP shapes.
 
 Then the kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -2200,6 +2216,454 @@ def drive_serve_lora(tmp, model):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 18: the replica's telemetry and wire face, through the serve CLI
+# ---------------------------------------------------------------------------
+
+# the serve CLI at the flagship's width and depth (its d_ff is the CLI's
+# derive_d_ff(2048) = 6144, as in the reference CLI: FLAGSHIP's 8192 is
+# not a CLI flag)
+FACE_MODEL = ["--vocab", "32768", "--d-model", "2048", "--n-layers", "16",
+              "--n-heads", "16", "--max-len", str(MAX_LEN)]
+FACE_ARGS = ["--slots", "8", "--text", "--mux"]
+# K2 at the CLI model's MLP projections (k, n), beside INT8_PROJ's
+FACE_INT8_PROJ = ((2048, 6144), (6144, 2048))
+LEDGER_REL_TOL = 1e-2  # ledger stages vs its uptime, across two reads
+# the completions' passes over the two transports, in turns
+FACE_PASSES = (("mux", 0), ("http11", 0), ("http11", 1), ("mux", 1))
+
+# ``serve_cli.main`` (what ``python -m containerpilot_tpu_torch.workload
+# .serve`` runs) with the kernel counters readable from outside: SIGUSR2
+# zeroes them, SIGUSR1 reads them; each writes {"k1", "k2"} to argv[1]
+COUNTED_SERVE = """
+import json, os, signal, sys
+from containerpilot_tpu_torch.ops import flash, quant
+
+def dump(*_):
+    tmp = sys.argv[1] + ".tmp"
+    with open(tmp, "w") as fh:
+        json.dump({"k1": flash.LAUNCHES, "k2": quant.LAUNCHES}, fh)
+    os.replace(tmp, sys.argv[1])
+
+def zero(*_):
+    flash.LAUNCHES = quant.LAUNCHES = 0
+    dump()
+
+signal.signal(signal.SIGUSR1, dump)
+signal.signal(signal.SIGUSR2, zero)
+from containerpilot_tpu_torch.workload.serve_cli import main
+sys.exit(main(sys.argv[2:]))
+"""
+
+
+class CountedServe:
+    """The serve CLI in a subprocess on a free port (COUNTED_SERVE),
+    healthy on entry, stopped with SIGTERM (then killed) on exit."""
+
+    def __init__(self, args, tmp, timeout=600):
+        self.args, self.timeout = args, timeout
+        self.counts_path = os.path.join(tmp, "kernel_counts.json")
+        self.proc = None
+        self.log = ""
+
+    def __enter__(self):
+        import socket
+        import urllib.request
+
+        root = os.path.dirname(os.path.abspath(__file__))
+        with socket.socket() as sock:
+            sock.bind(("127.0.0.1", 0))
+            self.port = sock.getsockname()[1]
+        self.proc = subprocess.Popen(
+            [sys.executable, "-c", COUNTED_SERVE, self.counts_path,
+             "--host", "127.0.0.1", "--port", str(self.port), *self.args],
+            cwd=root, env={**os.environ, "PYTHONPATH": root},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        t0 = time.perf_counter()
+        deadline = time.monotonic() + self.timeout
+        try:
+            while True:
+                if self.proc.poll() is not None:
+                    raise AssertionError(
+                        f"serve CLI exited {self.proc.returncode}: "
+                        f"{self.proc.communicate()[0][-2000:]}")
+                try:
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{self.port}/health",
+                            timeout=5) as r:
+                        if r.status == 200:
+                            break
+                except OSError:
+                    pass
+                if time.monotonic() > deadline:
+                    raise AssertionError("serve CLI never became healthy")
+                time.sleep(0.2)
+        except BaseException:
+            self.__exit__()
+            raise
+        self.ready_s = time.perf_counter() - t0
+        return self
+
+    def counts(self, zero=False):
+        """The subprocess's K1/K2 counters (zeroed first with zero)."""
+        if os.path.exists(self.counts_path):
+            os.remove(self.counts_path)
+        self.proc.send_signal(signal.SIGUSR2 if zero else signal.SIGUSR1)
+        deadline = time.monotonic() + 30
+        while not os.path.exists(self.counts_path):
+            if time.monotonic() > deadline or self.proc.poll() is not None:
+                raise AssertionError("serve CLI did not report its counts")
+            time.sleep(0.02)
+        with open(self.counts_path) as fh:
+            return json.load(fh)
+
+    def __exit__(self, *exc):
+        if self.proc is None:
+            return
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            self.log = self.proc.communicate(timeout=60)[0]
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.log = self.proc.communicate()[0]
+
+
+def face_requests(seed=0):
+    """The phase's 8 /v1/completions bodies: one 1023-byte prompt (1024
+    ids with BOS, so admission runs K1), six short ones (the tokenizer's
+    EOS ends them by default) and one streamed."""
+    import random
+
+    rng = random.Random(seed)
+    letters = "abcdefghijklmnopqrstuvwxyz     ,.;"
+
+    def text(n):
+        return "".join(rng.choice(letters) for _ in range(n))
+
+    bodies = [{"prompt": text(PROMPT_LEN - 1), "max_new_tokens": 32,
+               "eos_id": -1}]
+    bodies += [{"prompt": text(8 + 5 * i), "max_new_tokens": 24}
+               for i in range(6)]
+    bodies.append({"prompt": text(40), "max_new_tokens": 32, "eos_id": -1,
+                   "stream": True})
+    return bodies
+
+
+def sse_events(data):
+    return [json.loads(line[len(b"data: "):]) for line in data.split(b"\n")
+            if line.startswith(b"data: ")]
+
+
+def completion_of(status, data, streamed):
+    """(tokens, text, events) of one /v1/completions answer."""
+    if status != 200:
+        raise AssertionError(f"/v1/completions -> {status}: {data[:200]!r}")
+    if streamed:
+        events = sse_events(data)
+        if not events or events[-1].get("done") is not True:
+            raise AssertionError(f"stream without a done event: {events}")
+        tokens = sum((e.get("tokens", []) for e in events[:-1]), [])
+        return tokens, "".join(e.get("text", "") for e in events), events
+    body = json.loads(data)
+    return body["tokens"], body["text"], None
+
+
+async def face_over_mux(port, bodies, tag):
+    """The bodies as concurrent streams on ONE cp-mux/1 connection (the
+    port's MuxConnection, the gateway's head template with the trace id
+    spliced in) -> [(status, headers, body, wall s)]."""
+    from containerpilot_tpu_torch.fleet.pool import dial_mux
+
+    conn = await dial_mux("127.0.0.1", port, 30.0)
+    if conn is None:
+        raise AssertionError("the --mux server declined cp-mux/1")
+
+    async def one(i, body):
+        t0 = time.perf_counter()
+        stream = await conn.open_stream(
+            "POST", "/v1/completions", json.dumps(body).encode(),
+            trace_id=f"{tag}-{i}")
+        status, headers = await stream.response_head(600.0)
+        data = await stream.read_body(600.0, 1 << 24)
+        return status, headers, data, time.perf_counter() - t0
+
+    try:
+        out = await asyncio.gather(*[one(i, b) for i, b in enumerate(bodies)])
+        if conn.streams_opened != len(bodies) or conn.dead:
+            raise AssertionError(f"mux connection: {conn.streams_opened} "
+                                 f"streams, dead={conn.dead}")
+        return out
+    finally:
+        conn.close()
+
+
+async def face_over_http(port, bodies, tag):
+    """The same bodies over plain HTTP/1.1, one connection each."""
+    async def one(i, body):
+        t0 = time.perf_counter()
+        reader, writer = await asyncio.open_connection("127.0.0.1", port)
+        payload = json.dumps(body).encode()
+        writer.write(
+            f"POST /v1/completions HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+            f"Connection: close\r\nX-CP-Trace: {tag}-{i}\r\n"
+            f"Content-Length: {len(payload)}\r\n\r\n".encode() + payload)
+        await writer.drain()
+        raw = await reader.read()
+        writer.close()
+        head, _, data = raw.partition(b"\r\n\r\n")
+        lines = head.decode("latin-1").split("\r\n")
+        headers = {k.strip().lower(): v.strip() for k, _, v in
+                   (line.partition(":") for line in lines[1:])}
+        return int(lines[0].split()[1]), headers, data, (
+            time.perf_counter() - t0)
+
+    return await asyncio.gather(*[one(i, b) for i, b in enumerate(bodies)])
+
+
+def parse_exposition(text):
+    """Prometheus text format 0.0.4 -> {family: type} and
+    {(sample name, frozenset(labels)): value}."""
+    types, samples = {}, {}
+    sample_re = re.compile(r'^([a-zA-Z_:][a-zA-Z0-9_:]*)(?:\{(.*)\})? (\S+)$')
+    label_re = re.compile(r'([a-zA-Z_][a-zA-Z0-9_]*)="((?:[^"\\]|\\.)*)"')
+    for line in text.splitlines():
+        if line.startswith("# TYPE "):
+            _, _, name, kind = line.split(" ", 3)
+            types[name] = kind
+        elif line and not line.startswith("#"):
+            m = sample_re.match(line)
+            if m is None:
+                raise AssertionError(f"unparsable /metrics line {line!r}")
+            labels = frozenset(label_re.findall(m.group(2) or ""))
+            samples[(m.group(1), labels)] = float(m.group(3))
+    return types, samples
+
+
+def slot_step_with_ledger(cfg, params, reps=2):
+    """The slot engine (8 slots, chunk 8, window 4) with and without the
+    device-time ledger, in turns: 8 concurrent 15-token requests of 64
+    new tokens each; the median engine cycle of a fused window over its
+    32 steps, and the wall of the 8 requests."""
+    from containerpilot_tpu_torch.telemetry.goodput import DeviceTimeLedger
+    from containerpilot_tpu_torch.workload.serve_slots import SlotEngine
+
+    engines = {
+        "no_ledger": SlotEngine(cfg, params, MAX_LEN, slots=8, chunk=8,
+                                window=4),
+        "ledger": SlotEngine(cfg, params, MAX_LEN, slots=8, chunk=8,
+                             window=4, ledger=DeviceTimeLedger()),
+    }
+    out = {name: {"step_ms": [], "wall_s": []} for name in engines}
+    try:
+        for rep in range(reps):
+            for name, engine in engines.items():
+                prompts = [[(t * 7 + r + 32 * rep) % cfg.vocab_size
+                            for t in range(15)] for r in range(8)]
+                engine.submit(prompts[0], 2).result(timeout=300)  # warm
+                engine._round_times.clear()
+                t0 = time.perf_counter()
+                futs = [engine.submit(p, 64) for p in prompts]
+                for fut in futs:
+                    fut.result(timeout=300)
+                out[name]["wall_s"].append(time.perf_counter() - t0)
+                cycles = sorted(engine.round_times_ms())
+                out[name]["step_ms"].append(
+                    cycles[len(cycles) // 2] / (engine.window * engine.chunk))
+        ledger = engines["ledger"].ledger
+        out["ledger"]["transitions"] = ledger.transitions
+        out["ledger"]["stages_s"] = ledger.snapshot()["stages_s"]
+    finally:
+        for engine in engines.values():
+            engine.stop()
+    return out
+
+
+def drive_fleet_face(tmp, card, gen, device="cuda"):
+    """Phase 18: the serve CLI at the flagship's width and depth with
+    --slots 8 --text --mux (bf16, then --int8), seeded weights. Over ONE
+    cp-mux/1 connection (the port's MuxConnection), 8 concurrent
+    /v1/completions with X-CP-Trace ids (a 1023-byte prompt for K1, six
+    short, one streamed), and the same over HTTP/1.1, in turns
+    (FACE_PASSES); each completion's
+    tokens equal /v1/generate greedy on the encoded ids (or, where not,
+    both pass judge_served), text equals decode(tokens) and a stream's
+    text concatenates to it; /metrics counts exactly the requests sent
+    by endpoint and code; the ledger's stages sum to its uptime;
+    /v1/goodput's dispatches and tokens equal the engine's; /v1/traces
+    holds every id sent with slot_queue_wait, prefill and decode spans;
+    K1 (and K2 under --int8) launched in the subprocess. Also K2 against
+    its plain version at the CLI model's MLP shapes, the slot step with
+    and without the ledger (bf16, in-process) and the /metrics scrape
+    ms. ``device="cpu"`` runs the same drive on the plain versions (no
+    kernel to count or hold), for a small FACE_MODEL."""
+    from containerpilot_tpu_torch.workload import serve_cli
+    from containerpilot_tpu_torch.workload.text import ByteTokenizer
+
+    bodies = face_requests()
+    result = {"phase": "serve_fleet_face", "model": FACE_MODEL,
+              "args": FACE_ARGS, **card}
+    if device == "cuda":
+        result["k2_cli_shapes"] = [check_int8(gen, m, k, n) for m in (1, 8)
+                                   for (k, n) in FACE_INT8_PROJ]
+    for label, extra in (("bf16", []), ("int8", ["--int8"])):
+        args = ["--device", device, *FACE_MODEL, *FACE_ARGS, *extra]
+        cfg, params, _ = serve_cli.load_model(
+            serve_cli.build_arg_parser().parse_args(args))
+        tok = ByteTokenizer(cfg.vocab_size)
+        out = {}
+        with CountedServe(args, tmp) as srv:
+            port = srv.port
+            out["ready_s"] = srv.ready_s
+            srv.counts(zero=True)
+            # the two transports in turns (mux, HTTP/1.1, HTTP/1.1, mux):
+            # the first pass also pays the process's first long prefill
+            passes = []
+            for via, rep in FACE_PASSES:
+                drive = face_over_mux if via == "mux" else face_over_http
+                passes.append(asyncio.run(drive(
+                    port, bodies, f"{label}-{via}{rep}")))
+            gen_bodies = [{"tokens": [tok.encode(b["prompt"])],
+                           "max_new_tokens": b["max_new_tokens"],
+                           "eos_id": b.get("eos_id", tok.EOS)}
+                          for b in bodies]
+
+            async def generate_all():
+                return await asyncio.gather(*[
+                    generate_tokens(port, b) for b in gen_bodies])
+
+            generated = [rows[0] for rows, _ in asyncio.run(generate_all())]
+            counts = srv.counts()
+            info = json.loads(asyncio.run(http(port, "GET", "/v1/model")))
+            scrape_ms = []
+            for _ in range(5):
+                t0 = time.perf_counter()
+                text = asyncio.run(http(port, "GET", "/metrics")).decode()
+                scrape_ms.append((time.perf_counter() - t0) * 1e3)
+            goodput = json.loads(asyncio.run(http(port, "GET",
+                                                  "/v1/goodput")))
+            traces = json.loads(asyncio.run(http(port, "GET", "/v1/traces")))
+        out.update(check_face(cfg, params, tok, bodies, gen_bodies, passes,
+                              generated, info, text, goodput, traces,
+                              label))
+        walls = {via: [] for via, _ in FACE_PASSES}
+        for (via, _rep), answers in zip(FACE_PASSES, passes):
+            walls[via].append([w * 1e3 for *_, w in answers])
+        out.update({
+            "k1_launches": counts["k1"], "k2_launches": counts["k2"],
+            "metrics_scrape_ms": scrape_ms,
+            "wall_ms_per_request": walls,
+            "mean_wall_ms_by_pass": {
+                f"{via}{rep}": sum(w for *_, w in answers) * 1e3
+                / len(answers)
+                for (via, rep), answers in zip(FACE_PASSES, passes)},
+            **{f"mean_wall_ms_{via}": sum(map(sum, ms)) / sum(map(len, ms))
+               for via, ms in walls.items()},
+        })
+        if device == "cuda" and (counts["k1"] < cfg.n_layers
+                                 or (extra and counts["k2"] <= 0)):
+            raise AssertionError(f"{label}: K1 {counts['k1']}, K2 "
+                                 f"{counts['k2']} launches in the phase")
+        if label == "bf16":
+            out["slot_step"] = slot_step_with_ledger(cfg, params)
+        result[label] = out
+        del params
+        torch.cuda.empty_cache()
+    return result
+
+
+def check_face(cfg, params, tok, bodies, gen_bodies, passes, generated,
+               info, text, goodput, traces, label):
+    """The phase's checks on one server's answers (drive_fleet_face)."""
+    judged = []
+    for i, (body, gen_body, want) in enumerate(zip(bodies, gen_bodies,
+                                                   generated)):
+        streamed = bool(body.get("stream"))
+        for (via, rep), answers in zip(FACE_PASSES, passes):
+            status, headers, data, _wall = answers[i]
+            tokens, got_text, events = completion_of(status, data, streamed)
+            if got_text != tok.decode(tokens):
+                raise AssertionError(f"{via} {i}: text is not "
+                                     "decode(tokens)")
+            trace_id = f"{label}-{via}{rep}-{i}"
+            if streamed:
+                done = events[-1]
+                if done["trace"] != trace_id or "prefill~" not in (
+                        done["spans"]):
+                    raise AssertionError(f"stream's done event {done}")
+            elif headers.get("x-cp-trace") != trace_id or "prefill~" not in (
+                    headers.get("x-cp-span-digest", "")):
+                raise AssertionError(f"{via} {i}: trace headers {headers}")
+            if tokens != want:
+                for got in (tokens, want):
+                    first, worst, _ = judge_served(cfg, params, gen_body, got)
+                    if worst > NEAR_TIE_TOL:
+                        raise AssertionError(
+                            f"{via} {i}: completion {tokens} vs generate "
+                            f"{want}: worst gap {worst}")
+                judged.append({"request": i, "via": f"{via}{rep}",
+                               "first_diff": next(
+                    (j for j, (a, b) in enumerate(zip(tokens, want))
+                     if a != b), min(len(tokens), len(want)))})
+    # /metrics: the exact request tally, and the ledger's gauges
+    types, samples = parse_exposition(text)
+    sent = {("completions", "200"): len(FACE_PASSES) * len(bodies),
+            ("generate", "200"): len(bodies), ("model", "200"): 1}
+    counted = {(dict(k)["endpoint"], dict(k)["code"]): v
+               for (name, k), v in samples.items()
+               if name == "containerpilot_serve_requests_total"}
+    if counted != sent:
+        raise AssertionError(f"/metrics counted {counted}, sent {sent}")
+    for family, kind in (("containerpilot_serve_requests_total", "counter"),
+                         ("containerpilot_serve_request_seconds",
+                          "histogram"),
+                         ("cp_device_seconds_total", "gauge"),
+                         ("cp_build_info", "gauge"),
+                         ("cp_loop_lag_ms", "gauge")):
+        if types.get(family) != kind:
+            raise AssertionError(f"/metrics {family}: {types.get(family)}")
+    stages = {dict(k)["stage"]: v for (name, k), v in samples.items()
+              if name == "cp_device_seconds_total"}
+    ledger_sum = sum(stages.values())
+    if abs(ledger_sum - goodput["uptime_s"]) > LEDGER_REL_TOL * goodput[
+            "uptime_s"] or stages["compile_warmup"] <= 0:
+        raise AssertionError(f"ledger stages {stages} vs uptime "
+                             f"{goodput['uptime_s']}")
+    engine = info["slot_engine"]
+    if (goodput["dispatches"], goodput["tokens_out"]) != (
+            engine["dispatches"], engine["tokens_out"]) or (
+            goodput["dispatches_per_token"] != round(
+                engine["dispatches"] / engine["tokens_out"], 4)):
+        raise AssertionError(f"/v1/goodput {goodput} vs engine {engine}")
+    # /v1/traces: every id sent, with the engine's spans
+    by_id = {t["trace_id"]: t for t in traces["recent"]}
+    for via, rep in FACE_PASSES:
+        for i in range(len(bodies)):
+            trace = by_id.get(f"{label}-{via}{rep}-{i}")
+            names = [s["stage"] for s in trace["spans"]] if trace else []
+            if names[:3] != ["slot_queue_wait", "prefill", "decode"]:
+                raise AssertionError(f"/v1/traces {label}-{via}{rep}-{i}: "
+                                     f"{names}")
+    return {
+        "completions_equal_generate": (len(FACE_PASSES) * len(bodies)
+                                       - len(judged)),
+        "judged_near_ties": judged,
+        "requests_counted": {f"{e}/{c}": v for (e, c), v in counted.items()},
+        "ledger": {"uptime_s": goodput["uptime_s"],
+                   "stages_s": goodput["stages_s"],
+                   "metrics_stage_sum_s": ledger_sum,
+                   "productive_fraction": goodput["productive_fraction"],
+                   "transitions": goodput["transitions"]},
+        "dispatches": goodput["dispatches"],
+        "tokens_out": goodput["tokens_out"],
+        "dispatches_per_token": goodput["dispatches_per_token"],
+        "traces_found": len(FACE_PASSES) * len(bodies),
+        "dominant_stages": sorted({by_id[f"{label}-mux0-{i}"].get(
+            "dominant_stage") for i in range(len(bodies))} - {None}),
+        "long_prompt_ids": len(gen_bodies[0]["tokens"][0]),
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a "
@@ -2412,6 +2876,10 @@ def main() -> int:
         serve_lora = drive_serve_lora(tmp, CLI_MODEL)
         emit({**serve_lora, **card})
 
+        # ---- the telemetry and wire face through the serve CLI ---------
+        fleet_face = drive_fleet_face(tmp, card, gen)
+        emit(fleet_face)
+
     # ---- summary --------------------------------------------------------
     main_flash = flash_rows[0]
     train_flash = flash_rows[FWD_CASES.index(TRAIN_FWD_CASE)]
@@ -2461,6 +2929,9 @@ def main() -> int:
                    for label in ("bf16", "int8")},
                 "train_lora": train_lora["k1_launches"],
             },
+            "fleet_face_launches": {
+                f"serve_fleet_face_{label}": fleet_face[label]["k1_launches"]
+                for label in ("bf16", "int8")},
         },
         *(
             {
@@ -2506,7 +2977,8 @@ def main() -> int:
             "source": "containerpilot_tpu_torch/csrc/int8_matmul.cu",
             "replaces": "containerpilot_tpu/ops/quant.py:64",
             "launches": k2_launches,
-            "max_abs_err": max(r["max_abs_err"] for r in int8_rows),
+            "max_abs_err": max(r["max_abs_err"] for r in int8_rows
+                               + fleet_face["k2_cli_shapes"]),
             "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
             "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
             "library_ms": k2_main["library_ms"],
@@ -2535,6 +3007,10 @@ def main() -> int:
                     "by_rows": phase["int8"]["k2_by_rows"]}
                 for phase in (serve_beam, serve_spec)
             },
+            "fleet_face_launches": {
+                "serve_fleet_face_int8": fleet_face["int8"]["k2_launches"],
+                "serve_fleet_face_bf16": fleet_face["bf16"]["k2_launches"]},
+            "cli_shapes": fleet_face["k2_cli_shapes"],
         },
     ]
     emit({"kernels": kernels})

@@ -1,0 +1,468 @@
+"""The device-time ledger: where did the replica's device-seconds go?
+(The port's own copy of ``containerpilot_tpu/telemetry/goodput.py``; a
+torch replica's ``/v1/goodput`` and ``cp_device_seconds_total`` must
+read exactly like a JAX replica's.)
+
+Tracing answers "where did THIS request's time go"; the ledger answers
+"where did the replica's wall-seconds go". Following the
+ML-Productivity-Goodput framing, every second a replica is alive is
+either **goodput** (the device advanced someone's request) or
+**badput** (it compiled, booted, idled, re-copied KV, or drained):
+
+- **A state machine, not a profiler.** A ``DeviceTimeLedger``
+  attributes every wall-second of a replica's life to exactly ONE
+  stage: ``boot`` (process start -> warmup begins),
+  ``compile_warmup`` (kernel builds, graph captures and warm requests
+  before /health flips 200), ``idle`` (no slot decoding), ``prefill``
+  (admission prefill + first sample), ``decode`` (chunk rounds),
+  ``kv_readmit`` (spill-tier host->device KV copies, carved out of
+  prefill) and ``drain`` (maintenance: capacity leaving the fleet,
+  in-flight rows included). Transitions happen at the request
+  boundaries the slot engine already stamps for tracing: a few
+  ``monotonic()`` floats per REQUEST, nothing per token or per round,
+  so the decode loop and its CUDA graphs stay untouched.
+- **Sums to wall time by construction.** The running segment is
+  closed and re-opened at every transition; ``snapshot()`` folds the
+  open segment in, so the per-stage totals always sum to exactly
+  ``now - t0``.
+- **Overrides for the lifecycle stages.** ``warmup()`` and the
+  maintenance hook set a stage *override* (``compile_warmup`` /
+  ``drain``): the engine's prefill/decode stamps keep tracking the
+  underlying state, but attribution goes to the override.
+- **One wire format.** ``note()`` encodes the cumulative totals as the
+  ``gp=`` heartbeat field's value; ``parse_note`` is the tolerant
+  reader and ``merge_note_max`` the torn-note discipline (cumulative
+  seconds only grow).
+- **The fleet view.** ``sum_stage_totals`` folds replicas into one
+  per-stage map; ``productive_fraction`` is (prefill + decode) / total.
+
+Surfaces: ``cp_device_seconds_total{stage}`` on ``/metrics`` and
+``GET /v1/goodput`` (``goodput_payload``).
+"""
+from __future__ import annotations
+
+import threading
+import time
+from collections import deque
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
+
+__all__ = [
+    "BADPUT_STAGES",
+    "DeviceTimeLedger",
+    "NOTE_FIELDS",
+    "PRODUCTIVE_STAGES",
+    "STAGES",
+    "find_scheduling_gaps",
+    "merge_note_max",
+    "parse_note",
+    "productive_fraction",
+    "sum_stage_totals",
+]
+
+#: every wall-second lands in exactly one of these
+STAGES = (
+    "boot", "compile_warmup", "idle", "prefill", "decode",
+    "kv_readmit", "drain",
+)
+#: the goodput numerator: the device advanced someone's request
+PRODUCTIVE_STAGES = ("prefill", "decode")
+#: overhead the fleet pays to exist (idle is neither: it is unused
+#: capacity, in the denominator but not "work done badly")
+BADPUT_STAGES = ("boot", "compile_warmup", "kv_readmit", "drain")
+
+#: stages the engine drives; lifecycle stages are entered by the
+#: server (boot is implicit, compile_warmup/drain are overrides)
+_ENGINE_STAGES = ("idle", "prefill", "decode")
+
+#: positional field order of the ``gp=`` heartbeat note — the seven
+#: stage seconds, then the dispatch/token counters
+NOTE_FIELDS = STAGES + ("dispatches", "tokens_out")
+
+#: recent idle segments retained for scheduling-gap detection (each
+#: is two floats; the ring bounds memory like the trace rings do)
+IDLE_SPANS_KEPT = 128
+
+
+class DeviceTimeLedger:
+    """Per-replica monotonic-clock stage accounting. Thread-safe: the
+    event loop enters lifecycle stages (warmup, drain) while the slot
+    engine's worker thread enters prefill/decode/idle — transitions
+    are boundary events (a handful per request), so the lock is never
+    contended on a hot path and nothing here runs per token."""
+
+    def __init__(self, now: Optional[float] = None) -> None:
+        now = time.monotonic() if now is None else now
+        self.t0 = now
+        self._totals: Dict[str, float] = {s: 0.0 for s in STAGES}
+        self._stage = "boot"
+        self._override: Optional[str] = None
+        self._since = now
+        self._lock = threading.Lock()
+        #: transitions recorded — the no-per-token contract's witness
+        #: (a 100k-token decode moves this by a constant, not 100k)
+        self.transitions = 0
+        #: monotonic stamp of the first productive (prefill) second —
+        #: the replica half of time-to-first-routed-token
+        self.first_productive_at: Optional[float] = None
+        #: recent idle segments (start, end), recorded when idle is
+        #: left — read by the scheduling-gap detector, never on a hot
+        #: path
+        self._idle_spans: "deque[Tuple[float, float]]" = deque(
+            maxlen=IDLE_SPANS_KEPT
+        )
+        #: set by freeze(): reads clamp to this instant, so a
+        #: stopped/killed replica's ledger stops accruing (in
+        #: production the process dies and its note stops updating;
+        #: in-process harnesses must see the same final totals)
+        self._frozen: Optional[float] = None
+
+    # -- recording (boundary events only) ------------------------------
+
+    def _active(self) -> str:
+        return self._override or self._stage
+
+    def _close(self, now: float) -> None:
+        seg = now - self._since
+        if seg > 0.0:
+            active = self._active()
+            self._totals[active] += seg
+            if active == "idle":
+                self._idle_spans.append((self._since, now))
+        self._since = now
+
+    def _now(self, now: float) -> float:
+        """Clamp a write/read instant to the freeze point (lock
+        held): a late stamp from the engine worker racing stop()
+        must not accrue past 'death', or totals exceed the frozen
+        uptime and the sums-to-wall invariant breaks."""
+        if self._frozen is not None:
+            return min(now, self._frozen)
+        return now
+
+    def enter(self, stage: str, now: Optional[float] = None) -> None:
+        """Close the running segment and start attributing to
+        ``stage``. Under an override the underlying stage still
+        moves (attribution stays with the override until it clears)."""
+        if stage not in self._totals:
+            raise ValueError(f"unknown ledger stage {stage!r}")
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            now = self._now(now)
+            self._close(now)
+            self._stage = stage
+            self.transitions += 1
+            if (
+                stage == "prefill"
+                and self.first_productive_at is None
+                and self._override is None
+            ):
+                self.first_productive_at = now
+
+    def engine_idle(self, now: Optional[float] = None) -> None:
+        """The engine's fully-idle transition: flips to ``idle`` only
+        from an engine-driven stage, so an engine worker blocking
+        before the server even warmed cannot cut ``boot`` short."""
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            if self._stage not in _ENGINE_STAGES[1:]:
+                return
+            now = self._now(now)
+            self._close(now)
+            self._stage = "idle"
+            self.transitions += 1
+
+    def carve(
+        self, stage: str, seconds: float, now: Optional[float] = None
+    ) -> None:
+        """Re-attribute the most recent ``seconds`` of the RUNNING
+        segment to ``stage`` (the kv_readmit carve: a spill-tier
+        readmit happened inside the admission window; those seconds
+        are a KV copy, not prefill compute). Clamped to the open
+        segment so totals can never exceed wall time."""
+        if stage not in self._totals:
+            raise ValueError(f"unknown ledger stage {stage!r}")
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            now = self._now(now)
+            seconds = max(0.0, min(seconds, now - self._since))
+            if seconds <= 0.0:
+                return
+            self._totals[stage] += seconds
+            self._since += seconds
+            self.transitions += 1
+
+    def set_override(
+        self, stage: str, now: Optional[float] = None
+    ) -> None:
+        """Attribute everything to ``stage`` until cleared, whatever
+        the engine stamps underneath (warmup's dummy request must
+        cost ``compile_warmup``; a draining replica's last in-flight
+        decodes cost ``drain``)."""
+        if stage not in self._totals:
+            raise ValueError(f"unknown ledger stage {stage!r}")
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            now = self._now(now)
+            self._close(now)
+            self._override = stage
+            self.transitions += 1
+
+    def clear_override(self, now: Optional[float] = None) -> None:
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            now = self._now(now)
+            self._close(now)
+            self._override = None
+            self.transitions += 1
+
+    def freeze(self, now: Optional[float] = None) -> None:
+        """Stop the clock: every read from here on sees the totals as
+        of ``now``. Called when the server stops or aborts —
+        idempotent (the first freeze wins)."""
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            if self._frozen is None:
+                self._frozen = now
+
+    # -- reading -------------------------------------------------------
+
+    @property
+    def stage(self) -> str:
+        """The stage currently accumulating."""
+        with self._lock:
+            return self._active()
+
+    def stage_seconds(self, stage: str) -> float:
+        """Live total for one stage, open segment included — the
+        ``cp_device_seconds_total{stage}`` gauge body."""
+        now = time.monotonic()
+        with self._lock:
+            if self._frozen is not None:
+                now = self._frozen
+            total = self._totals.get(stage, 0.0)
+            if self._active() == stage:
+                total += max(now - self._since, 0.0)
+            return total
+
+    def totals(self, now: Optional[float] = None) -> Dict[str, float]:
+        """Per-stage seconds, open segment folded in. Sums to
+        ``now - t0`` exactly (``freeze()`` clamps now)."""
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            if self._frozen is not None:
+                now = min(now, self._frozen)
+            out = dict(self._totals)
+            out[self._active()] += max(now - self._since, 0.0)
+            return out
+
+    def idle_spans(self) -> List[Tuple[float, float]]:
+        """Recent closed idle segments plus the open one if idle is
+        running now — the scheduling-gap detector's input."""
+        now = time.monotonic()
+        with self._lock:
+            spans = list(self._idle_spans)
+            if self._active() == "idle" and now > self._since:
+                spans.append((self._since, now))
+            return spans
+
+    def snapshot(self, now: Optional[float] = None) -> Dict[str, Any]:
+        """The JSON core of ``GET /v1/goodput``."""
+        now = time.monotonic() if now is None else now
+        if self._frozen is not None:
+            now = min(now, self._frozen)
+        totals = self.totals(now)
+        total_s = max(now - self.t0, 0.0)
+        return {
+            "stage": self.stage,
+            "uptime_s": round(total_s, 3),
+            "stages_s": {
+                stage: round(totals[stage], 3) for stage in STAGES
+            },
+            "productive_s": round(
+                sum(totals[s] for s in PRODUCTIVE_STAGES), 3
+            ),
+            "productive_fraction": productive_fraction(totals),
+            "transitions": self.transitions,
+            "first_productive_at": self.first_productive_at,
+        }
+
+    def note(
+        self,
+        dispatches: int = 0,
+        tokens_out: int = 0,
+        now: Optional[float] = None,
+    ) -> str:
+        """The ``gp=`` heartbeat field's VALUE: seven cumulative
+        stage seconds (3 decimals — a small model's whole productive
+        story can be milliseconds) then the dispatch/token counters,
+        positional like ``kv=``. The ``gp=`` name itself is owned by
+        ``fleet/notes.py``, the wire-schema registry."""
+        totals = self.totals(now)
+        parts = [f"{totals[s]:.3f}" for s in STAGES]
+        parts.append(str(int(dispatches)))
+        parts.append(str(int(tokens_out)))
+        return ",".join(parts)
+
+
+# -- wire format -------------------------------------------------------
+
+
+def parse_note(raw: object) -> Dict[str, float]:
+    """Decode a ``gp=`` note value: nine comma-separated numbers in
+    ``NOTE_FIELDS`` order. Tolerant like ``parse_kv_counters``: a
+    short or torn value yields the fields that DID parse, zero-filled
+    — a half-written note must never throw on the poll path."""
+    out = {name: 0.0 for name in NOTE_FIELDS}
+    if not isinstance(raw, str) or not raw:
+        return out
+    for name, part in zip(NOTE_FIELDS, raw.split(",")):
+        try:
+            value = float(part)
+        except ValueError:
+            break
+        if value != value or value in (float("inf"), float("-inf")):
+            break  # NaN/inf from a hostile note must not propagate
+        out[name] = max(0.0, value)
+    return out
+
+
+def merge_note_max(
+    prev: Mapping[str, float], new: Mapping[str, float]
+) -> Dict[str, float]:
+    """The torn-note discipline: every field is CUMULATIVE, so a
+    truncated read's zero-filled tail must not regress the best-known
+    value. Elementwise max, exactly like the ``kv=`` counters."""
+    return {
+        name: max(float(new.get(name, 0.0)), float(prev.get(name, 0.0)))
+        for name in NOTE_FIELDS
+    }
+
+
+# -- aggregation -------------------------------------------------------
+
+
+def productive_fraction(totals: Mapping[str, float]) -> Optional[float]:
+    """(prefill + decode) / all stages; None before any time accrued."""
+    total = sum(totals.get(s, 0.0) for s in STAGES)
+    if total <= 0.0:
+        return None
+    good = sum(totals.get(s, 0.0) for s in PRODUCTIVE_STAGES)
+    return round(good / total, 4)
+
+
+def sum_stage_totals(
+    many: Iterable[Mapping[str, float]]
+) -> Dict[str, float]:
+    """Fold per-replica stage maps (live and departed alike) into one
+    fleet map over ``NOTE_FIELDS`` — missing fields count zero."""
+    out = {name: 0.0 for name in NOTE_FIELDS}
+    for totals in many:
+        for name in NOTE_FIELDS:
+            out[name] += float(totals.get(name, 0.0))
+    return out
+
+
+def fleet_summary(
+    many: Iterable[Mapping[str, float]]
+) -> Dict[str, Any]:
+    """The fleet-level ``goodput`` block: summed stage seconds,
+    productive fraction, and dispatches/token."""
+    totals = sum_stage_totals(many)
+    tokens = totals.pop("tokens_out")
+    dispatches = totals.pop("dispatches")
+    return {
+        "stages_s": {s: round(totals[s], 3) for s in STAGES},
+        "device_seconds": round(sum(totals.values()), 3),
+        "productive_fraction": productive_fraction(totals),
+        "dispatches": int(dispatches),
+        "tokens_out": int(tokens),
+        "dispatches_per_token": (
+            round(dispatches / tokens, 4) if tokens else None
+        ),
+    }
+
+
+def goodput_payload(
+    ledger: "DeviceTimeLedger",
+    tracer: Any,
+    dispatches: int,
+    tokens_out: int,
+    *,
+    role: str,
+    ready: bool,
+    draining: bool,
+) -> Dict[str, Any]:
+    """The ONE ``GET /v1/goodput`` body both serving surfaces
+    (single-host replica, pod frontend) answer with — ledger
+    snapshot + the dispatches/token pair + scheduling-gap detection
+    over the process's own trace ring. Centralized so the two
+    surfaces cannot drift, like ``ensure_goodput_gauges`` for the
+    metrics face."""
+    payload = ledger.snapshot()
+    payload.update(
+        role=role,
+        ready=ready,
+        draining=draining,
+        dispatches=dispatches,
+        tokens_out=tokens_out,
+        dispatches_per_token=(
+            round(dispatches / tokens_out, 4) if tokens_out else None
+        ),
+        scheduling_gaps=find_scheduling_gaps(
+            tracer.recent(), ledger.idle_spans()
+        ),
+    )
+    return payload
+
+
+# -- the scheduling-gap detector ---------------------------------------
+
+
+def find_scheduling_gaps(
+    traces: Iterable[Any],
+    idle_spans: List[Tuple[float, float]],
+    min_overlap_s: float = 0.005,
+    limit: int = 8,
+) -> List[Dict[str, Any]]:
+    """Cross-check traces against the ledger: a request whose
+    dominant stage was ``slot_queue_wait`` while the SAME replica's
+    ledger shows idle seconds inside that wait window means the
+    request queued while decode capacity sat unused — the smoking
+    gun for the ROADMAP's EDF/chunked-prefill scheduling item (slots
+    were free in aggregate but admission didn't interleave). Runs on
+    the ``/v1/goodput`` read path only, never on record paths.
+
+    ``traces`` are tracing.Trace objects from the replica's own ring
+    (their ``slot_queue_wait`` spans share the ledger's monotonic
+    clock); ``idle_spans`` come from ``DeviceTimeLedger.idle_spans``.
+    """
+    from .tracing import dominant_stage
+
+    gaps: List[Dict[str, Any]] = []
+    if not idle_spans:
+        return gaps
+    for trace in traces:
+        if len(gaps) >= limit:
+            break
+        totals = trace.stage_totals()
+        if dominant_stage(totals) != "slot_queue_wait":
+            continue
+        overlap = 0.0
+        wait_s = 0.0
+        for stage, start, end, _meta in trace.spans:
+            if stage != "slot_queue_wait":
+                continue
+            wait_s += max(end - start, 0.0)
+            for idle_start, idle_end in idle_spans:
+                lo = max(start, idle_start)
+                hi = min(end, idle_end)
+                if hi > lo:
+                    overlap += hi - lo
+        if overlap >= min_overlap_s:
+            gaps.append({
+                "trace_id": trace.trace_id,
+                "endpoint": trace.endpoint,
+                "slot_queue_wait_ms": round(wait_s * 1e3, 2),
+                "idle_overlap_ms": round(overlap * 1e3, 2),
+            })
+    return gaps

@@ -1,0 +1,567 @@
+"""Cross-hop request tracing: where did my TTFT go?
+
+(The port's own copy of ``containerpilot_tpu/telemetry/tracing.py``:
+a torch replica records, digests and serves spans in the same wire
+formats as a JAX replica.)
+
+Counters on ``/metrics`` are aggregates. When one request
+misses its TTFT SLO, aggregates cannot say whether the time went to
+the admission queue, a pool/mux dial, replica-side slot queueing,
+prefill, or the SSE relay. This module is the per-request answer:
+
+- **Spans, not logs.** A ``Trace`` is a list of ``(stage, start,
+  end)`` monotonic-clock spans plus a little identity. Recording a
+  span is an append to a plain Python list — no locks (every recording
+  site runs on one event loop, and CPython appends are atomic
+  besides), no I/O, no formatting; the cost is two ``monotonic()``
+  calls and a tuple.
+- **A ring, not a database.** Completed traces land in a fixed-size
+  ring (most-recent-N) plus a small slowest-N board, exposed as JSON
+  on each process's ``GET /v1/traces``. Memory is bounded by
+  construction; an unsampled 100%-tracing fleet stays cheap because
+  retention is what's sampled, not recording.
+- **Context, carried.** The active trace rides a ``contextvars``
+  ContextVar, so spans recorded three calls deep (or in a hedge leg's
+  task — task creation snapshots the context) attach to the right
+  request without threading a handle through every signature. A
+  second ContextVar carries the serving mux stream id for log
+  correlation.
+- **Cross-hop, without a second RPC.** The gateway mints a
+  ``trace_id`` and forwards it upstream (an ``X-CP-Trace`` header on
+  the classic pooled path, a HEADERS field on cp-mux/1 streams). The
+  replica records its own spans under that id and returns a compact
+  **digest** — ``stage~offset_ms~dur_ms;...`` relative to its own
+  trace start — in an ``X-CP-Span-Digest`` response header (buffered)
+  or in the final SSE ``done`` event (streams). The gateway splices
+  those spans into its own timeline as ``replica.*`` children aligned
+  at the upstream-dispatch span, so one ``/v1/traces`` entry shows
+  the whole request: queue wait, dial, replica prefill, decode,
+  relay.
+- **Hot paths record nothing per token.** The slot engine's decode
+  round (a CUDA-graph replay on the card) never touches this module. Slot
+  timings are a handful of floats written at admission/harvest
+  boundaries (see ``serve_slots``) and converted to spans once, when
+  the request finishes — batched per request, not per token or per
+  round.
+
+Stage glossary:
+
+==========================  =========================================
+stage                       meaning
+==========================  =========================================
+``admission_queue_wait``    gateway: admission enqueue -> slot grant
+``upstream_connect``        gateway: pool/mux acquire + stream open
+``upstream_ttfb``           gateway: request sent -> response head
+``upstream_body``           gateway: response head -> body read
+``relay``                   gateway: SSE head -> relay close
+``replica.slot_queue_wait`` replica: engine submit -> slot admission
+``replica.kv``              replica: spill-tier readmit (host->device
+                            KV copy) ahead of the suffix extend
+``replica.prefill``         replica: prefill + first-token sample
+``replica.decode``          replica: decode rounds to completion
+``replica.stream_relay``    replica: first SSE delta -> done event
+``replica.compute``         replica: non-slot decode dispatch
+==========================  =========================================
+"""
+from __future__ import annotations
+
+import json
+import os
+import time
+from asyncio import CancelledError
+from collections import deque
+from contextvars import ContextVar
+from typing import Any, Dict, Iterable, List, Mapping, Optional, Tuple
+
+__all__ = [
+    "DIGEST_HEADER",
+    "TRACE_HEADER",
+    "Trace",
+    "TraceRecorder",
+    "activate",
+    "add_engine_spans",
+    "current_stream_id",
+    "current_trace",
+    "current_trace_id",
+    "deactivate",
+    "dominant_stage",
+    "encode_digest",
+    "mint_trace_id",
+    "now",
+    "parse_digest",
+    "safe_id",
+    "set_stream_id",
+    "span",
+    "stage_totals",
+]
+
+#: request header carrying the trace id across hops (and echoed on
+#: every answer, refusals included, so a client-reported failure is
+#: findable in /v1/traces even when nothing was dispatched)
+TRACE_HEADER = "X-CP-Trace"
+#: response header carrying the compact span digest back downstream
+DIGEST_HEADER = "X-CP-Span-Digest"
+
+#: spans kept per trace; a retry/hedge storm cannot balloon one
+#: trace's memory (the cap is far above any sane request's span count)
+MAX_SPANS = 128
+#: digest entries accepted from a peer (same ceiling, other direction)
+MAX_DIGEST_SPANS = 64
+
+#: replica-refinement mapping for dominance: these gateway stages are
+#: the parent window the ``replica.*`` spans refine (see
+#: ``dominant_stage``)
+_REFINABLE = ("upstream_ttfb", "upstream_body", "relay")
+
+
+def now() -> float:
+    """The one tracing clock. Spans, engine timings, and admission
+    stamps must all read it so cross-source spans subtract cleanly."""
+    return time.monotonic()
+
+
+def mint_trace_id() -> str:
+    """16 hex chars of OS randomness; hex-only by construction, so
+    ids splice into JSON/digest wire formats without escaping."""
+    return os.urandom(8).hex()
+
+
+#: characters a peer-supplied trace id may use: the splice-safe set
+#: (mux head templates insert the id into pre-encoded JSON, and ids
+#: are echoed in response headers — neither path re-escapes)
+_SAFE_ID_CHARS = frozenset(
+    "0123456789abcdefghijklmnopqrstuvwxyz"
+    "ABCDEFGHIJKLMNOPQRSTUVWXYZ-_"
+)
+MAX_ID_LEN = 64
+
+
+def safe_id(raw: Optional[str]) -> Optional[str]:
+    """Validate a peer-supplied trace id. Returns the id when it is a
+    short token of splice-safe characters, else None (the caller
+    mints a fresh one). Every adoption point MUST go through this: a
+    hostile ``X-CP-Trace`` would otherwise ride unescaped into the
+    cached mux HEADERS template (request smuggling / co-resident
+    stream teardown) and into echoed answer headers."""
+    if not raw or len(raw) > MAX_ID_LEN:
+        return None
+    if all(ch in _SAFE_ID_CHARS for ch in raw):
+        return raw
+    return None
+
+
+# -- context ----------------------------------------------------------
+
+_current: "ContextVar[Optional[Trace]]" = ContextVar(
+    "cp_trace", default=None
+)
+_stream: "ContextVar[int]" = ContextVar("cp_stream_id", default=0)
+
+
+def current_trace() -> Optional["Trace"]:
+    return _current.get()
+
+
+def current_trace_id() -> str:
+    trace = _current.get()
+    return trace.trace_id if trace is not None else ""
+
+
+def activate(trace: Optional["Trace"]):
+    """Bind ``trace`` to the current context; returns the reset
+    token. Binding None is allowed (explicitly no trace)."""
+    return _current.set(trace)
+
+
+def deactivate(token) -> None:
+    _current.reset(token)
+
+
+def set_stream_id(stream_id: int):
+    """Bind the serving mux stream id (log correlation); returns the
+    reset token. Called by the HTTP server's per-stream task, so the
+    binding is naturally stream-scoped."""
+    return _stream.set(stream_id)
+
+
+def current_stream_id() -> int:
+    return _stream.get()
+
+
+class _SpanCtx:
+    """``with span("stage"):`` — records one span on exit. Reusable
+    only per entry (allocate one per use; they are tiny)."""
+
+    __slots__ = ("trace", "stage", "t0")
+
+    def __init__(self, trace: Optional["Trace"], stage: str) -> None:
+        self.trace = trace
+        self.stage = stage
+        self.t0 = 0.0
+
+    def __enter__(self) -> "_SpanCtx":
+        self.t0 = time.monotonic()
+        return self
+
+    def __exit__(self, exc_type, _exc, _tb) -> None:
+        # a CANCELLED span records nothing: a hedge's losing leg (or
+        # an abandoned client's task) exits its upstream spans via
+        # CancelledError, and recording them would both misalign the
+        # digest-stitch anchor (last_span_start picks the loser's
+        # dispatch) and double-count the stage in dominance. A span
+        # that exits via a real failure still records — time spent
+        # failing is exactly what the trace must show.
+        if exc_type is not None and issubclass(
+            exc_type, CancelledError
+        ):
+            return
+        if self.trace is not None:
+            self.trace.add_span(self.stage, self.t0, time.monotonic())
+
+
+def span(stage: str) -> _SpanCtx:
+    """Span context manager over the CURRENT trace; a no-op (beyond
+    two clock reads) when no trace is active."""
+    return _SpanCtx(_current.get(), stage)
+
+
+# -- the trace itself -------------------------------------------------
+
+
+class Trace:
+    """One request's timeline: identity + append-only span list.
+    Created by a ``TraceRecorder``; ``finish()`` is idempotent and
+    files the trace into the recorder's ring exactly once."""
+
+    __slots__ = (
+        "trace_id", "endpoint", "started", "ended", "status",
+        "spans", "stream_id", "_recorder",
+    )
+
+    def __init__(
+        self,
+        recorder: Optional["TraceRecorder"],
+        trace_id: str,
+        endpoint: str,
+    ) -> None:
+        self.trace_id = trace_id
+        self.endpoint = endpoint
+        self.started = time.monotonic()
+        self.ended: Optional[float] = None
+        self.status = 0
+        #: (stage, start, end, meta-or-None) — absolute monotonic
+        self.spans: List[Tuple[str, float, float, Optional[dict]]] = []
+        self.stream_id = 0
+        self._recorder = recorder
+
+    # -- recording ----------------------------------------------------
+
+    def add_span(
+        self, stage: str, start: float, end: float, **meta: Any
+    ) -> None:
+        if len(self.spans) >= MAX_SPANS:
+            return
+        self.spans.append((stage, start, end, meta or None))
+
+    def span(self, stage: str) -> _SpanCtx:
+        return _SpanCtx(self, stage)
+
+    def add_child_digest(
+        self, digest: str, base: float, prefix: str = "replica."
+    ) -> None:
+        """Splice a peer's relative-offset digest into this timeline,
+        aligned so the child's t=0 lands at ``base`` (the moment this
+        hop dispatched upstream — clock skew between hops is bounded
+        by the network latency already inside the parent span)."""
+        for stage, off_s, dur_s in parse_digest(digest):
+            self.add_span(
+                prefix + stage, base + off_s, base + off_s + dur_s
+            )
+
+    def last_span_start(self, stage: str) -> Optional[float]:
+        """Start of the most recent span named ``stage`` (the
+        alignment anchor for a replica digest: the LAST upstream
+        dispatch is the one whose response carried it)."""
+        for name, start, _end, _meta in reversed(self.spans):
+            if name == stage:
+                return start
+        return None
+
+    def finish(self, status: int) -> None:
+        if self.ended is not None:
+            return
+        self.ended = time.monotonic()
+        self.status = status
+        if self._recorder is not None:
+            self._recorder.record(self)
+
+    # -- reporting ----------------------------------------------------
+
+    @property
+    def duration_s(self) -> float:
+        end = self.ended if self.ended is not None else time.monotonic()
+        return max(end - self.started, 0.0)
+
+    def digest(self) -> str:
+        """This trace's spans as the compact wire digest (offsets
+        relative to trace start). Child (``replica.``-prefixed) spans
+        are included — a stitched gateway digest hands the full
+        breakdown to the client in one header."""
+        return encode_digest(
+            (stage, start - self.started, end - start)
+            for stage, start, end, _meta in self.spans
+        )
+
+    def stage_totals(self) -> Dict[str, float]:
+        """Summed seconds per stage (a stage dispatched twice — a
+        retry, both hedge legs — reports its total)."""
+        totals: Dict[str, float] = {}
+        for stage, start, end, _meta in self.spans:
+            totals[stage] = totals.get(stage, 0.0) + max(end - start, 0.0)
+        return totals
+
+    def as_dict(self) -> Dict[str, Any]:
+        entry: Dict[str, Any] = {
+            "trace_id": self.trace_id,
+            "endpoint": self.endpoint,
+            "status": self.status,
+            "complete": self.ended is not None,
+            "duration_ms": round(self.duration_s * 1e3, 3),
+            "spans": [
+                {
+                    "stage": stage,
+                    "offset_ms": round((start - self.started) * 1e3, 3),
+                    "dur_ms": round((end - start) * 1e3, 3),
+                    **(meta or {}),
+                }
+                for stage, start, end, meta in self.spans
+            ],
+        }
+        if self.stream_id:
+            entry["stream_id"] = self.stream_id
+        dominant = dominant_stage(self.stage_totals())
+        if dominant is not None:
+            entry["dominant_stage"] = dominant
+        return entry
+
+
+# -- the digest wire format -------------------------------------------
+
+
+def encode_digest(
+    spans: Iterable[Tuple[str, float, float]]
+) -> str:
+    """``stage~offset_ms~dur_ms;...`` — stage names are fixed
+    identifiers (no ``~``/``;``), offsets relative to the emitting
+    hop's trace start. Header-safe ASCII by construction."""
+    return ";".join(
+        f"{stage}~{off_s * 1e3:.3f}~{dur_s * 1e3:.3f}"
+        for stage, off_s, dur_s in spans
+    )
+
+
+def parse_digest(digest: str) -> List[Tuple[str, float, float]]:
+    """Inverse of ``encode_digest``; tolerant — malformed entries are
+    skipped, not fatal (a peer's telemetry must never fail a
+    request). Returns (stage, offset_s, dur_s) tuples."""
+    out: List[Tuple[str, float, float]] = []
+    if not digest:
+        return out
+    for part in digest.split(";"):
+        fields = part.split("~")
+        if len(fields) != 3 or not fields[0]:
+            continue
+        try:
+            off_ms, dur_ms = float(fields[1]), float(fields[2])
+        except ValueError:
+            continue
+        out.append((fields[0], off_ms / 1e3, max(dur_ms, 0.0) / 1e3))
+        if len(out) >= MAX_DIGEST_SPANS:
+            break
+    return out
+
+
+def stage_totals(digest: str) -> Dict[str, float]:
+    """Summed seconds per stage straight from a wire digest (a
+    client's view: it never holds Trace objects)."""
+    totals: Dict[str, float] = {}
+    for stage, _off, dur in parse_digest(digest):
+        totals[stage] = totals.get(stage, 0.0) + dur
+    return totals
+
+
+def dominant_stage(totals: Mapping[str, float]) -> Optional[str]:
+    """Name the stage that ate the request. Dominance is judged over
+    the NON-overlapping top-level stages (``replica.*`` spans are a
+    refinement nested inside the upstream spans — summing both would
+    double-count); when the winner is an upstream span that carries a
+    replica refinement, descend and blame the dominant replica stage
+    instead, so the answer is 'replica prefill', not 'the upstream
+    took a while'."""
+    top = {
+        stage: dur
+        for stage, dur in totals.items()
+        if not stage.startswith("replica.") and dur > 0.0
+    }
+    if not top:
+        # replica-only breakdown (e.g. a trace recorded at a replica)
+        nested = {s: d for s, d in totals.items() if d > 0.0}
+        if not nested:
+            return None
+        return max(nested.items(), key=lambda kv: (kv[1], kv[0]))[0]
+    winner = max(top.items(), key=lambda kv: (kv[1], kv[0]))[0]
+    if winner in _REFINABLE:
+        nested = {
+            stage: dur
+            for stage, dur in totals.items()
+            if stage.startswith("replica.") and dur > 0.0
+        }
+        if nested:
+            return max(
+                nested.items(), key=lambda kv: (kv[1], kv[0])
+            )[0]
+    return winner
+
+
+# -- engine-timings bridge --------------------------------------------
+
+
+def add_engine_spans(trace: Trace, timings: Mapping[str, float]) -> None:
+    """Convert the slot engine's batched boundary stamps (see
+    serve_slots: enqueued/admitted/prefill_done/done + rounds) into
+    replica spans. Called ONCE per request after the engine future
+    resolves — the decode hot path itself never records."""
+    enq = timings.get("enqueued")
+    adm = timings.get("admitted")
+    pf = timings.get("prefill_done")
+    done = timings.get("done")
+    if pf is not None and done is None:
+        # an abandoned stream converts its timings (stream-close
+        # callback) before the engine's cancel-retire path stamps
+        # ``done``/``rounds`` at the next chunk boundary — account
+        # decode up to the abandon instant rather than dropping the
+        # stage, or dominance would misattribute seconds of decode
+        done = now()
+    if enq is not None and adm is not None:
+        trace.add_span("slot_queue_wait", enq, adm)
+    if adm is not None and pf is not None:
+        kv = timings.get("kv")
+        if kv is not None and kv > 0.0:
+            # spill-tier readmit (host->device KV copy) carved out of
+            # the admission window so the stages stay non-overlapping:
+            # kv + prefill together still span admitted -> prefill_done
+            kv_end = min(adm + kv, pf)
+            trace.add_span("kv", adm, kv_end)
+            trace.add_span("prefill", kv_end, pf)
+        else:
+            trace.add_span("prefill", adm, pf)
+    if pf is not None and done is not None:
+        rounds = timings.get("rounds")
+        if rounds is not None:
+            trace.add_span("decode", pf, done, rounds=int(rounds))
+        else:
+            trace.add_span("decode", pf, done)
+
+
+# -- the recorder -----------------------------------------------------
+
+
+class TraceRecorder:
+    """Per-process (per-server, really: a test harness boots several
+    servers in one process) retention of completed traces: a
+    most-recent-N ring plus a slowest-N board. The record path is a
+    deque append and a bounded insertion into a 16-element list — no
+    locks, loop-thread-only by construction."""
+
+    def __init__(
+        self, role: str, recent: int = 64, slowest: int = 16
+    ) -> None:
+        self.role = role
+        self.recent_cap = recent
+        self.slowest_cap = slowest
+        self._recent: "deque[Trace]" = deque(maxlen=recent)
+        #: ascending by duration; [0] is the cheapest seat on the board
+        self._slowest: List[Trace] = []
+        self.recorded = 0
+
+    def start(
+        self, trace_id: Optional[str] = None, endpoint: str = ""
+    ) -> Trace:
+        return Trace(self, trace_id or mint_trace_id(), endpoint)
+
+    def record(self, trace: Trace) -> None:
+        self.recorded += 1
+        self._recent.append(trace)
+        board = self._slowest
+        duration = trace.duration_s
+        if len(board) >= self.slowest_cap:
+            if duration <= board[0].duration_s:
+                return
+            board.pop(0)
+        lo = 0
+        for lo, held in enumerate(board):  # noqa: B007 — tiny list
+            if held.duration_s >= duration:
+                break
+        else:
+            lo = len(board)
+        board.insert(lo, trace)
+
+    # -- queries ------------------------------------------------------
+
+    def recent(self) -> List[Trace]:
+        """Newest first."""
+        return list(reversed(self._recent))
+
+    def slowest(self) -> List[Trace]:
+        """Slowest first."""
+        return list(reversed(self._slowest))
+
+    def find(self, trace_id: str) -> List[Trace]:
+        seen = []
+        for trace in list(self._recent) + self._slowest:
+            if trace.trace_id == trace_id and trace not in seen:
+                seen.append(trace)
+        return seen
+
+    def snapshot(self, limit: Optional[int] = None) -> Dict[str, Any]:
+        """The ``GET /v1/traces`` body."""
+        recent = self.recent()
+        slowest = self.slowest()
+        if limit is not None:
+            recent = recent[:limit]
+            slowest = slowest[:limit]
+        return {
+            "role": self.role,
+            "recorded": self.recorded,
+            "recent_cap": self.recent_cap,
+            "slowest_cap": self.slowest_cap,
+            "recent": [t.as_dict() for t in recent],
+            "slowest": [t.as_dict() for t in slowest],
+        }
+
+    def snapshot_json(
+        self, query: Mapping[str, List[str]]
+    ) -> bytes:
+        """The ``GET /v1/traces`` response body, shared by every
+        surface (gateway, replica, pod frontend): ``?n=`` bounds
+        both lists; anything non-numeric is ignored."""
+        raw = (query.get("n") or [""])[0]
+        limit = int(raw) if raw.isdigit() else None
+        return json.dumps(self.snapshot(limit)).encode()
+
+    def fleet_summary(self, limit: int = 4) -> Dict[str, Any]:
+        """Compact slice for the gateway's ``/fleet`` JSON: the
+        slowest few timelines, one line each."""
+        return {
+            "recorded": self.recorded,
+            "slowest": [
+                {
+                    "trace_id": t.trace_id,
+                    "endpoint": t.endpoint,
+                    "status": t.status,
+                    "duration_ms": round(t.duration_s * 1e3, 3),
+                    "dominant_stage": dominant_stage(t.stage_totals()),
+                }
+                for t in self.slowest()[:limit]
+            ],
+        }

@@ -1,7 +1,7 @@
 """Keep-alive discipline for synchronous http.client callers (the port's
 own copy of ``containerpilot_tpu/utils/httpclient.py``'s
-``keepalive_request``, without the trace-id header: the port has no
-tracing yet).
+``keepalive_request``). A call made while a traced request is active
+carries the request's id as ``X-CP-Trace``.
 
 - take the kept connection, else dial a fresh one;
 - a KEPT connection that fails before any response byte arrived (a
@@ -17,6 +17,8 @@ from __future__ import annotations
 import http.client
 from typing import Callable, Dict, Optional, Tuple
 
+from ..telemetry import tracing
+
 
 def keepalive_request(
     take_conn: Callable[[], Optional[http.client.HTTPConnection]],
@@ -31,6 +33,9 @@ def keepalive_request(
     Raises whatever the transport raised (OSError /
     http.client.HTTPException) once the one redial is exhausted."""
     send_headers = dict(headers or {})
+    trace_id = tracing.current_trace_id()
+    if trace_id and tracing.TRACE_HEADER not in send_headers:
+        send_headers[tracing.TRACE_HEADER] = trace_id
     while True:
         conn = take_conn()
         reused = conn is not None

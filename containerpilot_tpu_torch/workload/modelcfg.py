@@ -95,6 +95,32 @@ def parse_stop_ids(raw: Any, vocab_size: int):
 
 
 @torch.no_grad()
+def parse_stop_strings(raw: Any):
+    """The string-level half of the ``stop`` contract, shared by both
+    text surfaces (single-host and pod /v1/completions): one string or
+    a list of at most 8, each 1..32 UTF-8 bytes. Validated BEFORE
+    encoding so the 422 speaks the text endpoint's language (the
+    id-level bounds in parse_stop_ids would otherwise leak through).
+    Returns the list of strings (None -> None)."""
+    if raw is None:
+        return None
+    if isinstance(raw, str):
+        raw = [raw]
+    if (
+        not isinstance(raw, list)
+        or len(raw) > 8
+        or not all(
+            isinstance(s, str) and 1 <= len(s.encode()) <= 32
+            for s in raw
+        )
+    ):
+        raise ValueError(
+            "'stop' must be a non-empty string (or a list of at "
+            "most 8), each at most 32 UTF-8 bytes"
+        )
+    return raw
+
+
 def average_eval_loss(
     params, cfg, n: int, batch_at: Callable[[int], np.ndarray]
 ) -> float:

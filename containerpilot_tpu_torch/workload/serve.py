@@ -14,9 +14,18 @@ API (token-level):
     POST /v1/score {"tokens": [[...]]}
         -> {"logprobs": [[lp(t1|t0), lp(t2|t0..1), ...]],
             "sums": [total lp per row]}   (teacher-forced scoring)
-    GET /health   -> 200 once warm
-    GET /v1/model -> config summary (the reference's schema; the
-                     features not ported yet report None)
+    POST /v1/completions {"prompt": "text", ...}   (behind --text)
+        -> {"text": "...", "tokens": [...]}  (byte-level tokenizer;
+        "stream": true, with --slots, answers SSE events carrying
+        each delta's ids and text)
+    GET /health     -> 200 once warm (503 while draining)
+    GET /v1/model   -> config summary (the reference's schema; the
+                       features not ported yet report None)
+    GET /metrics    -> Prometheus exposition (requests, latency, tokens,
+                       the device-time ledger, event-loop lag)
+    GET /v1/traces  -> the replica's trace ring (recent and slowest)
+    GET /v1/goodput -> the device-time ledger (stages summing to uptime,
+                       dispatches/token, scheduling gaps)
 
 Requests route as the reference routes them: beams first
 (serve_strategies.run_beam, models/beam.py); then greedy, penalty-free,
@@ -32,10 +41,19 @@ through the continuous batcher (serve_batcher.py) into
 event loop (health checks included) never waits on the device. Every
 CUDA graph of the slot engine is captured, and every speculative round
 shape run, while the server warms, before ``/health`` turns 200. The
-other reference routes (/metrics, /v1/completions, the fleet and KV
-verbs) answer 404 until they are ported (ROADMAP.md). Unlike the
-reference, ``max_new_tokens`` is not bucketed to a multiple of 16 (eager
-torch compiles nothing); the trimmed output is the same.
+fleet and KV verbs of the reference answer 404 until they are ported
+(ROADMAP.md). Unlike the reference, ``max_new_tokens`` is not bucketed to
+a multiple of 16 (eager torch compiles nothing); the trimmed output is
+the same.
+
+The telemetry face is the reference's: every API route is counted, timed
+and traced (``_instrumented``: the caller's ``X-CP-Trace`` id adopted
+and echoed, the span digest returned in ``X-CP-Span-Digest`` or in a
+stream's final event); the device-time ledger (telemetry/goodput.py)
+runs from construction (``boot``) through ``compile_warmup`` to
+``idle`` before ``/health`` turns 200, and the slot engine stamps
+prefill/decode/idle at request boundaries. The server speaks cp-mux/1
+(utils/http.py) unless built with ``mux=False``.
 
 ``python -m containerpilot_tpu_torch.workload.serve`` runs the CLI
 (serve_cli.py).
@@ -57,9 +75,26 @@ from ..models.beam import validate_beam_args
 from ..models.decode import generate
 from ..models.speculative import warm_speculative
 from ..models.transformer import TransformerConfig
+from ..analysis.loopcheck import LoopLagProbe
+from ..telemetry import tracing
+from ..telemetry.goodput import DeviceTimeLedger, goodput_payload
 from ..utils.http import HTTPServer, Request, Response, StreamingResponse
+from ..utils.prom import (
+    Counter,
+    Histogram,
+    Registry,
+    ensure_build_info,
+    ensure_goodput_gauges,
+    ensure_loop_lag_gauge,
+    exposition,
+)
 from . import serve_strategies
-from .modelcfg import parse_logit_bias, parse_stop_ids, score_logprobs_fn
+from .modelcfg import (
+    parse_logit_bias,
+    parse_stop_ids,
+    parse_stop_strings,
+    score_logprobs_fn,
+)
 from .serve_batcher import Batcher, GenJob
 from .serve_cli import main  # noqa: F401  (one import path for the CLI)
 from .serve_prefix import MIN_REUSE, PrefixCache, generate_with_prefix
@@ -113,7 +148,13 @@ class InferenceServer:
         checkpoint: Optional[Dict[str, Any]] = None,
         draft_layers: int = 0,
         speculate: int = 4,
+        text: bool = False,
+        mux: bool = True,
     ) -> None:
+        # device-time ledger: every wall-second of this replica's life in
+        # exactly one stage, starting now in ``boot``; warmup() moves it
+        # to compile_warmup and then idle, before /health turns 200
+        self.ledger = DeviceTimeLedger()
         self.device = resolve_device(device)
         if params["norm_out"].device != self.device:
             raise ValueError(
@@ -128,6 +169,10 @@ class InferenceServer:
         self.ready = False
         # time.monotonic() when /health turned 200 (None before)
         self.ready_at = None
+        # maintenance drain: /health 503, new generate/completions 503 +
+        # Retry-After, everything admitted decodes to completion
+        self.draining = False
+        self._inflight = 0
         self.max_batch_rows = max_batch_rows
         # what the weights came from: {"step": n, "ema": bool} for a
         # restored checkpoint, None for the seeded initialization
@@ -187,7 +232,7 @@ class InferenceServer:
             self.slot_engine = SlotEngine(
                 cfg, params, max_len, slots=slots, chunk=slot_chunk,
                 window=slot_window, prefill_chunk=prefill_chunk,
-                prefix_cache=self.prefix_cache,
+                prefix_cache=self.prefix_cache, ledger=self.ledger,
             )
         self.spec_engine = None
         if draft_layers > 0:
@@ -202,7 +247,8 @@ class InferenceServer:
             )
             # speculative decoding rides a slot engine of its own as a
             # step program: one slot, the verify rollback a per-sequence
-            # pos rewind
+            # pos rewind. No ledger: the slot engine (or, without one,
+            # the handler window in _instrumented) owns the stamps
             self.spec_engine = SlotEngine(
                 cfg, params, max_len, prefill_chunk=prefill_chunk,
                 program=SpeculativeStepProgram(
@@ -213,11 +259,57 @@ class InferenceServer:
         self._executor = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="inference"
         )
+        # request/latency/token metrics in a private registry, the
+        # reference's families and buckets
+        self._metrics_registry = Registry()
+        self._m_requests = Counter(
+            "containerpilot_serve_requests",
+            "requests served, by endpoint and status code",
+            ["endpoint", "code"], registry=self._metrics_registry,
+        )
+        self._m_latency = Histogram(
+            "containerpilot_serve_request_seconds",
+            "request wall time, by endpoint",
+            ["endpoint"], registry=self._metrics_registry,
+            buckets=(.005, .02, .05, .1, .25, .5, 1, 2.5, 5, 10, 30, 60),
+        )
+        self._m_tokens = Counter(
+            "containerpilot_serve_generated_tokens",
+            "tokens returned by generate/completions (post-trim)",
+            registry=self._metrics_registry,
+        )
+        ensure_build_info(self._metrics_registry, "replica")
+        ensure_goodput_gauges(
+            self._metrics_registry, self.ledger, self._decode_counters
+        )
+        self._loop_probe = LoopLagProbe()
+        ensure_loop_lag_gauge(self._metrics_registry, self._loop_probe)
+        # replica-side traces under the caller's id (X-CP-Trace, or the
+        # mux HEADERS field) or a minted one, kept in a ring for
+        # GET /v1/traces
+        self._tracer = tracing.TraceRecorder("replica")
         self._server = HTTPServer()
+        # cp-mux/1 accept path; mux=False answers the upgrade 404 and a
+        # gateway falls back to HTTP/1.1 for this replica
+        self._server.mux_enabled = mux
         self._server.route("GET", "/health", self._health)
-        self._server.route("GET", "/v1/model", self._model_info)
-        self._server.route("POST", "/v1/generate", self._generate)
-        self._server.route("POST", "/v1/score", self._score)
+        self._server.route("GET", "/metrics", self._metrics)
+        self._server.route("GET", "/v1/traces", self._traces)
+        self._server.route("GET", "/v1/goodput", self._goodput)
+        route = self._instrumented
+        self._server.route("GET", "/v1/model",
+                           route("model", self._model_info))
+        self._server.route("POST", "/v1/generate",
+                           route("generate", self._generate))
+        self._server.route("POST", "/v1/score", route("score", self._score))
+        # text surface: byte-level tokenizer, no external assets
+        self.tokenizer = None
+        if text:
+            from .text import ByteTokenizer
+
+            self.tokenizer = ByteTokenizer(cfg.vocab_size)
+            self._server.route("POST", "/v1/completions",
+                               route("completions", self._completions))
         self._score_fn = score_logprobs_fn(cfg)
         self._batcher = Batcher(
             params, cfg, max_len, max_batch_rows, self._executor
@@ -227,9 +319,114 @@ class InferenceServer:
     # -- handlers -------------------------------------------------------
 
     async def _health(self, _req: Request) -> Response:
+        if self.draining:
+            return Response(
+                503, b"draining\n", headers={"Retry-After": "1"}
+            )
         if not self.ready:
             return Response(503, b"warming up\n")
         return Response(200, b"ok\n")
+
+    async def _metrics(self, _req: Request) -> Response:
+        body, content_type = exposition(self._metrics_registry)
+        return Response(200, body, content_type=content_type)
+
+    async def _traces(self, req: Request) -> Response:
+        """Per-process trace ring: slowest-N + most-recent-N, JSON."""
+        return Response(
+            200, self._tracer.snapshot_json(req.query),
+            content_type="application/json",
+        )
+
+    def _decode_counters(self):
+        """(dispatches, tokens_out) of the slot and speculative engines
+        summed; zeros without either."""
+        dispatches = tokens_out = 0
+        for engine in (self.slot_engine, self.spec_engine):
+            if engine is not None:
+                dispatches += engine.dispatches
+                tokens_out += engine.tokens_out
+        return dispatches, tokens_out
+
+    async def _goodput(self, _req: Request) -> Response:
+        """The device-time ledger, JSON: per-stage seconds (summing to
+        uptime), productive fraction, dispatches/token and scheduling
+        gaps, all computed on this read path."""
+        dispatches, tokens_out = self._decode_counters()
+        payload = goodput_payload(
+            self.ledger, self._tracer, dispatches, tokens_out,
+            role="replica", ready=self.ready, draining=self.draining,
+        )
+        return Response(
+            200, json.dumps(payload).encode(),
+            content_type="application/json",
+        )
+
+    def _instrumented(self, endpoint: str, handler):
+        """Count, time and trace every API request (adopting the
+        caller's X-CP-Trace id when it is splice-safe); the handlers
+        count their own post-trim tokens. Without a slot engine the
+        ledger's prefill/decode authority is this handler window:
+        ``decode`` while any compute request is in flight, flipped at
+        the 0 <-> 1 boundaries only."""
+        compute_endpoint = endpoint in ("generate", "completions",
+                                        "score")
+
+        async def wrapped(req: Request):
+            inbound_id = tracing.safe_id(
+                req.headers.get("x-cp-trace")
+            ) or ""
+            if self.draining and endpoint in ("generate", "completions"):
+                # drain refuses NEW decode work only; the refusal still
+                # echoes the trace id so it is findable
+                self._m_requests.labels(endpoint, "503").inc()
+                headers = {"Retry-After": "1"}
+                if inbound_id:
+                    headers[tracing.TRACE_HEADER] = inbound_id
+                return Response(503, b"draining\n", headers=headers)
+            trace = self._tracer.start(inbound_id or None, endpoint)
+            trace.stream_id = tracing.current_stream_id()
+            token = tracing.activate(trace)
+            t0 = time.perf_counter()
+            self._inflight += 1
+            if (
+                self.slot_engine is None and compute_endpoint
+                and self._inflight == 1
+            ):
+                self.ledger.enter("decode")
+            try:
+                resp = await handler(req)
+            except Exception:
+                # the HTTP layer answers 500; count and time it first
+                trace.finish(500)
+                self._m_latency.labels(endpoint).observe(
+                    time.perf_counter() - t0
+                )
+                self._m_requests.labels(endpoint, "500").inc()
+                raise
+            finally:
+                self._inflight -= 1
+                if (
+                    self.slot_engine is None and compute_endpoint
+                    and self._inflight == 0
+                ):
+                    self.ledger.engine_idle()
+                tracing.deactivate(token)
+            resp.headers.setdefault(tracing.TRACE_HEADER, trace.trace_id)
+            if not isinstance(resp, StreamingResponse):
+                trace.finish(resp.status)
+                resp.headers.setdefault(
+                    tracing.DIGEST_HEADER, trace.digest()
+                )
+            # else: the stream owns the trace's tail (relay span, digest
+            # in the final SSE event)
+            self._m_latency.labels(endpoint).observe(
+                time.perf_counter() - t0
+            )
+            self._m_requests.labels(endpoint, str(resp.status)).inc()
+            return resp
+
+        return wrapped
 
     async def _model_info(self, _req: Request) -> Response:
         body = json.dumps({
@@ -241,7 +438,7 @@ class InferenceServer:
             "max_len": self.max_len,
             "checkpoint": self.checkpoint,
             "mesh": None,
-            "text": False,
+            "text": self.tokenizer is not None,
             "speculative": (
                 {"draft_layers": self.draft_cfg.n_layers,
                  "speculate": self.speculate,
@@ -268,7 +465,7 @@ class InferenceServer:
                 if self.slot_engine is not None else None
             ),
             "stream": self.slot_engine is not None,
-            "draining": False,
+            "draining": self.draining,
             "cp": None,
             "device": str(self.device),
         }).encode()
@@ -276,7 +473,7 @@ class InferenceServer:
 
     def _parse_sampling(
         self, body: Dict[str, Any], tokens: List[List[int]],
-        prompt_len: int,
+        prompt_len: int, default_eos: int = -1,
     ) -> Dict[str, Any]:
         """Validate the sampling/decode knobs (the reference's checks
         and messages). Raises ValueError for a 422."""
@@ -286,7 +483,7 @@ class InferenceServer:
             "seed": int(body.get("seed", 0)),
             "top_k": int(body.get("top_k", 0)),
             "top_p": float(body.get("top_p", 0.0)),
-            "eos_id": int(body.get("eos_id", -1)),
+            "eos_id": int(body.get("eos_id", default_eos)),
             "min_new": int(body.get("min_new_tokens", 0)),
             "presence": float(body.get("presence_penalty", 0.0)),
             "frequency": float(body.get("frequency_penalty", 0.0)),
@@ -408,12 +605,16 @@ class InferenceServer:
                 # one prompt, n samples; row i draws from (seed, i)
                 tokens = [list(tokens[0]) for _ in range(p["n"])]
             if stream:
-                return self._stream_response(tokens, p)
+                if len(tokens) != 1:
+                    raise ValueError("stream serves a single row per "
+                                     "request")
+                return self._stream_response(tokens[0], p)
         except (ValueError, KeyError, TypeError) as exc:
             return Response(422, f"{exc}\n".encode())
         generated = await self._dispatch_generate(tokens, prompt_len, p)
         generated = self._trim(generated, p["max_new_requested"], p["eos_id"])
         generated = self._trim_stops(generated, p["stop"])
+        self._m_tokens.inc(sum(len(r) for r in generated))
         payload: Dict[str, Any] = {"tokens": generated}
         if p["logprobs"]:
             payload["logprobs"] = await asyncio.get_running_loop(
@@ -425,19 +626,73 @@ class InferenceServer:
             content_type="application/json",
         )
 
+    async def _completions(self, req: Request) -> Response:
+        """Text in/out over the byte-level tokenizer: encode the prompt,
+        run the same dispatch as /v1/generate, decode the generated ids.
+        eos defaults to the tokenizer's EOS ("eos_id": -1 disables it);
+        "stop" takes strings, byte-encoded into token stop sequences and
+        excluded from the output."""
+        try:
+            body = json.loads(req.body.decode() or "{}")
+            prompt = body.get("prompt")
+            if not isinstance(prompt, str) or not prompt:
+                raise ValueError("'prompt' must be a non-empty string")
+            row = self.tokenizer.encode(prompt)
+            if len(row) >= self.max_len:
+                raise ValueError(
+                    f"prompt encodes to {len(row)} ids; max_len is "
+                    f"{self.max_len}"
+                )
+            stop_raw = parse_stop_strings(body.pop("stop", None))
+            if stop_raw is not None:
+                body["stop"] = [self.tokenizer.encode(s, bos=False)
+                                for s in stop_raw]
+            p = self._parse_sampling(
+                body, [row], len(row), default_eos=self.tokenizer.EOS
+            )
+            if p["n"] > 1:
+                raise ValueError("n returns token rows; use /v1/generate")
+            if bool(body.get("stream", False)):
+                return self._completions_stream(row, p)
+        except (ValueError, KeyError, TypeError) as exc:
+            return Response(422, f"{exc}\n".encode())
+        generated = await self._dispatch_generate([row], len(row), p)
+        generated = self._trim(generated, p["max_new_requested"], p["eos_id"])
+        generated = self._trim_stops(generated, p["stop"])
+        self._m_tokens.inc(len(generated[0]))
+        return Response(
+            200,
+            json.dumps({"text": self.tokenizer.decode(generated[0]),
+                        "tokens": generated[0]}).encode(),
+            content_type="application/json",
+        )
+
+    def _completions_stream(
+        self, row: List[int], p: Dict[str, Any]
+    ) -> StreamingResponse:
+        """Text SSE over the same plumbing: each event carries the
+        delta's ids and the text they decode to, holding back a partial
+        UTF-8 character (text.stream_decoder); the events' text
+        concatenates to the non-streamed ``text``."""
+        from .text import stream_decoder
+
+        delta_event, tail_events = stream_decoder(self.tokenizer)
+        return self._stream_response(row, p, delta_event=delta_event,
+                                     tail_events=tail_events)
+
     def _stream_response(
-        self, tokens: List[List[int]], p: Dict[str, Any]
+        self, row: List[int], p: Dict[str, Any], delta_event=None,
+        tail_events=None,
     ) -> StreamingResponse:
         """SSE token streaming over the slot engine's window boundaries:
-        each emitted delta is one ``data:`` event and the last event
-        carries ``done``; the deltas concatenate to the non-streamed
-        row (the engine's emission is the trimmed output). The engine's
-        worker thread hands deltas to the event loop with
-        ``call_soon_threadsafe``. A client disconnect sets the
-        request's cancel, and the engine frees the slot at the next
-        window boundary instead of decoding to the end."""
-        if len(tokens) != 1:
-            raise ValueError("stream serves a single row per request")
+        each emitted delta is one ``data:`` event (shaped by
+        ``delta_event``; ``tail_events`` may add events before the last)
+        and the last event carries ``done``, the trace id and the span
+        digest; the deltas concatenate to the non-streamed row. The
+        engine's worker thread hands deltas to the event loop with
+        ``call_soon_threadsafe``. A client disconnect sets the request's
+        cancel, and the engine frees the slot at the next window
+        boundary instead of decoding to the end."""
         if self.slot_engine is None:
             raise ValueError(
                 "stream requires --slots (token streaming rides the "
@@ -452,6 +707,10 @@ class InferenceServer:
                 raise ValueError(
                     f"stream does not compose with {knob} ({why})"
                 )
+        if delta_event is None:
+            delta_event = lambda d: {"tokens": d}  # noqa: E731
+        if tail_events is None:
+            tail_events = list
         loop = asyncio.get_running_loop()
         deltas: "asyncio.Queue" = asyncio.Queue()
         finished = object()
@@ -460,37 +719,69 @@ class InferenceServer:
         def on_tokens(delta: List[int]) -> None:  # the engine's thread
             loop.call_soon_threadsafe(deltas.put_nowait, delta)
 
+        # the relay outlives the handler's contextvar window, so the
+        # stream holds its trace directly
+        trace = tracing.current_trace()
+        timings: Optional[Dict[str, float]] = (
+            {} if trace is not None else None
+        )
         fut = self.slot_engine.submit(
-            tokens[0], p["max_new_requested"],
+            row, p["max_new_requested"],
             temperature=p["temperature"], top_k=p["top_k"],
             top_p=p["top_p"], eos_id=p["eos_id"], seed=p["seed"],
             min_new=p["min_new"], presence_penalty=p["presence"],
             frequency_penalty=p["frequency"], logit_bias=p["logit_bias"],
-            on_tokens=on_tokens, cancel=cancel,
+            on_tokens=on_tokens, cancel=cancel, timings=timings,
         )
         fut.add_done_callback(
             lambda _f: loop.call_soon_threadsafe(deltas.put_nowait, finished)
         )
+        sent = [0]
+        closed = [False]
+        first_delta_at = [0.0]
+
+        def finish() -> None:
+            # any end: completion, a disconnect mid-stream (generator
+            # finally) or before the generator started (close callback);
+            # idempotent
+            if closed[0]:
+                return
+            closed[0] = True
+            cancel.set()
+            self._m_tokens.inc(sent[0])
+            if trace is not None:
+                tracing.add_engine_spans(trace, timings)
+                if first_delta_at[0]:
+                    trace.add_span("stream_relay", first_delta_at[0],
+                                   tracing.now(), events=sent[0])
+                trace.finish(200)
 
         def sse(payload: Dict[str, Any]) -> bytes:
             return b"data: " + json.dumps(payload).encode() + b"\n\n"
 
         async def events():
-            sent = 0
             try:
                 while True:
                     delta = await deltas.get()
                     if delta is finished:
                         break
-                    sent += len(delta)
-                    yield sse({"tokens": delta})
-                yield sse({"done": True, "count": sent})
+                    if trace is not None and not first_delta_at[0]:
+                        first_delta_at[0] = tracing.now()
+                    sent[0] += len(delta)
+                    yield sse(delta_event(delta))
+                for extra in tail_events():
+                    yield sse(extra)
+                done: Dict[str, Any] = {"done": True, "count": sent[0]}
+                if trace is not None:
+                    # the final event is the stream's digest channel
+                    finish()
+                    done["trace"] = trace.trace_id
+                    done["spans"] = trace.digest()
+                yield sse(done)
             finally:
-                cancel.set()  # completion, or the client left
+                finish()
 
-        # cancel.set is idempotent: it also covers a disconnect before
-        # the generator ever started
-        return StreamingResponse(events(), close=cancel.set)
+        return StreamingResponse(events(), close=finish)
 
     def _echo_logprobs(
         self, prompts: List[List[int]], generated: List[List[int]]
@@ -547,6 +838,31 @@ class InferenceServer:
             content_type="application/json",
         )
 
+    @staticmethod
+    async def _timed_compute(trace, awaitable):
+        """One coarse ``compute`` span around a non-slot decode path
+        (slot-engine requests get slot_queue_wait/prefill/decode)."""
+        if trace is None:
+            return await awaitable
+        t0 = tracing.now()
+        try:
+            return await awaitable
+        finally:
+            trace.add_span("compute", t0, tracing.now())
+
+    async def _engine_generate(self, engine, trace, row, max_new, **kw):
+        """One row through a slot engine; its boundary stamps become the
+        trace's slot_queue_wait/prefill/decode spans, once, after the
+        future resolves."""
+        timings: Optional[Dict[str, float]] = (
+            {} if trace is not None else None
+        )
+        fut = engine.submit(row, max_new, timings=timings, **kw)
+        out = [await asyncio.wrap_future(fut)]
+        if trace is not None:
+            tracing.add_engine_spans(trace, timings)
+        return out
+
     async def _dispatch_generate(
         self, tokens: List[List[int]], prompt_len: int, p: Dict[str, Any]
     ) -> List[List[int]]:
@@ -555,13 +871,15 @@ class InferenceServer:
         engine, prefix hit, chunked prefill, batcher) -> the untrimmed
         generated rows."""
         loop = asyncio.get_running_loop()
+        trace = tracing.current_trace()
+        timed = self._timed_compute
         single = len(tokens) == 1
         if p["beam_width"]:
-            return await loop.run_in_executor(
+            return await timed(trace, loop.run_in_executor(
                 self._executor, serve_strategies.run_beam, self, tokens,
                 p["max_new_requested"], p["beam_width"], p["eos_id"],
                 p["length_penalty"],
-            )
+            ))
         if (
             self.spec_engine is not None
             and p["temperature"] <= 0.0
@@ -572,24 +890,21 @@ class InferenceServer:
         ):
             # greedy single row: draft-and-verify through the speculative
             # engine, whose emission is eos-capped at the exact max_new
-            fut = self.spec_engine.submit(
-                tokens[0], p["max_new_requested"], eos_id=p["eos_id"],
-                seed=p["seed"],
+            return await self._engine_generate(
+                self.spec_engine, trace, tokens[0], p["max_new_requested"],
+                eos_id=p["eos_id"], seed=p["seed"],
             )
-            return [await asyncio.wrap_future(fut)]
         if self.slot_engine is not None and single:
             # joins the running chunk loop at the next boundary; output
             # is already pad-trimmed at eos
-            fut = self.slot_engine.submit(
-                tokens[0], p["max_new_requested"],
+            return await self._engine_generate(
+                self.slot_engine, trace, tokens[0], p["max_new_requested"],
                 temperature=p["temperature"], top_k=p["top_k"],
                 top_p=p["top_p"], eos_id=p["eos_id"], seed=p["seed"],
-                min_new=p["min_new"],
-                presence_penalty=p["presence"],
+                min_new=p["min_new"], presence_penalty=p["presence"],
                 frequency_penalty=p["frequency"],
                 logit_bias=p["logit_bias"],
             )
-            return [await asyncio.wrap_future(fut)]
         if (
             self.prefix_cache is not None
             and single
@@ -600,21 +915,21 @@ class InferenceServer:
         ):
             # hit -> reuse; miss -> still seed the cache, but only when
             # nothing is queued for the batcher
-            return await loop.run_in_executor(
+            return await timed(trace, loop.run_in_executor(
                 self._executor, generate_with_prefix, self, tokens[0],
                 p["max_new"], p["temperature"], p["top_k"], p["top_p"],
                 p["eos_id"], p["seed"], p["min_new"], p["presence"],
                 p["frequency"], p["logit_bias"],
-            )
+            ))
         if self.prefill_chunk > 0 and single and (
                 prompt_len > self.prefill_chunk):
-            return await loop.run_in_executor(
+            return await timed(trace, loop.run_in_executor(
                 self._executor, serve_strategies.run_chunked, self,
                 tokens, prompt_len, p["max_new"], p["temperature"],
                 p["top_k"], p["top_p"], p["eos_id"], p["seed"],
                 p["min_new"], p["presence"], p["frequency"],
                 p["logit_bias"],
-            )
+            ))
         job = GenJob(
             rows=tokens, prompt_len=prompt_len, max_new=p["max_new"],
             temperature=p["temperature"], top_k=p["top_k"],
@@ -623,7 +938,7 @@ class InferenceServer:
             frequency=p["frequency"], logit_bias=p["logit_bias"],
             future=loop.create_future(),
         )
-        return await self._batcher.submit(job)
+        return await timed(trace, self._batcher.submit(job))
 
     # -- lifecycle ------------------------------------------------------
 
@@ -659,7 +974,11 @@ class InferenceServer:
         it (admission, a chunk and, with windows, a fused window: chunk+2
         new tokens leave one token past the admission round) on graphs
         captured when the engine was built; with a draft, every
-        speculative round shape and one request through its engine."""
+        speculative round shape and one request through its engine.
+        The ledger attributes all of it to ``compile_warmup`` (an
+        override the engine's own stamps cannot claim) and opens the
+        serving clock in ``idle`` before ``/health`` turns 200."""
+        self.ledger.set_override("compile_warmup")
         await asyncio.get_running_loop().run_in_executor(
             self._executor, self._warm
         )
@@ -675,6 +994,8 @@ class InferenceServer:
                 fut = self.spec_engine.submit([0] * WARMUP_PROMPT_LEN,
                                               max_new=spec_new)
                 await asyncio.wrap_future(fut)
+        self.ledger.clear_override()
+        self.ledger.enter("idle")
         self.ready = True
         self.ready_at = time.monotonic()
         log.info("serve: default shapes warm; accepting traffic")
@@ -683,10 +1004,35 @@ class InferenceServer:
         await self._server.start_tcp(self.host, self.port)
         self.port = self._server.bound_port or self.port
         self._batcher.start()
+        self._loop_probe.start()
         log.info("serve: listening on %s:%d", self.host, self.port)
         await self.warmup()
 
+    def goodput_note(self) -> str:
+        """The device-time ledger's heartbeat field value (``gp=``):
+        cumulative stage seconds, then dispatches and tokens out."""
+        dispatches, tokens_out = self._decode_counters()
+        return self.ledger.note(dispatches, tokens_out)
+
+    def enter_maintenance(self) -> None:
+        """Start draining: /health 503, new generate/completions 503 +
+        Retry-After, in-flight work finishes; the ledger costs every
+        second from here as ``drain``. Idempotent."""
+        if not self.draining:
+            log.info("serve: entering maintenance (draining)")
+            self.ledger.set_override("drain")
+        self.draining = True
+
+    def exit_maintenance(self) -> None:
+        """Stop draining and accept traffic again. Idempotent."""
+        if self.draining:
+            log.info("serve: exiting maintenance")
+            self.ledger.clear_override()
+        self.draining = False
+
     async def stop(self) -> None:
+        self.ledger.freeze()
+        self._loop_probe.stop()
         for engine in (self.slot_engine, self.spec_engine):
             if engine is not None:
                 await asyncio.get_running_loop().run_in_executor(

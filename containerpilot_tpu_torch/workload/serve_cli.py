@@ -2,12 +2,13 @@
 ``containerpilot_tpu/workload/serve_cli.py``).
 
 ``python -m containerpilot_tpu_torch.workload.serve`` lands here. The
-flags the port runs: --host, --port, --max-len, --d-model, --n-layers,
---n-heads, --n-kv-heads, --window, --vocab, --checkpoint-dir,
---use-ema, --int8, --kv-int8, --lora-dir, --lora-rank, --draft-layers,
---speculate, --max-batch-rows, --prefill-chunk, --prefix-cache, --slots,
---slot-chunk, --slot-window, and --device (default cuda; the part
-JAX_PLATFORMS plays for the reference). Every other reference flag is
+flags the port runs: --host, --port, --mux/--no-mux, --max-len,
+--d-model, --n-layers, --n-heads, --n-kv-heads, --window, --vocab,
+--checkpoint-dir, --use-ema, --int8, --kv-int8, --lora-dir, --lora-rank,
+--draft-layers, --speculate, --max-batch-rows, --prefill-chunk,
+--prefix-cache, --text, --slots, --slot-chunk, --slot-window, and
+--device (default cuda; the part JAX_PLATFORMS plays for the
+reference). Every other reference flag is
 accepted with its reference default and exits with a "not ported yet"
 message when set to anything else.
 
@@ -26,10 +27,8 @@ from typing import Any, Dict, Tuple
 
 # reference flags this slice does not run yet: dest -> (flag, default)
 _NOT_PORTED: Dict[str, Tuple[str, Any]] = {
-    "mux": ("--mux", True),
     "moe_experts": ("--moe-experts", 0),
     "kv_spill_mb": ("--kv-spill-mb", 0.0),
-    "text": ("--text", False),
     "tp": ("--tp", 1),
     "cp": ("--cp", 1),
     "cp_min_len": ("--cp-min-len", 0),
@@ -52,6 +51,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     )
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--port", type=int, default=8000)
+    parser.add_argument(
+        "--mux", default=True, action=argparse.BooleanOptionalAction,
+        help="accept cp-mux/1 upgrades (the fleet gateway's "
+        "multiplexed transport); --no-mux keeps this replica plain "
+        "HTTP/1.1 and gateways fall back per-replica",
+    )
     parser.add_argument("--max-len", type=int, default=512)
     parser.add_argument("--d-model", type=int, default=256)
     parser.add_argument("--n-layers", type=int, default=2)
@@ -118,6 +123,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="prefix KV reuse: keep the KV caches of the last N prompts "
         "and re-prefill only the unseen suffix of single-row requests "
         "sharing a prefix; 0 = off",
+    )
+    parser.add_argument(
+        "--text", action="store_true",
+        help="enable the text surface: POST /v1/completions encodes "
+        "prompts with the built-in byte-level tokenizer (requires "
+        "--vocab >= 259)",
     )
     parser.add_argument(
         "--slots", type=int, default=0,
@@ -248,6 +259,7 @@ def main(argv=None) -> int:
         prefill_chunk=args.prefill_chunk, slots=args.slots,
         slot_chunk=args.slot_chunk, slot_window=args.slot_window,
         draft_layers=args.draft_layers, speculate=args.speculate,
+        text=args.text, mux=args.mux,
     )
 
     async def serve() -> None:

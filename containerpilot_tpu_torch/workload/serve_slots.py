@@ -19,9 +19,15 @@ window N's tokens when none is (the one-window lookahead).
 Per-request output equals a solo ``generate`` with the same arguments:
 each slot samples from its own generator re-seeded as ``generate`` seeds
 row 0, and a fused window runs the same step body as K sequential
-chunks. Not ported: the context-parallel admission (``cp_mesh``), the
-device-time ledger (``ledger``) and the synthetic prefill floor; the
-first two raise when set.
+chunks. Not ported: the context-parallel admission (``cp_mesh``, which
+raises when set) and the synthetic prefill floor.
+
+The device-time ledger (``ledger``, telemetry/goodput.py) is stamped
+where the reference stamps it, on the worker thread at request
+boundaries only: ``prefill`` when an admission starts, ``decode`` when
+its first token is sampled, ``idle`` when the engine finds no live slot
+(after the fetch that resolved the last window). Nothing is stamped
+inside a window or a graph replay.
 
 One engine per server process; it owns a worker thread and the step
 program's device buffers. ``submit`` is thread-safe and returns a
@@ -108,13 +114,11 @@ class SlotEngine:
             raise ValueError("slots and chunk must be >= 1")
         if window < 1:
             raise ValueError("window must be >= 1")
-        for value, what in ((cp_mesh, "cp_mesh (context-parallel "
-                             "admission)"), (ledger, "ledger (the "
-                             "device-time ledger)")):
-            if value is not None:
-                raise NotImplementedError(
-                    f"{what} is not ported yet (ROADMAP.md queue 1)"
-                )
+        if cp_mesh is not None:
+            raise NotImplementedError(
+                "cp_mesh (context-parallel admission) is not ported yet "
+                "(ROADMAP.md queue 1)"
+            )
         if prefill_chunk < 0:
             raise ValueError("prefill_chunk must be >= 0")
         # chunked admission: prompts longer than prefill_chunk prefill in
@@ -137,6 +141,10 @@ class SlotEngine:
         # a reused slot carries no context of its previous occupant;
         # chunked admission caps its pieces at the ring
         # (chunked_prefill)
+        # device-time ledger: the engine is the authority on prefill/
+        # decode/idle, stamped at request boundaries only (None costs one
+        # attribute load there)
+        self.ledger = ledger
         # dispatch accounting (the dispatches/token series): one bump per
         # device dispatch (an admission counts one), one add per token
         self.dispatches = 0
@@ -286,6 +294,8 @@ class SlotEngine:
         step program, which samples token 0 and writes the slot."""
         if req.timings is not None:
             req.timings["admitted"] = time.monotonic()
+        if self.ledger is not None:
+            self.ledger.enter("prefill")
         logits, row_cache = self._prefill(req)
         first_host = self.program.admit(slot_id, req, logits, row_cache)
         state = _Slot(req=req, emitted=[first_host])
@@ -296,6 +306,8 @@ class SlotEngine:
         self.tokens_out += 1
         if req.timings is not None:
             req.timings["prefill_done"] = time.monotonic()
+        if self.ledger is not None:
+            self.ledger.enter("decode")
         self._notify(req, [first_host])
 
     def _harvest(self, slot_id: int) -> None:
@@ -398,6 +410,11 @@ class SlotEngine:
                     i for i, s in enumerate(self._active) if s is None
                 ]
                 any_active = any(s is not None for s in self._active)
+                if not any_active and self.ledger is not None:
+                    # fully idle: flips to ``idle`` only out of prefill/
+                    # decode (engine_idle), so it cannot cut the server's
+                    # boot/warmup stages short
+                    self.ledger.engine_idle()
                 # block for work only when fully idle; otherwise drain
                 # whatever is queued into free slots and keep decoding
                 try:

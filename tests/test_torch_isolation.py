@@ -1,5 +1,6 @@
-"""The port stands alone: importing it loads no jax and nothing of the
-JAX package; no file of it imports either; and an entry point asked
+"""The port stands alone: importing it loads no jax, nothing of the
+JAX package and no prometheus_client (the card's machine has none: the
+port writes its own exposition); no file of it imports any of them; and an entry point asked
 for the default device on a machine without a card raises instead of
 quietly running on the CPU."""
 import ast
@@ -31,6 +32,8 @@ def _is_forbidden(name: str) -> bool:
         name == "jax" or name.startswith("jax.")
         or name == "jaxlib" or name.startswith("jaxlib.")
         or name == "optax"
+        or name == "prometheus_client"
+        or name.startswith("prometheus_client.")
         or name == "containerpilot_tpu"
         or name.startswith("containerpilot_tpu.")
     )
@@ -57,13 +60,22 @@ def test_importing_every_port_module_loads_no_jax():
         "containerpilot_tpu_torch.parallel.checkpoint",
         "containerpilot_tpu_torch.client.client",
         "containerpilot_tpu_torch.utils.httpclient",
+        "containerpilot_tpu_torch.utils.http",
+        "containerpilot_tpu_torch.utils.prom",
+        "containerpilot_tpu_torch.telemetry.tracing",
+        "containerpilot_tpu_torch.telemetry.goodput",
+        "containerpilot_tpu_torch.analysis.loopcheck",
+        "containerpilot_tpu_torch.fleet.pool",
+        "containerpilot_tpu_torch.workload.text",
+        "containerpilot_tpu_torch.version",
     } <= set(mods)
     code = (
         "import importlib, sys\n"
         f"for m in {mods!r}: importlib.import_module(m)\n"
         "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
-        "'optax', 'containerpilot_tpu') or m.startswith(('jax.', "
-        "'jaxlib.', 'containerpilot_tpu.')))\n"
+        "'optax', 'containerpilot_tpu', 'prometheus_client') or "
+        "m.startswith(('jax.', 'jaxlib.', 'containerpilot_tpu.', "
+        "'prometheus_client.')))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run(

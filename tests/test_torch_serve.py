@@ -154,9 +154,9 @@ def test_cli_parses_supported_flags():
 
 @pytest.mark.parametrize("argv,flag", [
     (["--kv-spill-mb", "8"], "--kv-spill-mb"),
-    (["--draft-layers", "1", "--text"], "--text"),
+    (["--draft-layers", "1", "--standby"], "--standby"),
     (["--lora-rank", "4", "--tp", "2"], "--tp"),
-    (["--no-mux"], "--mux"),
+    (["--role", "prefill"], "--role"),
     (["--no-adopt-compile-cache"], "--adopt-compile-cache"),
 ])
 def test_cli_flag_not_ported_yet_exits(argv, flag):

@@ -190,8 +190,14 @@ def test_stats_and_stop(params):
 def test_engine_refuses_what_is_not_ported(params):
     with pytest.raises(NotImplementedError, match="cp_mesh"):
         SlotEngine(CFG, params, MAX_LEN, slots=1, chunk=2, cp_mesh=object())
-    with pytest.raises(NotImplementedError, match="ledger"):
-        SlotEngine(CFG, params, MAX_LEN, slots=1, chunk=2, ledger=object())
+    # the device-time ledger is ported: accepted, and an idle engine
+    # never cuts the server's boot stage short (its stamps are held in
+    # tests/test_torch_telemetry.py)
+    from containerpilot_tpu_torch.telemetry.goodput import DeviceTimeLedger
+
+    ledger = DeviceTimeLedger()
+    SlotEngine(CFG, params, MAX_LEN, slots=1, chunk=2, ledger=ledger).stop()
+    assert ledger.stage == "boot" and ledger.transitions == 0
     with pytest.raises(ValueError, match="prefill_chunk"):
         SlotEngine(CFG, params, MAX_LEN, slots=1, chunk=2, prefill_chunk=-1)
 

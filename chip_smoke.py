@@ -147,7 +147,23 @@ training phases, then beams, speculative decoding and LoRA):
    slot_queue_wait, prefill and decode spans; the wall per request over
    each transport, the /metrics scrape ms, the slot step with and
    without the device-time ledger (in-process, in turns), and K2 against
-   its plain version at the CLI model's MLP shapes.
+   its plain version at the CLI model's MLP shapes;
+19. serve_fleet_handoff: three serve CLIs at the same width and depth,
+   --int8 --slots 8 --prefix-cache 4 --kv-spill-mb 1024 --mux, in one
+   file catalog: A --role prefill, B --role decode, C --standby
+   --weights-from A. The catalog shows A's and B's roles (the port's
+   notes parser); /v1/prefill of a 1024-id prompt on A launches K1
+   exactly n_layers times; B pulls the entry (/v1/kv/pull) and serves
+   it greedily with K1 0 times, readmitted +1 and A's tokens (or, past a
+   near tie, both held by judge_served); B's time to first token on a
+   pulled entry against a local prefill; C's weights equal A's chunk
+   digest by chunk digest, and once promoted C serves A's tokens;
+   SIGTERM drains B, whose sessions migrate to C (a drain skips the
+   prefill pool), its refusal names C in X-CP-Migrated-To, and C then
+   serves the first prompt with K1 0 times and readmitted +1; C adopts
+   A's kernel build directory from its cc= note. The KV entry's and the
+   weights' bytes, seconds and GB/s, the promote latency, and each
+   replica's K1/K2 launches.
 
 Then the kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -2258,7 +2274,8 @@ sys.exit(main(sys.argv[2:]))
 
 class CountedServe:
     """The serve CLI in a subprocess on a free port (COUNTED_SERVE),
-    healthy on entry, stopped with SIGTERM (then killed) on exit."""
+    healthy on entry (a --standby: warm and standing by), stopped with
+    SIGTERM (then killed) on exit."""
 
     def __init__(self, args, tmp, timeout=600):
         self.args, self.timeout = args, timeout
@@ -2268,6 +2285,7 @@ class CountedServe:
 
     def __enter__(self):
         import socket
+        import urllib.error
         import urllib.request
 
         root = os.path.dirname(os.path.abspath(__file__))
@@ -2293,6 +2311,11 @@ class CountedServe:
                             timeout=5) as r:
                         if r.status == 200:
                             break
+                except urllib.error.HTTPError as exc:
+                    # a warm standby answers 503 "standby" until promoted
+                    if "--standby" in self.args and exc.code == 503 and (
+                            exc.read().startswith(b"standby")):
+                        break
                 except OSError:
                     pass
                 if time.monotonic() > deadline:
@@ -2664,6 +2687,403 @@ def check_face(cfg, params, tok, bodies, gen_bodies, passes, generated,
     }
 
 
+# ---- serve_fleet_handoff: the torch replica in a fleet ------------------
+
+HANDOFF_ARGS = ["--slots", "8", "--prefix-cache", "4", "--kv-spill-mb",
+                "1024", "--mux", "--int8", "--fleet-ttl", "2"]
+HANDOFF_NEW = 32  # greedy tokens of the judged requests
+
+
+def http_status(port, method, path, body=None, timeout=60):
+    """(status, lowercased headers, body) of one HTTP/1.1 request, any
+    status (``http`` raises on non-200)."""
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=timeout)
+    try:
+        conn.request(method, path, body=json.dumps(body).encode()
+                     if body is not None else None,
+                     headers={"Content-Type": "application/json"})
+        resp = conn.getresponse()
+        return (resp.status, {k.lower(): v for k, v in resp.getheaders()},
+                resp.read())
+    finally:
+        conn.close()
+
+
+def timed_post(port, path, body):
+    """(parsed JSON answer, wall s) of a POST that must answer 200."""
+    t0 = time.perf_counter()
+    status, _headers, data = http_status(port, "POST", path, body, 600)
+    wall = time.perf_counter() - t0
+    if status != 200:
+        raise AssertionError(f"POST {path} -> {status}: {data[:200]!r}")
+    return json.loads(data), wall
+
+
+def weights_manifest_of(port):
+    """The manifest at the head of a replica's GET /v1/weights (read,
+    then the connection dropped)."""
+    import socket
+
+    with socket.create_connection(("127.0.0.1", port), timeout=300) as sock:
+        sock.sendall(b"GET /v1/weights HTTP/1.1\r\nHost: 127.0.0.1\r\n"
+                     b"Connection: close\r\n\r\n")
+        fh = sock.makefile("rb")
+        while fh.readline() not in (b"\r\n", b""):
+            pass  # the response head; the body is the raw stream
+        n = int.from_bytes(fh.read(8), "big")
+        return json.loads(fh.read(n))
+
+
+def catalog_fields(catalog, ids, absent=(), timeout=60):
+    """{instance id: (instance, parsed note fields)} once every id in
+    ``ids`` is registered without any field named in ``absent``, read
+    with the port's own backend and note parsers."""
+    from containerpilot_tpu_torch.discovery import FileCatalogBackend
+    from containerpilot_tpu_torch.fleet import notes
+
+    backend = FileCatalogBackend(catalog)
+    deadline = time.monotonic() + timeout
+    while True:
+        seen = {}
+        for inst in backend.instances("inference"):
+            raw = notes.split_note(inst.notes)
+            seen[inst.id] = (inst, {k: notes.parse_field(k, v)
+                                    for k, v in raw.items()})
+        if all(i in seen and not set(absent) & set(seen[i][1])
+               for i in ids):
+            return seen
+        if time.monotonic() > deadline:
+            raise AssertionError(f"catalog never showed {ids}: {seen}")
+        time.sleep(0.1)
+
+
+async def export_split(port, tokens):
+    """(s to the response head, s from the head to the last byte, bytes)
+    of one ``POST /v1/kv`` over cp-mux/1. The server copies the entry to
+    the host and digests every chunk before it answers, so the first
+    figure is its plan (plus one dial) and the second the stream alone;
+    the bytes are read, not verified."""
+    from containerpilot_tpu_torch.fleet.pool import dial_mux
+
+    conn = await dial_mux("127.0.0.1", port, 30.0)
+    if conn is None:
+        raise AssertionError("the --mux server declined cp-mux/1")
+    try:
+        t0 = time.perf_counter()
+        stream = await conn.open_stream(
+            "POST", "/v1/kv", json.dumps({"tokens": [tokens]}).encode())
+        status, _headers = await stream.response_head(300.0)
+        head_s = time.perf_counter() - t0
+        if status != 200:
+            raise AssertionError(f"POST /v1/kv -> {status}")
+        t0 = time.perf_counter()
+        streamed = 0
+        while True:
+            piece = await stream.read_chunk(300.0)
+            if not piece:
+                break
+            streamed += len(piece)
+        return head_s, time.perf_counter() - t0, streamed
+    finally:
+        conn.close("export timed")
+
+
+class Counts:
+    """A CountedServe's K1/K2 counters: zeroed once when the phase
+    starts driving it, read as deltas around each request after."""
+
+    def __init__(self, srv):
+        self.srv = srv
+        self.last = srv.counts(zero=True)
+
+    def delta(self):
+        now = self.srv.counts()
+        out = {k: now[k] - self.last[k] for k in now}
+        self.last = now
+        return out
+
+    def total(self):
+        return self.srv.counts()
+
+
+def drive_fleet_handoff(tmp, card, model=FACE_MODEL, device="cuda",
+                        prompt_len=PROMPT_LEN):
+    """Phase 19: three serve CLIs at the flagship's width and depth,
+    int8, seeded weights, in one file catalog: A (--role prefill), B
+    (--role decode) and C (--standby --weights-from A). A prefills a
+    1024-id prompt (/v1/prefill: K1 exactly n_layers times); B pulls its
+    KV (/v1/kv/pull) and serves the prompt greedily with K1 launched 0
+    times and readmitted +1, the tokens A serves; B's time to first
+    token on a pulled entry against a local 1024-id prefill; C's
+    weights, fetched from A, equal A's chunk digest by chunk digest, and
+    C serves A's tokens once promoted; draining B migrates its sessions
+    to C (a drain skips the prefill pool, A), its refusal names C in
+    X-CP-Migrated-To, and C then serves the first prompt with K1 0 times
+    and readmitted +1; C adopts A's kernel build directory (cc=).
+    Reports the KV entry's and the weights' bytes, seconds and GB/s, the
+    promote latency and each replica's K1/K2 launches. ``device="cpu"`` drives the same path on the plain
+    versions (no kernel to count), for a small ``model``."""
+    import random
+
+    from containerpilot_tpu_torch.fleet.standby import (
+        _chunk_digest,
+        fetch_weight_chunks,
+    )
+    from containerpilot_tpu_torch.kvtier.digest import prefix_fingerprint
+    from containerpilot_tpu_torch.kvtier.handoff import (
+        encode_kv_manifest,
+        fetch_kv_chunks,
+        kv_transfer_plan,
+        rebuild_kv,
+    )
+    from containerpilot_tpu_torch.workload import serve_cli
+
+    catalog = os.path.join(tmp, "handoff_catalog")
+    base = ["--device", device, *model, *HANDOFF_ARGS,
+            "--fleet-catalog", f"file:{catalog}"]
+    args = serve_cli.build_arg_parser().parse_args(base)
+    n_layers, vocab = args.n_layers, args.vocab
+    on_card = device == "cuda"
+    rng = random.Random(19)
+    p1, p2, p3, p5 = ([rng.randrange(vocab) for _ in range(prompt_len)]
+                      for _ in range(4))
+
+    def greedy(row, new=HANDOFF_NEW):
+        return {"tokens": [row], "max_new_tokens": new}
+
+    def readmitted(port):
+        info = json.loads(asyncio.run(http(port, "GET", "/v1/model")))
+        return info["prefix_cache"]["readmitted"]
+
+    def served(port, body):
+        rows, wall = asyncio.run(generate_tokens(port, body))
+        check_rows(rows, 1, body["max_new_tokens"], vocab)
+        return rows[0], wall
+
+    def subdir(name):
+        path = os.path.join(tmp, f"handoff_{name}")
+        os.makedirs(path, exist_ok=True)
+        return path
+
+    result = {"phase": "serve_fleet_handoff", "model": model,
+              "args": HANDOFF_ARGS, **card}
+    a_args = [*base, "--role", "prefill", "--fleet-id", "A",
+              "--migrate-window", "0"]
+    b_args = [*base, "--role", "decode", "--fleet-id", "B",
+              "--migrate-window", "120"]
+    c_args = [*base, "--fleet-id", "C", "--migrate-window", "0"]
+    launches = {}
+    with CountedServe(a_args, subdir("a")) as a, \
+            CountedServe(b_args, subdir("b")) as b:
+        seen = catalog_fields(catalog, ["A", "B"], timeout=120)
+        roles = {i: seen[i][1].get("role") for i in ("A", "B")}
+        if roles != {"A": "prefill", "B": "decode"}:
+            raise AssertionError(f"catalog roles {roles}")
+        result["catalog_fields"] = {i: sorted(seen[i][1]) for i in seen}
+        ca, cb = Counts(a), Counts(b)
+
+        # -- A prefills; B pulls the entry and decodes from it --------
+        pre, result["prefill_wall_s"] = timed_post(
+            a.port, "/v1/prefill", {"tokens": [p1]})
+        k_prefill = ca.delta()
+        if not pre["cached"] or (on_card and k_prefill["k1"] != n_layers):
+            raise AssertionError(f"/v1/prefill: {pre}, {k_prefill}")
+        t0 = time.perf_counter()
+        manifest, chunks = asyncio.run(fetch_kv_chunks(
+            "127.0.0.1", a.port, p1, read_timeout=300.0))
+        export_s = time.perf_counter() - t0
+        kv_bytes = manifest["total_bytes"]
+        # the export again, split where the server's work ends: A copies
+        # the entry to the host and digests it before the response head
+        head_s, stream_s, streamed = asyncio.run(
+            export_split(a.port, p1))
+        if streamed != len(encode_kv_manifest(manifest)) + kv_bytes:
+            raise AssertionError(f"split export streamed {streamed} B")
+        # host work the client does after export_s: re-hashing every
+        # chunk and reassembly; and A's plan without the device copy
+        t0 = time.perf_counter()
+        for chunk in chunks:
+            _chunk_digest(chunk)
+        digest_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        host_entry = rebuild_kv(manifest, chunks)
+        rebuild_s = time.perf_counter() - t0
+        del chunks
+        t0 = time.perf_counter()
+        kv_transfer_plan(host_entry)
+        plan_host_s = time.perf_counter() - t0
+        del host_entry
+        before = readmitted(b.port)
+        cb.delta()
+        pull, pull_s = timed_post(b.port, "/v1/kv/pull", {
+            "tokens": [p1], "from": f"127.0.0.1:{a.port}"})
+        if pull["bytes"] != kv_bytes:
+            raise AssertionError(f"pulled {pull['bytes']} of {kv_bytes}")
+        got_b, wall_b = served(b.port, greedy(p1))
+        k_b = cb.delta()
+        readmit_b = readmitted(b.port) - before
+        if readmit_b != 1 or k_b["k1"] != 0 or (on_card and k_b["k2"] <= 0):
+            raise AssertionError(f"B on the pulled prompt: readmitted "
+                                 f"+{readmit_b}, launches {k_b}")
+        got_a, wall_a = served(a.port, greedy(p1))
+        result["kv"] = {
+            "total_bytes": kv_bytes, "leaves": manifest["leaves"],
+            "chunks": len(manifest["chunks"]),
+            "export_s": export_s, "export_gb_s": kv_bytes / export_s / 1e9,
+            "split_head_s": head_s, "split_stream_s": stream_s,
+            "split_stream_gb_s": streamed / stream_s / 1e9,
+            "plan_host_s": plan_host_s,
+            "digest_s": digest_s, "rebuild_s": rebuild_s,
+            "pull_s": pull_s, "pull_gb_s": kv_bytes / pull_s / 1e9,
+            "pull_server_ms": pull["ms"],
+            "b_generate_wall_s": wall_b, "a_generate_wall_s": wall_a,
+            "b_readmitted": readmit_b, "b_launches": k_b,
+            "tokens_equal": got_b == got_a,
+        }
+
+        # -- time to first token: local prefill against a pulled entry
+        _, ttft_local = served(b.port, greedy(p2, 1))
+        k_local = cb.delta()
+        timed_post(a.port, "/v1/prefill", {"tokens": [p3]})
+        _, pull3_s = timed_post(b.port, "/v1/kv/pull", {
+            "tokens": [p3], "from": f"127.0.0.1:{a.port}"})
+        cb.delta()
+        _, ttft_pulled = served(b.port, greedy(p3, 1))
+        k_pulled = cb.delta()
+        if on_card and (k_local["k1"] != n_layers or k_pulled["k1"]):
+            raise AssertionError(f"TTFT requests: K1 {k_local} local, "
+                                 f"{k_pulled} pulled")
+        result["ttft"] = {
+            "local_prefill_ms": ttft_local * 1e3,
+            "pulled_entry_ms": ttft_pulled * 1e3,
+            "pull_ms": pull3_s * 1e3,
+            "pull_then_first_token_ms": (pull3_s + ttft_pulled) * 1e3,
+            "local_launches": k_local, "pulled_launches": k_pulled,
+        }
+
+        # -- C: a standby whose weights come from A --------------------
+        t0 = time.perf_counter()
+        wm, wchunks = asyncio.run(fetch_weight_chunks(
+            "127.0.0.1", a.port, read_timeout=600.0))
+        fetch_s = time.perf_counter() - t0
+        del wchunks
+        c_args += ["--standby", "--weights-from", f"127.0.0.1:{a.port}"]
+        with CountedServe(c_args, subdir("c")) as c:
+            cc = Counts(c)
+            seen = catalog_fields(catalog, ["C"], timeout=120)
+            if seen["C"][1].get("role") != "standby":
+                raise AssertionError(f"C's note: {seen['C'][1]}")
+            cm = weights_manifest_of(c.port)
+            if cm["leaves"] != wm["leaves"] or cm["chunks"] != wm["chunks"]:
+                raise AssertionError("C's weight digests differ from A's")
+            t0 = time.perf_counter()
+            promoted, _ = timed_post(c.port, "/v3/standby/promote", {})
+            promote_ms = (time.perf_counter() - t0) * 1e3
+            if not promoted["promoted"] or http_status(
+                    c.port, "GET", "/health")[0] != 200:
+                raise AssertionError(f"promote: {promoted}")
+            short = greedy(p5[: prompt_len // 2])
+            got_c5, _ = served(c.port, short)
+            got_a5, _ = served(a.port, short)
+            result["weights"] = {
+                "total_bytes": wm["total_bytes"], "leaves": len(wm["leaves"]),
+                "chunks": len(wm["chunks"]), "fetch_s": fetch_s,
+                "fetch_gb_s": wm["total_bytes"] / fetch_s / 1e9,
+                "c_ready_s": c.ready_s, "digests_equal": True,
+                "promote_ms": promote_ms,
+                "tokens_equal_after_promote": got_c5 == got_a5,
+            }
+            # the promotion's beat drops role=, so C is now a survivor
+            catalog_fields(catalog, ["C"], absent=("role",), timeout=30)
+
+            # -- drain B: its sessions migrate to C ---------------------
+            launches["B"] = cb.total()
+            before_c = readmitted(c.port)
+            cc.delta()
+            b.proc.send_signal(signal.SIGTERM)
+            refusal, landed, t_term = None, {}, time.perf_counter()
+            while b.proc.poll() is None and refusal is None:
+                try:
+                    status, headers, _ = http_status(
+                        b.port, "POST", "/v1/generate", greedy(p1, 4), 30)
+                    landed = json.loads(http_status(
+                        b.port, "POST", "/v1/migrate", {})[2])["landed"]
+                except OSError:
+                    break
+                if status == 503 and "x-cp-migrated-to" in headers:
+                    refusal = headers
+                if time.perf_counter() - t_term > 150:
+                    raise AssertionError("B's drain never finished")
+                time.sleep(0.05)
+            if refusal is None or refusal["x-cp-migrated-to"] != "C":
+                raise AssertionError(f"B's refusal while draining: "
+                                     f"{refusal}, landed {landed}")
+            got_c, wall_c = served(c.port, greedy(p1))
+            k_c = cc.delta()
+            readmit_c = readmitted(c.port) - before_c
+            if readmit_c != 1 or k_c["k1"] != 0:
+                raise AssertionError(f"C on the migrated prompt: readmitted "
+                                     f"+{readmit_c}, launches {k_c}")
+            # C stays up until B's drain has pushed every session
+            b.proc.wait(timeout=300)
+            drain_s = time.perf_counter() - t_term
+            result["migration"] = {
+                "drain_s": drain_s,
+                "retry_after": refusal.get("retry-after"),
+                "migrated_to": refusal["x-cp-migrated-to"],
+                "landed": landed.get(f"{prefix_fingerprint(p1):08x}"),
+                "c_readmitted": readmit_c, "c_launches": k_c,
+                "c_generate_wall_s": wall_c,
+                "tokens_equal": got_c == got_a,
+            }
+            launches["A"] = ca.total()
+            launches["C"] = cc.total()
+        # C's boot: the peer's weights, and (on the card) A's kernel
+        # build directory adopted from its cc= note, so no nvcc ran
+        result["c_log"] = [line for line in c.log.splitlines() if any(
+            k in line for k in ("weights fetched", "adopted fleet kernel",
+                                "CUDA kernels ready"))]
+    moved = re.findall(r"migration moved (\d+)/(\d+) entries \((\d+) "
+                       r"bytes, (\d+) failed, (\d+) timed out", b.log)
+    if (not any("weights fetched" in x for x in result["c_log"])
+            or (on_card and not any("adopted fleet kernel" in x
+                                    for x in result["c_log"]))
+            or len(moved) != 1
+            or moved[0][0] != moved[0][1] or moved[0][3] != "0"):
+        raise AssertionError(f"B's log: {b.log[-1500:]} C's log: "
+                             f"{c.log[-1500:]}")
+    done, total, moved_bytes, _failed, _late = map(int, moved[0])
+    result["migration"].update({
+        "entries": total, "bytes": moved_bytes,
+        "gb_s_over_drain": moved_bytes / result["migration"]["drain_s"]
+        / 1e9})
+    # every answer A's (or, past a near tie, each held to solo decoding)
+    answers = [("B_pulled", greedy(p1), got_b, got_a),
+               ("C_promoted", short, got_c5, got_a5),
+               ("C_migrated", greedy(p1), got_c, got_a)]
+    differ = [x for x in answers if x[2] != x[3]]
+    if differ:
+        if not on_card:
+            raise AssertionError(f"tokens differ from A's: {differ}")
+        cfg, params, _ = serve_cli.load_model(args)
+        judged = {}
+        for name, body, got, want in differ:
+            for who, toks in ((name, got), (f"A_for_{name}", want)):
+                first, worst, typical = judge_served(cfg, params, body, toks)
+                if worst > NEAR_TIE_TOL:
+                    raise AssertionError(f"{who}: gap {worst} at {first}")
+                judged[who] = {"first_diff": first, "worst_gap": worst,
+                               "typical_gap": typical}
+        result["judged"] = judged
+        del params
+        torch.cuda.empty_cache()
+    launches["A_prefill"] = k_prefill
+    result["launches"] = launches
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a "
@@ -2880,6 +3300,10 @@ def main() -> int:
         fleet_face = drive_fleet_face(tmp, card, gen)
         emit(fleet_face)
 
+        # ---- the replica in a fleet: KV handoff, drain, standby ---------
+        handoff = drive_fleet_handoff(tmp, card)
+        emit(handoff)
+
     # ---- summary --------------------------------------------------------
     main_flash = flash_rows[0]
     train_flash = flash_rows[FWD_CASES.index(TRAIN_FWD_CASE)]
@@ -2932,6 +3356,9 @@ def main() -> int:
             "fleet_face_launches": {
                 f"serve_fleet_face_{label}": fleet_face[label]["k1_launches"]
                 for label in ("bf16", "int8")},
+            "fleet_handoff_launches": {
+                f"serve_fleet_handoff_{name}": handoff["launches"][name]["k1"]
+                for name in ("A", "B", "C")},
         },
         *(
             {
@@ -3010,6 +3437,9 @@ def main() -> int:
             "fleet_face_launches": {
                 "serve_fleet_face_int8": fleet_face["int8"]["k2_launches"],
                 "serve_fleet_face_bf16": fleet_face["bf16"]["k2_launches"]},
+            "fleet_handoff_launches": {
+                f"serve_fleet_handoff_{name}": handoff["launches"][name]["k2"]
+                for name in ("A", "B", "C")},
             "cli_shapes": fleet_face["k2_cli_shapes"],
         },
     ]

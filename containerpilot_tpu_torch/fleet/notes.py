@@ -1,0 +1,217 @@
+"""The heartbeat note-wire schema, in one place (the port's own copy of
+``containerpilot_tpu/fleet/notes.py``).
+
+A fleet member's TTL heartbeat carries its entire advertisement as
+the check output — a single line of ``name=value`` fields::
+
+    ok occ=0.50 role=standby cc=<digest>:<dir> kv=1,2,3,4,5
+    pd=v7:deadbeef... gp=0.1,...,12,340 mg=2,3,0,0,1;aabbccdd:r2
+
+Every field is a :class:`NoteField` (name, producer, tolerant parser)
+registered in ``FIELDS``, and both ends of the wire are driven from it.
+Producers duck-type the server surface: a field whose accessor is
+missing (or returns empty) is omitted from the note. Parsers are
+tolerant: a torn, truncated or hostile value decodes to a harmless zero
+value, never an exception on the routing path. A torch replica's note
+parses through the reference's ``split_note``/``parse_field`` to the same
+fields as a JAX replica's.
+"""
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any, Callable, Dict, FrozenSet, Optional, Tuple
+from urllib.parse import quote, unquote
+
+from ..kvtier.digest import (
+    parse_digest,
+    parse_kv_counters,
+    parse_kv_note,
+    parse_migration_note,
+)
+from ..telemetry.goodput import parse_note as _parse_goodput_note
+
+#: the role value that is advertised by OMISSION: an active replica's
+#: note carries no ``role=`` field, so the first post-promotion beat
+#: flips a gateway's view back to active without a new field value
+ROLE_ACTIVE = "active"
+
+
+@dataclass(frozen=True)
+class NoteField:
+    """One ``name=value`` heartbeat field: how a member produces the
+    value (empty string = omit this beat) and how any consumer
+    decodes it (tolerantly — garbage in, zero value out)."""
+
+    name: str
+    produce: Callable[[Any], str]
+    parse: Callable[[object], Any]
+    doc: str = ""
+
+
+def _duck(server: Any, attr: str) -> str:
+    """Call an optional server accessor; absent or empty -> omit."""
+    fn = getattr(server, attr, None)
+    if not callable(fn):
+        return ""
+    return str(fn() or "")
+
+
+def _produce_occ(server: Any) -> str:
+    occupancy = getattr(server, "occupancy", None)
+    if isinstance(occupancy, (int, float)):
+        return f"{occupancy:.2f}"
+    return ""
+
+
+def parse_occ(raw: object) -> Optional[float]:
+    """Tolerant ``occ=`` reader: a fraction in [0, 1], or None."""
+    if not isinstance(raw, str) or not raw:
+        return None
+    try:
+        value = float(raw)
+    except ValueError:
+        return None
+    if math.isnan(value) or math.isinf(value):
+        return None
+    return min(1.0, max(0.0, value))
+
+
+def _produce_role(server: Any) -> str:
+    # active replicas advertise by omission (see ROLE_ACTIVE)
+    role = getattr(server, "role", "")
+    if role and role != ROLE_ACTIVE:
+        return str(role)
+    return ""
+
+
+def parse_role(raw: object) -> str:
+    """Tolerant ``role=`` reader: the advertised role name, or ``""``
+    (caller decides the default — the gateway treats unknown and
+    absent alike as active, because role is advice, not authority)."""
+    return raw.strip() if isinstance(raw, str) else ""
+
+
+def _produce_cc(server: Any) -> str:
+    return _duck(server, "compile_cache_note")
+
+
+def encode_compile_cache(digest: str, cache_dir: str) -> str:
+    """``cc=`` value: ``<config digest>:<percent-encoded dir>``. The
+    dir is quoted so the note stays one whitespace-free token."""
+    if not cache_dir:
+        return ""
+    return f"{digest}:{quote(str(cache_dir), safe='')}"
+
+
+def parse_compile_cache(raw: object) -> Tuple[str, str]:
+    """Tolerant ``cc=`` reader -> ``(digest, cache_dir)``; malformed
+    input yields ``("", "")``, never an exception."""
+    if not isinstance(raw, str) or ":" not in raw:
+        return "", ""
+    digest, _, quoted = raw.partition(":")
+    if not digest or not quoted:
+        return "", ""
+    try:
+        return digest, unquote(quoted)
+    except Exception:
+        return "", ""
+
+
+def _produce_kv(server: Any) -> str:
+    return _duck(server, "kv_note")
+
+
+def _produce_pd(server: Any) -> str:
+    return _duck(server, "prefix_digest_note")
+
+
+def _produce_gp(server: Any) -> str:
+    return _duck(server, "goodput_note")
+
+
+def _produce_mg(server: Any) -> str:
+    return _duck(server, "migrate_note")
+
+
+#: the wire schema, in member-emission order (the reference's order, so
+#: the two packages' notes agree field for field)
+FIELDS: Tuple[NoteField, ...] = (
+    NoteField(
+        name="occ",
+        produce=_produce_occ,
+        parse=parse_occ,
+        doc="slot occupancy fraction, 2 decimals",
+    ),
+    NoteField(
+        name="role",
+        produce=_produce_role,
+        parse=parse_role,
+        doc="replica role; active advertises by omission",
+    ),
+    NoteField(
+        name="cc",
+        produce=_produce_cc,
+        parse=parse_compile_cache,
+        doc="compile-cache advert: <digest>:<quoted dir>",
+    ),
+    NoteField(
+        name="kv",
+        produce=_produce_kv,
+        parse=parse_kv_counters,
+        doc="KV-reuse counters: hits,misses,tokens_reused,"
+            "spilled,readmitted (cumulative)",
+    ),
+    NoteField(
+        name="pd",
+        produce=_produce_pd,
+        parse=parse_digest,
+        doc="prefix fingerprint digest: v<version>:<hex8...>",
+    ),
+    NoteField(
+        name="gp",
+        produce=_produce_gp,
+        parse=_parse_goodput_note,
+        doc="device-time ledger: 7 stage seconds + dispatches"
+            " + tokens_out (cumulative)",
+    ),
+    NoteField(
+        name="mg",
+        produce=_produce_mg,
+        parse=parse_migration_note,
+        doc="drain-migration progress: counters;fp:target landings",
+    ),
+)
+
+_BY_NAME: Dict[str, NoteField] = {f.name: f for f in FIELDS}
+
+
+def field_names() -> FrozenSet[str]:
+    """The registered field names — the whole legal wire vocabulary."""
+    return frozenset(_BY_NAME)
+
+
+def member_note(server: Any) -> str:
+    """Assemble a member's full heartbeat check output: the literal
+    ``ok`` plus every registered field whose producer yields a value.
+    This is the only place a note is built."""
+    parts = ["ok"]
+    for spec in FIELDS:
+        value = spec.produce(server)
+        if value:
+            parts.append(spec.name + "=" + value)
+    return " ".join(parts)
+
+
+def split_note(notes: object) -> Dict[str, str]:
+    """Split a check output into raw ``{name: value}`` fields (bare
+    words dropped, last duplicate wins). Values are NOT decoded —
+    pass each through :func:`parse_field`."""
+    return parse_kv_note(notes)
+
+
+def parse_field(name: str, raw: object) -> Any:
+    """Decode one field's raw value with its registered tolerant
+    parser. Unregistered names raise KeyError — consumers must not
+    invent fields the wire never carries."""
+    return _BY_NAME[name].parse(raw)

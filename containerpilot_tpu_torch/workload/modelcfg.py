@@ -3,7 +3,17 @@ the trainer and the evaluator share (counterparts of
 ``containerpilot_tpu/workload/modelcfg.py``'s ``derive_d_ff``,
 ``parse_logit_bias``, ``parse_stop_ids``, ``score_logprobs_fn``,
 ``average_eval_loss``, ``validate_lora_flags``, ``merge_lora`` and
-``restore_merged_params``; the port keeps its own)."""
+``restore_merged_params``; the port keeps its own), and the kernel
+build directory as a fleet artifact (``compile_cache_note``,
+``adopt_fleet_compile_cache``).
+
+The port's counterpart of the reference's XLA compile cache is the
+kernel build directory (``ops/_build.py``): each built library's name
+carries a hash of its sources and flags, so a launch pointed at a
+same-host peer's directory loads the peer's libraries and runs no
+``nvcc``. The reference's warm-bucket markers have no counterpart: the
+port compiles no per-shape program (its CUDA graphs are captured in
+each process and cannot be persisted)."""
 from __future__ import annotations
 
 from typing import Any, Callable, Optional, Tuple
@@ -181,3 +191,67 @@ def restore_merged_params(cfg, checkpoint_dir: str, use_ema: bool = False,
     if lora_dir:
         params, _ = merge_lora(params, cfg, lora_dir, lora_rank, device)
     return RestoredParams(params, step, restored.ema)
+
+
+def compile_cache_note(build_dir: str) -> str:
+    """The ``cc=`` heartbeat value for a replica whose kernels live in
+    ``build_dir``: ``<digest>:<quoted dir>``, the digest over the built
+    libraries' names (each carries its sources' hash), so readers see
+    when the built set moved. Empty when the directory holds no built
+    library (a CPU replica builds none)."""
+    import hashlib
+    import os
+
+    from ..fleet.notes import encode_compile_cache
+
+    try:
+        libs = sorted(f for f in os.listdir(build_dir) if f.endswith(".so"))
+    except OSError:
+        return ""
+    if not libs:
+        return ""
+    digest = hashlib.blake2b("\n".join(libs).encode(),
+                             digest_size=4).hexdigest()
+    return encode_compile_cache(digest, build_dir)
+
+
+def _local_addresses() -> set:
+    """Addresses that mean "this host" for build-directory adoption."""
+    import socket
+
+    local = {"127.0.0.1", "localhost", "0.0.0.0", "::1", ""}
+    try:
+        hostname = socket.gethostname()
+        local.add(hostname)
+        local.update(info[4][0] for info in socket.getaddrinfo(hostname, None))
+    except OSError:
+        # a host that can't resolve itself still adopts loopback
+        # advertisements; remote ones are skipped either way
+        return local
+    return local
+
+
+def adopt_fleet_compile_cache(backend: Any, service_name: str) -> Optional[str]:
+    """Scan the catalog for a peer on THIS host advertising its kernel
+    build directory (``cc=``) and point this process's builds at it
+    (``CONTAINERPILOT_TORCH_BUILD_DIR``): the peer's libraries load and
+    ``nvcc`` is skipped. Returns the adopted directory, or None when no
+    same-host peer advertises one that exists here."""
+    import os
+
+    from ..fleet import notes as notes_mod
+
+    try:
+        instances = backend.instances(service_name)
+    except Exception:
+        return None
+    local = _local_addresses()
+    for inst in instances:
+        if getattr(inst, "address", "") not in local:
+            continue
+        fields = notes_mod.split_note(getattr(inst, "notes", ""))
+        _digest, build_dir = notes_mod.parse_field("cc", fields.get("cc", ""))
+        if build_dir and os.path.isdir(build_dir):
+            os.environ["CONTAINERPILOT_TORCH_BUILD_DIR"] = build_dir
+            return build_dir
+    return None

@@ -27,6 +27,22 @@ API (token-level):
     GET /v1/goodput -> the device-time ledger (stages summing to uptime,
                        dispatches/token, scheduling gaps)
 
+The fleet verbs (kvtier/handoff.py, fleet/standby.py):
+
+    POST /v1/prefill {"tokens": [[...]]}  -> run one prompt through the
+        slot engine's admission for its side effect (the prompt's KV in
+        the prefix cache), {"ok", "cached", "tokens_prefilled"}
+    POST /v1/kv[?chunk=K] {"tokens": [[...]]}  -> that prompt's cached KV
+        entry as a manifest-framed, digest-verified chunk stream
+    POST /v1/kv/pull {"tokens": [[...]], "from": "host:port"}  -> fetch
+        the entry from the peer into the spill tier; the next request for
+        the prompt readmits it through ``reuse_admission``
+    POST /v1/migrate  -> drain-migration progress, or {"targets": [...]}
+        to evacuate the cached sessions toward them
+    GET /v1/weights[?chunk=K]  -> the params as a manifest-framed chunk
+        stream (what a standby's --weights-from fetches)
+    POST /v3/standby/promote  -> a standby turns active
+
 Requests route as the reference routes them: beams first
 (serve_strategies.run_beam, models/beam.py); then greedy, penalty-free,
 bias-free single rows through the speculative engine (``--draft-layers``
@@ -40,11 +56,9 @@ through the continuous batcher (serve_batcher.py) into
 ``models.decode.generate``. Generation runs on worker threads, so the
 event loop (health checks included) never waits on the device. Every
 CUDA graph of the slot engine is captured, and every speculative round
-shape run, while the server warms, before ``/health`` turns 200. The
-fleet and KV verbs of the reference answer 404 until they are ported
-(ROADMAP.md). Unlike the reference, ``max_new_tokens`` is not bucketed to
-a multiple of 16 (eager torch compiles nothing); the trimmed output is
-the same.
+shape run, while the server warms, before ``/health`` turns 200. Unlike
+the reference, ``max_new_tokens`` is not bucketed to a multiple of 16
+(eager torch compiles nothing); the trimmed output is the same.
 
 The telemetry face is the reference's: every API route is counted, timed
 and traced (``_instrumented``: the caller's ``X-CP-Trace`` id adopted
@@ -54,6 +68,14 @@ runs from construction (``boot``) through ``compile_warmup`` to
 ``idle`` before ``/health`` turns 200, and the slot engine stamps
 prefill/decode/idle at request boundaries. The server speaks cp-mux/1
 (utils/http.py) unless built with ``mux=False``.
+
+A fleet member (fleet/member.py) heartbeats the server's ``occupancy``,
+``role``, ``kv_note``, ``prefix_digest_note``, ``goodput_note`` and
+``migrate_note``; its drain runs ``migrate_sessions``, and while draining a
+refused request carries a migration-aware ``Retry-After`` and, once its
+prefix landed on a survivor, ``X-CP-Migrated-To``. A ``standby`` answers
+``/health`` and generate 503 until promoted; ``prefill`` and ``decode``
+are routing advice and serve anything.
 
 ``python -m containerpilot_tpu_torch.workload.serve`` runs the CLI
 (serve_cli.py).
@@ -65,6 +87,7 @@ import json
 import logging
 import threading
 import time
+from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional
 
@@ -150,6 +173,8 @@ class InferenceServer:
         speculate: int = 4,
         text: bool = False,
         mux: bool = True,
+        kv_spill_bytes: int = 0,
+        role: str = "active",
     ) -> None:
         # device-time ledger: every wall-second of this replica's life in
         # exactly one stage, starting now in ``boot``; warmup() moves it
@@ -169,10 +194,40 @@ class InferenceServer:
         self.ready = False
         # time.monotonic() when /health turned 200 (None before)
         self.ready_at = None
+        # fleet role: a "standby" warms like an active replica but
+        # answers /health and generate 503 until POST /v3/standby/promote;
+        # "prefill" and "decode" are the disaggregated pools' routing
+        # advice and serve anything
+        if role not in ("active", "standby", "prefill", "decode"):
+            raise ValueError(
+                "role must be 'active', 'standby', 'prefill', or "
+                "'decode'"
+            )
+        self.role = role
+        # the cc= advertisement of the kernel build directory, computed
+        # once when warmup built the kernels (never on a heartbeat)
+        self._compile_cache_note = ""
+        # peer weight transfer: the manifest is built once (executor)
+        # and cached; chunk bytes are re-derived per request, so the
+        # server never holds a second full copy of the params
+        self._weights_manifest_cache: Optional[Dict[str, Any]] = None
+        self._weights_manifest_bytes = b""
+        self._weights_lock: Optional[asyncio.Lock] = None
         # maintenance drain: /health 503, new generate/completions 503 +
         # Retry-After, everything admitted decodes to completion
         self.draining = False
         self._inflight = 0
+        # drain migration (kvtier/handoff.py in reverse): the current
+        # evacuation's progress and cumulative counters for ``mg=``;
+        # ``landed`` maps fingerprint -> target id, most recent last
+        self.migration: Dict[str, Any] = {
+            "active": False, "total": 0, "done": 0, "failed": 0,
+            "timeout": 0, "window_s": 0.0, "started_at": 0.0,
+        }
+        self._migration_landed: "OrderedDict[int, str]" = OrderedDict()
+        self._migration_counters = {
+            "done": 0, "total": 0, "failed": 0, "timeout": 0,
+        }
         self.max_batch_rows = max_batch_rows
         # what the weights came from: {"step": n, "ema": bool} for a
         # restored checkpoint, None for the seeded initialization
@@ -199,8 +254,20 @@ class InferenceServer:
         # prompts longer than this stream through decode_chunk pieces
         # (peak prefill activations O(chunk) instead of O(prompt))
         self.prefill_chunk = prefill_chunk
+        if kv_spill_bytes > 0 and prefix_cache_entries <= 0:
+            raise ValueError(
+                "--kv-spill requires --prefix-cache (the spill tier "
+                "catches the prefix cache's evictions)"
+            )
+        spill = None
+        if kv_spill_bytes > 0:
+            # host-RAM floor under the device LRU: evictions spill, later
+            # matches copy back (kvtier/spill.py)
+            from ..kvtier.spill import HostSpillTier
+
+            spill = HostSpillTier(kv_spill_bytes, device=self.device)
         self.prefix_cache = (
-            PrefixCache(prefix_cache_entries)
+            PrefixCache(prefix_cache_entries, spill=spill)
             if prefix_cache_entries > 0 else None
         )
         # continuous decode admission: single-row requests join a running
@@ -296,6 +363,19 @@ class InferenceServer:
         self._server.route("GET", "/metrics", self._metrics)
         self._server.route("GET", "/v1/traces", self._traces)
         self._server.route("GET", "/v1/goodput", self._goodput)
+        # the standby's promote verb and the weights a launching peer
+        # fetches (fleet/standby.py)
+        self._server.route(
+            "POST", "/v3/standby/promote", self._promote_verb
+        )
+        self._server.route("GET", "/v1/weights", self._weights)
+        # the disaggregated prefill/decode handoff (kvtier/handoff.py)
+        # and drain migration, registered outside _instrumented: a
+        # draining replica still serves them
+        self._server.route("POST", "/v1/prefill", self._prefill_verb)
+        self._server.route("POST", "/v1/kv", self._kv_export)
+        self._server.route("POST", "/v1/kv/pull", self._kv_pull)
+        self._server.route("POST", "/v1/migrate", self._migrate_verb)
         route = self._instrumented
         self._server.route("GET", "/v1/model",
                            route("model", self._model_info))
@@ -325,6 +405,12 @@ class InferenceServer:
             )
         if not self.ready:
             return Response(503, b"warming up\n")
+        if self.role == "standby":
+            # warm but not serving until promoted; its heartbeat carries
+            # role=standby so the fleet knows it exists
+            return Response(
+                503, b"standby\n", headers={"Retry-After": "1"}
+            )
         return Response(200, b"ok\n")
 
     async def _metrics(self, _req: Request) -> Response:
@@ -362,6 +448,309 @@ class InferenceServer:
             content_type="application/json",
         )
 
+    # -- standby and peer weight transfer (fleet/standby.py) ------------
+
+    def promote(self) -> bool:
+        """Standby -> active in one assignment: /health turns 200 and
+        generate opens on the next request. False when this replica is
+        not a promotable standby (already active, or draining)."""
+        if self.role != "standby" or self.draining:
+            return False
+        self.role = "active"
+        log.info("serve: standby promoted to active")
+        return True
+
+    async def _promote_verb(self, _req: Request) -> Response:
+        """``POST /v3/standby/promote``: the control-plane face of
+        ``promote()``; a second promoter finds the role active and
+        gets 409."""
+        if self.role == "active":
+            return Response(409, b"already active\n")
+        if self.draining:
+            return Response(409, b"draining\n")
+        self.promote()
+        return Response(
+            200, json.dumps({"promoted": True, "ready": self.ready}).encode(),
+            content_type="application/json",
+        )
+
+    async def _ensure_weights_manifest(self) -> Dict[str, Any]:
+        """Build (once, on an executor) and cache the transfer manifest;
+        the chunk bytes are re-derived at serve time."""
+        if self._weights_manifest_cache is not None:
+            return self._weights_manifest_cache
+        if self._weights_lock is None:
+            self._weights_lock = asyncio.Lock()
+        async with self._weights_lock:
+            if self._weights_manifest_cache is None:
+                from ..fleet.standby import encode_manifest, weights_manifest
+
+                manifest = await asyncio.get_running_loop().run_in_executor(
+                    None, weights_manifest, self.params
+                )
+                self._weights_manifest_bytes = encode_manifest(manifest)
+                self._weights_manifest_cache = manifest
+        return self._weights_manifest_cache
+
+    @staticmethod
+    def _chunk_start(req: Request):
+        """``?chunk=K`` -> K, or a 422 Response."""
+        try:
+            start = int(req.query.get("chunk", ["0"])[0])
+        except (ValueError, IndexError):
+            return Response(422, b"chunk must be an integer\n")
+        if start < 0:
+            return Response(422, b"chunk must be >= 0\n")
+        return start
+
+    async def _weights(self, req: Request):
+        """``GET /v1/weights[?chunk=K]``: the params as a length-prefixed
+        manifest followed by digest-verified chunks from flat chunk index
+        K (the resume point after a connection death). Each leaf is
+        copied to the host on an executor as the stream reaches it."""
+        manifest = await self._ensure_weights_manifest()
+        start = self._chunk_start(req)
+        if isinstance(start, Response):
+            return start
+        chunk_specs = manifest["chunks"]
+        if start > len(chunk_specs):
+            return Response(
+                422, f"chunk must be in [0, {len(chunk_specs)}]\n".encode()
+            )
+        from ..fleet.standby import leaf_bytes, param_leaves
+
+        head = self._weights_manifest_bytes
+        flat_leaves = [leaf for _name, leaf in param_leaves(self.params)]
+        loop = asyncio.get_running_loop()
+
+        async def body():
+            yield head
+            current = -1
+            data = b""
+            for spec in chunk_specs[start:]:
+                if spec["leaf"] != current:
+                    current = spec["leaf"]
+                    data = await loop.run_in_executor(
+                        None, leaf_bytes, flat_leaves[current]
+                    )
+                yield data[spec["offset"]:spec["offset"] + spec["len"]]
+
+        return StreamingResponse(
+            body(), content_type="application/octet-stream"
+        )
+
+    # -- disaggregated prefill/decode handoff (kvtier/handoff.py) -------
+
+    def _one_row(self, req: Request, what: str):
+        """(parsed body, the single token row) of a fleet verb's body;
+        ValueError/KeyError/TypeError for a 422."""
+        body = json.loads(req.body.decode() or "{}")
+        tokens, _plen = _parse_token_rows(
+            body, self.cfg.vocab_size, min_row_len=1
+        )
+        if len(tokens) != 1:
+            raise ValueError(f"{what} takes a single token row")
+        return body, tokens[0]
+
+    async def _prefill_verb(self, req: Request) -> Response:
+        """``POST /v1/prefill {"tokens": [[...]]}``: one prompt through
+        the slot engine's admission for its side effect (the completed
+        prompt's KV in the prefix cache, its fingerprint in the next
+        digest), the one sampled token discarded: the prefill half of a
+        handoff."""
+        if self.slot_engine is None or self.prefix_cache is None:
+            return Response(
+                409, b"prefill handoff needs --slots and --prefix-cache\n"
+            )
+        if self.draining:
+            return Response(503, b"draining\n", headers={"Retry-After": "1"})
+        try:
+            _body, row = self._one_row(req, "prefill")
+            if len(row) + 1 > self.max_len:
+                raise ValueError(
+                    f"prompt_len + 1 exceeds max_len {self.max_len}"
+                )
+        except (ValueError, KeyError, TypeError) as exc:
+            return Response(422, f"{exc}\n".encode())
+        await asyncio.wrap_future(self.slot_engine.submit(row, max_new=1))
+        key = tuple(row)
+        pc = self.prefix_cache
+        cached = pc.device_entry(key) is not None or (
+            pc.spill is not None and pc.spill.peek(key) is not None
+        )
+        return Response(
+            200,
+            json.dumps({
+                # False under the reuse floor: never cached, nothing to
+                # hand off
+                "ok": True, "cached": bool(cached),
+                "tokens_prefilled": len(row),
+            }).encode(),
+            content_type="application/json",
+        )
+
+    async def _kv_export(self, req: Request):
+        """``POST /v1/kv[?chunk=K] {"tokens": [[...]]}``: this replica's
+        prefix-cache entry for exactly that prompt, as a length-prefixed
+        manifest followed by digest-verified chunks from flat index K.
+        404 when the entry is gone from both tiers. The host copy and
+        serialization run on an executor."""
+        pc = self.prefix_cache
+        if pc is None:
+            return Response(409, b"no prefix cache on this replica\n")
+        try:
+            _body, row = self._one_row(req, "kv export")
+        except (ValueError, KeyError, TypeError) as exc:
+            return Response(422, f"{exc}\n".encode())
+        start = self._chunk_start(req)
+        if isinstance(start, Response):
+            return start
+        key = tuple(row)
+
+        def plan():
+            from ..kvtier.handoff import kv_transfer_plan
+            from ..kvtier.spill import to_host
+
+            cache = pc.device_entry(key)
+            if cache is not None:
+                host = to_host(cache)
+            elif pc.spill is not None:
+                # spilled entries are already on the host
+                host = pc.spill.peek(key)
+            else:
+                host = None
+            return None if host is None else kv_transfer_plan(host)
+
+        built = await asyncio.get_running_loop().run_in_executor(None, plan)
+        if built is None:
+            return Response(404, b"prefix not cached here\n")
+        manifest, blobs = built
+        chunk_specs = manifest["chunks"]
+        if start > len(chunk_specs):
+            return Response(
+                422, f"chunk must be in [0, {len(chunk_specs)}]\n".encode()
+            )
+        from ..kvtier.handoff import encode_kv_manifest
+
+        head = encode_kv_manifest(manifest)
+
+        async def stream():
+            yield head
+            for spec in chunk_specs[start:]:
+                yield blobs[spec["leaf"]][
+                    spec["offset"]:spec["offset"] + spec["len"]
+                ]
+
+        return StreamingResponse(
+            stream(), content_type="application/octet-stream"
+        )
+
+    async def _kv_pull(self, req: Request) -> Response:
+        """``POST /v1/kv/pull {"tokens": [[...]], "from": "host:port"}``:
+        fetch that prompt's KV entry from the named peer
+        (digest-verified, one redial) and inject it host-side into the
+        spill tier; the next request for the prompt readmits it through
+        ``reuse_admission``. Any failure answers non-200 and caches
+        nothing."""
+        pc = self.prefix_cache
+        if pc is None or pc.spill is None:
+            return Response(
+                409, b"kv pull needs --prefix-cache and --kv-spill\n"
+            )
+        try:
+            body, row = self._one_row(req, "kv pull")
+            peer = body.get("from", "")
+            if not isinstance(peer, str) or ":" not in peer:
+                raise ValueError("'from' must be \"host:port\"")
+            address, _, port_raw = peer.rpartition(":")
+            port = int(port_raw)
+            if not address or not 0 < port < 65536:
+                raise ValueError("'from' must be \"host:port\"")
+        except (ValueError, KeyError, TypeError) as exc:
+            return Response(422, f"{exc}\n".encode())
+        from ..kvtier.handoff import fetch_kv
+
+        # a drain-driven pull ("migrate": true) gets a trace of its own,
+        # findable on this survivor's /v1/traces ring
+        trace = (
+            self._tracer.start(None, "kv_migrate")
+            if body.get("migrate") else None
+        )
+        t0 = time.monotonic()
+        fetched = await fetch_kv(address, port, row)
+        if fetched is None:
+            if trace is not None:
+                trace.add_span("kv_migrate", t0, time.monotonic())
+                trace.finish(502)
+            return Response(502, b"kv fetch failed\n")
+        host_tree, total_bytes = fetched
+        adopted = await asyncio.get_running_loop().run_in_executor(
+            None, pc.adopt_host, tuple(row), host_tree
+        )
+        if trace is not None:
+            trace.add_span("kv_migrate", t0, time.monotonic())
+            trace.finish(200 if adopted else 507)
+        if not adopted:
+            return Response(507, b"kv entry refused (spill budget)\n")
+        return Response(
+            200,
+            json.dumps({
+                "ok": True, "bytes": int(total_bytes),
+                "ms": round((time.monotonic() - t0) * 1e3, 3),
+            }).encode(),
+            content_type="application/json",
+        )
+
+    async def _migrate_verb(self, req: Request) -> Response:
+        """``POST /v1/migrate``: with ``"targets"`` in the body, run an
+        evacuation toward them (the operator's entry; a FleetMember's
+        drain calls ``migrate_sessions`` directly); without, answer the
+        progress report with the landed fp -> target map."""
+        try:
+            body = json.loads(req.body.decode() or "{}")
+            if not isinstance(body, dict):
+                raise ValueError("body must be a JSON object")
+        except (ValueError, UnicodeDecodeError):
+            return Response(422, b"body must be a JSON object\n")
+        targets_raw = body.get("targets")
+        if targets_raw is None:
+            report = dict(self.migration)
+            report["landed"] = {
+                f"{fp:08x}": tid
+                for fp, tid in self._migration_landed.items()
+            }
+            report["cumulative"] = dict(self._migration_counters)
+            return Response(
+                200, json.dumps(report).encode(),
+                content_type="application/json",
+            )
+        if self.prefix_cache is None:
+            return Response(409, b"migration needs --prefix-cache\n")
+        if self.migration["active"]:
+            return Response(409, b"migration already running\n")
+        from ..kvtier.digest import parse_digest
+
+        try:
+            targets = []
+            for t in targets_raw:
+                _ver, fps = parse_digest(t.get("digest", ""))
+                targets.append(
+                    (str(t["id"]), str(t["address"]), int(t["port"]), fps)
+                )
+            window = float(body.get("window_s", 5.0))
+        except (KeyError, TypeError, ValueError, AttributeError) as exc:
+            return Response(422, f"targets malformed: {exc}\n".encode())
+        authority = str(body.get("authority", "")) or (
+            f"{self.host}:{self.port}"
+        )
+        summary = await self.migrate_sessions(
+            targets, window_s=window, authority=authority
+        )
+        return Response(
+            200, json.dumps(summary).encode(),
+            content_type="application/json",
+        )
+
     def _instrumented(self, endpoint: str, handler):
         """Count, time and trace every API request (adopting the
         caller's X-CP-Trace id when it is splice-safe); the handlers
@@ -376,14 +765,26 @@ class InferenceServer:
             inbound_id = tracing.safe_id(
                 req.headers.get("x-cp-trace")
             ) or ""
-            if self.draining and endpoint in ("generate", "completions"):
-                # drain refuses NEW decode work only; the refusal still
-                # echoes the trace id so it is findable
+            if (
+                self.draining or self.role == "standby"
+            ) and endpoint in ("generate", "completions"):
+                # drain refuses NEW decode work only, and so does a
+                # standby until promoted; the refusal still echoes the
+                # trace id. A draining answer is migration-aware:
+                # Retry-After follows the evacuation's progress, and once
+                # this request's prefix landed on a survivor the header
+                # names it
                 self._m_requests.labels(endpoint, "503").inc()
                 headers = {"Retry-After": "1"}
+                if self.draining:
+                    headers["Retry-After"] = self._drain_retry_after()
+                    target = self._drain_migrated_to(req)
+                    if target:
+                        headers["X-CP-Migrated-To"] = target
                 if inbound_id:
                     headers[tracing.TRACE_HEADER] = inbound_id
-                return Response(503, b"draining\n", headers=headers)
+                body = b"draining\n" if self.draining else b"standby\n"
+                return Response(503, body, headers=headers)
             trace = self._tracer.start(inbound_id or None, endpoint)
             trace.stream_id = tracing.current_stream_id()
             token = tracing.activate(trace)
@@ -459,7 +860,11 @@ class InferenceServer:
                 self.prefix_cache.digest()
                 if self.prefix_cache is not None else None
             ),
-            "kv_spill": None,
+            "kv_spill": (
+                self.prefix_cache.spill.snapshot()
+                if self.prefix_cache is not None
+                and self.prefix_cache.spill is not None else None
+            ),
             "slot_engine": (
                 self.slot_engine.stats
                 if self.slot_engine is not None else None
@@ -946,9 +1351,13 @@ class InferenceServer:
         if self.device.type == "cuda":
             # build both kernels now, not under the first live request
             from ..ops import _build
+            from .modelcfg import compile_cache_note
 
             seconds = _build.build_all()
-            log.info("serve: CUDA kernels ready in %.1fs", seconds)
+            log.info("serve: CUDA kernels ready in %.1fs (%s)", seconds,
+                     _build.build_dir())
+            self._compile_cache_note = compile_cache_note(
+                _build.build_dir())
         for prompt_len in (4, 16):
             if prompt_len + 16 > self.max_len:
                 continue
@@ -998,7 +1407,9 @@ class InferenceServer:
         self.ledger.enter("idle")
         self.ready = True
         self.ready_at = time.monotonic()
-        log.info("serve: default shapes warm; accepting traffic")
+        log.info("serve: default shapes warm; %s",
+                 "standing by" if self.role == "standby"
+                 else "accepting traffic")
 
     async def run(self) -> None:
         await self._server.start_tcp(self.host, self.port)
@@ -1013,6 +1424,202 @@ class InferenceServer:
         cumulative stage seconds, then dispatches and tokens out."""
         dispatches, tokens_out = self._decode_counters()
         return self.ledger.note(dispatches, tokens_out)
+
+    # -- the fleet member's surface (fleet/member.py, fleet/notes.py) ---
+
+    @property
+    def inflight(self) -> int:
+        """Requests still being served: handler-held requests plus
+        slot-engine rows still decoding or queued (a drain waits for
+        zero)."""
+        n = self._inflight
+        for engine in (self.slot_engine, self.spec_engine):
+            if engine is not None:
+                stats = engine.stats
+                n += stats["active"] + stats["queued"]
+        return n
+
+    @property
+    def occupancy(self) -> float:
+        """Decode capacity in use, the ``occ=`` field: (active + queued
+        slot-engine rows) / slots, past 1.0 when over-subscribed; without
+        a slot engine, the handler count."""
+        if self.slot_engine is not None:
+            stats = self.slot_engine.stats
+            return (stats["active"] + stats["queued"]) / max(
+                1, stats["slots"]
+            )
+        return float(self._inflight)
+
+    def kv_note(self) -> str:
+        """The ``kv=`` field's value: the prefix cache's reuse counters
+        ``hits,misses,tokens_reused,spilled,readmitted``; empty without
+        a prefix cache."""
+        pc = self.prefix_cache
+        if pc is None:
+            return ""
+        s = pc.stats
+        return (
+            f"{s['hits']},{s['misses']},{s['tokens_reused']},"
+            f"{s['spilled']},{s['readmitted']}"
+        )
+
+    def compile_cache_note(self) -> str:
+        """The ``cc=`` field's value: the kernel build directory and a
+        digest of its libraries, so a same-host launch adopts it and
+        skips nvcc; empty on the CPU (no kernel built)."""
+        return self._compile_cache_note
+
+    def prefix_digest_note(self) -> str:
+        """The ``pd=`` field's value: the prefix fingerprint digest;
+        empty without a prefix cache."""
+        pc = self.prefix_cache
+        return "" if pc is None else pc.digest() or ""
+
+    # -- drain migration --------------------------------------------------
+
+    async def migrate_sessions(
+        self,
+        targets: List[Any],
+        window_s: float = 5.0,
+        authority: str = "",
+    ) -> Dict[str, Any]:
+        """Evacuate this replica's cached prefixes to the survivors
+        before a drain deregisters it: plan deterministically
+        (kvtier.plan_migration), then push each cold entry inside the
+        window by POSTing a pull instruction at its target (the target
+        fetches from ``authority``, this replica's advertised host:port,
+        and adopts through the same ``reuse_admission`` path). A dead
+        target or poisoned chunk bumps ``failed``, window expiry bumps
+        ``timeout`` for each unpushed entry, and the drain proceeds
+        regardless.
+
+        ``targets`` are ``(instance_id, address, port, fingerprint_set)``
+        tuples. Returns the migration summary."""
+        pc = self.prefix_cache
+        m = self.migration
+        if pc is None or not targets or m["active"]:
+            return dict(m)
+        from ..kvtier.handoff import plan_migration, push_kv
+
+        keys = await asyncio.get_running_loop().run_in_executor(
+            None, pc.export_keys
+        )
+        plan = plan_migration(keys, [(t[0], t[3]) for t in targets])
+        addr = {t[0]: (t[1], int(t[2])) for t in targets}
+        m.update(
+            active=True, total=len(plan), done=0, failed=0, timeout=0,
+            window_s=float(window_s), started_at=time.monotonic(),
+        )
+        self._migration_counters["total"] += len(plan)
+        deadline = m["started_at"] + max(0.0, float(window_s))
+        bytes_moved = 0
+        try:
+            for entry in plan:
+                if time.monotonic() >= deadline:
+                    left = m["total"] - m["done"] - m["failed"]
+                    m["timeout"] += left
+                    self._migration_counters["timeout"] += left
+                    log.warning(
+                        "serve: migrate window expired with %d entries "
+                        "unmoved", left,
+                    )
+                    break
+                if entry["warm"]:
+                    # already warm on the survivor: landed with zero
+                    # bytes moved, but the pin still repoints
+                    m["done"] += 1
+                    self._migration_counters["done"] += 1
+                    self._record_landing(entry["fp"], entry["target"])
+                    continue
+                host, port = addr[entry["target"]]
+                got = await push_kv(
+                    host, port, list(entry["key"]), authority,
+                    read_timeout=max(1.0, deadline - time.monotonic()),
+                )
+                if got is None:
+                    m["failed"] += 1
+                    self._migration_counters["failed"] += 1
+                else:
+                    bytes_moved += got
+                    m["done"] += 1
+                    self._migration_counters["done"] += 1
+                    self._record_landing(entry["fp"], entry["target"])
+        finally:
+            m["active"] = False
+        summary = dict(m)
+        summary["bytes"] = bytes_moved
+        log.info(
+            "serve: migration moved %d/%d entries (%d bytes, %d failed, "
+            "%d timed out)", m["done"], m["total"], bytes_moved,
+            m["failed"], m["timeout"],
+        )
+        return summary
+
+    def _record_landing(self, fp: int, target: str) -> None:
+        landed = self._migration_landed
+        landed[fp] = target
+        landed.move_to_end(fp)
+        while len(landed) > 256:
+            landed.popitem(last=False)
+
+    def migrate_note(self) -> str:
+        """The ``mg=`` field's value: cumulative migration counters and
+        the most recent fp -> target landings; empty until a migration
+        has ever run."""
+        c = self._migration_counters
+        if not c["total"] and not self.migration["active"]:
+            return ""
+        from ..kvtier.digest import encode_migration_note
+
+        landed = list(self._migration_landed.items())
+        landed.reverse()  # most recent first survives truncation
+        return encode_migration_note(
+            c["done"], c["total"], c["failed"], c["timeout"],
+            bool(self.migration["active"]), landed,
+        )
+
+    def _drain_retry_after(self) -> str:
+        """Retry-After for a drain 503: the observed per-entry pace of
+        the migration extrapolated over what is left, capped by the
+        remaining window."""
+        m = self.migration
+        if not m["active"] or m["total"] <= 0:
+            return "1"
+        elapsed = max(0.0, time.monotonic() - m["started_at"])
+        settled = m["done"] + m["failed"]
+        if settled <= 0:
+            remaining = float(m["window_s"])
+        else:
+            remaining = elapsed * (m["total"] - settled) / settled
+        remaining = min(remaining, max(0.0, float(m["window_s"]) - elapsed))
+        return str(max(1, min(30, int(remaining + 0.999))))
+
+    def _drain_migrated_to(self, req: Request) -> str:
+        """The survivor this refused request's prefix has landed on, or
+        "" (any unparseable body simply gets no header)."""
+        if not self._migration_landed:
+            return ""
+        from ..kvtier.digest import prefix_fingerprint
+
+        try:
+            body = json.loads(req.body.decode() or "{}")
+            rows = body.get("tokens")
+            if (isinstance(rows, list) and rows
+                    and isinstance(rows[0], list)):
+                row = [int(t) for t in rows[0]]
+            elif (self.tokenizer is not None
+                  and isinstance(body.get("prompt"), str)):
+                row = self.tokenizer.encode(body["prompt"])
+            else:
+                return ""
+            fp = prefix_fingerprint(row)
+        except (ValueError, TypeError, AttributeError,
+                UnicodeDecodeError):
+            return ""
+        if fp is None:
+            return ""
+        return self._migration_landed.get(fp, "")
 
     def enter_maintenance(self) -> None:
         """Start draining: /health 503, new generate/completions 503 +

@@ -6,18 +6,28 @@ flags the port runs: --host, --port, --mux/--no-mux, --max-len,
 --d-model, --n-layers, --n-heads, --n-kv-heads, --window, --vocab,
 --checkpoint-dir, --use-ema, --int8, --kv-int8, --lora-dir, --lora-rank,
 --draft-layers, --speculate, --max-batch-rows, --prefill-chunk,
---prefix-cache, --text, --slots, --slot-chunk, --slot-window, and
---device (default cuda; the part JAX_PLATFORMS plays for the
-reference). Every other reference flag is
-accepted with its reference default and exits with a "not ported yet"
-message when set to anything else.
+--prefix-cache, --kv-spill-mb, --text, --slots, --slot-chunk,
+--slot-window, the fleet's --fleet-catalog, --fleet-service, --fleet-ttl,
+--fleet-address, --fleet-id, --migrate-window, --role, --standby,
+--weights-from and --adopt-compile-cache, and --device (default cuda;
+the part JAX_PLATFORMS plays for the reference). Every other reference
+flag is accepted with its reference default and exits with a "not
+ported yet" message when set to anything else.
 
 Weights come from the latest ``step_<n>/`` checkpoint of the port's
 trainer under --checkpoint-dir (params only: the optimizer moments stay
 on disk; the EMA shadow with --use-ema), or from a seeded
 initialization when there is none; a LoRA adapter under --lora-dir is
 merged into those float32 weights before --int8 quantizes them. Model
-flags that disagree with the checkpoint fail at startup.
+flags that disagree with the checkpoint fail at startup. With
+--weights-from HOST:PORT the weights are fetched from that warm peer over
+cp-mux/1 instead (fleet/standby.py), the seeded tree as the template; a
+failed fetch falls back to the checkpoint, else to the seeded weights.
+
+With --fleet-catalog (``file:DIR`` or a Consul address) the replica
+joins a fleet: a FleetMember registers it and heartbeats its note, and
+SIGTERM drains it (migrate the cached sessions to the survivors within
+--migrate-window, deregister, finish in-flight work).
 """
 from __future__ import annotations
 
@@ -28,20 +38,9 @@ from typing import Any, Dict, Tuple
 # reference flags this slice does not run yet: dest -> (flag, default)
 _NOT_PORTED: Dict[str, Tuple[str, Any]] = {
     "moe_experts": ("--moe-experts", 0),
-    "kv_spill_mb": ("--kv-spill-mb", 0.0),
     "tp": ("--tp", 1),
     "cp": ("--cp", 1),
     "cp_min_len": ("--cp-min-len", 0),
-    "fleet_catalog": ("--fleet-catalog", ""),
-    "fleet_service": ("--fleet-service", "inference"),
-    "fleet_ttl": ("--fleet-ttl", 10),
-    "fleet_address": ("--fleet-address", "127.0.0.1"),
-    "fleet_id": ("--fleet-id", ""),
-    "migrate_window": ("--migrate-window", 5.0),
-    "standby": ("--standby", False),
-    "role": ("--role", "mixed"),
-    "weights_from": ("--weights-from", ""),
-    "adopt_compile_cache": ("--adopt-compile-cache", True),
 }
 
 
@@ -125,6 +124,13 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "sharing a prefix; 0 = off",
     )
     parser.add_argument(
+        "--kv-spill-mb", type=float, default=0.0,
+        help="host-RAM spill tier under --prefix-cache: evicted KV "
+        "prefixes move to a byte-budgeted host LRU (this many MiB) and "
+        "readmit on a later match; handed-off entries (/v1/kv/pull) "
+        "land here too. 0 = off",
+    )
+    parser.add_argument(
         "--text", action="store_true",
         help="enable the text surface: POST /v1/completions encodes "
         "prompts with the built-in byte-level tokenizer (requires "
@@ -145,6 +151,65 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "--slot-window", type=int, default=4,
         help="decode chunk-rounds per dispatch with an early exit on the "
         "device; 1 = one dispatch per chunk",
+    )
+    # fleet membership: register in the discovery catalog with a TTL
+    # heartbeat; SIGTERM drains (migrate, deregister, finish in-flight)
+    parser.add_argument(
+        "--fleet-catalog", default="",
+        help="join an inference fleet: discovery backend URI "
+        "('file:/shared/catalog' or 'consul:8500'); empty = lone "
+        "replica (no registration)",
+    )
+    parser.add_argument(
+        "--fleet-service", default="inference",
+        help="service name to register under",
+    )
+    parser.add_argument(
+        "--fleet-ttl", type=int, default=10,
+        help="TTL seconds on the catalog health check",
+    )
+    parser.add_argument(
+        "--fleet-address", default="127.0.0.1",
+        help="address to advertise in the catalog",
+    )
+    parser.add_argument(
+        "--fleet-id", default="",
+        help="instance id in the catalog (default: <service>-<random>)",
+    )
+    parser.add_argument(
+        "--migrate-window", type=float, default=5.0,
+        help="seconds a drain spends migrating this replica's cached KV "
+        "prefixes to the digest-coldest healthy survivors before "
+        "deregistering; 0 = plain drain. Failures fall back to "
+        "re-prefill on the survivors",
+    )
+    parser.add_argument(
+        "--standby", action="store_true",
+        help="boot as a warm standby: load weights, warm, register under "
+        "role=standby (heartbeating, never routed to); POST "
+        "/v3/standby/promote turns it active",
+    )
+    parser.add_argument(
+        "--role", default="mixed", choices=("mixed", "prefill", "decode"),
+        help="phase specialization for a disaggregated fleet: 'prefill' "
+        "replicas take fresh prompts and ship the KV prefix to a decode "
+        "peer over cp-mux/1; 'decode' replicas generate off handed-off "
+        "prefixes; 'mixed' serves both. Routing advice only; --standby "
+        "wins over it",
+    )
+    parser.add_argument(
+        "--weights-from", default="",
+        help="fetch the weights from a warm peer replica (host:port) over "
+        "cp-mux/1 instead of reading a checkpoint; any failure falls "
+        "back to the --checkpoint-dir or seeded load",
+    )
+    parser.add_argument(
+        "--adopt-compile-cache", default=True,
+        action=argparse.BooleanOptionalAction,
+        help="when joining a fleet without CONTAINERPILOT_TORCH_BUILD_DIR "
+        "set, adopt a same-host peer's advertised kernel build "
+        "directory (its cc= heartbeat field): its built libraries load "
+        "and nvcc is skipped",
     )
     parser.add_argument(
         "--device", default="cuda",
@@ -239,8 +304,27 @@ def load_model(args: argparse.Namespace):
     return cfg, cast_params(params, cfg.dtype), checkpoint
 
 
+def fetch_peer_weights(args: argparse.Namespace, params):
+    """--weights-from: the peer's params over cp-mux/1 with ``params``
+    as the template, or None when the transfer failed."""
+    import time
+
+    from ..fleet.standby import fetch_params
+
+    host, _, port_s = args.weights_from.rpartition(":")
+    t0 = time.perf_counter()
+    fetched = asyncio.run(
+        fetch_params(host or "127.0.0.1", int(port_s), params)
+    )
+    if fetched is not None:
+        print(f"weights fetched from peer {args.weights_from} in "
+              f"{time.perf_counter() - t0:.3f}s", flush=True)
+    return fetched
+
+
 def main(argv=None) -> int:
     import logging
+    import os
     import signal
 
     from .serve import InferenceServer
@@ -250,25 +334,84 @@ def main(argv=None) -> int:
     )
     args = build_arg_parser().parse_args(argv)
     check_ported(args)
+    backend = None
+    if args.fleet_catalog:
+        from ..discovery.factory import new_backend
+
+        backend = new_backend(args.fleet_catalog)
+        if backend is None:
+            raise SystemExit(
+                "--fleet-catalog resolved to no discovery backend"
+            )
+    if (backend is not None and args.adopt_compile_cache
+            and not os.environ.get("CONTAINERPILOT_TORCH_BUILD_DIR")):
+        from .modelcfg import adopt_fleet_compile_cache
+
+        adopted = adopt_fleet_compile_cache(backend, args.fleet_service)
+        if adopted:
+            print(f"adopted fleet kernel build dir {adopted}", flush=True)
+    checkpoint_dir = args.checkpoint_dir
+    if args.weights_from:
+        if not args.weights_from.rpartition(":")[2].isdigit():
+            raise SystemExit(
+                f"--weights-from wants host:port, got {args.weights_from!r}"
+            )
+        args.checkpoint_dir = ""  # skip the restore the peer replaces
     cfg, params, checkpoint = load_model(args)
+    if args.weights_from:
+        fetched = fetch_peer_weights(args, params)
+        if fetched is not None:
+            params = fetched
+        elif checkpoint_dir:
+            print("peer weight transfer failed; falling back to the "
+                  "checkpoint restore", flush=True)
+            args.checkpoint_dir = checkpoint_dir
+            cfg, params, checkpoint = load_model(args)
+        else:
+            print("peer weight transfer failed; serving the seeded "
+                  "weights", flush=True)
+    # --standby wins; "mixed" is the server's "active", so fleets that
+    # never pass --role send the notes they always did
+    role = "standby" if args.standby else (
+        "active" if args.role == "mixed" else args.role)
     server = InferenceServer(
         cfg, params, args.host, args.port, args.max_len,
         checkpoint=checkpoint,
         max_batch_rows=args.max_batch_rows, device=args.device,
         prefix_cache_entries=args.prefix_cache,
+        kv_spill_bytes=int(args.kv_spill_mb * 1024 * 1024),
         prefill_chunk=args.prefill_chunk, slots=args.slots,
         slot_chunk=args.slot_chunk, slot_window=args.slot_window,
         draft_layers=args.draft_layers, speculate=args.speculate,
-        text=args.text, mux=args.mux,
+        text=args.text, mux=args.mux, role=role,
     )
+    member = None
+    if backend is not None:
+        from ..fleet import FleetMember
+
+        member = FleetMember(
+            server, backend, args.fleet_service,
+            ttl=args.fleet_ttl, address=args.fleet_address,
+            instance_id=args.fleet_id,
+            migrate_window=args.migrate_window,
+        )
 
     async def serve() -> None:
         await server.run()
+        if member is not None:
+            # after run(): a --port 0 bind has resolved, and the
+            # heartbeat only fires once warmup turned ready
+            await member.start()
         stop = asyncio.Event()
         loop = asyncio.get_running_loop()
         for sig in (signal.SIGTERM, signal.SIGINT):
             loop.add_signal_handler(sig, stop.set)
         await stop.wait()
+        if member is not None:
+            # SIGTERM is a drain: migrate the cached sessions within
+            # --migrate-window, deregister, finish in-flight work
+            await member.drain(timeout=30.0)
+            await member.stop(deregister=False)
         await server.stop()
 
     asyncio.run(serve())

@@ -1,6 +1,5 @@
 """Prefix KV reuse for the inference server (counterpart of
-``containerpilot_tpu/workload/serve_prefix.py``, without the host spill
-tier: ``--kv-spill-mb`` is not ported yet).
+``containerpilot_tpu/workload/serve_prefix.py``).
 
 Completed prompts' KV caches, keyed by their token tuple, LRU-bounded.
 A new single-row request reuses the longest common prefix and only
@@ -13,6 +12,14 @@ k/v up to the reused length into a fresh row cache, then rewinds and
 extends that copy. A hit therefore leaves the stored entry bit-
 unchanged, and the next exact hit on it decodes the same tokens.
 
+With a spill tier attached (``kvtier.HostSpillTier``, ``--kv-spill-mb``),
+LRU eviction moves the entry's KV to byte-budgeted host RAM instead of
+dropping it, and a later match readmits it through the same
+``get``/``reuse_admission`` path; a handed-off entry (kvtier/handoff.py)
+enters the same tier through ``adopt_host``. The stats
+(``spilled``/``readmitted``/``spill_bytes``) stay zero without a tier, so
+the ``/v1/model`` schema is the same either way.
+
 Thread safety: ``match_len`` runs on the event-loop thread while the
 store side runs on the inference thread, so every OrderedDict access
 holds ``_lock``.
@@ -20,6 +27,7 @@ holds ``_lock``.
 from __future__ import annotations
 
 import threading
+import time
 from collections import OrderedDict
 from typing import Any, List, Optional, Tuple
 
@@ -34,16 +42,20 @@ BUCKET = 16      # suffix lengths run in these steps
 
 
 class PrefixCache:
-    def __init__(self, entries: int) -> None:
+    def __init__(self, entries: int, spill: Optional[Any] = None) -> None:
         self.entries = entries
+        #: optional kvtier.HostSpillTier catching LRU evictions
+        self.spill = spill
         self._cache: "OrderedDict[Tuple[int, ...], Any]" = OrderedDict()
         self._lock = threading.Lock()
-        # the reference's schema; the spill fields stay zero (no spill
-        # tier in the port yet)
         self.stats = {
             "hits": 0, "misses": 0, "tokens_reused": 0,
             "spilled": 0, "readmitted": 0, "spill_bytes": 0,
         }
+        #: seconds the last admission spent readmitting from the spill
+        #: tier: reset and read by the slot engine around its prefill to
+        #: stamp the trace's ``kv`` stage and the ledger's kv_readmit
+        self.readmit_seconds = 0.0
         #: bumped on any contents change; versions the published digest
         self.version = 0
         self._digest_memo: Tuple[int, str] = (-1, "")
@@ -59,9 +71,16 @@ class PrefixCache:
     def best_match(
         self, row: List[int]
     ) -> Tuple[int, Optional[Tuple[int, ...]]]:
-        """(longest common prefix length, its key) over cached prompts."""
+        """(longest common prefix length, its key) over device-resident
+        and spilled prompts. Device keys scan first, so on equal length
+        the base that needs no readmit wins; the spill tier is consulted
+        by the row's fingerprint bucket, not scanned."""
         with self._lock:
             keys: List[Tuple[int, ...]] = list(self._cache)
+        if self.spill is not None:
+            keys.extend(
+                self.spill.candidates(kvdigest.prefix_fingerprint(row))
+            )
         best_len, best_key = 0, None
         for stored in keys:
             n = min(len(stored), len(row))
@@ -73,31 +92,89 @@ class PrefixCache:
         return best_len, best_key
 
     def get(self, key: Tuple[int, ...]) -> Optional[Any]:
-        """A stored cache, marked most recently used; None if evicted
-        between match and fetch."""
+        """A stored cache, marked most recently used, readmitted from
+        the spill tier when the device LRU evicted it; None if it is
+        gone from both tiers."""
         with self._lock:
             cache = self._cache.get(key)
             if cache is not None:
                 self._cache.move_to_end(key)
-            return cache
+                return cache
+        if self.spill is None:
+            return None
+        t0 = time.monotonic()
+        cache = self.spill.take(key)
+        if cache is None:
+            return None
+        self.stats["readmitted"] += 1
+        self.readmit_seconds += time.monotonic() - t0
+        # back into the device LRU as most recently used (which may
+        # spill another entry in turn)
+        self.store(key, cache)
+        return cache
+
+    def device_entry(self, key: Tuple[int, ...]) -> Optional[Any]:
+        """The device-tier entry for ``key``, untouched: no readmit, no
+        MRU bump (the handoff export's read)."""
+        with self._lock:
+            return self._cache.get(key)
+
+    def adopt_host(self, key: Tuple[int, ...], host_tree: Any) -> int:
+        """Inject a handed-off host entry (kvtier/handoff.py) into the
+        spill tier and republish the digest. Returns the bytes adopted,
+        0 without a spill tier or when the budget refuses it."""
+        if self.spill is None:
+            return 0
+        adopted = self.spill.put_host(key, host_tree)
+        if adopted:
+            with self._lock:
+                self.version += 1
+            self.stats["spill_bytes"] = self.spill.bytes_used
+        return adopted
 
     def store(self, key: Tuple[int, ...], cache: Any) -> None:
+        evicted: List[Tuple[Tuple[int, ...], Any]] = []
         with self._lock:
             self._cache[key] = cache
             self._cache.move_to_end(key)
             while len(self._cache) > self.entries:
-                self._cache.popitem(last=False)
+                evicted.append(self._cache.popitem(last=False))
             self.version += 1
+        if self.spill is None:
+            return
+        for k, c in evicted:
+            if len(k) < MIN_REUSE:
+                continue  # below the reuse floor it can never match
+            # device -> host happens inside put(), outside our lock
+            if self.spill.put(k, c):
+                self.stats["spilled"] += 1
+        if evicted:
+            self.version += 1
+        self.stats["spill_bytes"] = self.spill.bytes_used
+
+    def export_keys(self) -> List[Tuple[int, ...]]:
+        """Every migratable prompt key held, device tier first in MRU
+        order, then spilled keys (kvtier.plan_migration's input); none
+        below the reuse floor."""
+        with self._lock:
+            keys = list(reversed(self._cache))
+        if self.spill is not None:
+            seen = set(keys)
+            keys.extend(k for k in self.spill.keys() if k not in seen)
+        return [k for k in keys if len(k) >= MIN_REUSE]
 
     def digest(self, max_bytes: Optional[int] = None) -> str:
-        """Versioned fingerprint digest of every reusable prefix cached,
-        for gateway routing; memoized per version."""
+        """Versioned fingerprint digest of every reusable prefix cached
+        (device and spill tiers), for gateway routing; memoized per
+        version."""
         version = self.version
         memo_version, memo = self._digest_memo
         if memo_version == version:
             return memo
         with self._lock:
             keys = list(self._cache)
+        if self.spill is not None:
+            keys.extend(self.spill.keys())
         fps = [
             fp for fp in map(kvdigest.prefix_fingerprint, keys)
             if fp is not None

@@ -286,8 +286,19 @@ class SlotEngine:
         pc = self.prefix_cache
         if len(req.tokens) < PREFIX_MIN_REUSE:
             pc = None
-        return prefill_row(pc, req.tokens, self.cfg, self.params,
-                           self.max_len, self.prefill_chunk)
+        if pc is not None:
+            pc.readmit_seconds = 0.0
+        out = prefill_row(pc, req.tokens, self.cfg, self.params,
+                          self.max_len, self.prefill_chunk)
+        if pc is not None and pc.readmit_seconds > 0.0:
+            # a spilled base copied back to the device: the trace's
+            # ``kv`` stage and the ledger's kv_readmit, carved out of
+            # the prefill window
+            if req.timings is not None:
+                req.timings["kv"] = pc.readmit_seconds
+            if self.ledger is not None:
+                self.ledger.carve("kv_readmit", pc.readmit_seconds)
+        return out
 
     def _admit(self, slot_id: int, req: _Request) -> None:
         """Prefill the prompt (engine policy) and hand the result to the

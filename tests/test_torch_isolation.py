@@ -68,6 +68,24 @@ def test_importing_every_port_module_loads_no_jax():
         "containerpilot_tpu_torch.fleet.pool",
         "containerpilot_tpu_torch.workload.text",
         "containerpilot_tpu_torch.version",
+        "containerpilot_tpu_torch.utils.tasks",
+        "containerpilot_tpu_torch.events",
+        "containerpilot_tpu_torch.events.bus",
+        "containerpilot_tpu_torch.events.events",
+        "containerpilot_tpu_torch.events.subscriber",
+        "containerpilot_tpu_torch.events.timer",
+        "containerpilot_tpu_torch.discovery",
+        "containerpilot_tpu_torch.discovery.backend",
+        "containerpilot_tpu_torch.discovery.service",
+        "containerpilot_tpu_torch.discovery.noop",
+        "containerpilot_tpu_torch.discovery.filecatalog",
+        "containerpilot_tpu_torch.discovery.consul",
+        "containerpilot_tpu_torch.discovery.factory",
+        "containerpilot_tpu_torch.fleet.notes",
+        "containerpilot_tpu_torch.fleet.member",
+        "containerpilot_tpu_torch.fleet.standby",
+        "containerpilot_tpu_torch.kvtier.spill",
+        "containerpilot_tpu_torch.kvtier.handoff",
     } <= set(mods)
     code = (
         "import importlib, sys\n"
@@ -76,6 +94,26 @@ def test_importing_every_port_module_loads_no_jax():
         "'optax', 'containerpilot_tpu', 'prometheus_client') or "
         "m.startswith(('jax.', 'jaxlib.', 'containerpilot_tpu.', "
         "'prometheus_client.')))\n"
+        "print(bad); sys.exit(1 if bad else 0)\n"
+    )
+    proc = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True,
+        timeout=120, cwd=ROOT,
+    )
+    assert proc.returncode == 0, proc.stdout + proc.stderr
+
+
+def test_fleet_entry_modules_alone_load_no_jax():
+    """The three modules a replica joining a fleet starts from, imported
+    on their own in a fresh interpreter."""
+    code = (
+        "import sys\n"
+        "import containerpilot_tpu_torch.fleet.member, "
+        "containerpilot_tpu_torch.kvtier.handoff, "
+        "containerpilot_tpu_torch.fleet.standby\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'jaxlib', "
+        "'containerpilot_tpu') or m.startswith(('jax.', 'jaxlib.', "
+        "'containerpilot_tpu.')))\n"
         "print(bad); sys.exit(1 if bad else 0)\n"
     )
     proc = subprocess.run(

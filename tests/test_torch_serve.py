@@ -153,11 +153,10 @@ def test_cli_parses_supported_flags():
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["--kv-spill-mb", "8"], "--kv-spill-mb"),
-    (["--draft-layers", "1", "--standby"], "--standby"),
+    (["--moe-experts", "4"], "--moe-experts"),
+    (["--draft-layers", "1", "--cp", "2"], "--cp"),
     (["--lora-rank", "4", "--tp", "2"], "--tp"),
-    (["--role", "prefill"], "--role"),
-    (["--no-adopt-compile-cache"], "--adopt-compile-cache"),
+    (["--cp-min-len", "64"], "--cp-min-len"),
 ])
 def test_cli_flag_not_ported_yet_exits(argv, flag):
     args = serve_cli.build_arg_parser().parse_args(argv)

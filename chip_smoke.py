@@ -163,7 +163,37 @@ training phases, then beams, speculative decoding and LoRA):
    serves the first prompt with K1 0 times and readmitted +1; C adopts
    A's kernel build directory from its cc= note. The KV entry's and the
    weights' bytes, seconds and GB/s, the promote latency, and each
-   replica's K1/K2 launches.
+   replica's K1/K2 launches;
+20. moe_expert_half: one layer's feed-forward half (norm, route,
+   experts, residual) at the flagship's widths with 4 and 8 experts: at
+   a 1024-token prefill against its operations bound (the drop-free
+   layer's dense dispatch runs every expert over every token; the top-1
+   work beside it), at an 8-row decode against its bytes bound (every
+   expert's weights), the int8 layer dequantized per call at the decode
+   shape, and the dense SwiGLU half beside each;
+21. serve_moe: the flagship with 8 switch-routed experts in place of
+   its SwiGLU (4.70 B parameters, seeded), served by the Batcher over
+   HTTP as in phase 4, in bf16 and then with int8 weights: K1 exactly
+   n_layers times a 1024-token prefill, K2 never (an int8 MoE layer
+   dequantizes in full); the greedy request judged against the plain
+   attention path (flash_min_seq=0) teacher-forced on its tokens, and
+   the prompt's logits through K1 against one plain forward whose
+   top-1 routes are pinned to the kernel forward's (every route it
+   would have taken otherwise a near tie on the router logits); prefill
+   ms, decode tokens/s at 1 and 8 rows, resident and peak bytes;
+22. serve_slots_moe: the bf16 MoE flagship through the slot engine as
+   in phase 5 (two 1024-token admissions launch K1; every request
+   judged against solo decoding, the diagnostic's pool steps on the
+   solo steps' routes; window 4 bit-equal to window 1; steady
+   windows sync-free, with device ms a step and the idle share under
+   the profiler; one graph replay bit-equal to the eager round);
+23. train_moe: the training configuration with 8 experts through
+   make_train_step, drop-free and with capacity factor 1.25: K1/K3/K4
+   counted, the loss falls, one loss value+grad at batch 2 against
+   plain attention on the kernel run's routes (a free plain run's
+   route flips and its distance reported beside); step ms, tokens/s,
+   MFU (top-1 expert work billed, as workload/flops.py does), peak
+   memory.
 
 Then the kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -173,6 +203,8 @@ non-zero before printing any result.
 from __future__ import annotations
 
 import asyncio
+import contextlib
+import gc
 import json
 import math
 import os
@@ -685,7 +717,7 @@ async def drive_server(cfg, params, prompt, label, device="cuda",
         if (info["n_layers"] != cfg.n_layers
                 or not info["device"].startswith(device)):
             raise AssertionError(f"/v1/model says {info}")
-        out["greedy_tokens_head"] = rows[0][:8]
+        out["greedy_tokens"] = rows[0]
         return out
     finally:
         await server.stop()
@@ -731,14 +763,18 @@ def slot_logits_at(cfg, params, row, emitted, prefill_chunk, base=None,
     eager slot path (the engine's admission policy, prefill_row: a
     prefix hit on ``base``'s cache when given, else its cold prefill;
     then a pool of 8 decoded by decode_slots_logits, the step the
-    captured graph replays). A diagnostic beside judge_served: it does
-    not run the served graph."""
+    captured graph replays), and the route flips of an MoE model: the
+    pool's decode steps take the solo steps' top-1 routes (routes_of),
+    so a rounding tie in the router does not move the logits by a
+    different expert's output. A diagnostic beside judge_served: it
+    does not run the served graph."""
     from containerpilot_tpu_torch.models import decode, slots
     from containerpilot_tpu_torch.workload.serve_prefix import (
         PrefixCache,
         prefill_row,
     )
 
+    routes, flips = {}, []
     with torch.inference_mode():
         solo, cache = decode.prefill(
             params, torch.tensor([row], device="cuda"), cfg, max_len)
@@ -754,13 +790,16 @@ def slot_logits_at(cfg, params, row, emitted, prefill_chunk, base=None,
         slots.insert_row(pool, row_cache, 0)
         del row_cache, pc
         for t in emitted:
-            solo, cache = decode.decode_step(
-                params, cache, torch.tensor([t], device="cuda"), cfg)
+            with routes_of(routes):
+                solo, cache = decode.decode_step(
+                    params, cache, torch.tensor([t], device="cuda"), cfg)
             step = torch.zeros(8, dtype=torch.int64, device="cuda")
             step[0] = t
-            pool_logits = slots.decode_slots_logits(params, pool, step, cfg)
+            with routes_of(routes, pin=True, flips=flips):
+                pool_logits = slots.decode_slots_logits(params, pool, step,
+                                                        cfg)
             pool["pos"] += 1
-        return pool_logits[:1].float(), solo.float()
+        return pool_logits[:1].float(), solo.float(), flips
 
 
 def judge_served(cfg, params, body, got, max_len=MAX_LEN):
@@ -842,10 +881,13 @@ def compare_with_solo(cfg, params, bodies, outs, prefill_chunk, bases,
                 f"worst gap {worst} over {NEAR_TIE_TOL}, first differing "
                 f"position {j}, length {len(got)}")
         if j is not None:
-            pool_l, solo_l = slot_logits_at(cfg, params, row, got[:j],
-                                            prefill_chunk, base, max_len)
+            pool_l, solo_l, flips = slot_logits_at(
+                cfg, params, row, got[:j], prefill_chunk, base, max_len)
             entry.update(first_diff=j,
                          logits_rel_err=logits_rel_err(pool_l, solo_l))
+            if cfg.moe_experts:
+                entry["route_flips"] = flip_summary(flips,
+                                                    j * cfg.n_layers)
             if entry["logits_rel_err"] > E2E_REL_TOL:
                 raise AssertionError(
                     f"slot logits off solo at {j} (prompt {len(row)}): "
@@ -948,14 +990,17 @@ def profile_windows(program, budgets, n_windows=2):
     }
 
 
-async def drive_slots(cfg, params, prompt, label, prefill_chunk=0):
+async def drive_slots(cfg, params, prompt, label, prefill_chunk=0,
+                      profiled=False):
     """One slot phase: the server with --slots 8 --slot-chunk 8
     --slot-window 4 --prefix-cache 4 (and --prefill-chunk), 8 staggered
     concurrent requests and a prefix hit, each held against a solo
     generate; a window-1 engine's outputs on the same requests, which
     must be bit-equal; decode tokens/s at 8 concurrent requests; steady
-    windows free of host syncs. The K1/K2 counters are zeroed just
-    before the requests and read just after them."""
+    windows free of host syncs (with ``profiled``, also their device ms
+    a step and idle share under the profiler, and one graph replay
+    against the eager round). The K1/K2 counters are zeroed just before
+    the requests and read just after them."""
     from containerpilot_tpu_torch.ops import flash, quant
     from containerpilot_tpu_torch.workload.serve import InferenceServer
     from containerpilot_tpu_torch.workload.serve_prefix import PrefixCache
@@ -1048,7 +1093,10 @@ async def drive_slots(cfg, params, prompt, label, prefill_chunk=0):
         cfg, params, bodies + [hit], outs, prefill_chunk,
         [None] * len(bodies) + [prompt])
     out.update(steady_windows(engine, params, cfg,
-                              [b["tokens"][0] for b in bodies]))
+                              [b["tokens"][0] for b in bodies],
+                              idle_share=profiled))
+    if profiled:
+        out.update(replay_matches_eager(program, params, cfg))
     del engine, program, server
     torch.cuda.empty_cache()
 
@@ -1455,6 +1503,74 @@ def rel_norm_err(a, b) -> float:
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
+@contextlib.contextmanager
+def routes_of(table, pin=False, flips=None):
+    """Within the block, every MoE layer's top-1 routing (models/moe.py's
+    _route, which both MoE layers call) is recorded or pinned; a dense
+    model is untouched. ``table`` maps a layer (its router view) to the
+    router logits [b, m, E] (float32) of each of its calls, in order.
+    Recording appends; with ``pin`` each call of a layer takes (and
+    removes) the first call recorded for it (the same m), so a later
+    pinned block goes on where an earlier one stopped; the first rows of
+    each
+    (a slot pool's row 0 against a solo row) go to the experts the
+    recorded logits pick: the one-hot, the gate (that expert's prob) and
+    the aux loss follow them. ``flips`` collects, for every pinned token
+    whose own route differs, its gap on its own router logits (the own
+    top minus the pinned expert's, over max|router logits|)."""
+    from containerpilot_tpu_torch.models import moe
+
+    route = moe._route
+
+    def routed(x, router_w):
+        probs, gate, onehot, aux = route(x, router_w)
+        key = router_w.data_ptr()
+        with torch.no_grad():
+            logits = x.float() @ router_w.float()
+        if not pin:
+            table.setdefault(key, []).append(logits)
+            return probs, gate, onehot, aux
+        want = table[key].pop(0).argmax(-1)
+        n = want.shape[0]
+        if want.shape[1:] != x.shape[1:2]:
+            raise AssertionError(
+                f"pinned routes of {tuple(want.shape)} for a call of "
+                f"{tuple(x.shape)}")
+        idx = probs.argmax(-1)
+        if flips is not None:
+            own = logits[:n]
+            differ = idx[:n] != want
+            top = own.gather(-1, idx[:n, :, None])[..., 0]
+            got = own.gather(-1, want[..., None])[..., 0]
+            flips.extend(((top - got) / own.abs().amax(-1))[differ].tolist())
+        idx[:n] = want
+        n_experts = router_w.shape[-1]
+        onehot = (idx[..., None] == torch.arange(
+            n_experts, device=x.device)).float()
+        gate = probs.gather(-1, idx[..., None])[..., 0]
+        aux = n_experts * (onehot.mean(dim=(0, 1))
+                           * probs.mean(dim=(0, 1))).sum()
+        return probs, gate, onehot, aux
+
+    moe._route = routed
+    try:
+        yield
+    finally:
+        moe._route = route
+
+
+def flip_summary(flips, routed_tokens):
+    """Route flips of a pinned run: count, worst gap, and the near-tie
+    check (every gap within E2E_REL_TOL of max|router logits|)."""
+    worst = max(flips, default=0.0)
+    if worst > E2E_REL_TOL:
+        raise AssertionError(
+            f"a top-1 route flipped {worst} of max|router logits| away "
+            f"from a tie ({len(flips)} flips)")
+    return {"flipped": len(flips), "tokens_routed": routed_tokens,
+            "worst_router_gap": worst}
+
+
 def drive_training(gen, label="train", over=None, n_timed=5, extra=True):
     """The training path at full width: make_train_step on the repo's
     training configuration (with ``over`` applied, e.g. a window), the
@@ -1518,18 +1634,40 @@ def drive_training(gen, label="train", over=None, n_timed=5, extra=True):
 
     # one value+grad through the kernels vs plain attention, batch 2;
     # then the kernels under remat "dots" (projections saved) and with
-    # the chunked loss, each vs the main path's
+    # the chunked loss, each vs the main path's. An MoE model's later
+    # runs take the kernel run's routes (routes_of), so the comparison
+    # holds the attention paths against each other and not a top-1
+    # route that flipped on a rounding tie; the routes a free plain run
+    # takes are counted beside it
     params = state.params
     leaves = tr.tree_leaves(params)
     results = []
     variants = [{}, {"flash_min_seq": 0}]
     if extra:
         variants += [{"remat": "dots"}, {"loss_chunk": 512}]
+    routes, flips = {}, []
+
+    def value_and_grad(c, table, pin):
+        with routes_of(table, pin, flips if pin else None):
+            loss = tf.loss_fn(params, tokens[:2], c)
+            return float(loss.detach()), torch.autograd.grad(loss, leaves)
+
     for variant in variants:
         c = tf.TransformerConfig(**{**train_cfg, **variant})
-        loss = tf.loss_fn(params, tokens[:2], c)
-        results.append(
-            (float(loss.detach()), torch.autograd.grad(loss, leaves)))
+        results.append(value_and_grad(c, routes, pin=bool(results)))
+    if cfg.moe_experts:
+        # the plain run's own flips against the kernel run's routes, in
+        # its forward and its remat recompute (each token twice)
+        out["route_flips_plain_vs_kernel"] = flip_summary(
+            flips, 2 * 2 * TRAIN_SEQ * cfg.n_layers)
+        free = {}
+        results.append(value_and_grad(
+            tf.TransformerConfig(**{**train_cfg, "flash_min_seq": 0}),
+            free, pin=False))
+        out["free_plain_vs_kernel_loss_and_grad_rel"] = (
+            abs(results[-1][0] - results[0][0]) / abs(results[-1][0]),
+            max(rel_norm_err(a, b)
+                for a, b in zip(results[0][1], results[-1][1])))
 
     def rel(i, j):
         (l_a, g_a), (l_b, g_b) = results[i], results[j]
@@ -3084,6 +3222,240 @@ def drive_fleet_handoff(tmp, card, model=FACE_MODEL, device="cuda",
     return result
 
 
+# ---------------------------------------------------------------------------
+# phases 20-23: a switch-routed mixture of experts from trainer to server
+# ---------------------------------------------------------------------------
+
+# the flagship with 8 experts in place of its SwiGLU (4.70 B parameters),
+# trained at the repo's training configuration with 8 experts, drop-free
+# and with capacity factor 1.25; the expert half alone at E = 4 and 8
+MOE_EXPERTS = 8
+MOE_CAPACITY = 1.25
+MOE_HALF_EXPERTS = (4, 8)
+# drive_server's 1024-token prefills: two greedy 32-token requests, two
+# 1-token ones, the 4-row batch and four 8-row batches (one K1 launch a
+# layer each)
+SERVER_PREFILLS = 9
+
+
+def judge_against_plain(cfg, params, prompt, served):
+    """A greedy serve_moe request held to the plain attention path
+    (flash_min_seq=0). judge_served teacher-forces solo decoding on the
+    served tokens: each the plain path's choice or a near tie within
+    NEAR_TIE_TOL. Then one forward of the 1024-token prompt through K1
+    against one plain forward whose routes are pinned to the kernel
+    forward's (routes_of): a top-1 route is discontinuous, so a rounding
+    difference can send a token to another expert and move its logits
+    by far more than the rounding. Every route the plain forward would
+    have taken otherwise must be a near tie (flip_summary), and the
+    logits at the last 64 positions are held within E2E_REL_TOL."""
+    import dataclasses
+
+    from containerpilot_tpu_torch.models import transformer as tf
+
+    plain = dataclasses.replace(cfg, flash_min_seq=0)
+    body = {"tokens": [prompt], "max_new_tokens": len(served)}
+    first, worst, typical = judge_served(plain, params, body, served)
+    toks = torch.tensor([prompt], device="cuda")
+    routes, flips = {}, []
+    with torch.inference_mode():
+        with routes_of(routes):
+            via_kernel = tf.forward(params, toks, cfg)[0, -64:]
+        with routes_of(routes, pin=True, flips=flips):
+            via_plain = tf.forward(params, toks, plain)[0, -64:]
+    e2e = logits_rel_err(via_kernel, via_plain)
+    if not (torch.isfinite(via_kernel).all() and e2e <= E2E_REL_TOL
+            and worst <= NEAR_TIE_TOL):
+        raise AssertionError(
+            f"MoE served tokens or logits off the plain path: worst gap "
+            f"{worst}, first differing position {first}, logits rel err "
+            f"{e2e} on pinned routes")
+    return {"plain_path": {"equal": first is None, "first_diff": first,
+                           "worst_gap": worst,
+                           "median_vocab_gap_at_0": typical},
+            "route_flips_plain_vs_kernel": flip_summary(
+                flips, cfg.n_layers * len(prompt)),
+            "logits_rel_err_vs_plain_pinned_routes": e2e}
+
+
+def drive_serve_moe(prompt):
+    """serve_moe and serve_slots_moe: the flagship with MOE_EXPERTS
+    experts (seeded float32 masters, cast once), served by the Batcher
+    over HTTP in bf16, then through the slot engine in bf16, then by the
+    Batcher again with int8 weights (quantized from the same masters).
+    K1 must launch n_layers times a 1024-token prefill; K2 never: the
+    int8 MoE layer dequantizes in full (can_fuse_int8 refuses an MoE
+    tree). Each phase frees its model before the next one is built."""
+    from containerpilot_tpu_torch.models import quantized
+    from containerpilot_tpu_torch.models import transformer as tf
+    from containerpilot_tpu_torch.ops import flash, quant
+    from containerpilot_tpu_torch.parallel.train import tree_leaves
+
+    cfg = tf.TransformerConfig(**FLAGSHIP, moe_experts=MOE_EXPERTS)
+    masters = tf.init_params(0, cfg, device="cuda")
+    n_params = sum(t.numel() for t in tree_leaves(masters))
+    params = quantized.cast_params(masters, cfg.dtype)
+    out = {"phase": "serve_moe",
+           "config": {**FLAGSHIP, "moe_experts": MOE_EXPERTS},
+           "params": n_params}
+    slots = None
+    for label in ("bf16", "int8"):
+        if label == "int8":
+            del params
+            gc.collect()  # a stopped server's reference cycles
+            torch.cuda.empty_cache()
+            params = quantized.cast_params(
+                quantized.quantize_model_params(masters), cfg.dtype)
+            del masters
+            torch.cuda.empty_cache()
+        resident = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        flash.LAUNCHES = quant.LAUNCHES = 0
+        run = asyncio.run(drive_server(cfg, params, prompt,
+                                       f"serve_moe_{label}"))
+        k1, k2 = flash.LAUNCHES, quant.LAUNCHES
+        run.update({
+            "k1_launches": k1, "k2_launches": k2,
+            "k1_launches_per_prefill": k1 / SERVER_PREFILLS,
+            "resident_param_bytes": quantized.param_bytes(params),
+            "device_bytes_at_start": resident,
+            "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+        })
+        if k1 != SERVER_PREFILLS * cfg.n_layers or k2 != 0:
+            raise AssertionError(
+                f"serve_moe_{label}: K1 {k1} launches (want "
+                f"{SERVER_PREFILLS * cfg.n_layers}), K2 {k2} (want 0)")
+        run.update(judge_against_plain(cfg, params, prompt,
+                                       run.pop("greedy_tokens")))
+        run.pop("phase")
+        out[label] = run
+        if label == "bf16":
+            slots = asyncio.run(drive_slots(cfg, params, prompt,
+                                            "serve_slots_moe",
+                                            profiled=True))
+            if slots["k1_launches"] != 2 * cfg.n_layers \
+                    or slots["k2_launches"] != 0:
+                raise AssertionError(
+                    f"serve_slots_moe: K1 {slots['k1_launches']} launches "
+                    f"(two 1024-token admissions), K2 "
+                    f"{slots['k2_launches']}")
+            slots["config"] = out["config"]
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, slots
+
+
+def drive_train_moe(gen):
+    """train_moe: TRAIN_CFG with MOE_EXPERTS experts through
+    drive_training, drop-free and with capacity MOE_CAPACITY: K1/K3/K4
+    counted around the steps, the loss falls, one loss value+grad at
+    batch 2 against plain attention. MFU bills top-1 expert work only
+    (workload/flops.py), so the drop-free step's dense dispatch
+    ((E - 1) / E of its expert work) is not in the figure."""
+    out = {"phase": "train_moe"}
+    for label, over in (
+        ("drop_free", {"moe_experts": MOE_EXPERTS}),
+        ("capacity", {"moe_experts": MOE_EXPERTS,
+                      "moe_train_capacity": MOE_CAPACITY}),
+    ):
+        run = drive_training(gen, f"train_moe_{label}", over, extra=False)
+        run.pop("phase")
+        out[label] = run
+    return out
+
+
+def time_expert_half(gen):
+    """One layer's feed-forward half (transformer._ffn: norm, route,
+    experts, gate, residual) at the flagship's widths, E in
+    MOE_HALF_EXPERTS, seeded weights: at a 1024-token prefill against
+    its operations bound, the dense dispatch's work (every expert over
+    every token) and the top-1 work side by side; at an 8-row decode
+    against its bytes bound (every expert's weights read once); the
+    int8 layer at the decode shape, dequantized per call as the serving
+    path does it, against its bytes bound (int8 weights and scales);
+    and the dense SwiGLU half at the same widths beside each."""
+    from containerpilot_tpu_torch.models import quantized
+    from containerpilot_tpu_torch.models import transformer as tf
+    from containerpilot_tpu_torch.ops.quant import quantize_int8_axes
+
+    d, f = FLAGSHIP["d_model"], FLAGSHIP["d_ff"]
+    dt = torch.bfloat16
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=gen, device="cuda") * scale
+
+    dense_cfg = tf.TransformerConfig(**FLAGSHIP)
+    dense_lp = {"norm_mlp": torch.ones(d, device="cuda", dtype=dt),
+                "w_gate": randn(d, f, scale=d ** -0.5).to(dt),
+                "w_up": randn(d, f, scale=d ** -0.5).to(dt),
+                "w_down": randn(f, d, scale=f ** -0.5).to(dt)}
+    shapes = {"prefill": (1, PROMPT_LEN), "decode": (8, 1)}
+    rows = []
+    with torch.inference_mode():
+        for n_experts in MOE_HALF_EXPERTS:
+            cfg = tf.TransformerConfig(**FLAGSHIP, moe_experts=n_experts)
+            w_in = randn(n_experts, d, f, scale=d ** -0.5)
+            w_out = randn(n_experts, f, d, scale=f ** -0.5)
+            lp = {"norm_mlp": dense_lp["norm_mlp"],
+                  "router": randn(d, n_experts, scale=d ** -0.5),
+                  "moe_w_in": w_in.to(dt), "moe_w_out": w_out.to(dt)}
+            qlp = {"norm_mlp": lp["norm_mlp"], "router": lp["router"]}
+            for key, w in (("moe_w_in", w_in), ("moe_w_out", w_out)):
+                qlp[key + "_q"], qlp[key + "_s"] = quantize_int8_axes(w, (1,))
+            del w_in, w_out
+            weight_bytes = 2 * n_experts * d * f * 2 + d * n_experts * 4
+            row = {"experts": n_experts}
+            for label, (b, s) in shapes.items():
+                tokens = b * s
+                xs = [(randn(b, s, d).to(dt),)
+                      for _ in range(copies_for(tokens * d * 2))]
+                ms = cuda_ms(lambda x: tf._ffn(x, lp, cfg)[0], xs)
+                dense_flops = 2 * 2 * tokens * d * f * n_experts
+                nbytes = weight_bytes + 2 * tokens * d * 2
+                entry = {
+                    "shape": f"b={b} s={s} d={d} f={f} E={n_experts}",
+                    "ms": ms,
+                    "dense_dispatch_flops": dense_flops,
+                    "top1_flops": dense_flops // n_experts,
+                    "bound_ms_dense_dispatch_operations":
+                        dense_flops / BF16_FLOP_PER_S * 1e3,
+                    "bound_ms_top1_operations":
+                        dense_flops / n_experts / BF16_FLOP_PER_S * 1e3,
+                    "bound_ms_bytes": nbytes / HBM_BYTES_PER_S * 1e3,
+                    "dense_dispatch_tflops": dense_flops / ms / 1e9,
+                    "dense_swiglu_ms": cuda_ms(
+                        lambda x: tf._mlp(x, dense_lp, dense_cfg), xs),
+                }
+                if label == "decode":
+                    entry["int8_ms"] = cuda_ms(
+                        lambda x: tf._ffn(x, quantized.maybe_dequant_layer(
+                            qlp, dt), cfg)[0], xs)
+                    int8_bytes = (2 * n_experts * d * f  # int8 weights
+                                  + n_experts * (f + d) * 4  # scales
+                                  + d * n_experts * 4 + 2 * tokens * d * 2)
+                    entry["int8_bound_ms_bytes"] = (
+                        int8_bytes / HBM_BYTES_PER_S * 1e3)
+                row[label] = entry
+            rows.append(row)
+            del lp, qlp
+            torch.cuda.empty_cache()
+    return {"phase": "moe_expert_half", "results": rows}
+
+
+def drive_moe(gen, prompt, card):
+    """Phases 20-23 in order, each emitted as it ends; returns them for
+    the kernel summary."""
+    half = time_expert_half(gen)
+    emit({**half, **card})
+    serve_moe, slots_moe = drive_serve_moe(prompt)
+    emit({**serve_moe, **card})
+    emit({**slots_moe, **card})
+    train_moe = drive_train_moe(gen)
+    emit({**train_moe, **card})
+    return serve_moe, slots_moe, train_moe
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a "
@@ -3304,6 +3676,9 @@ def main() -> int:
         handoff = drive_fleet_handoff(tmp, card)
         emit(handoff)
 
+    # ---- a switch-routed mixture of experts -----------------------------
+    serve_moe, slots_moe, train_moe = drive_moe(gen, prompt, card)
+
     # ---- summary --------------------------------------------------------
     main_flash = flash_rows[0]
     train_flash = flash_rows[FWD_CASES.index(TRAIN_FWD_CASE)]
@@ -3359,6 +3734,12 @@ def main() -> int:
             "fleet_handoff_launches": {
                 f"serve_fleet_handoff_{name}": handoff["launches"][name]["k1"]
                 for name in ("A", "B", "C")},
+            "moe_launches": {
+                "serve_moe_bf16": serve_moe["bf16"]["k1_launches"],
+                "serve_moe_int8": serve_moe["int8"]["k1_launches"],
+                "serve_slots_moe": slots_moe["k1_launches"],
+                **{f"train_moe_{label}": train_moe[label]["k1_launches"]
+                   for label in ("drop_free", "capacity")}},
         },
         *(
             {
@@ -3391,6 +3772,9 @@ def main() -> int:
                                  train_window[f"{key}_launches"]},
                 },
                 "train_lora_launches": train_lora[f"{key}_launches"],
+                "moe_launches": {
+                    f"train_moe_{label}": train_moe[label][f"{key}_launches"]
+                    for label in ("drop_free", "capacity")},
             }
             for name, key, replaces, grads in (
                 ("flash_bwd_dq", "dq",
@@ -3441,6 +3825,10 @@ def main() -> int:
                 f"serve_fleet_handoff_{name}": handoff["launches"][name]["k2"]
                 for name in ("A", "B", "C")},
             "cli_shapes": fleet_face["k2_cli_shapes"],
+            "moe_launches": {
+                "serve_moe_int8": serve_moe["int8"]["k2_launches"],
+                "serve_moe_bf16": serve_moe["bf16"]["k2_launches"],
+                "serve_slots_moe": slots_moe["k2_launches"]},
         },
     ]
     emit({"kernels": kernels})

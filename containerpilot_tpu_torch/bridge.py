@@ -46,8 +46,11 @@ def params_from_jax(
 ) -> Dict[str, Any]:
     """The port's params dict from a JAX params pytree already turned
     into numpy. ``dtype`` (optional) casts the floating weights once to
-    the compute dtype; the float32 quantization scales (``*_s``) and
-    int8 leaves keep their type."""
+    the compute dtype as ``quantized.cast_params`` does: the float32
+    quantization scales (``*_s``), the MoE router and int8 leaves keep
+    their type."""
+    from .models.quantized import keeps_float32
+
     dev = resolve_device(device)
     cast = torch_dtype(dtype) if dtype is not None else None
 
@@ -55,7 +58,7 @@ def params_from_jax(
         if isinstance(leaf, dict):
             return {k: convert(k, v) for k, v in leaf.items()}
         t = _to_torch(np.asarray(leaf))
-        if cast is not None and t.is_floating_point() and not name.endswith("_s"):
+        if cast is not None and t.is_floating_point() and not keeps_float32(name):
             t = t.to(cast)
         return t.to(dev)
 

@@ -50,7 +50,6 @@ from .transformer import (
     _ffn,
     _qkv,
     _rms_norm,
-    check_supported,
     flash_eligible,
     layer_params,
     repeat_kv,
@@ -72,7 +71,6 @@ def init_cache(
     float32 scale per (token, head) over head_dim (``k_scale`` /
     ``v_scale`` [layers, batch, length, kv_heads]); otherwise they are
     in the compute dtype."""
-    check_supported(cfg)
     dev = resolve_device(device)
     shape = (cfg.n_layers, batch, ring_length(cfg, max_len), cfg.kv_heads,
              cfg.head_dim)
@@ -144,8 +142,14 @@ def prefill(
     the plain masked softmax. Under ``kv_int8`` attention reads the
     quantization roundtrip of k/v, exactly what later decode steps read
     from the cache. A prompt longer than a window's ring keeps its last
-    ``length`` positions, each at slot ``p % length``."""
-    check_supported(cfg)
+    ``length`` positions, each at slot ``p % length``. An MoE config
+    with capacity routing is refused: decoding is drop-free."""
+    if cfg.moe_experts > 0 and cfg.moe_train_capacity > 0:
+        raise ValueError(
+            "incremental decoding requires a serving config with "
+            "moe_train_capacity=0 (capacity routing is sequence-length "
+            "dependent and cannot match decode)"
+        )
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt_len {s} exceeds max_len {max_len}")
@@ -203,7 +207,6 @@ def decode_chunk(
     written), with the chunk's own k/v concatenated after it, so no
     query reads a slot the chunk is about to overwrite; a chunk longer
     than the ring is refused."""
-    check_supported(cfg)
     pos = cache["pos"]
     b, m = tokens.shape
     length = cache["k"].shape[2]

@@ -12,8 +12,11 @@ paths, as in the reference:
   on the card is the hand-written kernel K2 streaming int8 weights.
 
 Quantization runs on the float32 masters, before any cast to the
-compute dtype; the scales stay float32 (``cast_params`` leaves every
-``*_s`` leaf alone).
+compute dtype; the scales and the MoE router stay float32
+(``cast_params`` leaves every ``*_s`` leaf and ``router`` alone). An MoE
+layer's experts quantize per expert and dequantize one layer at a time:
+``can_fuse_int8`` refuses a tree without ``w_gate_q``, as the reference
+does, so K2 never runs on an MoE model.
 """
 from __future__ import annotations
 
@@ -64,13 +67,22 @@ def is_quantized(params: Any) -> bool:
     return "wq_q" in params.get("layers", {}) or "embed_q" in params
 
 
+def keeps_float32(name: str) -> bool:
+    """True for the leaves that stay float32 when the rest is cast to
+    the compute dtype: the quantization scales (``*_s``) and the MoE
+    ``router``, which the reference reads as its float32 master
+    (``router_w.astype(float32)``); a bf16 copy could route a token to
+    another expert."""
+    return name.endswith("_s") or name == "router"
+
+
 def cast_params(params: Any, dtype: torch.dtype) -> Any:
-    """Cast every floating leaf except the quantization scales to the
-    compute dtype, once at load: the same numbers as the reference's
-    per-call ``.astype(dtype)`` of float32 masters, without the per-call
-    cast. int8 leaves and ``*_s`` scales are kept as they are."""
+    """Cast every floating leaf but ``keeps_float32``'s to the compute
+    dtype, once at load: the same numbers as the reference's per-call
+    ``.astype(dtype)`` of float32 masters, without the per-call cast.
+    int8 leaves, ``*_s`` scales and the router are kept as they are."""
     def cast(name: str, leaf: torch.Tensor) -> torch.Tensor:
-        if leaf.is_floating_point() and not name.endswith("_s"):
+        if leaf.is_floating_point() and not keeps_float32(name):
             return leaf.to(dtype)
         return leaf
 
@@ -141,8 +153,8 @@ def can_fuse_int8(
     layers: Dict[str, torch.Tensor], cfg: Any, rows: int
 ) -> bool:
     """True when the decode projections can run through the fused int8
-    GEMM: dense quantized weights, a weight-streaming-bound row count,
-    tile-aligned dims (the reference's rule, unchanged)."""
+    GEMM: dense (non-MoE) quantized weights, a weight-streaming-bound
+    row count, tile-aligned dims (the reference's rule, unchanged)."""
     if "wq_q" not in layers or "w_gate_q" not in layers:
         return False
     if rows > FUSED_MAX_ROWS:

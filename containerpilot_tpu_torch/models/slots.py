@@ -75,7 +75,6 @@ from .transformer import (
     Params,
     TransformerConfig,
     _qkv,
-    check_supported,
     layer_params,
 )
 
@@ -211,7 +210,6 @@ def slot_cache(cfg: TransformerConfig, slots: int, max_len: int,
     one contiguous [length, head_dim] block: the pool attention's
     products read them in place, where a position-major pool would be
     copied to that order every step."""
-    check_supported(cfg)
     dev = resolve_device(device)
     shape = (cfg.n_layers, slots, cfg.kv_heads, ring_length(cfg, max_len),
              cfg.head_dim)

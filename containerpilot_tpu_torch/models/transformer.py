@@ -41,6 +41,7 @@ from .. import resolve_device
 from ..ops import tuning
 from ..ops.attention import causal_attention
 from ..ops.flash import flash_attention, flash_attention_forward
+from .moe import moe_layer, moe_layer_capacity
 from .quantized import embed_lookup, maybe_dequant_layer, maybe_dequant_top
 
 
@@ -99,15 +100,6 @@ Params = Dict[str, Any]
 FLASH_BLOCK = 128
 
 
-def check_supported(cfg: TransformerConfig) -> None:
-    """The model features this port does not run yet."""
-    if cfg.moe_experts > 0:
-        raise NotImplementedError(
-            "moe_experts > 0 is not ported yet (ROADMAP.md queue 1: "
-            "mixture-of-experts)"
-        )
-
-
 def flash_eligible(cfg: TransformerConfig, seq: int, kind: str = "train") -> bool:
     """True when attention should take the flash kernel: at/above the
     threshold and block-aligned (a window must be block-aligned too)."""
@@ -127,8 +119,10 @@ def init_params(
     """Float32 master parameters, stacked per layer. ``rng`` is a seed
     or a torch.Generator on ``device``; the numbers differ from the
     reference's ``jax.random`` (parity tests bridge JAX params instead).
-    Cast once to the compute dtype with ``quantized.cast_params``."""
-    check_supported(cfg)
+    Cast once to the compute dtype with ``quantized.cast_params``. An
+    MoE config (``moe_experts > 0``) gets ``router [L, d, E]``,
+    ``moe_w_in [L, E, d, f]`` and ``moe_w_out [L, E, f, d]`` in place of
+    the SwiGLU weights, with the same fan-in scaling."""
     dev = resolve_device(device)
     if isinstance(rng, torch.Generator):
         gen = rng
@@ -157,10 +151,16 @@ def init_params(
         "wo": dense((L, h, hd, d), h * hd),
         "norm_attn": torch.ones((L, d), dtype=torch.float32, device=dev),
         "norm_mlp": torch.ones((L, d), dtype=torch.float32, device=dev),
-        "w_gate": dense((L, d, f), d),
-        "w_up": dense((L, d, f), d),
-        "w_down": dense((L, f, d), f),
     }
+    if cfg.moe_experts > 0:
+        E = cfg.moe_experts
+        layers["router"] = dense((L, d, E), d)
+        layers["moe_w_in"] = dense((L, E, d, f), d)
+        layers["moe_w_out"] = dense((L, E, f, d), f)
+    else:
+        layers["w_gate"] = dense((L, d, f), d)
+        layers["w_up"] = dense((L, d, f), d)
+        layers["w_down"] = dense((L, f, d), f)
     return {
         "embed": normal((cfg.vocab_size, d)) * 0.02,
         "layers": layers,
@@ -305,8 +305,18 @@ def _mlp(
 def _ffn(
     x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: TransformerConfig
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The feed-forward half, dense SwiGLU only -> (x, aux_loss)."""
-    check_supported(cfg)
+    """The feed-forward half -> (x, aux_loss): dense SwiGLU, or the
+    switch-routed experts on the normed input plus the residual (the
+    capacity layer when ``cfg.moe_train_capacity > 0``)."""
+    if cfg.moe_experts > 0:
+        h = _rms_norm(x, lp["norm_mlp"])
+        experts = (lp["router"], lp["moe_w_in"], lp["moe_w_out"])
+        if cfg.moe_train_capacity > 0:
+            out, aux = moe_layer_capacity(h, *experts,
+                                          cfg.moe_train_capacity)
+        else:
+            out, aux = moe_layer(h, *experts)
+        return x + out, aux
     return _mlp(x, lp, cfg), torch.zeros((), device=x.device)
 
 
@@ -378,7 +388,6 @@ def forward_hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig)
     aux_loss): everything up to the unembed, so a loss may stream the
     vocab projection in chunks. While autograd records, each layer runs
     under ``cfg.remat``'s checkpoint."""
-    check_supported(cfg)
     x = embed_lookup(params, tokens, cfg.dtype)
     aux = torch.zeros((), device=x.device)
     remat = _remat_layer(cfg) if torch.is_grad_enabled() else None

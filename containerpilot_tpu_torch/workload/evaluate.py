@@ -14,8 +14,9 @@ with ``--eval-holdout 0 --max-batches N``) and prints one JSON line:
 ``--eval-holdout`` is required and must equal the trainer's value. The
 loss is ``modelcfg.average_eval_loss``, the trainer's in-loop eval, so
 the numbers are comparable by construction. Only the params leave disk
-(the checkpoint is memory-mapped). ``--moe-experts`` is not ported yet
-and exits.
+(the checkpoint is memory-mapped). ``--moe-experts E`` scores a
+switch-MoE checkpoint with drop-free routing, whatever capacity it was
+trained with.
 """
 from __future__ import annotations
 
@@ -41,6 +42,9 @@ def main(argv=None) -> int:
     parser.add_argument("--window", type=int, default=0,
                         help="sliding-window attention (must match the "
                         "checkpoint)")
+    parser.add_argument("--moe-experts", type=int, default=0,
+                        help="switch-MoE experts (must match the "
+                        "checkpoint)")
     parser.add_argument(
         "--eval-holdout", type=int, required=True,
         help="score the dataset's LAST N windows; MUST equal the trainer's "
@@ -55,16 +59,7 @@ def main(argv=None) -> int:
                         "checkpoint dir into the params before scoring")
     parser.add_argument("--lora-rank", type=int, default=0,
                         help="rank of the adapter in --lora-dir")
-    not_ported = parser.add_argument_group(
-        "reference flags not ported yet (any value but the default exits)"
-    )
-    not_ported.add_argument("--moe-experts", type=int, default=0)
     args = parser.parse_args(argv)
-    if args.moe_experts != 0:
-        raise SystemExit(
-            "--moe-experts is not ported yet to the PyTorch/CUDA evaluator "
-            "(see ROADMAP.md)"
-        )
 
     from .. import resolve_device
     from ..models.transformer import TransformerConfig
@@ -80,6 +75,7 @@ def main(argv=None) -> int:
         n_layers=args.n_layers,
         d_ff=derive_d_ff(args.d_model),
         max_seq_len=args.seq_len,
+        moe_experts=args.moe_experts,
         loss_chunk=args.loss_chunk,
         window=args.window,
     )

@@ -3,14 +3,15 @@
 
 ``python -m containerpilot_tpu_torch.workload.serve`` lands here. The
 flags the port runs: --host, --port, --mux/--no-mux, --max-len,
---d-model, --n-layers, --n-heads, --n-kv-heads, --window, --vocab,
---checkpoint-dir, --use-ema, --int8, --kv-int8, --lora-dir, --lora-rank,
---draft-layers, --speculate, --max-batch-rows, --prefill-chunk,
---prefix-cache, --kv-spill-mb, --text, --slots, --slot-chunk,
---slot-window, the fleet's --fleet-catalog, --fleet-service, --fleet-ttl,
---fleet-address, --fleet-id, --migrate-window, --role, --standby,
---weights-from and --adopt-compile-cache, and --device (default cuda;
-the part JAX_PLATFORMS plays for the reference). Every other reference
+--d-model, --n-layers, --n-heads, --n-kv-heads, --moe-experts,
+--window, --vocab, --checkpoint-dir, --use-ema, --int8, --kv-int8,
+--lora-dir, --lora-rank, --draft-layers, --speculate, --max-batch-rows,
+--prefill-chunk, --prefix-cache, --kv-spill-mb, --text, --slots,
+--slot-chunk, --slot-window, the fleet's --fleet-catalog,
+--fleet-service, --fleet-ttl, --fleet-address, --fleet-id,
+--migrate-window, --role, --standby, --weights-from and
+--adopt-compile-cache, and --device (default cuda; the part
+JAX_PLATFORMS plays for the reference). Every other reference
 flag is accepted with its reference default and exits with a "not
 ported yet" message when set to anything else.
 
@@ -37,7 +38,6 @@ from typing import Any, Dict, Tuple
 
 # reference flags this slice does not run yet: dest -> (flag, default)
 _NOT_PORTED: Dict[str, Tuple[str, Any]] = {
-    "moe_experts": ("--moe-experts", 0),
     "tp": ("--tp", 1),
     "cp": ("--cp", 1),
     "cp_min_len": ("--cp-min-len", 0),
@@ -63,6 +63,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--n-kv-heads", type=int, default=0,
                         help="GQA kv heads (0 = full multi-head); must "
                         "match the checkpoint being served")
+    parser.add_argument("--moe-experts", type=int, default=0,
+                        help="switch-MoE experts; must match the "
+                        "checkpoint being served")
     parser.add_argument("--window", type=int, default=0,
                         help="sliding-window attention; must match the "
                         "checkpoint being served. Decode KV memory "
@@ -270,6 +273,7 @@ def load_model(args: argparse.Namespace):
         n_layers=args.n_layers,
         d_ff=derive_d_ff(args.d_model),
         max_seq_len=args.max_len,
+        moe_experts=args.moe_experts,
         window=args.window,
         kv_int8=args.kv_int8,
     )

@@ -26,9 +26,11 @@ jit-compiled here (the CUDA kernels build once into ``build/kernels``).
 
     python -m containerpilot_tpu_torch.workload.train --steps 20
 
-Reference flags for work that is not ported yet (pipeline and tensor
-parallelism with its microbatches, zero1, fsdp, MoE) exit with "not
-ported yet" when set.
+``--moe-experts E`` trains a switch-routed mixture of experts (drop-free
+routing; ``--moe-capacity F`` bounds each expert to ``ceil(F * s / E)``
+tokens of a row during training). Reference flags for work that is not
+ported yet (pipeline and tensor parallelism with its microbatches,
+zero1, fsdp) exit with "not ported yet" when set.
 """
 from __future__ import annotations
 
@@ -51,8 +53,6 @@ _NOT_PORTED = {
     "tensor_parallel": ("--tensor-parallel", 0),
     "zero1": ("--zero1", False),
     "fsdp": ("--fsdp", False),
-    "moe_experts": ("--moe-experts", 0),
-    "moe_capacity": ("--moe-capacity", 0.0),
     "microbatches": ("--microbatches", 4),
 }
 
@@ -77,6 +77,11 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--loss-chunk", type=int, default=0,
                         help="stream the vocab projection + softmax over "
                         "sequence chunks of N (0 = whole-logits loss)")
+    parser.add_argument("--moe-experts", type=int, default=0,
+                        help="switch-MoE experts (0 = dense MLP)")
+    parser.add_argument("--moe-capacity", type=float, default=0.0,
+                        help="capacity factor for bounded expert compute "
+                        "during training (0 = drop-free routing)")
     parser.add_argument("--vocab", type=int, default=1024)
     parser.add_argument("--data-dir", default="",
                         help="token shards (shard_*.npy; workload/data.py)"
@@ -196,6 +201,8 @@ def main(argv=None) -> int:
         n_layers=args.n_layers,
         d_ff=derive_d_ff(args.d_model),
         max_seq_len=args.seq_len,
+        moe_experts=args.moe_experts,
+        moe_train_capacity=args.moe_capacity,
         loss_chunk=args.loss_chunk,
         window=args.window,
     )

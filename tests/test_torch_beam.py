@@ -72,6 +72,8 @@ CASES = {
     "int8": dict(beam_width=4, int8=True),
     "kv_int8": dict(beam_width=3, kv_int8=True),
     "prefill_chunk": dict(beam_width=4, prefill_chunk=8),
+    "moe": dict(beam_width=4, moe_experts=2),
+    "moe_int8": dict(beam_width=3, moe_experts=4, int8=True),
 }
 
 
@@ -82,7 +84,8 @@ def test_beam_tokens_and_score_equal_jax(case):
     kw = dict(CASES[case])
     int8 = kw.pop("int8", False)
     kv_int8 = kw.pop("kv_int8", False)
-    jcfg, cfg, jp = _pair(kv_int8=kv_int8)
+    moe = kw.pop("moe_experts", 0)
+    jcfg, cfg, jp = _pair(kv_int8=kv_int8, moe_experts=moe)
     if int8:
         jp = jquant.quantize_model_params(jp)
     tp = _bridged(jp)

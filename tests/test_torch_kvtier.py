@@ -361,7 +361,12 @@ def test_plan_migration_equals_the_references():
 
 
 def _param_sets(kind):
-    jcfg = jtf.TransformerConfig(**{**BASE, "dtype": jnp.float32})
+    """``kind`` is float32, bf16 or int8, with a "moe_" prefix for a
+    two-expert MoE tree."""
+    experts = 2 if kind.startswith("moe_") else 0
+    kind = kind.removeprefix("moe_")
+    jcfg = jtf.TransformerConfig(**{**BASE, "dtype": jnp.float32,
+                                    "moe_experts": experts})
     jp = jtf.init_params(jax.random.PRNGKey(0), jcfg)
     if kind == "bf16":
         jp = jax.tree_util.tree_map(lambda x: x.astype(jnp.bfloat16), jp)
@@ -371,9 +376,15 @@ def _param_sets(kind):
     return jp, np_tree, bridge.params_from_jax(np_tree, "cpu")
 
 
-@pytest.mark.parametrize("kind", ["float32", "bf16", "int8"])
+@pytest.mark.parametrize("kind", ["float32", "bf16", "int8", "moe_float32",
+                                  "moe_bf16", "moe_int8"])
 def test_weights_manifest_equals_the_references_byte_for_byte(kind):
+    """An MoE tree (router, moe_w_in, moe_w_out; int8 experts with their
+    scales) included: tree_flatten's sorted keys put the MoE leaves in
+    their own order."""
     jp, _np_tree, tp = _param_sets(kind)
+    if kind.startswith("moe_"):
+        assert "router" in tp["layers"] and "w_gate" not in tp["layers"]
     want = ref_standby.encode_manifest(
         ref_standby.weights_manifest(jp, chunk_bytes=4096))
     got = standby.encode_manifest(
@@ -384,8 +395,12 @@ def test_weights_manifest_equals_the_references_byte_for_byte(kind):
                      jax.tree_util.tree_flatten_with_path(jp)[0]]
 
 
-@pytest.mark.parametrize("kind", ["float32", "bf16", "int8"])
+@pytest.mark.parametrize("kind", ["float32", "bf16", "int8", "moe_float32",
+                                  "moe_bf16", "moe_int8"])
 def test_each_rebuild_params_reads_the_others_stream(kind):
+    """An MoE tree (router, moe_w_in, moe_w_out; int8 experts with their
+    scales) included: tree_flatten's sorted keys put the MoE leaves in
+    their own order."""
     jp, np_tree, tp = _param_sets(kind)
     ref_m = ref_standby.weights_manifest(jp, chunk_bytes=4096)
     ref_leaves = [ref_standby.leaf_bytes(x)

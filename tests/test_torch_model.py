@@ -160,17 +160,3 @@ def test_cast_params_keeps_scales_and_int8():
     assert cast["layers"]["wq_s"].dtype == torch.float32
     assert cast["layers"]["norm_attn"].dtype == torch.bfloat16
     assert cast["unembed_s"].dtype == torch.float32
-
-
-# windows and the int8 KV cache run (tests/test_torch_window.py); MoE
-# stays refused, also beside them
-@pytest.mark.parametrize("over", [
-    {"moe_experts": 2}, {"moe_experts": 4, "window": 8},
-    {"moe_experts": 2, "kv_int8": True},
-])
-def test_unported_model_features_raise(over):
-    _, tcfg = configs(SMALL, **over)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ttf.init_params(0, tcfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdecode.init_cache(tcfg, 1, 16, device="cpu")

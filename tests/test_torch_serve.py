@@ -153,7 +153,7 @@ def test_cli_parses_supported_flags():
 
 
 @pytest.mark.parametrize("argv,flag", [
-    (["--moe-experts", "4"], "--moe-experts"),
+    (["--moe-experts", "4", "--tp", "4"], "--tp"),
     (["--draft-layers", "1", "--cp", "2"], "--cp"),
     (["--lora-rank", "4", "--tp", "2"], "--tp"),
     (["--cp-min-len", "64"], "--cp-min-len"),

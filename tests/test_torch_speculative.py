@@ -45,13 +45,16 @@ def _pair(int8=False, **over):
     return jcfg, cfg, jp, tp
 
 
-@pytest.mark.parametrize("variant", ["plain", "int8", "kv_int8"])
+@pytest.mark.parametrize("variant", ["plain", "int8", "kv_int8", "moe",
+                                     "moe_int8"])
 def test_speculative_equals_greedy_and_jax(variant):
     """Weak draft (1 layer) and perfect draft (the target itself): the
     tokens are greedy ``generate``'s and JAX's, the stats JAX's, and the
-    eos exit stops early with the same prefix."""
-    jcfg, cfg, jp, tp = _pair(int8=variant == "int8",
-                              kv_int8=variant == "kv_int8")
+    eos exit stops early with the same prefix. The MoE variants slice
+    the router and experts like every other layer leaf."""
+    jcfg, cfg, jp, tp = _pair(int8=variant.endswith("int8"),
+                              kv_int8=variant == "kv_int8",
+                              moe_experts=2 if "moe" in variant else 0)
     prompt = np.random.default_rng(1).integers(0, 64, (1, 5)).tolist()
     want = tdecode.generate(tp, torch.tensor(prompt), cfg, 20, 40).tolist()
     jdp, jdc = jspec.layer_prefix_draft(jp, jcfg, 1)

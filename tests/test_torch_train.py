@@ -85,6 +85,12 @@ def port_value_and_grad(tparams, toks, tcfg):
     ({"window": 8}, 32),
     ({"window": 128, "flash_min_seq": 128, "max_seq_len": 384,
       "n_layers": 1, "n_heads": 4, "n_kv_heads": 2}, 384),
+    # switch MoE: drop-free (aux in the loss), capacity routing under
+    # remat "dots" (the router product saved, the expert bmms
+    # recomputed), and the experts beside flash attention
+    ({"moe_experts": 2}, 16),
+    ({"moe_experts": 4, "moe_train_capacity": 1.0, "remat": "dots"}, 16),
+    ({"moe_experts": 2, "flash_min_seq": 128, "loss_chunk": 48}, 128),
 ])
 def test_loss_fn_value_and_grads_match_jax(over, seq):
     jcfg, tcfg = configs(**over)
@@ -195,6 +201,7 @@ def test_with_ema_matches_optax():
     (1, {}),
     (2, {}),
     (1, {"flash_min_seq": 128, "max_seq_len": 128}),
+    (1, {"moe_experts": 2, "moe_train_capacity": 1.5}),
 ])
 def test_train_step_matches_jax_step(accum, over):
     """Two make_train_step steps against the JAX step on a 1-device

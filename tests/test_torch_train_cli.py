@@ -92,23 +92,14 @@ def test_sigterm_saves_exits_zero_and_resume_equals_uninterrupted(
 @pytest.mark.parametrize("flag", [
     ["--lora-rank", "4", "--zero1"], ["--base-checkpoint-dir", "/x", "--fsdp"],
     ["--pipeline-stages", "2"], ["--tensor-parallel", "2"], ["--zero1"],
-    ["--fsdp"], ["--moe-experts", "2"], ["--moe-capacity", "1.5"],
-    ["--moe-experts", "4", "--window", "64"], ["--microbatches", "2"],
+    ["--fsdp"], ["--moe-experts", "2", "--zero1"],
+    ["--moe-experts", "2", "--moe-capacity", "1.5", "--pipeline-stages", "4"],
+    ["--moe-experts", "4", "--window", "64", "--microbatches", "8"],
+    ["--microbatches", "2"],
 ])
 def test_unported_train_flags_exit(flag):
     with pytest.raises(SystemExit, match="not ported yet"):
         ttrain_cli.main(TINY + flag)
-
-
-@pytest.mark.parametrize("flag", [
-    ["--moe-experts", "2", "--window", "64"], ["--moe-experts", "2"],
-    ["--lora-dir", "/x", "--moe-experts", "2"],
-    ["--lora-rank", "2", "--moe-experts", "3"],
-])
-def test_unported_evaluate_flags_exit(flag):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        teval.main(["--checkpoint-dir", "/x", "--data-dir", "/y",
-                    "--eval-holdout", "1", *flag])
 
 
 def test_default_device_raises_without_a_card(monkeypatch):
@@ -190,3 +181,114 @@ def test_window_trains_and_the_evaluator_scores_it(tmp_path, capsys):
         scores[window] = report["eval_loss"]
     assert scores["8"] == pytest.approx(eval_loss, abs=1e-4)
     assert abs(scores["0"] - scores["8"]) > 1e-4
+
+
+@pytest.mark.parametrize("variant", ["moe", "moe_window", "moe_lora"])
+def test_moe_trains_and_the_evaluator_scores_it(tmp_path, capsys, run,
+                                                variant):
+    """Trainer -> checkpoint -> evaluator (-> server) for a switch-MoE
+    model: ``--moe-experts 2 --moe-capacity 1.5`` trains (with
+    ``--window 8``, or as the frozen base of rank-4 adapters), the
+    trainer's in-loop eval is the capacity model's loss, and
+    ``evaluate --moe-experts 2`` scores the checkpoint drop-free: its
+    loss equals ``average_eval_loss`` of the restored (merged) params
+    under the drop-free config. The plain case also serves the
+    capacity-trained checkpoint with ``--moe-experts`` alone: greedy
+    tokens equal an in-process generate on the restored params."""
+    import asyncio
+    import dataclasses
+
+    from containerpilot_tpu_torch.models import decode as tdecode
+    from containerpilot_tpu_torch.models import quantized as tquant
+    from containerpilot_tpu_torch.models.transformer import TransformerConfig
+    from containerpilot_tpu_torch.workload import serve_cli
+    from containerpilot_tpu_torch.workload.data import TokenShardDataset
+    from containerpilot_tpu_torch.workload.modelcfg import (
+        average_eval_loss,
+        derive_d_ff,
+        restore_merged_params,
+    )
+    from containerpilot_tpu_torch.workload.serve import InferenceServer
+
+    data = str(tmp_path / "shards")
+    write_token_shards(np.random.default_rng(2).integers(0, 128, 4000), data,
+                       shard_size=1000)
+    window = ["--window", "8"] if variant == "moe_window" else []
+    moe = ["--moe-experts", "2"]
+    ckpt, adapter = str(tmp_path / "ckpt"), str(tmp_path / "adapter")
+    assert ttrain_cli.main(TINY + moe + window + [
+        "--moe-capacity", "1.5", "--steps", "4", "--data-dir", data,
+        "--eval-holdout", "6", "--eval-every", "4", "--learning-rate",
+        "1e-2", "--checkpoint-dir", ckpt, "--checkpoint-every", "4",
+    ]) == 0
+    out = capsys.readouterr().out
+    in_loop = float(re.search(r"step 4: eval_loss=([\d.]+)", out).group(1))
+    lora = []
+    if variant == "moe_lora":
+        assert ttrain_cli.main(TINY + moe + [
+            "--steps", "4", "--lora-rank", "4", "--learning-rate", "1e-2",
+            "--base-checkpoint-dir", ckpt, "--checkpoint-dir", adapter,
+            "--checkpoint-every", "4"]) == 0
+        assert "lora: frozen base from checkpoint step 4" in \
+            capsys.readouterr().out
+        lora = ["--lora-dir", adapter, "--lora-rank", "4"]
+    assert teval.main([
+        "--device", "cpu", "--checkpoint-dir", ckpt, "--data-dir", data,
+        "--eval-holdout", "6", "--batch", "2", "--seq-len", "32",
+        "--d-model", "64", "--n-layers", "1", "--n-heads", "2",
+        "--vocab", "128", *moe, *window, *lora,
+    ]) == 0
+    report = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert report["checkpoint_step"] == 4 and report["lora"] == bool(lora)
+
+    cfg = TransformerConfig(vocab_size=128, d_model=64, n_heads=2,
+                            n_layers=1, d_ff=derive_d_ff(64),
+                            max_seq_len=32, moe_experts=2,
+                            window=8 if window else 0)
+    params, _step = restore_merged_params(
+        cfg, ckpt, lora_dir=adapter if lora else "",
+        lora_rank=4 if lora else 0, device="cpu")
+    assert "moe_w_in" in params["layers"]
+    dataset = TokenShardDataset(data, 32, 2, vocab_size=128,
+                                holdout_windows=6)
+    n, batch_at = dataset.n_eval_batches, dataset.eval_batch
+    assert report["eval_loss"] == round(
+        average_eval_loss(params, cfg, n, batch_at), 6)
+    if not lora:
+        capacity = dataclasses.replace(cfg, moe_train_capacity=1.5)
+        assert in_loop == pytest.approx(
+            average_eval_loss(params, capacity, n, batch_at), abs=1e-4)
+    if variant != "moe":
+        return
+
+    args = serve_cli.build_arg_parser().parse_args(
+        ["--device", "cpu", "--max-len", "64", "--d-model", "64",
+         "--n-layers", "1", "--n-heads", "2", "--vocab", "128",
+         "--checkpoint-dir", ckpt, *moe])
+    serve_cfg, served, checkpoint = serve_cli.load_model(args)
+    assert checkpoint == {"step": 4, "ema": False}
+    assert serve_cfg.moe_experts == 2 and serve_cfg.moe_train_capacity == 0
+    prompt = [[5, 3, 9, 1, 4, 4, 2]]
+    want = tdecode.generate(tquant.cast_params(params, serve_cfg.dtype),
+                            torch.tensor(prompt), serve_cfg, 8, 64).tolist()
+
+    async def scenario():
+        server = InferenceServer(serve_cfg, served, "127.0.0.1", 0, 64,
+                                 device="cpu", checkpoint=checkpoint)
+        await server.run()
+        try:
+            reader, writer = await asyncio.open_connection("127.0.0.1",
+                                                           server.port)
+            body = json.dumps({"tokens": prompt,
+                               "max_new_tokens": 8}).encode()
+            writer.write(b"POST /v1/generate HTTP/1.1\r\nHost: x\r\n"
+                         b"Connection: close\r\nContent-Length: "
+                         + str(len(body)).encode() + b"\r\n\r\n" + body)
+            await writer.drain()
+            raw = await reader.read()
+            writer.close()
+            return json.loads(raw.partition(b"\r\n\r\n")[2])
+        finally:
+            await server.stop()
+
+    assert run(scenario(), timeout=120) == {"tokens": want}

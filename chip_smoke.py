@@ -193,7 +193,27 @@ training phases, then beams, speculative decoding and LoRA):
    plain attention on the kernel run's routes (a free plain run's
    route flips and its distance reported beside); step ms, tokens/s,
    MFU (top-1 expert work billed, as workload/flops.py does), peak
-   memory.
+   memory;
+24. train_parallel: K1, K3 and K4 at a rank's shard of the training
+   shape (b=4, h=4: dp 2 x tp 2) against their plain versions, twice for
+   bit equality, with SDPA beside them; then the training configuration
+   (full width and depth, batch 8 x 2048) across ranks, each layout a
+   world of child processes
+   (``python3 chip_smoke.py --rank-job SPEC RANK``) on this one card,
+   joined with initialize_from_env over gloo (collectives staged through
+   host buffers): dp2 --zero1, dp2 --fsdp, tp2, dp2 x tp2, pp2 x tp2
+   with 4 microbatches, and 8 experts with ep2 on model, drop-free and
+   at capacity 1.25. Each starts from the seed-0 masters and one batch
+   also run by one rank in this process: the loss within
+   TRAIN_LOSS_REL_TOL and every gathered gradient leaf within
+   TRAIN_GRAD_REL_TOL (MoE on this process's routes, every flip a near
+   tie); K1/K3/K4 counted a rank a step (2 / 1 / 1 per local layer and
+   microbatch); ZeRO-1's moments and FSDP's params and moments at 1/dp
+   of one rank's bytes; step ms, bytes staged through the host and peak
+   memory per rank (ranks share the card: no step time is a speed
+   figure). Then the train CLI as 4 ranks through initialize_from_catalog
+   on a file catalog with --pipeline-stages 2 --tensor-parallel 2: the
+   mesh line {'data': 1, 'pipe': 2, 'model': 2} and a falling loss.
 
 Then the kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -287,6 +307,10 @@ BWD_CASES = [
     (8, 2048, 8, 128, 1024),  # the windowed training path
 ]
 WINDOW_BWD_CASE = BWD_CASES[6]
+# K1 (b, s, h, kv, hd, window) and K3/K4 (b, s, h, hd, window) at a
+# dp 2 x tp 2 rank's shard of the training path, held in train_parallel
+SHARD_FWD_CASE = (4, 2048, 4, 4, 128, 0)
+SHARD_BWD_CASE = (4, 2048, 4, 128, 0)
 
 # the sliding-window phases: Mistral 7B's and Gemma 2's local layers use
 # a 4096-token window; the repo's long-context measurement uses window
@@ -1522,8 +1546,8 @@ def routes_of(table, pin=False, flips=None):
 
     route = moe._route
 
-    def routed(x, router_w):
-        probs, gate, onehot, aux = route(x, router_w)
+    def routed(x, router_w, mesh=None):
+        probs, gate, onehot, aux = route(x, router_w, mesh)
         key = router_w.data_ptr()
         with torch.no_grad():
             logits = x.float() @ router_w.float()
@@ -1548,8 +1572,15 @@ def routes_of(table, pin=False, flips=None):
         onehot = (idx[..., None] == torch.arange(
             n_experts, device=x.device)).float()
         gate = probs.gather(-1, idx[..., None])[..., 0]
-        aux = n_experts * (onehot.mean(dim=(0, 1))
-                           * probs.mean(dim=(0, 1))).sum()
+        fraction, router_mean = onehot.mean(dim=(0, 1)), probs.mean(dim=(0, 1))
+        if mesh is not None and mesh.batch_stats:
+            from containerpilot_tpu_torch.parallel.collectives import (
+                mean_from,
+            )
+
+            fraction = mean_from(fraction, mesh)
+            router_mean = mean_from(router_mean, mesh)
+        aux = n_experts * (fraction * router_mean).sum()
         return probs, gate, onehot, aux
 
     moe._route = routed
@@ -3456,12 +3487,438 @@ def drive_moe(gen, prompt, card):
     return serve_moe, slots_moe, train_moe
 
 
+# ---------------------------------------------------------------------------
+# phase 24: training across ranks (train_parallel)
+# ---------------------------------------------------------------------------
+
+# (name, ranks, mesh plan, options, config overrides of TRAIN_CFG): every
+# layout at the training configuration's full width and depth; the
+# layouts of one world size run in one launch of its ranks, in order
+PARALLEL_LAYOUTS = [
+    ("dp2_zero1", 2, {"data": 2, "model": 1}, {"zero1": True}, {}),
+    ("dp2_fsdp", 2, {"data": 2, "model": 1}, {"fsdp": True}, {}),
+    ("tp2", 2, {"data": 1, "model": 2}, {}, {}),
+    ("ep2_moe_drop_free", 2, {"data": 1, "model": 2}, {},
+     {"moe_experts": MOE_EXPERTS}),
+    ("ep2_moe_capacity", 2, {"data": 1, "model": 2}, {},
+     {"moe_experts": MOE_EXPERTS, "moe_train_capacity": MOE_CAPACITY}),
+    ("dp2_tp2", 4, {"data": 2, "model": 2}, {}, {}),
+    ("pp2_tp2", 4, {"data": 1, "model": 2, "pipe": 2},
+     {"microbatches": 4}, {}),
+]
+RANK_TIMEOUT = 420  # seconds a layout's ranks may take, start to exit
+RANK_SCRIPT = os.path.abspath(__file__)  # what a rank runs (--rank-job)
+# the train CLI across 4 ranks (file catalog rendezvous, pp2 x tp2)
+PARALLEL_CLI = ["--vocab", "32768", "--d-model", "1024", "--n-heads", "8",
+                "--n-layers", "4", "--seq-len", "1024", "--batch", "8",
+                "--steps", "10", "--learning-rate", "1e-3",
+                "--pipeline-stages", "2", "--tensor-parallel", "2"]
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _launch_ranks(argvs, envs, log_dir, timeout):
+    """Start one child per argv, wait for all (each killed in finally if
+    still alive), require exit 0; returns their outputs."""
+    procs, logs = [], []
+    try:
+        for i, (argv, env) in enumerate(zip(argvs, envs)):
+            log = open(os.path.join(log_dir, f"rank{i}.log"), "w+")
+            logs.append(log)
+            procs.append(subprocess.Popen(
+                argv, cwd=os.path.dirname(os.path.abspath(__file__)),
+                env=env, stdout=log, stderr=subprocess.STDOUT, text=True))
+        # a failed rank leaves its peers blocked in a collective: stop
+        # waiting at the first failure (the finally kills the rest)
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            if time.monotonic() > deadline:
+                raise AssertionError(
+                    f"ranks still running after {timeout} s: "
+                    f"{[p.poll() for p in procs]}")
+            time.sleep(0.2)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for log in logs:
+        log.seek(0)
+        outs.append(log.read())
+        log.close()
+    # report a rank that failed by itself before one killed above
+    for i in sorted(range(len(procs)), key=lambda i: procs[i].returncode < 0):
+        if procs[i].returncode != 0:
+            raise AssertionError(
+                f"rank {i} exited {procs[i].returncode}:\n"
+                f"{outs[i][-3000:]}")
+    return outs
+
+
+def _routes_by_layer(table, router):
+    """routes_of's table keyed by layer index instead of the router
+    view's address (the addresses differ between processes)."""
+    base, step = router.data_ptr(), router.stride(0) * router.element_size()
+    return {(key - base) // step: [t.cpu() for t in calls]
+            for key, calls in table.items()}
+
+
+def parallel_reference(gen, tmp, device="cuda"):
+    """The one-rank side of train_parallel in this process: seeded masters
+    (seed 0) and one seeded batch, then for the dense configuration and
+    each MoE layout's one loss value+grad through make_train_step's path
+    (the kernels). Writes the batch, the gradients (bf16) and, for MoE,
+    the routes of every router call; returns each config's loss, moment
+    and param bytes."""
+    from containerpilot_tpu_torch.models import transformer as tf
+    from containerpilot_tpu_torch.parallel import train as tr
+
+    tokens = torch.randint(0, TRAIN_CFG["vocab_size"],
+                           (TRAIN_BATCH, TRAIN_SEQ + 1), generator=gen,
+                           device=device)
+    torch.save(tokens.cpu(), os.path.join(tmp, "tokens.pt"))
+    refs = {}
+    for over in ({}, *(o for *_r, o in PARALLEL_LAYOUTS if o)):
+        key = json.dumps(over, sort_keys=True)
+        if key in refs:
+            continue
+        cfg = tf.TransformerConfig(**{**TRAIN_CFG, **over})
+        state = tr.init_train_state(0, cfg, device)
+        leaves = tr.tree_leaves(state.params)
+        table = {}
+        with routes_of(table):
+            loss = tf.loss_fn(state.params, tokens, cfg)
+            grads = torch.autograd.grad(loss, leaves)
+        name = f"ref{len(refs)}"
+        torch.save([g.to(torch.bfloat16).cpu() for g in grads],
+                   os.path.join(tmp, f"{name}_grads.pt"))
+        if cfg.moe_experts:
+            torch.save(_routes_by_layer(table,
+                                        state.params["layers"]["router"]),
+                       os.path.join(tmp, f"{name}_routes.pt"))
+        refs[key] = {"name": name, "loss": float(loss.detach()),
+                     "param_bytes": sum(p.numel() * 4 for p in leaves),
+                     "moment_bytes": 2 * sum(p.numel() * 4 for p in leaves)}
+        del state, leaves, grads, loss
+        gc.collect()
+        torch.cuda.empty_cache()
+    return refs
+
+
+def rank_job(spec_path: str, rank: int) -> int:
+    """One rank of a train_parallel world (``python3 chip_smoke.py
+    --rank-job SPEC RANK``): joins the world from COORDINATOR_ADDRESS,
+    then runs the spec's layouts in order (parallel_layout); writes
+    <layout>/rank<r>.json for each."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import torch.distributed as dist
+
+    from containerpilot_tpu_torch.parallel import initialize_from_env
+    from containerpilot_tpu_torch.parallel.mesh import rank_device
+
+    with open(spec_path) as fh:
+        spec = json.load(fh)
+    initialize_from_env(device=spec["device"])
+    device = rank_device(rank, spec["device"])
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+    for layout in spec["layouts"]:
+        out = parallel_layout(layout, spec, rank, device)
+        with open(os.path.join(layout["out"], f"rank{rank}.json"), "w") as fh:
+            json.dump(out, fh)
+        gc.collect()
+        if device.type == "cuda":
+            torch.cuda.empty_cache()
+    dist.destroy_process_group()
+    return 0
+
+
+def parallel_layout(layout, spec, rank, device):
+    """One layout on this rank: its blocks of the seed-0 masters, one loss
+    value+grad (MoE on the reference's routes) whose gathered gradients
+    rank 0 holds against the one-rank run's, then one make_train_step
+    (or make_pipeline_train_step) step with the K1/K3/K4 counts zeroed
+    before it and read after, timed (the value+grad has warmed every
+    path it takes)."""
+    from containerpilot_tpu_torch.models import transformer as tf
+    from containerpilot_tpu_torch.ops import flash
+    from containerpilot_tpu_torch.parallel import (
+        MeshPlan,
+        fsdp_sharding_rules,
+        gather_params,
+        make_mesh,
+        make_pipeline_train_step,
+        make_train_step,
+        param_sharding_rules,
+        pipeline_sharding_rules,
+        shard_params,
+    )
+    from containerpilot_tpu_torch.parallel import pipeline as pp
+    from containerpilot_tpu_torch.parallel import train as tr
+
+    on_card = device.type == "cuda"
+    mesh = make_mesh(MeshPlan(**layout["plan"]), device=device)
+    cfg = tf.TransformerConfig(**{**TRAIN_CFG, **layout["over"]})
+    opts = layout["opts"]
+    pipeline = "microbatches" in opts
+    if pipeline:
+        rules = pipeline_sharding_rules(cfg, mesh)
+    elif opts.get("fsdp"):
+        rules = fsdp_sharding_rules(cfg, mesh)
+    else:
+        rules = param_sharding_rules(cfg, mesh)
+    params = shard_params(tf.init_params(0, cfg, device), mesh, rules=rules)
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(device)
+    state = tr.init_train_state(params, cfg, device, mesh=mesh,
+                                zero1=opts.get("zero1", False), rules=rules)
+    del params
+    tokens = torch.load(spec["tokens"]).to(device)
+    if pipeline:
+        step = make_pipeline_train_step(cfg, mesh,
+                                        n_microbatches=opts["microbatches"])
+    else:
+        step = make_train_step(cfg, mesh=mesh, zero1=opts.get("zero1", False),
+                               fsdp=opts.get("fsdp", False))
+    out = {"rank": rank, "coords": mesh.coords, "backend": mesh.backend,
+           "host_staging": mesh.staging,
+           "param_bytes": sum(p.numel() * p.element_size()
+                              for p in tr.tree_leaves(state.params)),
+           "moment_bytes": sum(
+               t.numel() * t.element_size()
+               for k in ("mu", "nu")
+               for t in tr.tree_leaves(state.opt_state[k]))}
+
+    # the comparison: one loss value+grad, MoE on the one-rank run's routes
+    routes, flips = {}, []
+    if cfg.moe_experts:
+        recorded = torch.load(layout["routes"])
+        router = state.params["layers"]["router"]
+        base = router.data_ptr()
+        stride = router.stride(0) * router.element_size()
+        routes = {base + index * stride: [t.to(device) for t in calls]
+                  for index, calls in recorded.items()}
+    with routes_of(routes, pin=bool(cfg.moe_experts), flips=flips):
+        if pipeline:
+            loss, grads = pp.pipeline_value_and_grad(
+                state.params, tokens, cfg, mesh, opts["microbatches"],
+                step.layout)
+        else:
+            loss, grads = tr.sharded_value_and_grad(
+                state.params, tokens, cfg, mesh, 1,
+                rules if opts.get("fsdp") else None, step.layout)
+    full = gather_params(tr.tree_unflatten(state.params, grads), mesh,
+                         rules=rules)
+    del grads
+    if rank == 0:
+        want = torch.load(layout["ref_grads"])
+        errs = [rel_norm_err(g, w.to(device))
+                for g, w in zip(tr.tree_leaves(full), want)]
+        out["loss"] = float(loss)
+        out["worst_grad_rel"] = max(errs)
+        del want
+    if cfg.moe_experts:
+        out["route_flips"] = flip_summary(
+            flips, 2 * TRAIN_BATCH * TRAIN_SEQ * cfg.n_layers)
+    del full
+    if on_card:
+        torch.cuda.empty_cache()
+
+    # the step, counted and timed
+    staged = mesh.traffic["host_bytes"]
+    flash.LAUNCHES = flash.DQ_LAUNCHES = flash.DKDV_LAUNCHES = 0
+    t0 = time.perf_counter()
+    state, loss = step(state, tokens)
+    step_loss = float(loss)  # synchronizes
+    out.update({
+        "step_ms": (time.perf_counter() - t0) * 1e3,
+        "step_loss": step_loss,
+        "k1_launches": flash.LAUNCHES, "dq_launches": flash.DQ_LAUNCHES,
+        "dkdv_launches": flash.DKDV_LAUNCHES,
+        "host_staged_bytes_a_step": mesh.traffic["host_bytes"] - staged,
+        "peak_memory_bytes": (torch.cuda.max_memory_allocated(device)
+                              if on_card else None),
+    })
+    return out
+
+
+def drive_train_parallel(gen, tmp, device="cuda"):
+    """train_parallel: every PARALLEL_LAYOUTS world as child ranks on this
+    one card (gloo, collectives staged through host buffers), each held
+    against the one-rank run in this process: the loss within
+    TRAIN_LOSS_REL_TOL and every gradient leaf within TRAIN_GRAD_REL_TOL
+    (MoE on pinned routes, their flips near ties), K1/K3/K4 a rank a
+    step as the layout implies (2 / 1 / 1 per local layer and
+    microbatch), ZeRO-1's moments and FSDP's params and moments at 1/dp
+    of the one-rank bytes; then the train CLI as 4 ranks through a file
+    catalog (pp2 x tp2): the mesh line and a falling loss."""
+    t_phase = time.perf_counter()
+    per_shard = None
+    if device == "cuda":
+        per_shard = {"flash_fwd": check_flash(gen, *SHARD_FWD_CASE),
+                     "flash_bwd": check_flash_bwd(gen, *SHARD_BWD_CASE)}
+    refs = parallel_reference(gen, tmp, device)
+    root = os.path.dirname(os.path.abspath(__file__))
+    layouts = {}
+    seconds = {}
+    for world in sorted({w for _n, w, *_rest in PARALLEL_LAYOUTS}):
+        t0 = time.perf_counter()
+        world_dir = os.path.join(tmp, f"world{world}")
+        os.makedirs(world_dir)
+        jobs = []
+        for name, n, plan, opts, over in PARALLEL_LAYOUTS:
+            if n != world:
+                continue
+            ref = refs[json.dumps(over, sort_keys=True)]
+            jobs.append({
+                "name": name, "plan": plan, "opts": opts, "over": over,
+                "ref_grads": os.path.join(tmp, f"{ref['name']}_grads.pt"),
+                "routes": os.path.join(tmp, f"{ref['name']}_routes.pt"),
+                "out": os.path.join(world_dir, name)})
+            os.makedirs(jobs[-1]["out"])
+        spec = {"layouts": jobs, "device": device,
+                "tokens": os.path.join(tmp, "tokens.pt")}
+        spec_path = os.path.join(world_dir, "spec.json")
+        with open(spec_path, "w") as fh:
+            json.dump(spec, fh)
+        port = _free_port()
+        envs = [{**os.environ, "PYTHONPATH": root,
+                 "COORDINATOR_ADDRESS": f"127.0.0.1:{port}",
+                 "NUM_PROCESSES": str(world), "PROCESS_ID": str(r)}
+                for r in range(world)]
+        _launch_ranks(
+            [[sys.executable, RANK_SCRIPT, "--rank-job", spec_path, str(r)]
+             for r in range(world)],
+            envs, world_dir, RANK_TIMEOUT)
+        seconds[f"world_of_{world}"] = time.perf_counter() - t0
+    for name, world, plan, opts, over in PARALLEL_LAYOUTS:
+        ref = refs[json.dumps(over, sort_keys=True)]
+        job_dir = os.path.join(tmp, f"world{world}", name)
+        ranks = []
+        for r in range(world):
+            with open(os.path.join(job_dir, f"rank{r}.json")) as fh:
+                ranks.append(json.load(fh))
+        head = ranks[0]
+        loss_rel = abs(head["loss"] - ref["loss"]) / abs(ref["loss"])
+        if not (loss_rel <= TRAIN_LOSS_REL_TOL
+                and head["worst_grad_rel"] <= TRAIN_GRAD_REL_TOL):
+            raise AssertionError(
+                f"train_parallel {name}: loss rel {loss_rel}, worst grad "
+                f"leaf rel {head['worst_grad_rel']} against one rank")
+        stages = plan.get("pipe", 1)
+        local_layers = TRAIN_CFG["n_layers"] // stages
+        mb = opts.get("microbatches", 1)
+        want = {"k1_launches": 2 * local_layers * mb,
+                "dq_launches": local_layers * mb,
+                "dkdv_launches": local_layers * mb}
+        for rk in ranks:
+            got = {k: rk[k] for k in want}
+            # the plain versions run on the CPU (a rehearsal): no launches
+            counted = want if device == "cuda" else dict.fromkeys(want, 0)
+            if got != counted or rk["backend"] != "gloo" or (
+                    rk["host_staging"] != (device == "cuda")):
+                raise AssertionError(
+                    f"train_parallel {name} rank {rk['rank']}: launches "
+                    f"{got} (want {want}), backend {rk['backend']}, "
+                    f"staging {rk['host_staging']}")
+            if abs(rk["step_loss"] - ranks[0]["step_loss"]) > 1e-6 * abs(
+                    ranks[0]["step_loss"]):
+                raise AssertionError(
+                    f"train_parallel {name}: ranks disagree on the step's "
+                    f"loss ({rk['step_loss']} vs {ranks[0]['step_loss']})")
+        dp = plan["data"]
+        sharded = {"zero1": ("moment_bytes",),
+                   "fsdp": ("moment_bytes", "param_bytes")}
+        for opt, keys in sharded.items():
+            if opts.get(opt):
+                for key in keys:
+                    if any(dp * rk[key] != ref[key] for rk in ranks):
+                        raise AssertionError(
+                            f"train_parallel {name}: {key} "
+                            f"{[rk[key] for rk in ranks]} are not 1/{dp} "
+                            f"of one rank's {ref[key]}")
+        layouts[name] = {
+            "ranks": world, "mesh": plan, "options": opts,
+            "config_overrides": over, "loss": head["loss"],
+            "one_rank_loss": ref["loss"], "loss_rel": loss_rel,
+            "worst_grad_rel": head["worst_grad_rel"],
+            "route_flips": head.get("route_flips"),
+            "launches_a_rank_a_step": want,
+            "step_ms": [rk["step_ms"] for rk in ranks],
+            "backend": head["backend"],
+            "host_staged_bytes_a_step": [rk["host_staged_bytes_a_step"]
+                                         for rk in ranks],
+            "param_bytes": [rk["param_bytes"] for rk in ranks],
+            "moment_bytes": [rk["moment_bytes"] for rk in ranks],
+            "one_rank_param_bytes": ref["param_bytes"],
+            "one_rank_moment_bytes": ref["moment_bytes"],
+            "peak_memory_bytes": [rk["peak_memory_bytes"] for rk in ranks],
+        }
+    for name in os.listdir(tmp):
+        if name.startswith("ref") or name == "tokens.pt":
+            os.remove(os.path.join(tmp, name))
+    cli = drive_parallel_cli(tmp, device)
+    return {"phase": "train_parallel", "config": TRAIN_CFG,
+            "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
+            "per_shard_kernels": per_shard, "layouts": layouts,
+            "world_seconds": seconds, "train_cli_4_ranks": cli,
+            "seconds": time.perf_counter() - t_phase}
+
+
+def drive_parallel_cli(tmp, device="cuda"):
+    """The train CLI as 4 ranks on the card through initialize_from_catalog
+    on a file catalog, --pipeline-stages 2 --tensor-parallel 2: every
+    rank prints the mesh {'data': 1, 'pipe': 2, 'model': 2} and the same
+    losses, and the loss falls from step 1 to step 10."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    log_dir = os.path.join(tmp, "cli_ranks")
+    os.makedirs(log_dir)
+    port = _free_port()
+    t0 = time.perf_counter()
+    outs = _launch_ranks(
+        [[sys.executable, "-m", "containerpilot_tpu_torch.workload.train",
+          "--device", device, *PARALLEL_CLI,
+          "--catalog", f"file:{os.path.join(tmp, 'catalog')}",
+          "--num-processes", "4", "--process-id", str(r),
+          "--advertise-address", "127.0.0.1",
+          "--coordinator-port", str(port)] for r in range(4)],
+        [{**os.environ, "PYTHONPATH": root}] * 4, log_dir, RANK_TIMEOUT)
+    losses = []
+    for out in outs:
+        if f"mesh: {{'data': 1, 'pipe': 2, 'model': 2}} on {device}" \
+                not in out:
+            raise AssertionError(f"train CLI mesh line:\n{out[-2000:]}")
+        losses.append([float(x) for x in re.findall(
+            r"step (?:1|10): loss=([\d.]+)", out)])
+    if not (len(losses[0]) == 2 and all(x == losses[0] for x in losses)
+            and losses[0][1] < losses[0][0]):
+        raise AssertionError(f"train CLI losses (steps 1, 10) by rank: "
+                             f"{losses}")
+    return {"args": PARALLEL_CLI, "mesh": {"data": 1, "pipe": 2, "model": 2},
+            "losses_step_1_and_10": losses[0],
+            "collectives": re.search(r"collectives over (.*)",
+                                     outs[0]).group(1),
+            "seconds": time.perf_counter() - t0}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a "
               "card", file=sys.stderr)
         return 2
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    if sys.argv[1:2] == ["--rank-job"]:  # a train_parallel child
+        return rank_job(sys.argv[2], int(sys.argv[3]))
     from containerpilot_tpu_torch.models import decode, quantized
     from containerpilot_tpu_torch.models import transformer as tf
     from containerpilot_tpu_torch.ops import _build, flash, quant
@@ -3679,10 +4136,22 @@ def main() -> int:
     # ---- a switch-routed mixture of experts -----------------------------
     serve_moe, slots_moe, train_moe = drive_moe(gen, prompt, card)
 
+    # ---- training across ranks on this card -----------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_parallel = drive_train_parallel(gen, tmp)
+    emit({**train_parallel, **card})
+    parallel_launches = {
+        key: {name: layout["launches_a_rank_a_step"][key]
+              for name, layout in train_parallel["layouts"].items()}
+        for key in ("k1_launches", "dq_launches", "dkdv_launches")}
+
     # ---- summary --------------------------------------------------------
     main_flash = flash_rows[0]
     train_flash = flash_rows[FWD_CASES.index(TRAIN_FWD_CASE)]
     window_bwd = bwd_rows[BWD_CASES.index(WINDOW_BWD_CASE)]
+    shard_bwd = train_parallel["per_shard_kernels"]["flash_bwd"]
     k2_layer = {f"m={m}": int8_per_layer(int8_rows, m) for m in INT8_LAYER_M}
     k2_main = k2_layer["m=1"]
     kernels = [
@@ -3691,7 +4160,8 @@ def main() -> int:
             "source": "containerpilot_tpu_torch/csrc/flash_fwd.cu",
             "replaces": "containerpilot_tpu/ops/flash.py:142",
             "launches": k1_launches,
-            "max_abs_err": max(r["max_abs_err"] for r in flash_rows),
+            "max_abs_err": max(r["max_abs_err"] for r in flash_rows + [
+                train_parallel["per_shard_kernels"]["flash_fwd"]]),
             "ms": main_flash["ms"], "plain_ms": main_flash["plain_ms"],
             "bound_ms": main_flash["bound_ms"],
             "bound_by": main_flash["bound_by"],
@@ -3740,6 +4210,10 @@ def main() -> int:
                 "serve_slots_moe": slots_moe["k1_launches"],
                 **{f"train_moe_{label}": train_moe[label]["k1_launches"]
                    for label in ("drop_free", "capacity")}},
+            "per_shard": kernel_case(
+                train_parallel["per_shard_kernels"]["flash_fwd"]),
+            "train_parallel_launches_a_rank_a_step":
+                parallel_launches["k1_launches"],
         },
         *(
             {
@@ -3747,7 +4221,8 @@ def main() -> int:
                 "source": f"containerpilot_tpu_torch/csrc/{name}.cu",
                 "replaces": replaces,
                 "launches": train[f"{key}_launches"],
-                "max_abs_err": max(r["max_abs_err"][g] for r in bwd_rows
+                "max_abs_err": max(r["max_abs_err"][g]
+                                   for r in bwd_rows + [shard_bwd]
                                    for g in grads),
                 "ms": bwd_rows[0][key]["ms"],
                 "plain_ms": bwd_rows[0][key]["plain_ms"],
@@ -3775,6 +4250,16 @@ def main() -> int:
                 "moe_launches": {
                     f"train_moe_{label}": train_moe[label][f"{key}_launches"]
                     for label in ("drop_free", "capacity")},
+                "per_shard": {
+                    "shape": shard_bwd["shape"],
+                    **{f: shard_bwd[key][f] for f in (
+                        "ms", "plain_ms", "bound_ms", "bound_by", "tflops")},
+                    "library_ms": shard_bwd["library_ms_k3_plus_k4"],
+                    "max_abs_err": max(shard_bwd["max_abs_err"][g]
+                                       for g in grads),
+                },
+                "train_parallel_launches_a_rank_a_step":
+                    parallel_launches[f"{key}_launches"],
             }
             for name, key, replaces, grads in (
                 ("flash_bwd_dq", "dq",

@@ -65,6 +65,22 @@ def params_from_jax(
     return {k: convert(k, v) for k, v in numpy_tree.items()}
 
 
+def shard_from_jax(
+    numpy_tree: Dict[str, Any], mesh, device, cfg: Any = None,
+    rules: Any = None, dtype: Optional[Any] = None,
+) -> Dict[str, Any]:
+    """One rank's blocks of a JAX params pytree (numpy leaves) under a
+    mesh: ``params_from_jax`` then ``parallel.sharding.shard_params``
+    with ``rules`` (default the tensor-parallel rules of ``cfg``).
+    ``mesh`` may be a layout-only mesh (``make_mesh(world_size=N,
+    rank=r)``), so every rank's state can be built from the same seeded
+    params without a process group."""
+    from .parallel.sharding import shard_params
+
+    return shard_params(params_from_jax(numpy_tree, device, dtype), mesh,
+                        cfg, rules)
+
+
 def lora_from_jax(numpy_tree: Dict[str, Any], device) -> Dict[str, Any]:
     """The port's LoRA adapter from a JAX adapter pytree already turned
     into numpy (``init_lora_params`` or a LoRA TrainState's params):

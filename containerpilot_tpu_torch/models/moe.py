@@ -22,6 +22,18 @@ kernel.
 
 The aux load-balancing loss is the switch formulation:
 ``E * sum_e(fraction of tokens_e * mean router prob_e)``.
+
+With a ``mesh`` whose ``model`` axis is live, the experts are sharded
+over it (``moe_w_in``/``moe_w_out`` hold the rank's E/tp experts): every
+rank routes every token with the replicated router, runs its local
+experts (dense dispatch, or its slots of the capacity buffer), and the
+partial outputs are summed over ``model``. A token's output comes from
+exactly one rank, so the sum adds exact zeros and the routes, keep
+pattern and values are the unsharded layer's. The gate and the experts'
+input enter through ``copy_to`` (their gradient, partial per rank, is
+summed). Under data parallelism the fraction and mean router prob are
+taken over the global batch (averaged over ``data``), as the
+reference's batch-sharded program computes them.
 """
 from __future__ import annotations
 
@@ -32,7 +44,7 @@ import torch
 import torch.nn.functional as F
 
 
-def _route(x: torch.Tensor, router_w: torch.Tensor):
+def _route(x: torch.Tensor, router_w: torch.Tensor, mesh=None):
     """Top-1 routing shared by both layers -> (probs [b, s, E], gate
     [b, s], onehot [b, s, E] float32, aux_loss scalar). ``argmax``
     returns the first maximal index, as ``jnp.argmax`` does, and the
@@ -48,8 +60,17 @@ def _route(x: torch.Tensor, router_w: torch.Tensor):
     ).float()
     fraction = onehot.mean(dim=(0, 1))
     router_mean = probs.mean(dim=(0, 1))
+    if mesh is not None and mesh.batch_stats:
+        from ..parallel.collectives import mean_from
+
+        fraction = mean_from(fraction, mesh)
+        router_mean = mean_from(router_mean, mesh)
     aux_loss = n_experts * (fraction * router_mean).sum()
     return probs, gate, onehot, aux_loss
+
+
+def _experts_live(mesh) -> bool:
+    return mesh is not None and mesh.axis_size("model") > 1
 
 
 def _gelu(h: torch.Tensor) -> torch.Tensor:
@@ -59,8 +80,9 @@ def _gelu(h: torch.Tensor) -> torch.Tensor:
 def moe_layer(
     x: torch.Tensor,         # [b, s, d] in the compute dtype
     router_w: torch.Tensor,  # [d, E]
-    w_in: torch.Tensor,      # [E, d, f]
+    w_in: torch.Tensor,      # [E, d, f] (the rank's E/tp under ``mesh``)
     w_out: torch.Tensor,     # [E, f, d]
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Drop-free, dense dispatch -> (output [b, s, d], aux_loss).
 
@@ -69,17 +91,29 @@ def moe_layer(
     each token's own expert row times its gate: the reference's combine
     einsum adds exact zeros for every other expert, so the result is
     the same single rounding of gate * expert_out."""
-    _probs, gate, onehot, aux_loss = _route(x, router_w)
+    _probs, gate, onehot, aux_loss = _route(x, router_w, mesh)
     b, s, d = x.shape
-    n_experts = router_w.shape[-1]
+    n_experts = w_in.shape[0]
     dt = x.dtype
+    idx = onehot.argmax(dim=-1)  # [b, s]: argmax(probs), as routed
+    if _experts_live(mesh):
+        from ..parallel.collectives import copy_to, reduce_from
+
+        first = mesh.axis_index("model") * n_experts
+        onehot = onehot[..., first:first + n_experts]
+        x, gate = copy_to(x, mesh), copy_to(gate, mesh)
+        idx = idx - first
+        mine = (idx >= 0) & (idx < n_experts)
+        idx = idx.clamp(0, n_experts - 1)
     expert_in = onehot.to(dt).permute(2, 0, 1)[..., None] * x  # [E,b,s,d]
     hidden = _gelu(torch.bmm(expert_in.reshape(n_experts, b * s, d),
                              w_in.to(dt)))
     expert_out = torch.bmm(hidden, w_out.to(dt)).reshape(n_experts, b, s, d)
-    idx = onehot.argmax(dim=-1)  # [b, s]: argmax(probs), as routed
     chosen = expert_out.gather(
         0, idx[None, :, :, None].expand(1, b, s, d))[0]
+    if _experts_live(mesh):
+        out = chosen * (gate * mine).to(dt)[..., None]
+        return reduce_from(out, mesh), aux_loss
     return chosen * gate.to(dt)[..., None], aux_loss
 
 
@@ -89,6 +123,7 @@ def moe_layer_capacity(
     w_in: torch.Tensor,      # [E, d, f]
     w_out: torch.Tensor,     # [E, f, d]
     capacity_factor: float,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Capacity-bounded switch MoE -> (output [b, s, d], aux_loss).
 
@@ -104,10 +139,19 @@ def moe_layer_capacity(
     n_experts = router_w.shape[-1]
     capacity = max(1, math.ceil(capacity_factor * s / n_experts))
 
-    _probs, gate, onehot, aux_loss = _route(x, router_w)
+    _probs, gate, onehot, aux_loss = _route(x, router_w, mesh)
     expert_idx = onehot.argmax(dim=-1)  # [b, s]
     pos = ((torch.cumsum(onehot, dim=1) - 1.0) * onehot).sum(-1).long()
     keep = pos < capacity
+    if _experts_live(mesh):
+        from ..parallel.collectives import copy_to, reduce_from
+
+        # the rank's experts own buffer slots; every other token (and
+        # every overflow token) goes to the dropped row
+        n_experts = w_in.shape[0]
+        expert_idx = expert_idx - mesh.axis_index("model") * n_experts
+        keep = keep & (expert_idx >= 0) & (expert_idx < n_experts)
+        x, gate = copy_to(x, mesh), copy_to(gate, mesh)
     slot = torch.where(keep, expert_idx * capacity + pos,
                        n_experts * capacity)[..., None].expand(b, s, d)
 
@@ -119,4 +163,7 @@ def moe_layer_capacity(
     flat = torch.cat([expert_out.reshape(b, n_experts * capacity, d),
                       expert_out.new_zeros((b, 1, d))], dim=1)
     out = flat.gather(1, slot)
-    return out * (gate * keep).to(dt)[..., None], aux_loss
+    out = out * (gate * keep).to(dt)[..., None]
+    if _experts_live(mesh):
+        out = reduce_from(out, mesh)
+    return out, aux_loss

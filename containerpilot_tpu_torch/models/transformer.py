@@ -23,6 +23,20 @@ where bf16 numbers diverge:
   package disables reduced-precision bf16 reductions); products the
   reference keeps in float32 (gate/up, logits) go through ``_dot_f32``,
   which never rounds them to bf16.
+
+Tensor parallelism (``mesh`` with a ``model`` axis > 1; the params are
+then each rank's blocks, ``parallel/sharding.py``) follows Megatron: the
+normed input enters each column-parallel region through ``copy_to``
+(identity forward, gradient summed over ``model``), attention runs on the
+rank's local heads (K1/K3/K4 at h/tp heads), ``wo`` and ``w_down`` end
+in one all-reduce each (``reduce_from``), the vocab-parallel embed is a
+masked lookup of the rank's rows summed over ``model``, and the loss's
+log-softmax runs across vocab shards (a max and a sum all-reduced, the
+target logit from its owning shard). MoE experts over ``model`` run the
+dense dispatch on the rank's local experts and sum the partial outputs.
+Under FSDP (``mesh.fsdp``) each layer gathers its data-sharded
+parameters at use. With ``mesh=None``, or a world of one, every function
+runs exactly the unsharded path.
 """
 from __future__ import annotations
 
@@ -255,16 +269,43 @@ def _proj(h: torch.Tensor, w: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     return torch.matmul(h, w.reshape(w.shape[0], -1).to(dtype))
 
 
+def _tp(mesh) -> bool:
+    """True when ``mesh`` shards the model over a live ``model`` axis."""
+    return mesh is not None and mesh.axis_size("model") > 1
+
+
 def _qkv(
     x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: TransformerConfig,
-    offset: Union[int, torch.Tensor] = 0,
+    offset: Union[int, torch.Tensor] = 0, mesh=None,
 ):
     """Pre-norm + q/k/v projections with RoPE at ``offset`` (an int, or
-    [batch] per-row positions); k/v keep ``cfg.kv_heads`` heads."""
+    [batch] per-row positions); k/v keep ``cfg.kv_heads`` heads. Under
+    tensor parallelism q and (sharded) k/v are the rank's local heads;
+    replicated k/v (kv heads that do not divide by ``model``) are
+    computed whole, their gradient summed over ``model``, and cut to the
+    kv heads of the rank's q heads."""
     dt = cfg.dtype
     b, s, _ = x.shape
     h = _rms_norm(x, lp["norm_attn"])
     hd = cfg.head_dim
+    if _tp(mesh):
+        from ..parallel.collectives import copy_to
+
+        hq = copy_to(h, mesh)
+        heads = lp["wq"].shape[1]
+        q = _proj(hq, lp["wq"], dt).reshape(b, s, heads, hd)
+        if lp["wk"].shape[1] < cfg.kv_heads:  # kv heads sharded
+            kvh = lp["wk"].shape[1]
+            k = _proj(hq, lp["wk"], dt).reshape(b, s, kvh, hd)
+            v = _proj(hq, lp["wv"], dt).reshape(b, s, kvh, hd)
+        else:
+            first = mesh.axis_index("model") * heads
+            k, v = (
+                repeat_kv(copy_to(_proj(h, lp[w], dt), mesh).reshape(
+                    b, s, cfg.kv_heads, hd), cfg.n_heads)[:, :, first:first + heads]
+                for w in ("wk", "wv"))
+        return (_rope(q, cfg.rope_theta, offset),
+                _rope(k, cfg.rope_theta, offset), v)
     q = _proj(h, lp["wq"], dt).reshape(b, s, cfg.n_heads, hd)
     k = _proj(h, lp["wk"], dt).reshape(b, s, cfg.kv_heads, hd)
     v = _proj(h, lp["wv"], dt).reshape(b, s, cfg.kv_heads, hd)
@@ -281,29 +322,45 @@ def repeat_kv(x: torch.Tensor, n_heads: int) -> torch.Tensor:
 
 def _attn_out(
     x: torch.Tensor, attn: torch.Tensor, lp: Dict[str, torch.Tensor],
-    cfg: TransformerConfig,
+    cfg: TransformerConfig, mesh=None,
 ) -> torch.Tensor:
-    """Output projection + residual."""
+    """Output projection + residual; row-parallel under tensor
+    parallelism (the rank's heads, then one all-reduce)."""
     b, s, h, hd = attn.shape
     wo = lp["wo"].reshape(h * hd, -1)
-    return x + _proj(attn.reshape(b, s, h * hd), wo, cfg.dtype)
+    out = _proj(attn.reshape(b, s, h * hd), wo, cfg.dtype)
+    if _tp(mesh):
+        from ..parallel.collectives import reduce_from
+
+        out = reduce_from(out, mesh)
+    return x + out
 
 
 def _mlp(
-    x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: TransformerConfig
+    x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: TransformerConfig,
+    mesh=None,
 ) -> torch.Tensor:
     """SwiGLU block + residual; gate and up stay float32 as in the
-    reference, the activation is cast once."""
+    reference, the activation is cast once. Under tensor parallelism
+    gate/up are column-parallel and down row-parallel (one all-reduce)."""
     dt = cfg.dtype
     h = _rms_norm(x, lp["norm_mlp"])
+    if _tp(mesh):
+        from ..parallel.collectives import copy_to, reduce_from
+
+        h = copy_to(h, mesh)
     gate = _dot_f32(h, lp["w_gate"].to(dt))
     up = _dot_f32(h, lp["w_up"].to(dt))
     act = (torch.nn.functional.silu(gate) * up).to(dt)
-    return x + _proj(act, lp["w_down"], dt)
+    out = _proj(act, lp["w_down"], dt)
+    if _tp(mesh):
+        out = reduce_from(out, mesh)
+    return x + out
 
 
 def _ffn(
-    x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: TransformerConfig
+    x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: TransformerConfig,
+    mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The feed-forward half -> (x, aux_loss): dense SwiGLU, or the
     switch-routed experts on the normed input plus the residual (the
@@ -313,11 +370,11 @@ def _ffn(
         experts = (lp["router"], lp["moe_w_in"], lp["moe_w_out"])
         if cfg.moe_train_capacity > 0:
             out, aux = moe_layer_capacity(h, *experts,
-                                          cfg.moe_train_capacity)
+                                          cfg.moe_train_capacity, mesh=mesh)
         else:
-            out, aux = moe_layer(h, *experts)
+            out, aux = moe_layer(h, *experts, mesh=mesh)
         return x + out, aux
-    return _mlp(x, lp, cfg), torch.zeros((), device=x.device)
+    return _mlp(x, lp, cfg, mesh), torch.zeros((), device=x.device)
 
 
 def _attention(
@@ -327,33 +384,59 @@ def _attention(
     """The auto attention: flash at/above the threshold, the plain masked
     softmax below it. While autograd records, flash is the
     differentiable ``flash_attention`` on k/v repeated to full heads (the
-    reference's ``_layer``); otherwise the GQA-native forward kernel."""
-    s = q.shape[1]
+    reference's ``_layer``); otherwise the GQA-native forward kernel.
+    The head count is q's own (the rank's local heads under tensor
+    parallelism)."""
+    s, heads = q.shape[1], q.shape[2]
     if flash_eligible(cfg, s, kind=kind):
         bq, bk = tuning.pick_blocks(kind, s)
         if torch.is_grad_enabled():
             return flash_attention(
-                q, repeat_kv(k, cfg.n_heads), repeat_kv(v, cfg.n_heads),
+                q, repeat_kv(k, heads), repeat_kv(v, heads),
                 block_q=bq, block_k=bk, window=cfg.window,
             )
         return flash_attention_forward(
             q, k, v, block_q=bq, block_k=bk, window=cfg.window
         )
     return causal_attention(
-        q, repeat_kv(k, cfg.n_heads), repeat_kv(v, cfg.n_heads),
+        q, repeat_kv(k, heads), repeat_kv(v, heads),
         window=cfg.window,
     )
 
 
+def _fsdp_gather(t: torch.Tensor, rule, mesh, stacked: bool = False):
+    """FSDP: a data-sharded parameter gathered whole (its model-local
+    block) at use; the gradient is reduce-scattered back. ``stacked``:
+    ``t`` is one layer's slice of a stacked leaf (the rule's dim 0 is the
+    layer axis)."""
+    if "data" not in rule:
+        return t
+    from ..parallel.collectives import gather_from
+
+    return gather_from(t, mesh, "data", rule.index("data") - int(stacked))
+
+
+def _use_top(params: Params, key: str, cfg: TransformerConfig, mesh=None):
+    """A top-level leaf in the compute dtype, gathered under FSDP."""
+    if mesh is not None and mesh.fsdp is not None:
+        return _fsdp_gather(params[key], mesh.fsdp[key], mesh).to(cfg.dtype)
+    return maybe_dequant_top(params, key, cfg.dtype)
+
+
 def _layer(
-    x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: TransformerConfig
+    x: torch.Tensor, lp: Dict[str, torch.Tensor], cfg: TransformerConfig,
+    mesh=None,
 ):
     """One transformer block -> (x, aux_loss)."""
     lp = maybe_dequant_layer(lp, cfg.dtype)
-    q, k, v = _qkv(x, lp, cfg)
+    if mesh is not None and mesh.fsdp is not None:
+        rules = mesh.fsdp["layers"]
+        lp = {k: _fsdp_gather(v, rules[k], mesh, stacked=True)
+              for k, v in lp.items()}
+    q, k, v = _qkv(x, lp, cfg, mesh=mesh)
     attn = _attention(q, k, v, cfg, kind="train")
-    x = _attn_out(x, attn, lp, cfg)
-    return _ffn(x, lp, cfg)
+    x = _attn_out(x, attn, lp, cfg, mesh)
+    return _ffn(x, lp, cfg, mesh)
 
 
 # the reference's dots_with_no_batch_dims_saveable: keep the outputs of
@@ -383,31 +466,79 @@ def _remat_layer(cfg: TransformerConfig):
     return functools.partial(checkpoint, use_reentrant=False)
 
 
-def forward_hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig):
+def embed(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+          mesh=None) -> torch.Tensor:
+    """tokens [batch, seq] -> embeddings in the compute dtype. Under
+    tensor parallelism each rank looks up the tokens of its vocab rows
+    (zeros elsewhere) and the parts are summed over ``model``."""
+    if mesh is None:
+        return embed_lookup(params, tokens, cfg.dtype)
+    table = params["embed"]
+    if mesh.fsdp is not None:
+        table = _fsdp_gather(table, mesh.fsdp["embed"], mesh)
+    if not _tp(mesh):
+        return table[tokens].to(cfg.dtype)
+    from ..parallel.collectives import reduce_from
+
+    rows = table.shape[0]
+    local = tokens - mesh.axis_index("model") * rows
+    inside = (local >= 0) & (local < rows)
+    x = table[local.clamp(0, rows - 1)].to(cfg.dtype)
+    return reduce_from(x * inside[..., None].to(x.dtype), mesh)
+
+
+def forward_hidden(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
+                   mesh=None):
     """tokens [batch, seq] -> (final normed hidden [batch, seq, d_model],
     aux_loss): everything up to the unembed, so a loss may stream the
     vocab projection in chunks. While autograd records, each layer runs
     under ``cfg.remat``'s checkpoint."""
-    x = embed_lookup(params, tokens, cfg.dtype)
+    x = embed(params, tokens, cfg, mesh)
+    x, aux = run_layers(params, x, cfg, mesh)
+    norm_out = params["norm_out"]
+    if mesh is not None and mesh.fsdp is not None:
+        norm_out = _fsdp_gather(norm_out, mesh.fsdp["norm_out"], mesh)
+    return _rms_norm(x, norm_out), aux
+
+
+def run_layers(params: Params, x: torch.Tensor, cfg: TransformerConfig,
+               mesh=None, n_layers=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The first ``n_layers`` (default ``cfg.n_layers``) stacked layers
+    of ``params`` over x -> (x, summed aux_loss); a pipeline stage passes
+    its own slice and count."""
     aux = torch.zeros((), device=x.device)
     remat = _remat_layer(cfg) if torch.is_grad_enabled() else None
-    for i in range(cfg.n_layers):
+    for i in range(cfg.n_layers if n_layers is None else n_layers):
         lp = layer_params(params, i)
         if remat is None:
-            x, layer_aux = _layer(x, lp, cfg)
+            x, layer_aux = _layer(x, lp, cfg, mesh)
         else:
-            x, layer_aux = remat(_layer, x, lp, cfg)
+            x, layer_aux = remat(_layer, x, lp, cfg, mesh)
         aux = aux + layer_aux
-    return _rms_norm(x, params["norm_out"]), aux
+    return x, aux
+
+
+def _logits(x: torch.Tensor, params: Params, cfg: TransformerConfig,
+            mesh=None) -> torch.Tensor:
+    """Final hidden -> float32 logits; the rank's vocab shard under
+    tensor parallelism."""
+    if _tp(mesh):
+        from ..parallel.collectives import copy_to
+
+        x = copy_to(x, mesh)
+    return _dot_f32(x, _use_top(params, "unembed", cfg, mesh))
 
 
 def forward_with_aux(
-    params: Params, tokens: torch.Tensor, cfg: TransformerConfig
+    params: Params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [batch, seq] -> (logits [batch, seq, vocab] float32,
-    aux_loss: MoE load balance, zero for dense models)."""
-    x, aux = forward_hidden(params, tokens, cfg)
-    logits = _dot_f32(x, maybe_dequant_top(params, "unembed", cfg.dtype))
+    aux_loss: MoE load balance, zero for dense models). Under tensor
+    parallelism the vocab shards are gathered into the full logits."""
+    x, aux = forward_hidden(params, tokens, cfg, mesh)
+    logits = _logits(x, params, cfg, mesh)
+    if _tp(mesh):
+        logits = mesh.all_gather(logits.detach(), "model", -1)
     return logits, aux
 
 
@@ -423,27 +554,55 @@ def _ce_nll(logits: torch.Tensor, targets: torch.Tensor) -> torch.Tensor:
     return -torch.gather(logp, -1, targets.long()[..., None])[..., 0]
 
 
+def _ce_nll_vocab_parallel(logits: torch.Tensor, targets: torch.Tensor,
+                           mesh) -> torch.Tensor:
+    """``_ce_nll`` over vocab shards [..., V/tp]: the log-sum-exp from a
+    max and a sum all-reduced over ``model``, the target logit from the
+    shard that owns it."""
+    from ..parallel.collectives import max_over, reduce_from
+
+    rows = logits.shape[-1]
+    lf = logits.float()
+    shift = max_over(lf.amax(dim=-1), mesh)
+    sumexp = reduce_from(torch.exp(lf - shift[..., None]).sum(dim=-1), mesh)
+    local = targets.long() - mesh.axis_index("model") * rows
+    inside = (local >= 0) & (local < rows)
+    picked = lf.gather(-1, local.clamp(0, rows - 1)[..., None])[..., 0]
+    target = reduce_from(picked * inside.to(lf.dtype), mesh)
+    return shift + torch.log(sumexp) - target
+
+
+def _nll(logits: torch.Tensor, targets: torch.Tensor, mesh=None):
+    if _tp(mesh):
+        return _ce_nll_vocab_parallel(logits, targets, mesh)
+    return _ce_nll(logits, targets)
+
+
 def next_token_loss(
     logits: torch.Tensor, aux: torch.Tensor, tokens: torch.Tensor,
-    cfg: TransformerConfig,
+    cfg: TransformerConfig, mesh=None,
 ) -> torch.Tensor:
     """Next-token CE over logits for tokens[:, :-1], plus weighted MoE
-    aux."""
-    return _ce_nll(logits, tokens[:, 1:]).mean() + cfg.moe_aux_weight * aux
+    aux. Under tensor parallelism ``logits`` is the rank's vocab shard."""
+    return _nll(logits, tokens[:, 1:], mesh).mean() + cfg.moe_aux_weight * aux
 
 
-def _loss_piece(xc, tc, mc, unembed):
-    return (_ce_nll(_dot_f32(xc, unembed), tc) * mc).sum()
+def _loss_piece(xc, tc, mc, unembed, mesh=None):
+    return (_nll(_dot_f32(xc, unembed), tc, mesh) * mc).sum()
 
 
 def _chunked_next_token_loss(
-    params: Params, tokens: torch.Tensor, cfg: TransformerConfig
+    params: Params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None,
 ) -> torch.Tensor:
     """CE without materializing the full [b, s, vocab] logits: the
     unembed + log-softmax + gather run over sequence chunks, each under
     a checkpoint, so the backward recomputes one chunk's logits at a
     time. The padded tail of the last chunk is masked out."""
-    x, aux = forward_hidden(params, tokens[:, :-1], cfg)
+    x, aux = forward_hidden(params, tokens[:, :-1], cfg, mesh)
+    if _tp(mesh):
+        from ..parallel.collectives import copy_to
+
+        x = copy_to(x, mesh)
     targets = tokens[:, 1:]
     b, s, _d = x.shape
     chunk = min(cfg.loss_chunk, s)
@@ -453,27 +612,32 @@ def _chunked_next_token_loss(
         x = torch.nn.functional.pad(x, (0, 0, 0, pad))
         targets = torch.nn.functional.pad(targets, (0, pad))
     mask = (torch.arange(n * chunk, device=x.device) < s).to(torch.float32)
-    unembed = maybe_dequant_top(params, "unembed", cfg.dtype)
+    unembed = _use_top(params, "unembed", cfg, mesh)
     total = torch.zeros((), device=x.device)
     for i in range(n):
         sl = slice(i * chunk, (i + 1) * chunk)
         piece = (
             checkpoint(_loss_piece, x[:, sl], targets[:, sl], mask[sl],
-                       unembed, use_reentrant=False)
+                       unembed, mesh, use_reentrant=False)
             if torch.is_grad_enabled()
-            else _loss_piece(x[:, sl], targets[:, sl], mask[sl], unembed)
+            else _loss_piece(x[:, sl], targets[:, sl], mask[sl], unembed,
+                             mesh)
         )
         total = total + piece
     return total / (b * s) + cfg.moe_aux_weight * aux
 
 
 def loss_fn(
-    params: Params, tokens: torch.Tensor, cfg: TransformerConfig
+    params: Params, tokens: torch.Tensor, cfg: TransformerConfig, mesh=None,
 ) -> torch.Tensor:
     """Next-token cross-entropy of tokens [batch, seq + 1] (+ weighted
     MoE aux loss). ``cfg.loss_chunk > 0`` streams the vocab projection in
-    sequence chunks instead of materializing full logits."""
+    sequence chunks instead of materializing full logits. With a
+    ``mesh``, ``params`` are this rank's blocks and ``tokens`` its rows;
+    the value is this rank's local mean (the same on every rank of a
+    ``model`` group)."""
     if cfg.loss_chunk > 0:
-        return _chunked_next_token_loss(params, tokens, cfg)
-    logits, aux = forward_with_aux(params, tokens[:, :-1], cfg)
-    return next_token_loss(logits, aux, tokens, cfg)
+        return _chunked_next_token_loss(params, tokens, cfg, mesh)
+    x, aux = forward_hidden(params, tokens[:, :-1], cfg, mesh)
+    return next_token_loss(_logits(x, params, cfg, mesh), aux, tokens, cfg,
+                           mesh)

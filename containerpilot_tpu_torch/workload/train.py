@@ -28,9 +28,25 @@ jit-compiled here (the CUDA kernels build once into ``build/kernels``).
 
 ``--moe-experts E`` trains a switch-routed mixture of experts (drop-free
 routing; ``--moe-capacity F`` bounds each expert to ``ceil(F * s / E)``
-tokens of a row during training). Reference flags for work that is not
-ported yet (pipeline and tensor parallelism with its microbatches,
-zero1, fsdp) exit with "not ported yet" when set.
+tokens of a row during training).
+
+Across ranks: each rank is one process. It joins its world through the
+catalog (``--catalog file:DIR`` or a Consul address, ``--process-id``,
+``--num-processes``) or through the reference's environment variables
+(``COORDINATOR_ADDRESS``, ``NUM_PROCESSES``, ``PROCESS_ID``); without
+either the world is one rank. The mesh is built from the world as the
+reference builds it from its devices: ``--pipeline-stages S
+[--tensor-parallel T] [--microbatches M]`` makes a (data, pipe, model)
+mesh of S stages and T-way tensor parallelism, else the world factors
+into (data, model) with up to 4 on model. ``--zero1`` and ``--fsdp``
+shard the optimizer state (and, for fsdp, the params) over data. Every
+rank reads the same global batch and trains on its own rows. A world of
+more than one rank refuses ``--checkpoint-dir``, ``--lora-rank`` and
+``--eval-every`` (not ported yet).
+
+    python -m containerpilot_tpu_torch.workload.train --device cpu \
+        --catalog file:/tmp/cat --num-processes 4 --process-id R \
+        --pipeline-stages 2 --tensor-parallel 2
 """
 from __future__ import annotations
 
@@ -45,16 +61,11 @@ import time
 
 import torch
 
-# reference flags this slice does not run: dest -> (flag, default); any
-# other value exits ("--pipeline-stages 1" means no pipeline, as in the
-# reference)
-_NOT_PORTED = {
-    "pipeline_stages": ("--pipeline-stages", 0),
-    "tensor_parallel": ("--tensor-parallel", 0),
-    "zero1": ("--zero1", False),
-    "fsdp": ("--fsdp", False),
-    "microbatches": ("--microbatches", 4),
-}
+_LORA_PLAIN_ONLY = (
+    "--lora-rank composes with the plain trainer only (the adapter "
+    "state is tiny; zero1/fsdp/accum/pipeline solve problems LoRA "
+    "doesn't have)"
+)
 
 
 def _parser() -> argparse.ArgumentParser:
@@ -123,26 +134,73 @@ def _parser() -> argparse.ArgumentParser:
     parser.add_argument("--checkpoint-async", action="store_true",
                         help="commit checkpoints on a background thread "
                         "after the device->host copy")
-    not_ported = parser.add_argument_group(
-        "reference flags not ported yet (any value but the default exits)"
-    )
-    for dest, (flag, default) in _NOT_PORTED.items():
-        if isinstance(default, bool):
-            not_ported.add_argument(flag, dest=dest, action="store_true")
-        else:
-            not_ported.add_argument(flag, dest=dest, type=type(default),
-                                    default=default)
+    parser.add_argument("--pipeline-stages", type=int, default=0,
+                        help="GPipe pipeline stages (0 = no pipeline); "
+                        "n_layers must divide by it")
+    parser.add_argument("--microbatches", type=int, default=4,
+                        help="pipeline microbatches (batch must divide)")
+    parser.add_argument("--tensor-parallel", type=int, default=0,
+                        help="model-axis size when pipelining "
+                        "(0 = all remaining ranks go to data)")
+    parser.add_argument("--zero1", action="store_true",
+                        help="ZeRO-1: shard adam moments over the data "
+                        "axis; optimizer memory per rank drops by the "
+                        "data-parallel factor")
+    parser.add_argument("--fsdp", action="store_true",
+                        help="FSDP (ZeRO-3): shard params, grads and "
+                        "moments over the data axis; each layer gathers "
+                        "its params at use (subsumes --zero1)")
+    world = parser.add_argument_group(
+        "the world (default: COORDINATOR_ADDRESS, NUM_PROCESSES and "
+        "PROCESS_ID from the environment, else one rank)")
+    world.add_argument("--catalog", default="",
+                       help="rendezvous through this catalog "
+                       "('file:/shared/catalog' or a Consul address)")
+    world.add_argument("--process-id", type=int, default=0)
+    world.add_argument("--num-processes", type=int, default=1)
+    world.add_argument("--coordinator-port", type=int, default=0)
+    world.add_argument("--advertise-address", default="",
+                       help="the coordinator's address as other ranks "
+                       "reach it (default: this host's routable IP)")
     return parser
 
 
-def refuse_not_ported(args: argparse.Namespace) -> None:
-    for dest, (flag, default) in _NOT_PORTED.items():
-        value = getattr(args, dest)
-        if value != default and not (dest == "pipeline_stages" and value == 1):
+def join_world(args: argparse.Namespace) -> None:
+    """Form the process group the flags or the environment name."""
+    from ..parallel import distributed
+
+    if not args.catalog:
+        distributed.initialize_from_env(device=args.device)
+        return
+    from ..discovery import new_backend
+
+    kw = {}
+    if args.coordinator_port:
+        kw["coordinator_port"] = args.coordinator_port
+    distributed.initialize_from_catalog(
+        new_backend(args.catalog), args.process_id, args.num_processes,
+        advertise_address=args.advertise_address, device=args.device, **kw)
+
+
+def build_mesh(args: argparse.Namespace, device):
+    """The reference's mesh choice (workload/train.py:155-180) over this
+    world: (data, pipe, model) for a pipeline, else the factorization."""
+    import torch.distributed as dist
+
+    from ..parallel import MeshPlan, make_mesh
+
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    if args.pipeline_stages > 1:
+        tp = args.tensor_parallel or 1
+        if world % (args.pipeline_stages * tp):
             raise SystemExit(
-                f"{flag} is not ported yet to the PyTorch/CUDA trainer "
-                "(see ROADMAP.md)"
+                f"{world} devices not divisible by pipeline-stages x "
+                f"tensor-parallel = {args.pipeline_stages} x {tp}"
             )
+        return make_mesh(MeshPlan(
+            data=world // (args.pipeline_stages * tp), model=tp,
+            pipe=args.pipeline_stages), device=device)
+    return make_mesh(device=device)
 
 
 def synthetic_tokens(step: int, batch: int, seq_len: int, vocab: int,
@@ -165,30 +223,40 @@ def _write_progress(path: str, step: int, loss: float) -> None:
 
 def main(argv=None) -> int:
     args = _parser().parse_args(argv)
-    refuse_not_ported(args)
+    if args.pipeline_stages > 1 and args.loss_chunk:
+        raise SystemExit(
+            "--loss-chunk does not apply to the pipelined loss "
+            "(pipeline_loss_fn computes its own whole-logits CE)"
+        )
+
+    import torch.distributed as dist
 
     from .. import resolve_device
-    from ..models.transformer import TransformerConfig
+    from ..models.transformer import TransformerConfig, init_params
     from ..parallel import (
         abstract_train_state,
         ema_params,
+        fsdp_sharding_rules,
         init_train_state,
         make_optimizer,
+        make_pipeline_train_step,
         make_train_step,
+        pipeline_sharding_rules,
         restore_checkpoint,
         save_checkpoint,
         wait_for_checkpoints,
         with_ema,
     )
+    from ..parallel.mesh import rank_device
     from .flops import count_params, peak_flops, train_flops_per_token
     from .modelcfg import average_eval_loss, derive_d_ff
 
-    device = resolve_device(args.device)
-    if args.batch % args.accum_steps:
-        raise SystemExit(
-            f"--batch {args.batch} not divisible by --accum-steps "
-            f"{args.accum_steps}"
-        )
+    resolve_device(args.device)  # no card: raise before any rendezvous
+    join_world(args)
+    rank = dist.get_rank() if dist.is_initialized() else 0
+    device = resolve_device(rank_device(rank, args.device))
+    mesh = build_mesh(args, device)
+    multi = mesh.size > 1
     if args.eval_every > 0 and not (args.data_dir and args.eval_holdout):
         raise SystemExit("--eval-every requires --data-dir and --eval-holdout")
     if args.profile_dir and args.profile_steps < 1:
@@ -209,6 +277,19 @@ def main(argv=None) -> int:
     print(f"device: {device}"
           + (f" ({torch.cuda.get_device_name(device)})"
              if device.type == "cuda" else ""), flush=True)
+    print(f"mesh: {mesh.shape} on {device.type}", flush=True)
+    if multi:
+        print(f"rank {rank} of {mesh.size}: collectives over "
+              f"{mesh.backend}"
+              + (", staged through host buffers" if mesh.staging else ""),
+              flush=True)
+        for flag, value in (("--checkpoint-dir", args.checkpoint_dir),
+                            ("--lora-rank", args.lora_rank),
+                            ("--eval-every", args.eval_every)):
+            if value:
+                raise SystemExit(
+                    f"{flag} with more than one rank is not ported yet "
+                    "(see ROADMAP.md)")
     optimizer = make_optimizer(
         args.learning_rate,
         warmup_steps=args.warmup_steps,
@@ -217,12 +298,42 @@ def main(argv=None) -> int:
     if args.ema_decay:
         optimizer = with_ema(optimizer, args.ema_decay)
     base_params = None
+    rules = None
     if args.lora_rank > 0:
+        if (args.pipeline_stages > 1 or args.zero1 or args.fsdp
+                or args.accum_steps > 1):
+            raise SystemExit(_LORA_PLAIN_ONLY)
         base_params, lora_init, train_step, abstract = _lora_setup(
             args, cfg, optimizer, device)
+    elif args.pipeline_stages > 1:
+        if args.accum_steps > 1:
+            raise SystemExit(
+                "--accum-steps composes with the plain trainer only; "
+                "pipeline microbatching already bounds activations"
+            )
+        if args.zero1 or args.fsdp:
+            raise SystemExit(
+                "--zero1/--fsdp compose with the plain trainer only "
+                "(pipeline sharding rules already partition state over "
+                "stages)"
+            )
+        rules = pipeline_sharding_rules(cfg, mesh)
+        train_step = make_pipeline_train_step(
+            cfg, mesh, args.learning_rate, args.microbatches,
+            optimizer=optimizer)
+        abstract = abstract_train_state(cfg, optimizer)
     else:
+        if args.batch % args.accum_steps:
+            raise SystemExit(
+                f"--batch {args.batch} not divisible by --accum-steps "
+                f"{args.accum_steps}"
+            )
+        if args.fsdp and multi:
+            rules = fsdp_sharding_rules(cfg, mesh)
         train_step = make_train_step(cfg, optimizer,
-                                     accum_steps=args.accum_steps)
+                                     accum_steps=args.accum_steps,
+                                     mesh=mesh, zero1=args.zero1,
+                                     fsdp=args.fsdp, rules=rules)
         abstract = abstract_train_state(cfg, optimizer)
 
     state = None
@@ -236,7 +347,9 @@ def main(argv=None) -> int:
             print(f"resumed from checkpoint at step {start_step}", flush=True)
     if state is None:
         state = (lora_init(0, device) if base_params is not None
-                 else init_train_state(0, cfg, device, optimizer=optimizer))
+                 else init_train_state(0, cfg, device, optimizer=optimizer,
+                                       mesh=mesh, zero1=args.zero1,
+                                       rules=rules))
 
     client = None
     if args.control_socket:
@@ -273,21 +386,24 @@ def main(argv=None) -> int:
             print("warning: --profile-dir needs at least 2 steps after "
                   "resume; nothing will be profiled", flush=True)
 
-        n_params = count_params(state.params)
+        # the whole model's parameters (a rank holds only its blocks)
+        n_params = count_params(init_params(0, cfg, device="meta"))
         n_frozen = 0
         if base_params is not None:
             # the frozen base forwards and carries gradients, trains nothing
             n_frozen = count_params(base_params)
-            n_params += n_frozen
+            n_params = count_params(state.params) + n_frozen
         flops_per_token = train_flops_per_token(cfg, n_params, args.seq_len,
                                                 n_frozen=n_frozen)
+        # ranks sharing a card share its peak
         peak = (peak_flops(torch.cuda.get_device_name(device))
+                * min(mesh.size, torch.cuda.device_count())
                 if device.type == "cuda" else None)
 
         t0 = time.monotonic()
         for step in range(start_step, args.steps):
             if preempted.is_set():
-                if args.checkpoint_dir:
+                if args.checkpoint_dir:  # one process only (refused above)
                     wait_for_checkpoints()  # drain async saves first
                     save_checkpoint(args.checkpoint_dir, step, state)
                     print(f"preempted: checkpoint saved at step {step}; "
@@ -349,6 +465,8 @@ def main(argv=None) -> int:
                     _post(client, {"training_eval_loss": eval_loss})
     finally:
         signal.signal(signal.SIGTERM, prev_term)
+        if dist.is_initialized():
+            dist.destroy_process_group()
         if prefetcher is not None:
             prefetcher.stop()
         if profiler is not None:
@@ -379,12 +497,6 @@ def _lora_setup(args, cfg, optimizer, device):
         restore_params,
     )
 
-    if args.accum_steps > 1:
-        raise SystemExit(
-            "--lora-rank composes with the plain trainer only (the adapter "
-            "state is tiny; zero1/fsdp/accum/pipeline solve problems LoRA "
-            "doesn't have)"
-        )
     if args.base_checkpoint_dir:
         restored = restore_params(args.base_checkpoint_dir,
                                   abstract_train_state(cfg), device=device)

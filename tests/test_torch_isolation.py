@@ -202,6 +202,7 @@ def test_default_device_without_a_card_raises(monkeypatch):
     os.path.join("scripts", "torch_flash_ab.py"),
     os.path.join("scripts", "torch_int8_check.py"),
     os.path.join("scripts", "torch_int8_lab.py"),
+    os.path.join("scripts", "torch_parallel_check.py"),
 ])
 def test_card_scripts_fail_without_a_card(script):
     """Without CUDA the card scripts exit non-zero and print no

@@ -1,9 +1,11 @@
 """The port's train and evaluate CLIs on ``--device cpu``: SIGTERM
 finishes the step, saves and exits 0, and the resumed run ends with
-exactly the parameters of an uninterrupted run; reference flags that
-are not ported exit with "not ported yet"; the default device raises
-without a card; metrics reach the control socket; the profiler window
-and in-loop eval run; the evaluator scores the checkpoint."""
+exactly the parameters of an uninterrupted run; the parallel flags run
+or are refused with the reference's own messages in a world of one, and
+two CPU ranks train with --zero1 on the reference's mesh; the default
+device raises without a card; metrics reach the control socket; the
+profiler window and in-loop eval run; the evaluator scores the
+checkpoint."""
 import json
 import os
 import re
@@ -89,17 +91,119 @@ def test_sigterm_saves_exits_zero_and_resume_equals_uninterrupted(
         assert torch.equal(flat(resumed)[key], value), key
 
 
-@pytest.mark.parametrize("flag", [
-    ["--lora-rank", "4", "--zero1"], ["--base-checkpoint-dir", "/x", "--fsdp"],
-    ["--pipeline-stages", "2"], ["--tensor-parallel", "2"], ["--zero1"],
-    ["--fsdp"], ["--moe-experts", "2", "--zero1"],
-    ["--moe-experts", "2", "--moe-capacity", "1.5", "--pipeline-stages", "4"],
-    ["--moe-experts", "4", "--window", "64", "--microbatches", "8"],
-    ["--microbatches", "2"],
+LORA_REFUSAL = r"--lora-rank composes with the plain trainer only"
+
+
+def _stages(n):
+    return rf"1 devices not divisible by pipeline-stages x tensor-parallel = {n} x 1"
+
+
+@pytest.mark.parametrize("flag,refusal", [
+    (["--lora-rank", "4", "--zero1"], LORA_REFUSAL),
+    (["--base-checkpoint-dir", "/x", "--fsdp"], None),  # dir needs --lora-rank
+    (["--pipeline-stages", "2"], _stages(2)),
+    (["--tensor-parallel", "2"], None),  # model axis only when pipelining
+    (["--zero1"], None),
+    (["--fsdp"], None),
+    (["--moe-experts", "2", "--zero1"], None),
+    (["--moe-experts", "2", "--moe-capacity", "1.5", "--pipeline-stages",
+      "4"], _stages(4)),
+    (["--moe-experts", "4", "--window", "64", "--microbatches", "8"], None),
+    (["--microbatches", "2"], None),  # microbatches only when pipelining
 ])
-def test_unported_train_flags_exit(flag):
-    with pytest.raises(SystemExit, match="not ported yet"):
-        ttrain_cli.main(TINY + flag)
+def test_unported_train_flags_exit(flag, refusal, capsys):
+    """The flags that once exited "not ported yet", in a world of one:
+    each is refused with the reference's own message where the
+    reference's rules (workload/train.py:155-241) refuse it for one
+    device, and otherwise runs on the reference's one-device mesh."""
+    if refusal is not None:
+        with pytest.raises(SystemExit, match=refusal):
+            ttrain_cli.main(TINY + flag)
+        return
+    assert ttrain_cli.main(TINY + flag + ["--steps", "1"]) == 0
+    out = capsys.readouterr().out
+    assert "mesh: {'data': 1, 'model': 1} on cpu" in out
+    assert re.search(r"step 1: loss=[\d.]+", out), out
+
+
+def test_parallel_refusals_carry_the_reference_messages():
+    with pytest.raises(SystemExit, match="--loss-chunk does not apply"):
+        ttrain_cli.main(TINY + ["--pipeline-stages", "2", "--loss-chunk",
+                                "8"])
+    with pytest.raises(SystemExit, match=LORA_REFUSAL):
+        ttrain_cli.main(TINY + ["--lora-rank", "4", "--accum-steps", "2"])
+
+
+JAX_CLI = r"""
+import sys
+import jax
+jax.config.update("jax_platforms", "cpu")
+from containerpilot_tpu.workload.train import main
+sys.argv = ["train"] + sys.argv[1:]
+sys.exit(main())
+"""
+
+
+def test_two_cpu_ranks_zero1_match_the_reference_mesh_and_loss(tmp_path):
+    """Two CPU ranks meet through a file catalog and train 2 steps with
+    --zero1: their mesh line is the JAX CLI's on two devices, their
+    step-1 loss equals the port's one-rank run on the same seed (the same
+    init and batch; bf16 tensor parallelism moves it by rounding only),
+    and both it and the JAX CLI's sit at the uniform-prediction loss
+    ln(vocab) (the two packages draw init and tokens from different
+    generators)."""
+    import socket
+
+    args = TINY + ["--steps", "2", "--zero1"]
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    env = {**os.environ, "PYTHONPATH": ROOT, "OMP_NUM_THREADS": "1"}
+    ranks = []
+    try:
+        for pid in (0, 1):
+            ranks.append(subprocess.Popen(
+                [sys.executable, "-m",
+                 "containerpilot_tpu_torch.workload.train", *args,
+                 "--catalog", f"file:{tmp_path / 'catalog'}",
+                 "--num-processes", "2", "--process-id", str(pid),
+                 "--advertise-address", "127.0.0.1",
+                 "--coordinator-port", str(port)],
+                cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                stderr=subprocess.STDOUT, text=True))
+        jax_env = {**env, "XLA_FLAGS":
+                   "--xla_force_host_platform_device_count=2"}
+        ref = subprocess.run(
+            [sys.executable, "-c", JAX_CLI,
+             *[a for a in args if a not in ("--device", "cpu")]],
+            cwd=ROOT, env=jax_env, capture_output=True, text=True,
+            timeout=240)
+        outs = [p.communicate(timeout=240)[0] for p in ranks]
+    finally:
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    assert ref.returncode == 0, ref.stderr[-2000:]
+    jax_mesh = re.search(r"mesh: (\{.*\}) on cpu", ref.stdout).group(1)
+    assert jax_mesh == "{'data': 1, 'model': 2}"
+    loss_of = lambda out: float(re.search(r"step 1: loss=([\d.]+)",
+                                          out).group(1))
+    for p, out in zip(ranks, outs):
+        assert p.returncode == 0, out[-3000:]
+        assert f"mesh: {jax_mesh} on cpu" in out
+        assert "collectives over gloo" in out
+    assert loss_of(outs[0]) == loss_of(outs[1])
+    import io
+    from contextlib import redirect_stdout
+
+    one = io.StringIO()
+    with redirect_stdout(one):
+        assert ttrain_cli.main(args) == 0
+    assert loss_of(outs[0]) == pytest.approx(loss_of(one.getvalue()),
+                                             rel=1e-3)
+    for loss in (loss_of(outs[0]), loss_of(ref.stdout)):
+        assert loss == pytest.approx(np.log(128), rel=0.15)
 
 
 def test_default_device_raises_without_a_card(monkeypatch):

@@ -213,7 +213,25 @@ training phases, then beams, speculative decoding and LoRA):
    memory per rank (ranks share the card: no step time is a speed
    figure). Then the train CLI as 4 ranks through initialize_from_catalog
    on a file catalog with --pipeline-stages 2 --tensor-parallel 2: the
-   mesh line {'data': 1, 'pipe': 2, 'model': 2} and a falling loss.
+   mesh line {'data': 1, 'pipe': 2, 'model': 2} and a falling loss;
+25. serve_parallel: K1 at a tp2 rank's 1024-token prefill (b=1, h=8)
+   and K2 at a tp2 rank's CLI projections (2048x1024, 1024x2048,
+   2048x3072, 3072x2048 at m = 1 and 8) against their plain versions,
+   twice for bit equality, with SDPA / torch.matmul beside them; then the
+   serve CLI at the flagship CLI's width and depth over ranks on this
+   one card (the front spawns its followers; gloo, collectives staged
+   through host buffers, the slot engine's round uncaptured): --tp 2
+   --slots 8 and --tp 2 --int8 --slots 8 (a 1024-id greedy prompt, then
+   8 concurrent short requests of 15 new tokens, one sampled), and --tp
+   2 --cp 2 --cp-min-len 1024 --slots 8 (a 1536-id and a 1031-id prompt,
+   each ringed, the second with a 1-token remainder, then one short
+   prompt). Every request judged against the one-rank model
+   (judge_served), every rank's tokens equal (the lockstep's digests),
+   /v1/model's mesh, cp and step-program mode, K1 exactly n_layers times
+   a rank for the 1024-id tp prefill and never for a ringed head, K2 on
+   every rank's blocks under --int8 (each rank's counters zeroed just
+   before the requests and read just after); wall ms a request, the
+   ranks' start-up seconds, bytes staged through the host a token.
 
 Then the kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -626,9 +644,15 @@ def check_int8(gen, m, k, n):
 def int8_per_layer(rows, m):
     """K2's numbers summed over one decode layer's 7 projections at m
     rows (``rows`` from check_int8)."""
+    return int8_layer_sum(rows, m, INT8_PROJ)
+
+
+def int8_layer_sum(rows, m, proj):
+    """Numbers of check_int8 ``rows`` at m rows summed over one layer's
+    projections ``proj`` ((k, n) -> count)."""
     layer = [r for r in rows if r["shape"]["m"] == m
-             and (r["shape"]["k"], r["shape"]["n"]) in INT8_PROJ]
-    weight = [INT8_PROJ[(r["shape"]["k"], r["shape"]["n"])] for r in layer]
+             and (r["shape"]["k"], r["shape"]["n"]) in proj]
+    weight = [proj[(r["shape"]["k"], r["shape"]["n"])] for r in layer]
     out = {key: sum(w * r[key] for w, r in zip(weight, layer))
            for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
     out["bound_by"] = ("bytes" if all(r["bound_by"] == "bytes" for r in layer)
@@ -845,20 +869,21 @@ def judge_served(cfg, params, body, got, max_len=MAX_LEN):
     from containerpilot_tpu_torch.models import decode
 
     row = body["tokens"][0]
+    dev = params["norm_out"].device
     temp = float(body.get("temperature", 0.0))
     top_k = int(body.get("top_k", 0))
     seed = int(body.get("seed", 0))
     # twin streams: one for the solo's draw, one for the same uniforms
-    draw, twin = (decode.row_generator(seed, 0, "cuda") for _ in range(2))
+    draw, twin = (decode.row_generator(seed, 0, dev) for _ in range(2))
     # generate passes the filters only when one is set (top_p stays 0)
-    knobs = (torch.tensor([temp], device="cuda"),) + (
-        (torch.tensor([top_k], device="cuda"),
-         torch.tensor([0.0], device="cuda")) if top_k else (None, None))
+    knobs = (torch.tensor([temp], device=dev),) + (
+        (torch.tensor([top_k], device=dev),
+         torch.tensor([0.0], device=dev)) if top_k else (None, None))
     tiny = torch.finfo(torch.float32).tiny
     first, worst, typical = None, 0.0, None
     with torch.inference_mode():
         logits, cache = decode.prefill(
-            params, torch.tensor([row], device="cuda"), cfg, max_len)
+            params, torch.tensor([row], device=dev), cfg, max_len)
         for i, tok in enumerate(got):
             raw = logits[0].float()
             if temp <= 0.0:
@@ -868,7 +893,7 @@ def judge_served(cfg, params, body, got, max_len=MAX_LEN):
                 choice = int(decode.sample_logits(logits, [draw], *knobs)[0])
                 x = raw / temp
                 u = torch.rand(cfg.vocab_size, generator=twin,
-                               device="cuda").clamp_min(tiny)
+                               device=dev).clamp_min(tiny)
                 score, scale = x - torch.log(-torch.log(u)), x.abs().max()
                 cut = torch.topk(x, top_k).values[-1] if top_k else x.min()
                 cut_gap = float(torch.clamp_min(cut - x[tok], 0) / scale)
@@ -880,7 +905,7 @@ def judge_served(cfg, params, body, got, max_len=MAX_LEN):
                 first = i
             if i + 1 < len(got):
                 logits, cache = decode.decode_step(
-                    params, cache, torch.tensor([tok], device="cuda"), cfg)
+                    params, cache, torch.tensor([tok], device=dev), cfg)
     return first, worst, typical
 
 
@@ -2424,11 +2449,16 @@ COUNTED_SERVE = """
 import json, os, signal, sys
 from containerpilot_tpu_torch.ops import flash, quant
 
+# a follower rank (--tp/--cp) writes argv[1] + ".rank<r>"
+PATH = sys.argv[1]
+if "--follower-rank" in sys.argv:
+    PATH += ".rank" + sys.argv[sys.argv.index("--follower-rank") + 1]
+
 def dump(*_):
-    tmp = sys.argv[1] + ".tmp"
+    tmp = PATH + ".tmp"
     with open(tmp, "w") as fh:
         json.dump({"k1": flash.LAUNCHES, "k2": quant.LAUNCHES}, fh)
-    os.replace(tmp, sys.argv[1])
+    os.replace(tmp, PATH)
 
 def zero(*_):
     flash.LAUNCHES = quant.LAUNCHES = 0
@@ -2437,8 +2467,26 @@ def zero(*_):
 signal.signal(signal.SIGUSR1, dump)
 signal.signal(signal.SIGUSR2, zero)
 from containerpilot_tpu_torch.workload.serve_cli import main
-sys.exit(main(sys.argv[2:]))
+CODE = sys.orig_argv[sys.orig_argv.index("-c") + 1]
+sys.exit(main(sys.argv[2:],
+              follower_cmd=[sys.executable, "-c", CODE, sys.argv[1]]))
 """
+
+
+def child_pids(pid):
+    """The pids whose parent is ``pid`` (a serve CLI's followers)."""
+    out = []
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as fh:
+                stat = fh.read()
+        except OSError:
+            continue
+        if int(stat.rsplit(")", 1)[1].split()[1]) == pid:
+            out.append(int(entry))
+    return out
 
 
 class CountedServe:
@@ -2446,8 +2494,8 @@ class CountedServe:
     healthy on entry (a --standby: warm and standing by), stopped with
     SIGTERM (then killed) on exit."""
 
-    def __init__(self, args, tmp, timeout=600):
-        self.args, self.timeout = args, timeout
+    def __init__(self, args, tmp, timeout=600, ranks=1):
+        self.args, self.timeout, self.ranks = args, timeout, ranks
         self.counts_path = os.path.join(tmp, "kernel_counts.json")
         self.proc = None
         self.log = ""
@@ -2492,22 +2540,43 @@ class CountedServe:
                 time.sleep(0.2)
         except BaseException:
             self.__exit__()
+            print(f"serve CLI output:\n{self.log[-8000:]}", file=sys.stderr,
+                  flush=True)
             raise
         self.ready_s = time.perf_counter() - t0
         return self
 
     def counts(self, zero=False):
-        """The subprocess's K1/K2 counters (zeroed first with zero)."""
-        if os.path.exists(self.counts_path):
-            os.remove(self.counts_path)
-        self.proc.send_signal(signal.SIGUSR2 if zero else signal.SIGUSR1)
+        """The subprocess's K1/K2 counters (zeroed first with zero); over
+        ranks, a list of every rank's, in rank order. A follower runs its
+        signal handler when its next lockstep op reaches it, so a read of
+        /v1/model (a check op) follows the signals."""
+        paths = [self.counts_path] + [f"{self.counts_path}.rank{r}"
+                                      for r in range(1, self.ranks)]
+        for path in paths:
+            if os.path.exists(path):
+                os.remove(path)
+        sig = signal.SIGUSR2 if zero else signal.SIGUSR1
+        pids = [self.proc.pid]
+        if self.ranks > 1:
+            pids += child_pids(self.proc.pid)
+            if len(pids) != self.ranks:
+                raise AssertionError(f"{len(pids)} processes for "
+                                     f"{self.ranks} ranks")
+        for pid in pids:
+            os.kill(pid, sig)
+        if self.ranks > 1:
+            asyncio.run(http(self.port, "GET", "/v1/model"))
         deadline = time.monotonic() + 30
-        while not os.path.exists(self.counts_path):
+        while not all(os.path.exists(p) for p in paths):
             if time.monotonic() > deadline or self.proc.poll() is not None:
                 raise AssertionError("serve CLI did not report its counts")
             time.sleep(0.02)
-        with open(self.counts_path) as fh:
-            return json.load(fh)
+        out = []
+        for path in paths:
+            with open(path) as fh:
+                out.append(json.load(fh))
+        return out if self.ranks > 1 else out[0]
 
     def __exit__(self, *exc):
         if self.proc is None:
@@ -3911,6 +3980,163 @@ def drive_parallel_cli(tmp, device="cuda"):
             "seconds": time.perf_counter() - t0}
 
 
+# ---------------------------------------------------------------------------
+# phase 25: tensor- and context-parallel serving through the serve CLI
+# ---------------------------------------------------------------------------
+
+# K1 at a tp2 rank's 1024-token prefill of the CLI flagship
+SHARD_SERVE_FWD_CASE = (1, 1024, 8, 8, 128, 0)
+# K2 at a tp2 rank's projections of the CLI flagship: (k, n) -> count a
+# layer (wq, wk, wv; wo; gate, up; down)
+SHARD_INT8_PROJ = {(2048, 1024): 3, (1024, 2048): 1, (2048, 3072): 2,
+                   (3072, 2048): 1}
+PAR_ARGS = ["--slots", "8"]
+# label -> (extra flags, ranks); a --cp run also gets --cp-min-len
+PAR_RUNS = (
+    ("tp2", ["--tp", "2"], 2),
+    ("tp2_int8", ["--tp", "2", "--int8"], 2),
+    ("tp2_cp2", ["--tp", "2", "--cp", "2"], 4),
+)
+# the long prompts: the tp runs' flash prefill, the cp run's two ringed
+# heads (the second with a 1-token remainder)
+PAR_LENS = {"tp": (1024,), "cp": (1536, 1031)}
+PAR_NEW = 15
+
+
+def parallel_bodies(ids, lens, shorts=8):
+    """(long bodies, short bodies) of one serve_parallel run: greedy long
+    prompts (prefixes of ``ids``) and concurrent short prompts of 5-19
+    ids, the last sampled (temperature 0.8, seed 7; no top-k, whose cut
+    can split a near tie), each PAR_NEW new tokens."""
+    longs = [{"tokens": [ids[:n]], "max_new_tokens": PAR_NEW} for n in lens]
+    short = [{"tokens": [ids[100 + 7 * i:105 + 9 * i]],
+              "max_new_tokens": PAR_NEW} for i in range(shorts)]
+    short[-1].update(temperature=0.8, seed=7)
+    return longs, short
+
+
+def drive_serve_parallel(tmp, card, device="cuda", model=None, lens=None,
+                         min_len=1024, extra_args=(), timeout=600):
+    """Phase 25 (see the module docstring). ``device="cpu"`` runs the
+    same drive on the plain versions for a small ``model`` and ``lens``
+    (no kernel to count or hold). ``extra_args`` go to every CLI;
+    ``timeout`` bounds each CLI's start-up."""
+    from containerpilot_tpu_torch.workload import serve_cli
+
+    model = FACE_MODEL if model is None else model
+    lens = PAR_LENS if lens is None else lens
+    t_phase = time.perf_counter()
+    result = {"phase": "serve_parallel", "model": model, **card}
+    if device == "cuda":
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(25)
+        result["per_shard_kernels"] = {
+            "flash_fwd": check_flash(gen, *SHARD_SERVE_FWD_CASE),
+            "int8_matmul": [check_int8(gen, m, k, n) for m in (1, 8)
+                            for (k, n) in SHARD_INT8_PROJ],
+        }
+    cpu = torch.Generator()
+    cpu.manual_seed(25)
+    for label, extra, ranks in PAR_RUNS:
+        cp = "--cp" in extra
+        if cp:
+            extra = [*extra, "--cp-min-len", str(min_len)]
+        args = ["--device", device, *model, *PAR_ARGS, *extra, *extra_args]
+        parsed = serve_cli.build_arg_parser().parse_args(args)
+        cfg, params, _ = serve_cli.load_model(parsed)  # one rank, whole
+        ids = torch.randint(0, cfg.vocab_size, (max(lens["cp"]),),
+                            generator=cpu).tolist()
+        longs, shorts = parallel_bodies(ids, lens["cp" if cp else "tp"],
+                                        shorts=1 if cp else 8)
+        out = {"args": [*PAR_ARGS, *extra], "ranks": ranks}
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        with CountedServe(args, tmp, timeout=timeout, ranks=ranks) as srv:
+            port = srv.port
+            out["ready_s"] = srv.ready_s
+            before = json.loads(asyncio.run(http(port, "GET", "/v1/model")))
+            srv.counts(zero=True)
+            t0 = time.perf_counter()
+            served, walls = [], []
+            for body in longs:
+                rows, wall = asyncio.run(generate_tokens(port, body))
+                served.append(rows[0])
+                walls.append(wall * 1e3)
+
+            async def concurrent():
+                return await asyncio.gather(*[generate_tokens(port, b)
+                                              for b in shorts])
+
+            for rows, wall in asyncio.run(concurrent()):
+                served.append(rows[0])
+                walls.append(wall * 1e3)
+            drive_s = time.perf_counter() - t0
+            counts = srv.counts()
+            info = json.loads(asyncio.run(http(port, "GET", "/v1/model")))
+        bodies = longs + shorts
+        judged = []
+        for body, got in zip(bodies, served):
+            if len(got) != body["max_new_tokens"]:
+                raise AssertionError(f"{label}: {len(got)} tokens served")
+            first, worst, _typical = judge_served(cfg, params, body, got,
+                                                  parsed.max_len)
+            if worst > NEAR_TIE_TOL:
+                raise AssertionError(
+                    f"{label}: served tokens off the one-rank model (prompt "
+                    f"{len(body['tokens'][0])}): worst gap {worst}, first "
+                    f"differing position {first}")
+            judged.append({"prompt_len": len(body["tokens"][0]),
+                           "equal_one_rank": first is None,
+                           "worst_gap": worst})
+        lockstep = info["lockstep"]
+        want_mesh = ({"data": 1, "seq": 2, "model": 2} if cp
+                     else {"data": 1, "model": 2})
+        want_cp = {"seq": 2, "min_len": min_len} if cp else None
+        # ranks sharing a card stage their collectives through the host
+        # (gloo); a card a rank is NCCL; either way a tp round calls
+        # collectives and runs uncaptured
+        own_cards = device == "cuda" and torch.cuda.device_count() >= ranks
+        mode = "uncaptured" if device == "cuda" else "eager"
+        backend = "nccl" if own_cards else "gloo"
+        if not (info["mesh"] == want_mesh and info["cp"] == want_cp
+                and lockstep["step_program"] == mode
+                and lockstep["backend"] == backend
+                and lockstep["staging"] == (device == "cuda"
+                                            and not own_cards)
+                and lockstep["agree"] and len(lockstep["ranks"]) == ranks):
+            raise AssertionError(
+                f"{label}: /v1/model mesh {info['mesh']}, cp {info['cp']}, "
+                f"lockstep {lockstep}")
+        k1 = [c["k1"] for c in counts]
+        k2 = [c["k2"] for c in counts]
+        if device == "cuda":
+            want_k1 = 0 if cp else cfg.n_layers
+            if k1 != [want_k1] * ranks or (
+                    "--int8" in extra) != all(n > 0 for n in k2) or (
+                    "--int8" not in extra and any(k2)):
+                raise AssertionError(f"{label}: K1 {k1}, K2 {k2} launches "
+                                     "by rank")
+        tokens = sum(len(t) for t in served)
+        staged = lockstep["staged_bytes"] - before["lockstep"]["staged_bytes"]
+        out.update({
+            "judged": judged, "k1_launches_by_rank": k1,
+            "k2_launches_by_rank": k2, "mesh": info["mesh"],
+            "cp": info["cp"], "backend": lockstep["backend"],
+            "staging": lockstep["staging"],
+            "step_program": lockstep["step_program"],
+            "ranks_agree": lockstep["agree"],
+            "lockstep_ops": lockstep["ranks"][0]["ops"],
+            "wall_ms_by_request": walls, "drive_s": drive_s,
+            "tokens": tokens, "front_staged_bytes_a_token": staged / tokens,
+        })
+        result[label] = out
+        del params
+        if device == "cuda":
+            torch.cuda.empty_cache()
+    result["seconds"] = time.perf_counter() - t_phase
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a "
@@ -4147,6 +4373,19 @@ def main() -> int:
               for name, layout in train_parallel["layouts"].items()}
         for key in ("k1_launches", "dq_launches", "dkdv_launches")}
 
+    # ---- tensor- and context-parallel serving on this card --------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_parallel = drive_serve_parallel(tmp, card)
+    emit(serve_parallel)
+    shard_k1 = serve_parallel["per_shard_kernels"]["flash_fwd"]
+    shard_k2 = serve_parallel["per_shard_kernels"]["int8_matmul"]
+    par_launches = {
+        key: {label: serve_parallel[label][f"{key}_launches_by_rank"]
+              for label, _extra, _ranks in PAR_RUNS}
+        for key in ("k1", "k2")}
+
     # ---- summary --------------------------------------------------------
     main_flash = flash_rows[0]
     train_flash = flash_rows[FWD_CASES.index(TRAIN_FWD_CASE)]
@@ -4214,6 +4453,9 @@ def main() -> int:
                 train_parallel["per_shard_kernels"]["flash_fwd"]),
             "train_parallel_launches_a_rank_a_step":
                 parallel_launches["k1_launches"],
+            "per_shard_serving": {
+                **kernel_case(shard_k1),
+                "launches_by_rank": par_launches["k1"]},
         },
         *(
             {
@@ -4274,7 +4516,7 @@ def main() -> int:
             "replaces": "containerpilot_tpu/ops/quant.py:64",
             "launches": k2_launches,
             "max_abs_err": max(r["max_abs_err"] for r in int8_rows
-                               + fleet_face["k2_cli_shapes"]),
+                               + fleet_face["k2_cli_shapes"] + shard_k2),
             "ms": k2_main["ms"], "plain_ms": k2_main["plain_ms"],
             "bound_ms": k2_main["bound_ms"], "bound_by": k2_main["bound_by"],
             "library_ms": k2_main["library_ms"],
@@ -4314,6 +4556,12 @@ def main() -> int:
                 "serve_moe_int8": serve_moe["int8"]["k2_launches"],
                 "serve_moe_bf16": serve_moe["bf16"]["k2_launches"],
                 "serve_slots_moe": slots_moe["k2_launches"]},
+            "per_shard_serving": {
+                "shapes": shard_k2,
+                "per_layer": {f"m={m}": int8_layer_sum(shard_k2, m,
+                                                       SHARD_INT8_PROJ)
+                              for m in (1, 8)},
+                "launches_by_rank": par_launches["k2"]},
         },
     ]
     emit({"kernels": kernels})

@@ -71,7 +71,9 @@ def shard_from_jax(
 ) -> Dict[str, Any]:
     """One rank's blocks of a JAX params pytree (numpy leaves) under a
     mesh: ``params_from_jax`` then ``parallel.sharding.shard_params``
-    with ``rules`` (default the tensor-parallel rules of ``cfg``).
+    with ``rules`` (default the tensor-parallel rules of ``cfg``). A
+    quantized serving tree (``*_q`` int8 leaves, ``*_s`` scales) is cut
+    with its float leaves' rules (``sharding.quantized_rules``).
     ``mesh`` may be a layout-only mesh (``make_mesh(world_size=N,
     rank=r)``), so every rank's state can be built from the same seeded
     params without a process group."""

@@ -20,6 +20,16 @@ Intended differences from the reference:
   the same seed (greedy tokens are identical). A row's draws depend only
   on (seed, row, step): each step takes one [vocab] uniform block from
   the row's generator.
+
+Serving on a mesh (``mesh=``, parallel/mesh.py: one process a rank,
+every rank calling the same function on its blocks of the params): the
+KV cache holds the rank's kv heads (``cache_kv_heads``: kv_heads/tp when
+tp divides them, else the kv of the rank's query heads, whose weights
+are replicated), attention and the flash kernel run on the rank's
+heads, and the vocab-parallel logits are gathered whole before
+sampling, so every rank samples the same token from the same bits with
+identically seeded generators. A mesh without a live ``model`` axis
+runs exactly the unsharded path.
 """
 from __future__ import annotations
 
@@ -35,7 +45,6 @@ from ..ops.flash import flash_attention_forward
 from ..ops.quant import quantize_int8_axes
 from .quantized import (
     can_fuse_int8,
-    embed_lookup,
     fused_attn_out,
     fused_mlp,
     fused_qkv,
@@ -50,16 +59,34 @@ from .transformer import (
     _ffn,
     _qkv,
     _rms_norm,
+    _tp,
+    embed,
     flash_eligible,
+    hooked_attention,
     layer_params,
     repeat_kv,
+    seq_offset,
 )
 
 Cache = Dict[str, Any]
 
 
+def cache_kv_heads(cfg: TransformerConfig, mesh=None) -> int:
+    """KV heads a rank's cache holds: all of them on one rank; under
+    tensor parallelism kv_heads/tp when tp divides them (the weights'
+    rule, parallel/sharding.py), else the rank's query heads' kv,
+    repeated from the replicated weights (``_qkv``)."""
+    tp = mesh.axis_size("model") if mesh is not None else 1
+    if tp == 1:
+        return cfg.kv_heads
+    if cfg.kv_heads % tp == 0:
+        return cfg.kv_heads // tp
+    return cfg.n_heads // tp
+
+
 def init_cache(
-    cfg: TransformerConfig, batch: int, max_len: int, device="cuda"
+    cfg: TransformerConfig, batch: int, max_len: int, device="cuda",
+    mesh=None,
 ) -> Cache:
     """Zeroed KV cache: k/v [layers, batch, length, kv_heads, head_dim]
     and ``pos`` (tokens cached) a Python int.
@@ -70,10 +97,10 @@ def init_cache(
     the generation length. With ``cfg.kv_int8`` k/v are int8 with a
     float32 scale per (token, head) over head_dim (``k_scale`` /
     ``v_scale`` [layers, batch, length, kv_heads]); otherwise they are
-    in the compute dtype."""
+    in the compute dtype. On a mesh, kv_heads is ``cache_kv_heads``."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, batch, ring_length(cfg, max_len), cfg.kv_heads,
-             cfg.head_dim)
+    shape = (cfg.n_layers, batch, ring_length(cfg, max_len),
+             cache_kv_heads(cfg, mesh), cfg.head_dim)
     cache: Cache = {"pos": 0}
     if cfg.kv_int8:
         for name in ("k", "v"):
@@ -126,14 +153,20 @@ def _read_back(cfg: TransformerConfig, leaves: Dict[str, torch.Tensor]):
             kv_dequant(leaves["v"], leaves["v_scale"], cfg.dtype))
 
 
-def _logits(params: Params, x: torch.Tensor, cfg: TransformerConfig) -> torch.Tensor:
+def _logits(params: Params, x: torch.Tensor, cfg: TransformerConfig,
+            mesh=None) -> torch.Tensor:
+    """Final hidden -> float32 logits, the vocab shards gathered whole
+    under tensor parallelism."""
     x = _rms_norm(x, params["norm_out"])
-    return _dot_f32(x, maybe_dequant_top(params, "unembed", cfg.dtype))
+    logits = _dot_f32(x, maybe_dequant_top(params, "unembed", cfg.dtype))
+    if _tp(mesh):
+        logits = mesh.all_gather(logits, "model", -1)
+    return logits
 
 
 def prefill(
     params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
-    max_len: int,
+    max_len: int, mesh=None,
 ) -> Tuple[torch.Tensor, Cache]:
     """Process the prompt -> (logits for the last position [b, vocab],
     cache). tokens: [batch, prompt_len] int64 on the params' device.
@@ -143,7 +176,11 @@ def prefill(
     quantization roundtrip of k/v, exactly what later decode steps read
     from the cache. A prompt longer than a window's ring keeps its last
     ``length`` positions, each at slot ``p % length``. An MoE config
-    with capacity routing is refused: decoding is drop-free."""
+    with capacity routing is refused: decoding is drop-free. Under
+    ``cfg.attention_fn`` (a context-parallel ring, parallel/context.py)
+    the tokens are this rank's sequence shard, RoPE runs at their global
+    positions and the hook replaces the auto attention; the cache then
+    holds the shard's positions only."""
     if cfg.moe_experts > 0 and cfg.moe_train_capacity > 0:
         raise ValueError(
             "incremental decoding requires a serving config with "
@@ -153,30 +190,35 @@ def prefill(
     b, s = tokens.shape
     if s > max_len:
         raise ValueError(f"prompt_len {s} exceeds max_len {max_len}")
-    x = embed_lookup(params, tokens, cfg.dtype)
-    cache = init_cache(cfg, b, max_len, device=x.device)
+    x = embed(params, tokens, cfg, mesh)
+    cache = init_cache(cfg, b, max_len, device=x.device, mesh=mesh)
     length = cache["k"].shape[2]
     wraps = s > length
     if wraps:
         slots = torch.arange(s - length, s, device=x.device) % length
-    gqa_flash = flash_eligible(cfg, s, kind="fwd")
+    hooked = cfg.attention_fn is not None
+    gqa_flash = not hooked and flash_eligible(cfg, s, kind="fwd")
     if gqa_flash:
         fq, fk = tuning.pick_blocks("fwd", s)
+    offset = seq_offset(cfg, s)
     for i in range(cfg.n_layers):
         lp = maybe_dequant_layer(layer_params(params, i), cfg.dtype)
-        q, k, v = _qkv(x, lp, cfg)
+        q, k, v = _qkv(x, lp, cfg, offset=offset, mesh=mesh)
         writes = kv_leaves(cfg, k, v)
         k, v = _read_back(cfg, writes)
-        if gqa_flash:
+        if hooked:
+            attn = hooked_attention(q, k, v, cfg)
+        elif gqa_flash:
             attn = flash_attention_forward(
                 q, k, v, block_q=fq, block_k=fk, window=cfg.window
             )
         else:
+            heads = q.shape[2]
             attn = causal_attention(
-                q, repeat_kv(k, cfg.n_heads), repeat_kv(v, cfg.n_heads),
+                q, repeat_kv(k, heads), repeat_kv(v, heads),
                 window=cfg.window,
             )
-        x, _aux = _ffn(_attn_out(x, attn, lp, cfg), lp, cfg)
+        x, _aux = _ffn(_attn_out(x, attn, lp, cfg, mesh), lp, cfg, mesh)
         # in place: the cache stores the unrepeated kv heads
         for name, value in writes.items():
             if wraps:
@@ -184,12 +226,12 @@ def prefill(
             else:
                 cache[name][i, :, :s] = value
     cache["pos"] = s
-    return _logits(params, x[:, -1:, :], cfg)[:, 0, :], cache
+    return _logits(params, x[:, -1:, :], cfg, mesh)[:, 0, :], cache
 
 
 def decode_chunk(
     params: Params, cache: Cache, tokens: torch.Tensor,
-    cfg: TransformerConfig,
+    cfg: TransformerConfig, mesh=None,
 ) -> Tuple[torch.Tensor, Cache]:
     """Process m tokens against the cache in one forward (``tokens[:, i]``
     sits at position pos + i) -> (logits [b, m, vocab], cache). Writes
@@ -222,7 +264,7 @@ def decode_chunk(
         )
     end = pos + m
     dev = tokens.device
-    x = embed_lookup(params, tokens, cfg.dtype)  # [b, m, d]
+    x = embed(params, tokens, cfg, mesh)  # [b, m, d]
     q_idx = torch.arange(m, device=dev)
     q_pos = pos + q_idx
     if ring:
@@ -240,15 +282,16 @@ def decode_chunk(
     else:
         valid = torch.arange(end, device=dev)[None, :] <= q_pos[:, None]
     fused = can_fuse_int8(params["layers"], cfg, rows=b * m)
-    kvh, hd = cfg.kv_heads, cfg.head_dim
-    group = cfg.n_heads // kvh
+    kvh, hd = cache["k"].shape[3], cfg.head_dim
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         if fused:
-            q, k, v = fused_qkv(x, lp, cfg, offset=pos)
+            q, k, v = fused_qkv(x, lp, cfg, offset=pos, mesh=mesh)
         else:
             lp = maybe_dequant_layer(lp, cfg.dtype)
-            q, k, v = _qkv(x, lp, cfg, offset=pos)
+            q, k, v = _qkv(x, lp, cfg, offset=pos, mesh=mesh)
+        heads = q.shape[2]
+        group = heads // kvh
         writes = kv_leaves(cfg, k, v)
         if ring:
             k, v = _read_back(cfg, writes)
@@ -270,45 +313,46 @@ def decode_chunk(
         scores = torch.where(valid, scores, NEG_INF)
         weights = torch.softmax(scores, dim=-1).to(cfg.dtype)
         attn = torch.einsum("bcgqk,bkcd->bqcgd", weights, values)
-        attn = attn.to(cfg.dtype).reshape(b, m, cfg.n_heads, hd)
-        x = layer_out(x, attn, lp, cfg, fused)
+        attn = attn.to(cfg.dtype).reshape(b, m, heads, hd)
+        x = layer_out(x, attn, lp, cfg, fused, mesh)
     cache["pos"] = end
-    return _logits(params, x, cfg), cache
+    return _logits(params, x, cfg, mesh), cache
 
 
 def layer_out(
     x: torch.Tensor, attn: torch.Tensor, lp, cfg: TransformerConfig,
-    fused: bool,
+    fused: bool, mesh=None,
 ) -> torch.Tensor:
     """Output projection + residual, then the feed-forward half: int8
     fused (K2 on the card) or dense (``lp`` already dequantized). Shared
     by ``decode_chunk`` and the slot pool's step (``models/slots.py``)."""
     if fused:
-        return fused_mlp(fused_attn_out(x, attn, lp, cfg), lp, cfg)
-    x, _aux = _ffn(_attn_out(x, attn, lp, cfg), lp, cfg)
+        return fused_mlp(fused_attn_out(x, attn, lp, cfg, mesh), lp, cfg,
+                         mesh)
+    x, _aux = _ffn(_attn_out(x, attn, lp, cfg, mesh), lp, cfg, mesh)
     return x
 
 
 def decode_step(
     params: Params, cache: Cache, token: torch.Tensor,
-    cfg: TransformerConfig,
+    cfg: TransformerConfig, mesh=None,
 ) -> Tuple[torch.Tensor, Cache]:
     """One step: token [batch] at position cache['pos'] -> (logits
     [batch, vocab], cache); the m=1 case of decode_chunk."""
-    logits, cache = decode_chunk(params, cache, token[:, None], cfg)
+    logits, cache = decode_chunk(params, cache, token[:, None], cfg, mesh)
     return logits[:, 0, :], cache
 
 
 def extend(
     params: Params, cache: Cache, tokens: torch.Tensor,
-    cfg: TransformerConfig,
+    cfg: TransformerConfig, mesh=None,
 ) -> Tuple[torch.Tensor, Cache]:
     """Consume a token chunk [b, m] against the cache -> (last logits
     [b, vocab], cache): the counterpart of the reference's
     ``_jitted_extend``. The cache is extended IN PLACE (the reference's
     extend never donates its operand); a caller that must keep the old
     cache (a prefix-cache entry) copies it first."""
-    logits, cache = decode_chunk(params, cache, tokens, cfg)
+    logits, cache = decode_chunk(params, cache, tokens, cfg, mesh)
     return logits[:, -1, :], cache
 
 
@@ -325,7 +369,7 @@ def piece_plan(s: int, chunk_len: int) -> List[int]:
 
 def extend_pieces(
     params: Params, cache: Cache, tokens: torch.Tensor,
-    cfg: TransformerConfig, chunk_len: int,
+    cfg: TransformerConfig, chunk_len: int, mesh=None,
 ) -> Tuple[torch.Tensor, Cache]:
     """Extend ``tokens`` [b, s] into ``cache`` in bounded pieces
     (``piece_plan``), so peak activation memory is O(chunk_len). Also
@@ -335,7 +379,7 @@ def extend_pieces(
     start = 0
     for piece in piece_plan(tokens.shape[1], chunk_len):
         logits, cache = extend(
-            params, cache, tokens[:, start:start + piece], cfg
+            params, cache, tokens[:, start:start + piece], cfg, mesh
         )
         start += piece
     return logits, cache
@@ -343,7 +387,7 @@ def extend_pieces(
 
 def chunked_prefill(
     params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
-    max_len: int, chunk_len: int = 512,
+    max_len: int, chunk_len: int = 512, mesh=None,
 ) -> Tuple[torch.Tensor, Cache]:
     """``prefill`` in fixed-size pieces: the prompt streams through
     ``decode_chunk`` (plain attention, the int8 kernel K2 for quantized
@@ -356,10 +400,11 @@ def chunked_prefill(
         raise ValueError(
             f"prompt_len {tokens.shape[1]} exceeds max_len {max_len}"
         )
-    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device)
+    cache = init_cache(cfg, tokens.shape[0], max_len, device=tokens.device,
+                       mesh=mesh)
     if cfg.window > 0:
         chunk_len = min(chunk_len, cache["k"].shape[2])
-    return extend_pieces(params, cache, tokens, cfg, chunk_len)
+    return extend_pieces(params, cache, tokens, cfg, chunk_len, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -644,10 +689,13 @@ def _normalize_sampling(cfg, b, max_new_tokens, temperature, rng, top_k,
 
 def _sampling_loop(params, cache, logits, cfg, max_new_tokens: int,
                    greedy: bool, filtered: bool, penalized: bool,
-                   biased: bool, ops: Dict[str, Any]) -> torch.Tensor:
+                   biased: bool, ops: Dict[str, Any],
+                   mesh=None) -> torch.Tensor:
     """The shared decode loop (the reference's ``_sampling_scan``): from
     (cache, next-token logits) sample max_new_tokens with eos/pad
-    handling -> [batch, max_new_tokens] int64."""
+    handling -> [batch, max_new_tokens] int64. The early stop reads only
+    the sampled tokens, which every rank of a mesh holds alike, so every
+    rank takes it at the same step."""
     def sample(logits, step_idx, counts):
         if penalized:
             logits = apply_token_penalties(
@@ -679,7 +727,7 @@ def _sampling_loop(params, cache, logits, cfg, max_new_tokens: int,
             # every row emitted eos: the rest is pad, as the scan would say
             out.extend([pad_id] * (max_new_tokens - step_idx))
             break
-        logits, cache = decode_step(params, cache, token, cfg)
+        logits, cache = decode_step(params, cache, token, cfg, mesh)
         token = sample(logits, step_idx, counts)
         token = torch.where(done, pad_id, token)
         done = done | (token == eos_id)
@@ -706,6 +754,7 @@ def generate(
     presence_penalty=0.0,
     frequency_penalty=0.0,
     logit_bias=None,
+    mesh=None,
 ) -> torch.Tensor:
     """Autoregressive generation. prompt: [batch, prompt_len] integer
     tensor on the params' device; returns [batch, max_new_tokens] int64.
@@ -716,7 +765,8 @@ def generate(
     presence/frequency penalties count GENERATED tokens; logit_bias is
     one {token: bias} dict or a per-row list. ``rng`` is a seed (rows
     seeded from (seed, row)), per-row torch.Generators, or None (seed
-    0)."""
+    0). ``mesh``: the params are this rank's blocks (every rank calls
+    it with the same arguments)."""
     device = params["norm_out"].device
     ops_tuple = _normalize_sampling(
         cfg, prompt.shape[0], max_new_tokens, temperature, rng, top_k,
@@ -729,10 +779,10 @@ def generate(
             f"{max_new_tokens} exceeds max_len {max_len}"
         )
     greedy, filtered, penalized, biased, ops = ops_tuple
-    logits, cache = prefill(params, prompt.to(device), cfg, max_len)
+    logits, cache = prefill(params, prompt.to(device), cfg, max_len, mesh)
     return _sampling_loop(
         params, cache, logits, cfg, max_new_tokens, greedy, filtered,
-        penalized, biased, ops,
+        penalized, biased, ops, mesh,
     )
 
 
@@ -753,6 +803,7 @@ def generate_from_cache(
     presence_penalty=0.0,
     frequency_penalty=0.0,
     logit_bias=None,
+    mesh=None,
 ) -> torch.Tensor:
     """``generate`` from an existing (cache, next-token logits [b,
     vocab]) pair: the prefix-cache and chunked-prefill serving paths
@@ -777,5 +828,5 @@ def generate_from_cache(
     )
     return _sampling_loop(
         params, cache, logits, cfg, max_new_tokens, greedy, filtered,
-        penalized, biased, ops,
+        penalized, biased, ops, mesh,
     )

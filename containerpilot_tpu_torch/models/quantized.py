@@ -17,6 +17,14 @@ compute dtype; the scales and the MoE router stay float32
 layer's experts quantize per expert and dequantize one layer at a time:
 ``can_fuse_int8`` refuses a tree without ``w_gate_q``, as the reference
 does, so K2 never runs on an MoE model.
+
+Under tensor parallelism (a ``mesh`` with a live ``model`` axis) the
+int8 leaves are each rank's blocks, cut from the quantized full masters
+with the float rules (``parallel.sharding.shard_params``): a
+column-parallel weight holds its own columns' scales, a row-parallel one
+(``wo``, ``w_down``) the full per-column scales, so its partial product
+is already scaled when it is summed over ``model``. ``can_fuse_int8``
+judges the rank's local shapes, and K2 runs on each rank's block.
 """
 from __future__ import annotations
 
@@ -154,18 +162,16 @@ def can_fuse_int8(
 ) -> bool:
     """True when the decode projections can run through the fused int8
     GEMM: dense (non-MoE) quantized weights, a weight-streaming-bound
-    row count, tile-aligned dims (the reference's rule, unchanged)."""
+    row count, tile-aligned dims (the reference's rule), judged on the
+    leaves' own shapes (a rank's blocks under tensor parallelism)."""
     if "wq_q" not in layers or "w_gate_q" not in layers:
         return False
     if rows > FUSED_MAX_ROWS:
         return False
-    d = cfg.d_model
-    kv_out = cfg.kv_heads * cfg.head_dim
-    return (
-        d % _GEMM_TILE == 0
-        and kv_out % _GEMM_TILE == 0
-        and cfg.d_ff % _GEMM_TILE == 0
-    )
+    _l, d, heads, hd = layers["wq_q"].shape
+    kv_out = layers["wk_q"].shape[2] * hd
+    return all(n % _GEMM_TILE == 0 for n in (
+        d, heads * hd, kv_out, layers["w_gate_q"].shape[2]))
 
 
 def _fused_proj(
@@ -181,40 +187,58 @@ def _fused_proj(
     )
 
 
+def _sum_over_model(out: torch.Tensor, mesh) -> torch.Tensor:
+    """A row-parallel partial product summed over ``model``."""
+    if mesh is None or mesh.axis_size("model") == 1:
+        return out
+    return mesh.all_reduce(out, "model")
+
+
 def fused_qkv(
     x: torch.Tensor, layer_params: Dict[str, torch.Tensor], cfg: Any,
-    offset,
+    offset, mesh=None,
 ):
     """The _qkv contract (pre-norm, projections, RoPE at an int or
-    [batch] per-row ``offset``) with int8-fused projections."""
-    from .transformer import _rms_norm, _rope
+    [batch] per-row ``offset``) with int8-fused projections. Under
+    tensor parallelism q and sharded k/v are the rank's heads; kv heads
+    that do not divide by ``model`` are projected whole and cut to the
+    kv of the rank's query heads, as ``_qkv`` does."""
+    from .transformer import _rms_norm, _rope, repeat_kv
 
     b, s, d = x.shape
     h = _rms_norm(x, layer_params["norm_attn"]).reshape(b * s, d)
     hd = cfg.head_dim
-    q = _fused_proj(h, layer_params, "wq").reshape(b, s, cfg.n_heads, hd)
-    k = _fused_proj(h, layer_params, "wk").reshape(b, s, cfg.kv_heads, hd)
-    v = _fused_proj(h, layer_params, "wv").reshape(b, s, cfg.kv_heads, hd)
+    heads = layer_params["wq_q"].shape[1]
+    kvh = layer_params["wk_q"].shape[1]
+    q = _fused_proj(h, layer_params, "wq").reshape(b, s, heads, hd)
+    k = _fused_proj(h, layer_params, "wk").reshape(b, s, kvh, hd)
+    v = _fused_proj(h, layer_params, "wv").reshape(b, s, kvh, hd)
+    if heads < cfg.n_heads and kvh == cfg.kv_heads:  # kv replicated
+        first = mesh.axis_index("model") * heads
+        k, v = (repeat_kv(t, cfg.n_heads)[:, :, first:first + heads]
+                for t in (k, v))
     return _rope(q, cfg.rope_theta, offset), _rope(k, cfg.rope_theta, offset), v
 
 
 def fused_attn_out(
     x: torch.Tensor, attn: torch.Tensor,
-    layer_params: Dict[str, torch.Tensor], cfg: Any,
+    layer_params: Dict[str, torch.Tensor], cfg: Any, mesh=None,
 ) -> torch.Tensor:
     """Output projection + residual, int8-fused (wo's h*hd axes flatten
-    to the GEMM's k)."""
+    to the GEMM's k); row-parallel under tensor parallelism."""
     b, s, h, hd = attn.shape
     out = _fused_proj(
         attn.reshape(b * s, h * hd), layer_params, "wo"
     ).reshape(b, s, -1)
-    return x + out
+    return x + _sum_over_model(out, mesh)
 
 
 def fused_mlp(
-    x: torch.Tensor, layer_params: Dict[str, torch.Tensor], cfg: Any
+    x: torch.Tensor, layer_params: Dict[str, torch.Tensor], cfg: Any,
+    mesh=None,
 ) -> torch.Tensor:
-    """SwiGLU block + residual with all three GEMMs int8-fused."""
+    """SwiGLU block + residual with all three GEMMs int8-fused (gate/up
+    column-parallel, down row-parallel under tensor parallelism)."""
     from .transformer import _rms_norm
 
     b, s, d = x.shape
@@ -223,7 +247,7 @@ def fused_mlp(
     up = _fused_proj(h, layer_params, "w_up").float()
     act = (torch.nn.functional.silu(gate) * up).to(cfg.dtype)
     down = _fused_proj(act, layer_params, "w_down").reshape(b, s, d)
-    return x + down
+    return x + _sum_over_model(down, mesh)
 
 
 # ---------------------------------------------------------------------------
@@ -252,14 +276,15 @@ def _quantized_program_class():
         quantized, so a mis-wired full-precision dict fails at startup
         rather than as 4x the expected memory at first decode."""
 
-        def __init__(self, cfg, params, max_len, slots, chunk, rounds=1):
+        def __init__(self, cfg, params, max_len, slots, chunk, rounds=1,
+                     mesh=None):
             if not is_quantized(params):
                 raise ValueError(
                     "QuantizedStepProgram needs quantize_model_params "
                     "output (no *_q leaves found)"
                 )
             super().__init__(cfg, params, max_len, slots, chunk,
-                             rounds=rounds)
+                             rounds=rounds, mesh=mesh)
 
     _QUANTIZED_PROGRAM = QuantizedStepProgram
     return _QUANTIZED_PROGRAM

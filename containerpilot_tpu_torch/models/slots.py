@@ -36,6 +36,12 @@ Intended differences from the reference:
   ``rounds_run`` counted on the device. Rounds past the exit still
   compute (and draw) but change nothing a live request reads.
 
+On a mesh (``mesh=``, serving over ranks) the pool holds the rank's kv
+heads (``decode.cache_kv_heads``), the step runs the rank's blocks of
+the params with the tensor-parallel collectives, and the logits are
+gathered whole before sampling, so every rank's slots draw the same
+tokens.
+
 Dead slots (finished, not yet reused) keep decoding garbage; their k/v
 writes clamp to the row's last position (a ring's wrap within the row)
 and the row is overwritten wholesale by the next admission
@@ -53,6 +59,7 @@ from .decode import (
     BIAS_SLOTS_MAX,
     Cache,
     _logits,
+    cache_kv_heads,
     apply_logit_bias,
     apply_token_penalties,
     count_token,
@@ -67,7 +74,6 @@ from .decode import (
 )
 from .quantized import (
     can_fuse_int8,
-    embed_lookup,
     fused_qkv,
     maybe_dequant_layer,
 )
@@ -75,6 +81,7 @@ from .transformer import (
     Params,
     TransformerConfig,
     _qkv,
+    embed,
     layer_params,
 )
 
@@ -199,7 +206,7 @@ def retire_slot(state: dict, slot: int) -> dict:
 
 @torch.inference_mode()
 def slot_cache(cfg: TransformerConfig, slots: int, max_len: int,
-               device="cuda") -> Cache:
+               device="cuda", mesh=None) -> Cache:
     """A pool of ``slots`` cache rows: k/v [layers, S, kv_heads, length,
     head_dim], zeroed, with ``length`` = ``max_len`` or a window's ring
     (``min(window, max_len)``), in the compute dtype or, under
@@ -209,10 +216,11 @@ def slot_cache(cfg: TransformerConfig, slots: int, max_len: int,
     is [layers, 1, length, kv_heads, head_dim]) so every head's keys are
     one contiguous [length, head_dim] block: the pool attention's
     products read them in place, where a position-major pool would be
-    copied to that order every step."""
+    copied to that order every step. On a mesh, kv_heads is
+    ``cache_kv_heads``."""
     dev = resolve_device(device)
-    shape = (cfg.n_layers, slots, cfg.kv_heads, ring_length(cfg, max_len),
-             cfg.head_dim)
+    shape = (cfg.n_layers, slots, cache_kv_heads(cfg, mesh),
+             ring_length(cfg, max_len), cfg.head_dim)
     pool: Cache = {}
     for name in ("k", "v"):
         if cfg.kv_int8:
@@ -264,7 +272,7 @@ def pool_mask(pos: torch.Tensor, length: int,
 @torch.inference_mode()
 def decode_slots_logits(
     params: Params, pool: Cache, tokens: torch.Tensor,
-    cfg: TransformerConfig,
+    cfg: TransformerConfig, mesh=None,
 ) -> torch.Tensor:
     """One decode step of the whole pool: tokens [S] (slot i's token at
     position pool['pos'][i]) -> logits [S, vocab] float32. Writes each
@@ -279,7 +287,7 @@ def decode_slots_logits(
     pos = pool["pos"]
     _layers, slots, kvh, length, hd = pool["k"].shape
     dev = tokens.device
-    x = embed_lookup(params, tokens[:, None], cfg.dtype)  # [S, 1, d]
+    x = embed(params, tokens[:, None], cfg, mesh)  # [S, 1, d]
     valid = pool_mask(pos, length, cfg)
     at = (torch.remainder(pos, length) if cfg.window > 0
           else torch.clamp(pos, max=length - 1))
@@ -293,10 +301,10 @@ def decode_slots_logits(
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         if fused:
-            q, k, v = fused_qkv(x, lp, cfg, offset=pos)
+            q, k, v = fused_qkv(x, lp, cfg, offset=pos, mesh=mesh)
         else:
             lp = maybe_dequant_layer(lp, cfg.dtype)
-            q, k, v = _qkv(x, lp, cfg, offset=pos)
+            q, k, v = _qkv(x, lp, cfg, offset=pos, mesh=mesh)
         for name, value in kv_leaves(cfg, k, v).items():
             flat = pool[name][i].view(-1, *value.shape[3:])
             flat.index_copy_(0, rows, value.reshape(-1, *value.shape[3:]))
@@ -305,8 +313,8 @@ def decode_slots_logits(
             keys = kv_dequant(keys, pool["k_scale"][i], cfg.dtype)
             values = kv_dequant(values, pool["v_scale"][i], cfg.dtype)
         attn = pool_attention(q, keys, values, valid, cfg)
-        x = layer_out(x, attn, lp, cfg, fused)
-    return _logits(params, x, cfg)[:, 0, :]
+        x = layer_out(x, attn, lp, cfg, fused, mesh)
+    return _logits(params, x, cfg, mesh)[:, 0, :]
 
 
 def pool_attention(
@@ -314,7 +322,7 @@ def pool_attention(
     valid: torch.Tensor, cfg: TransformerConfig,
 ) -> torch.Tensor:
     """``decode_chunk``'s attention at one query a row, on the pool's
-    head-major layout: q [S, 1, h, hd],
+    head-major layout: q [S, 1, h, hd] (the rank's heads on a mesh),
     keys/values [S, kv, length, hd] in the compute dtype, ``valid``
     [S, 1, 1, length]. The same arithmetic: float32 scores from
     q * hd**-0.5 and float32 keys, NEG_INF mask, float32 softmax cast to
@@ -326,13 +334,13 @@ def pool_attention(
     scores = torch.where(valid, scores, NEG_INF)
     weights = torch.softmax(scores, dim=-1).to(cfg.dtype)
     attn = torch.matmul(weights, values)  # [S, kv, group, hd]
-    return attn.to(cfg.dtype).reshape(slots, 1, cfg.n_heads, hd)
+    return attn.to(cfg.dtype).reshape(slots, 1, q.shape[2], hd)
 
 
 @torch.inference_mode()
 def round_step(
     params: Params, pool: Cache, state: dict, cfg: TransformerConfig,
-    live: torch.Tensor,
+    live: torch.Tensor, mesh=None,
 ) -> torch.Tensor:
     """THE per-token step body (the reference's ``_round_step_body``)
     shared by the chunk and the window programs, so a window is the
@@ -345,7 +353,7 @@ def round_step(
     last/done/counts/step_idx/pos and emits pad. The k/v write at the
     unchanged position is harmless: the next real step overwrites it
     before anything reads it."""
-    logits = decode_slots_logits(params, pool, state["last"], cfg)
+    logits = decode_slots_logits(params, pool, state["last"], cfg, mesh)
     idx = state["step_idx"]
     masked = apply_token_penalties(
         logits, state["counts"], state["presence"], state["frequency"]
@@ -400,7 +408,7 @@ def begin_window(state: dict, win: dict, force: bool) -> None:
 @torch.inference_mode()
 def gated_round(
     params: Params, pool: Cache, state: dict, cfg: TransformerConfig,
-    chunk: int, win: dict,
+    chunk: int, win: dict, mesh=None,
 ) -> None:
     """One chunk-round of the window program, with the early exit on the
     device: the round is live when forced or when some slot is not done
@@ -412,7 +420,8 @@ def gated_round(
     live = win["force"] | (
         ~state["done"] & (win["run"] * chunk < win["budget"])
     ).any()
-    toks = [round_step(params, pool, state, cfg, live) for _ in range(chunk)]
+    toks = [round_step(params, pool, state, cfg, live, mesh)
+            for _ in range(chunk)]
     win["toks"].index_copy_(
         1, win["run"] * chunk + win["cols"], torch.stack(toks, dim=1)
     )
@@ -422,7 +431,7 @@ def gated_round(
 @torch.inference_mode()
 def decode_slots_chunk(
     params: Params, pool: Cache, state: dict, cfg: TransformerConfig,
-    chunk: int,
+    chunk: int, mesh=None,
 ) -> Tuple[Cache, dict, torch.Tensor]:
     """Advance the whole pool ``chunk`` tokens, unconditionally, in
     place; returns (pool, state, tokens [S, chunk]). Eager: the step
@@ -430,14 +439,14 @@ def decode_slots_chunk(
     slots = state["last"].shape[0]
     win = window_buffers(slots, chunk, 1, state["last"].device)
     begin_window(state, win, force=True)
-    gated_round(params, pool, state, cfg, chunk, win)
+    gated_round(params, pool, state, cfg, chunk, win, mesh)
     return pool, state, win["toks"]
 
 
 @torch.inference_mode()
 def decode_slots_window(
     params: Params, pool: Cache, state: dict, cfg: TransformerConfig,
-    chunk: int, rounds: int, budget: Sequence[int],
+    chunk: int, rounds: int, budget: Sequence[int], mesh=None,
 ) -> Tuple[Cache, dict, torch.Tensor, torch.Tensor]:
     """Advance the pool up to ``rounds`` chunk-rounds with the early exit
     (``gated_round``): ``budget`` [S] is each slot's remaining max_new
@@ -450,7 +459,7 @@ def decode_slots_window(
     win["budget"].copy_(torch.as_tensor(budget, dtype=torch.int64))
     begin_window(state, win, force=False)
     for _ in range(rounds):
-        gated_round(params, pool, state, cfg, chunk, win)
+        gated_round(params, pool, state, cfg, chunk, win, mesh)
     return pool, state, win["toks"], win["run"]
 
 

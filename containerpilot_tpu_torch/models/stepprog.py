@@ -33,6 +33,17 @@ graph's static token buffer without racing the previous window's copy.
 There is no fallback: on CUDA the program captures or raises. On the
 CPU it runs the same round eagerly.
 
+On a mesh (``mesh=``, serving over ranks, parallel/serving.py) with a
+live ``model`` axis the round calls the tensor-parallel collectives.
+Where they are staged through host buffers (gloo for ranks that share a
+card, ``mesh.staging``) a graph cannot capture them, and NCCL
+collectives inside a captured round are not ported, so the program runs
+its round uncaptured on the card: the choice is made from the mesh at
+construction (``step_program_mode``), never from a failed capture, and
+the server prints it and reports it in ``/v1/model``. A mesh whose round
+makes no collective (``model`` 1: context parallelism alone rings only
+the prefill) captures as on one card.
+
 The graph reads every position from the pool's device ``pos`` (RoPE,
 the write slot, the ring mask), never from a host value, so one capture
 serves every admission at every position.
@@ -82,6 +93,19 @@ def _counts() -> List[int]:
     return [getattr(mod, name) for mod, name in _COUNTERS]
 
 
+def step_program_mode(device, mesh=None) -> str:
+    """How a step program runs its round: ``"graph"`` (one CUDA graph
+    captured at construction, replayed), ``"eager"`` (the CPU), or
+    ``"uncaptured"`` (a card whose round calls collectives: host-staged
+    under gloo, which a graph cannot capture; NCCL's, whose capture is
+    not ported)."""
+    if torch.device(device).type != "cuda":
+        return "eager"
+    if mesh is not None and mesh.axis_size("model") > 1:
+        return "uncaptured"
+    return "graph"
+
+
 class _Handle:
     """One dispatch's host side: its budgets staging buffer, its token
     and rounds_run buffers (pinned on CUDA) and the event after the
@@ -117,17 +141,20 @@ class PlainStepProgram:
         slots: int,
         chunk: int,
         rounds: int = 1,
+        mesh=None,
     ) -> None:
         if slots < 1 or chunk < 1 or rounds < 1:
             raise ValueError("slots, chunk and rounds must be >= 1")
         self.cfg = cfg
         self.params = params
+        self.mesh = mesh
         self.max_len = max_len
         self.slots = slots
         self.chunk = chunk
         self.rounds = rounds
         self.device = params["norm_out"].device
-        self._pool = slot_cache(cfg, slots, max_len, device=self.device)
+        self._pool = slot_cache(cfg, slots, max_len, device=self.device,
+                                mesh=mesh)
         self._state = init_slot_state(cfg, slots, device=self.device)
         self._win = window_buffers(slots, chunk, rounds, self.device)
         self._free = [
@@ -146,14 +173,15 @@ class PlainStepProgram:
         self.graphs = 0
         self.captured_at = None
         self.capture_seconds = 0.0
-        if self.device.type == "cuda":
+        self.mode = step_program_mode(self.device, mesh)
+        if self.mode == "graph":
             self._capture()
 
     # ---------------------------------------------------------- device
 
     def _round(self) -> None:
         gated_round(self.params, self._pool, self._state, self.cfg,
-                    self.chunk, self._win)
+                    self.chunk, self._win, self.mesh)
 
     def _capture(self) -> None:
         """Warm the round eagerly on the capture stream (kernel builds,
@@ -299,6 +327,7 @@ def make_step_program(
     slots: int,
     chunk: int,
     rounds: int = 1,
+    mesh=None,
 ):
     """The default step program for a params dict: quantized params get
     the quantized program, everything else the plain one."""
@@ -308,4 +337,4 @@ def make_step_program(
         QuantizedStepProgram if is_quantized(params)
         else PlainStepProgram
     )
-    return kind(cfg, params, max_len, slots, chunk, rounds=rounds)
+    return kind(cfg, params, max_len, slots, chunk, rounds=rounds, mesh=mesh)

@@ -37,11 +37,17 @@ dense dispatch on the rank's local experts and sum the partial outputs.
 Under FSDP (``mesh.fsdp``) each layer gathers its data-sharded
 parameters at use. With ``mesh=None``, or a world of one, every function
 runs exactly the unsharded path.
+
+Context parallelism binds ``cfg.attention_fn`` (parallel/context.py's
+ring over the mesh's ``seq`` axis): the layers then see a rank's
+sequence shard, RoPE runs at the shard's global positions
+(``seq_offset``), and the hook replaces the auto attention, taking
+unrepeated kv heads when it is marked ``gqa_native``.
 """
 from __future__ import annotations
 
 import functools
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 from typing import Any, Dict, Tuple, Union
 
 import torch
@@ -61,8 +67,10 @@ from .quantized import embed_lookup, maybe_dequant_layer, maybe_dequant_top
 
 @dataclass(frozen=True)
 class TransformerConfig:
-    """Field for field the reference's config (``attention_fn`` left
-    out), with ``dtype`` a torch dtype."""
+    """Field for field the reference's config, with ``dtype`` a torch
+    dtype. ``attention_fn`` is a hook that replaces the auto attention
+    (``parallel.context.context_parallel_config`` binds the ring); it
+    takes no part in equality or hashing."""
 
     vocab_size: int = 32_000
     d_model: int = 512
@@ -81,6 +89,7 @@ class TransformerConfig:
     moe_experts: int = 0
     moe_aux_weight: float = 0.01
     moe_train_capacity: float = 0.0
+    attention_fn: Any = field(default=None, compare=False, repr=False)
 
     def __post_init__(self) -> None:
         if self.moe_train_capacity > 0 and self.moe_experts == 0:
@@ -388,6 +397,8 @@ def _attention(
     The head count is q's own (the rank's local heads under tensor
     parallelism)."""
     s, heads = q.shape[1], q.shape[2]
+    if cfg.attention_fn is not None:
+        return hooked_attention(q, k, v, cfg)
     if flash_eligible(cfg, s, kind=kind):
         bq, bk = tuning.pick_blocks(kind, s)
         if torch.is_grad_enabled():
@@ -402,6 +413,29 @@ def _attention(
         q, repeat_kv(k, heads), repeat_kv(v, heads),
         window=cfg.window,
     )
+
+
+def hooked_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     cfg: TransformerConfig) -> torch.Tensor:
+    """``cfg.attention_fn`` on the rank's heads: k/v unrepeated when the
+    hook is marked ``gqa_native`` (the ring rotates the small grouped
+    k/v), else repeated to q's heads."""
+    fn = cfg.attention_fn
+    if getattr(fn, "gqa_native", False):
+        return fn(q, k, v)
+    heads = q.shape[2]
+    return fn(q, repeat_kv(k, heads), repeat_kv(v, heads))
+
+
+def seq_offset(cfg: TransformerConfig, s: int) -> int:
+    """The global position of a sequence shard's first token: under an
+    attention hook bound to a mesh's ``seq`` axis (``seq_mesh``), the
+    rank's seq index times the local length s (RoPE runs at global
+    positions); else 0."""
+    mesh = getattr(cfg.attention_fn, "seq_mesh", None)
+    if mesh is None:
+        return 0
+    return mesh.axis_index(getattr(cfg.attention_fn, "seq_axis", "seq")) * s
 
 
 def _fsdp_gather(t: torch.Tensor, rule, mesh, stacked: bool = False):
@@ -433,7 +467,7 @@ def _layer(
         rules = mesh.fsdp["layers"]
         lp = {k: _fsdp_gather(v, rules[k], mesh, stacked=True)
               for k, v in lp.items()}
-    q, k, v = _qkv(x, lp, cfg, mesh=mesh)
+    q, k, v = _qkv(x, lp, cfg, offset=seq_offset(cfg, x.shape[1]), mesh=mesh)
     attn = _attention(q, k, v, cfg, kind="train")
     x = _attn_out(x, attn, lp, cfg, mesh)
     return _ffn(x, lp, cfg, mesh)
@@ -470,20 +504,22 @@ def embed(params: Params, tokens: torch.Tensor, cfg: TransformerConfig,
           mesh=None) -> torch.Tensor:
     """tokens [batch, seq] -> embeddings in the compute dtype. Under
     tensor parallelism each rank looks up the tokens of its vocab rows
-    (zeros elsewhere) and the parts are summed over ``model``."""
-    if mesh is None:
+    (zeros elsewhere; an int8 table dequantizes only the rows it
+    gathers) and the parts are summed over ``model``."""
+    if mesh is None or (mesh.fsdp is None and not _tp(mesh)):
         return embed_lookup(params, tokens, cfg.dtype)
-    table = params["embed"]
     if mesh.fsdp is not None:
-        table = _fsdp_gather(table, mesh.fsdp["embed"], mesh)
-    if not _tp(mesh):
-        return table[tokens].to(cfg.dtype)
+        table = _fsdp_gather(params["embed"], mesh.fsdp["embed"], mesh)
+        if not _tp(mesh):
+            return table[tokens].to(cfg.dtype)
+        params = {"embed": table}
     from ..parallel.collectives import reduce_from
 
-    rows = table.shape[0]
+    rows = (params["embed"] if "embed" in params
+            else params["embed_q"]).shape[0]
     local = tokens - mesh.axis_index("model") * rows
     inside = (local >= 0) & (local < rows)
-    x = table[local.clamp(0, rows - 1)].to(cfg.dtype)
+    x = embed_lookup(params, local.clamp(0, rows - 1), cfg.dtype)
     return reduce_from(x * inside[..., None].to(x.dtype), mesh)
 
 

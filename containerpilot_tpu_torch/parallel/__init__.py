@@ -1,8 +1,10 @@
 """Training state, optimizer, train steps, checkpoints, and training
 across ranks: the mesh as a torch.distributed world, sharding rules,
-tensor/expert/data parallelism, ZeRO-1, FSDP and the GPipe pipeline
-(counterpart of ``containerpilot_tpu/parallel``; context parallelism,
-``cp_generate`` and ``flash_parallel_config`` are not ported yet).
+tensor/expert/data parallelism, ZeRO-1, FSDP and the GPipe pipeline;
+context-parallel serving (``context_parallel_config``, ``cp_generate``)
+and the serving lockstep of ranks (parallel/serving.py) (counterpart of
+``containerpilot_tpu/parallel``; the context-parallel training step is
+not ported yet).
 """
 from .checkpoint import (
     latest_step,
@@ -10,6 +12,12 @@ from .checkpoint import (
     restore_params,
     save_checkpoint,
     wait_for_checkpoints,
+)
+from .context import (
+    context_parallel_config,
+    cp_generate,
+    cp_prefill_with_remainder,
+    resolve_cp_min_len,
 )
 from .distributed import initialize_from_catalog, initialize_from_env
 from .mesh import Mesh, MeshPlan, make_mesh
@@ -46,6 +54,9 @@ __all__ = [
     "StepWatchdog",
     "TrainState",
     "abstract_train_state",
+    "context_parallel_config",
+    "cp_generate",
+    "cp_prefill_with_remainder",
     "ema_params",
     "fsdp_sharding_rules",
     "gather_params",
@@ -64,6 +75,7 @@ __all__ = [
     "pipeline_forward_with_aux",
     "pipeline_loss_fn",
     "pipeline_sharding_rules",
+    "resolve_cp_min_len",
     "restore_checkpoint",
     "restore_params",
     "save_checkpoint",

@@ -43,9 +43,9 @@ import torch.distributed as dist
 class MeshPlan:
     """A named factorization of the rank count.
 
-    ``seq`` > 1 adds a context-parallel axis (not ported yet: ring
-    attention is item 7b); ``pipe`` > 1 adds a pipeline-stage axis for
-    GPipe microbatching (parallel/pipeline.py).
+    ``seq`` > 1 adds a context-parallel axis (the ring of
+    ops/ring_attention.py, parallel/context.py); ``pipe`` > 1 adds a
+    pipeline-stage axis for GPipe microbatching (parallel/pipeline.py).
     """
 
     data: int
@@ -219,6 +219,27 @@ class Mesh:
         dist.broadcast(buf, src=self.ranks_along(axis)[src_index],
                        group=group)
         return self._back(buf, t)
+
+    def ring_shift(self, tensors: List[torch.Tensor], axis: str
+                   ) -> List[torch.Tensor]:
+        """The ring's hop: each tensor goes to position i + 1 along
+        ``axis`` and the one from position i - 1 comes back, all in one
+        batch of sends and receives (no ordering for gloo to deadlock
+        on). Returns the received tensors, shaped as the sent ones."""
+        group = self.group(axis)
+        if group is None:
+            return list(tensors)
+        n, i = self.axis_size(axis), self.axis_index(axis)
+        ranks = self.ranks_along(axis)
+        bufs = [self._buf(t) for t in tensors]
+        outs = [torch.empty_like(b) for b in bufs]
+        ops = [dist.P2POp(dist.isend, b, ranks[(i + 1) % n], group)
+               for b in bufs]
+        ops += [dist.P2POp(dist.irecv, o, ranks[(i - 1) % n], group)
+                for o in outs]
+        for work in dist.batch_isend_irecv(ops):
+            work.wait()
+        return [self._back(o, t) for o, t in zip(outs, tensors)]
 
     def isend(self, t: torch.Tensor, axis: str, to_index: int, tag: int,
               pending: list) -> None:

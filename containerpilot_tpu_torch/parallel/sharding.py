@@ -18,6 +18,14 @@ insert the collectives; here ``shard_params`` cuts each rank's own
 slice out of the full tensor, the layers call the collectives
 themselves (``models/transformer.py``), and ``gather_params`` rebuilds
 the full tree (for checkpoints and tests).
+
+A serving tree quantized by ``models.quantized.quantize_model_params``
+(the reference quantizes after ``shard_params``; here the full masters
+are quantized first, then cut) takes its float leaf's rule for both
+``W_q`` and ``W_s`` (``quantized_rules``), except on a scale's reduced
+axes, which have size 1 and stay whole: a column-parallel weight keeps
+its own columns' scales, a row-parallel one (``wo``, ``w_down``) the
+full per-column scales.
 """
 from __future__ import annotations
 
@@ -125,6 +133,29 @@ def batch_spec() -> Rule:
     return ("data", None)
 
 
+def quantized_rules(rules: Any, params: Any) -> Any:
+    """The rule tree of ``params``: ``rules`` itself for a float tree;
+    for a quantized one, each ``W_q``/``W_s`` leaf takes ``W``'s rule, a
+    scale's size-1 (reduced) dims replicated."""
+    def level(rule_level, param_level):
+        out = {}
+        for name, leaf in param_level.items():
+            if isinstance(leaf, dict):
+                out[name] = level(rule_level[name], leaf)
+                continue
+            base = name[:-2]
+            if name in rule_level or base not in rule_level:
+                out[name] = rule_level[name]
+            elif name.endswith("_s"):
+                out[name] = tuple(None if leaf.shape[i] == 1 else axis
+                                  for i, axis in enumerate(rule_level[base]))
+            else:
+                out[name] = rule_level[base]
+        return out
+
+    return level(rules, params)
+
+
 def _map(fn, tree, *rest):
     if isinstance(tree, dict):
         return {k: _map(fn, tree[k], *(r[k] for r in rest)) for k in tree}
@@ -151,6 +182,7 @@ def shard_params(params: Any, mesh: Any, cfg: Optional[Any] = None,
     full tensor can be freed)."""
     if rules is None:
         rules = param_sharding_rules(cfg, mesh)
+    rules = quantized_rules(rules, params)
     return _map(lambda t, r: local_slice(t, r, mesh).contiguous()
                 if any(a is not None and mesh.shape.get(a, 1) > 1
                        for a in r) else t,
@@ -172,4 +204,5 @@ def gather_params(params: Any, mesh: Any, cfg: Optional[Any] = None,
     """The full tree on every rank (collective: every rank calls it)."""
     if rules is None:
         rules = param_sharding_rules(cfg, mesh)
+    rules = quantized_rules(rules, params)
     return _map(lambda t, r: gather_leaf(t.detach(), r, mesh), params, rules)

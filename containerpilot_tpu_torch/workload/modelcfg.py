@@ -22,7 +22,7 @@ import numpy as np
 import torch
 
 from ..models.decode import BIAS_SLOTS_MAX
-from ..models.transformer import FLASH_BLOCK, forward, loss_fn
+from ..models.transformer import FLASH_BLOCK, forward_with_aux, loss_fn
 
 
 def derive_d_ff(d_model: int) -> int:
@@ -31,13 +31,14 @@ def derive_d_ff(d_model: int) -> int:
     return d_model * 3 // 128 * 128 or 128
 
 
-def score_logprobs_fn(cfg: Any) -> Callable:
+def score_logprobs_fn(cfg: Any, mesh: Any = None) -> Callable:
     """The one teacher-forced scoring function: ``score(params, toks)``
     -> per-token logprobs [b, n - 1] float32 of toks[:, 1:] from a
     forward over toks[:, :-1] (a float32 log-softmax, then a gather).
     The forward's length is padded to a multiple of the flash block, so
     a long row takes the flash kernel (K1 on the card); causal attention
-    leaves every real position unchanged by the pad."""
+    leaves every real position unchanged by the pad. ``mesh``: the
+    params are a rank's blocks (the vocab shards gathered whole)."""
 
     @torch.inference_mode()
     def score(params, toks: torch.Tensor) -> torch.Tensor:
@@ -45,7 +46,7 @@ def score_logprobs_fn(cfg: Any) -> Callable:
         inputs = torch.nn.functional.pad(
             toks[:, :-1], (0, -s % FLASH_BLOCK)
         )
-        logits = forward(params, inputs, cfg)[:, :s]
+        logits = forward_with_aux(params, inputs, cfg, mesh)[0][:, :s]
         logp = torch.log_softmax(logits.float(), dim=-1)
         return torch.gather(logp, -1, toks[:, 1:, None].long())[..., 0]
 

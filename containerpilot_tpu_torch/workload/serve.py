@@ -69,6 +69,20 @@ runs from construction (``boot``) through ``compile_warmup`` to
 prefill/decode/idle at request boundaries. The server speaks cp-mux/1
 (utils/http.py) unless built with ``mux=False``.
 
+Serving over ranks (``mesh``, ``lockstep``: ``--tp``/``--cp``, one
+process a rank, parallel/serving.py): this server is the FRONT, on rank
+0, over its blocks of the params. Every device call (a Batcher batch,
+chunked and context-parallel prefill, ``/v1/score``, the slot engine's
+verbs, the warmup) is a lockstep op: broadcast to the followers
+(``ServingFollower``, no HTTP surface), then run here. Single rows at
+least ``cp_min_len`` long ring their prefill over the mesh's ``seq``
+axis (``cp_mesh``; serve_strategies.run_cp, or the slot engine's
+admission). ``/v1/model`` reports ``mesh`` and ``cp`` in the reference's
+schema, and ``lockstep`` (the ranks, the step program's mode, whether
+every rank's tokens agree). Beams, the speculative engine, the prefix
+cache and the fleet's KV and weight verbs are not ported under a mesh
+and are refused, never served as if the model were whole.
+
 A fleet member (fleet/member.py) heartbeats the server's ``occupancy``,
 ``role``, ``kv_note``, ``prefix_digest_note``, ``goodput_note`` and
 ``migrate_note``; its drain runs ``migrate_sessions``, and while draining a
@@ -118,7 +132,7 @@ from .modelcfg import (
     parse_stop_strings,
     score_logprobs_fn,
 )
-from .serve_batcher import Batcher, GenJob
+from .serve_batcher import Batcher, GenJob, generate_rows
 from .serve_cli import main  # noqa: F401  (one import path for the CLI)
 from .serve_prefix import MIN_REUSE, PrefixCache, generate_with_prefix
 
@@ -128,6 +142,100 @@ log = logging.getLogger("containerpilot.serve")
 # tokens (chunk+2 with fused windows). The construction-time max_len
 # guard and the warm request itself must agree.
 WARMUP_PROMPT_LEN = 4
+
+
+def slot_window_for(max_len: int, slot_chunk: int, slot_window: int) -> int:
+    """The slot engine's rounds a dispatch: fused windows need a warmup
+    request that rides one pure-decode cycle (chunk+2 new tokens); a
+    max_len too tight for that clamps the engine to one-round dispatches,
+    as the reference does."""
+    if WARMUP_PROMPT_LEN + slot_chunk + 2 > max_len:
+        return 1
+    return slot_window
+
+
+def score_rows(srv: Any, tokens: List[List[int]]):
+    """Teacher-forced logprobs of token rows [b, n] -> numpy [b, n - 1]
+    (the device call of /v1/score and the logprobs echo)."""
+    toks = torch.tensor(tokens, dtype=torch.int64, device=srv.device)
+    picked = srv._score_fn(srv.params, toks).cpu().double().numpy()
+    if srv.lockstep is not None:
+        srv.lockstep.record_tokens(picked)
+    return picked
+
+
+def warm_shapes(srv: Any) -> None:
+    """The warmup's device work: the default-shaped requests once."""
+    for prompt_len in (4, 16):
+        if prompt_len + 16 > srv.max_len:
+            continue
+        prompt = torch.zeros(
+            (1, prompt_len), dtype=torch.int64, device=srv.device
+        )
+        generate(
+            srv.params, prompt, srv.cfg, max_new_tokens=16,
+            max_len=srv.max_len, mesh=srv.mesh,
+        )
+
+
+def serving_ops(srv: Any) -> Dict[str, Any]:
+    """The server's lockstep ops (besides the slot engine's verbs), each
+    a call on ``srv``: an ``InferenceServer`` on the front, a
+    ``ServingFollower`` elsewhere."""
+    return {
+        "generate": lambda jobs: generate_rows(srv, jobs),
+        "chunked": lambda *args: serve_strategies.run_chunked(srv, *args),
+        "cp": lambda tokens, p: serve_strategies.run_cp(srv, tokens, p),
+        "score": lambda tokens: score_rows(srv, tokens),
+        "warm": lambda: warm_shapes(srv),
+    }
+
+
+def refuse_cp_compositions(draft_layers: int, prefix_cache_entries: int,
+                           window: int) -> None:
+    """The compositions --cp refuses, with the reference's messages."""
+    for flag, why in (
+        (draft_layers > 0, "--draft-layers (speculative prefill is "
+         "chunk-driven)"),
+        (prefix_cache_entries > 0, "--prefix-cache (cached prefixes "
+         "bypass the ring)"),
+        (window > 0, "--window (ring attention rejects sliding windows)"),
+    ):
+        if flag:
+            raise ValueError(f"--cp does not compose with {why}")
+
+
+def resolve_cp(cp_mesh, cp_min_len: int, max_len: int, cfg,
+               draft_layers: int = 0, prefix_cache_entries: int = 0) -> int:
+    """The reference's --cp validation: a seq axis > 1, the threshold
+    policy, and the compositions it refuses. Returns the threshold."""
+    from ..parallel.context import resolve_cp_min_len
+
+    seq_axis = cp_mesh.shape.get("seq", 1)
+    if seq_axis <= 1:
+        raise ValueError(
+            "--cp mesh needs a seq axis > 1 (MeshPlan(seq=...))"
+        )
+    cp_min_len = resolve_cp_min_len(cp_min_len, seq_axis, max_len)
+    refuse_cp_compositions(draft_layers, prefix_cache_entries, cfg.window)
+    return cp_min_len
+
+
+def unported_under_mesh(draft_layers: int = 0, prefix_cache_entries: int = 0,
+                        kv_spill_bytes: int = 0, role: str = "active"):
+    """The first composition this port does not serve over ranks, as
+    ``(flag, message)``, or None."""
+    for flag, on in (
+        ("--draft-layers", draft_layers > 0),
+        ("--prefix-cache", prefix_cache_entries > 0),
+        ("--kv-spill-mb", kv_spill_bytes > 0),
+        ("--standby", role == "standby"),
+        ("--role", role in ("prefill", "decode")),
+    ):
+        if on:
+            return flag, (f"{flag} is not ported yet under --tp/--cp "
+                          "(see ROADMAP.md queue 1)")
+    return None
 
 
 def _parse_token_rows(body: Dict[str, Any], vocab: int, min_row_len: int):
@@ -175,6 +283,10 @@ class InferenceServer:
         mux: bool = True,
         kv_spill_bytes: int = 0,
         role: str = "active",
+        mesh: Any = None,
+        cp_mesh: Any = None,
+        cp_min_len: int = 0,
+        lockstep: Any = None,
     ) -> None:
         # device-time ledger: every wall-second of this replica's life in
         # exactly one stage, starting now in ``boot``; warmup() moves it
@@ -188,6 +300,12 @@ class InferenceServer:
             )
         self.cfg = cfg
         self.params = params
+        # serving over ranks: the params are this rank's blocks of
+        # ``mesh`` (the cp mesh serves both), every device call a
+        # lockstep op
+        self.mesh = mesh if mesh is not None else cp_mesh
+        self.lockstep = lockstep
+        self.sharded = self.mesh is not None and self.mesh.size > 1
         self.host = host
         self.port = port
         self.max_len = max_len
@@ -228,6 +346,24 @@ class InferenceServer:
         self._migration_counters = {
             "done": 0, "total": 0, "failed": 0, "timeout": 0,
         }
+        # context-parallel prefill: single rows at least cp_min_len long
+        # ring over the mesh's seq axis; compositions validated here
+        self.cp_mesh = cp_mesh
+        self.cp_min_len = cp_min_len
+        if cp_mesh is not None:
+            self.cp_min_len = resolve_cp(
+                cp_mesh, cp_min_len, max_len, cfg, draft_layers,
+                prefix_cache_entries)
+        if self.sharded:
+            refused = unported_under_mesh(draft_layers, prefix_cache_entries,
+                                          kv_spill_bytes, role)
+            if refused is not None:
+                raise ValueError(refused[1])
+            if lockstep is None and torch.distributed.is_initialized():
+                raise ValueError(
+                    "serving over ranks needs a lockstep "
+                    "(parallel/serving.py): every device call must reach "
+                    "every rank")
         self.max_batch_rows = max_batch_rows
         # what the weights came from: {"step": n, "ema": bool} for a
         # restored checkpoint, None for the seeded initialization
@@ -292,14 +428,15 @@ class InferenceServer:
             # that clamps the engine to one-round dispatches, as the
             # reference does (its fused program would otherwise compile
             # under a live request)
-            if WARMUP_PROMPT_LEN + slot_chunk + 2 > max_len:
-                slot_window = 1
+            slot_window = slot_window_for(max_len, slot_chunk, slot_window)
             from .serve_slots import SlotEngine
 
             self.slot_engine = SlotEngine(
                 cfg, params, max_len, slots=slots, chunk=slot_chunk,
                 window=slot_window, prefill_chunk=prefill_chunk,
                 prefix_cache=self.prefix_cache, ledger=self.ledger,
+                cp_mesh=cp_mesh, cp_min_len=self.cp_min_len,
+                mesh=self.mesh, lockstep=lockstep,
             )
         self.spec_engine = None
         if draft_layers > 0:
@@ -368,14 +505,19 @@ class InferenceServer:
         self._server.route(
             "POST", "/v3/standby/promote", self._promote_verb
         )
-        self._server.route("GET", "/v1/weights", self._weights)
         # the disaggregated prefill/decode handoff (kvtier/handoff.py)
         # and drain migration, registered outside _instrumented: a
-        # draining replica still serves them
-        self._server.route("POST", "/v1/prefill", self._prefill_verb)
-        self._server.route("POST", "/v1/kv", self._kv_export)
-        self._server.route("POST", "/v1/kv/pull", self._kv_pull)
-        self._server.route("POST", "/v1/migrate", self._migrate_verb)
+        # draining replica still serves them; over ranks none of them
+        # is ported (a rank holds blocks, not the whole model)
+        for method, path, handler in (
+            ("GET", "/v1/weights", self._weights),
+            ("POST", "/v1/prefill", self._prefill_verb),
+            ("POST", "/v1/kv", self._kv_export),
+            ("POST", "/v1/kv/pull", self._kv_pull),
+            ("POST", "/v1/migrate", self._migrate_verb),
+        ):
+            self._server.route(method, path, self._unported_verb
+                               if self.sharded else handler)
         route = self._instrumented
         self._server.route("GET", "/v1/model",
                            route("model", self._model_info))
@@ -390,11 +532,28 @@ class InferenceServer:
             self.tokenizer = ByteTokenizer(cfg.vocab_size)
             self._server.route("POST", "/v1/completions",
                                route("completions", self._completions))
-        self._score_fn = score_logprobs_fn(cfg)
+        self._score_fn = score_logprobs_fn(cfg, self.mesh)
         self._batcher = Batcher(
             params, cfg, max_len, max_batch_rows, self._executor
         )
+        self._batcher.run_rows = lambda jobs: self._device_call(
+            "generate", jobs)
         self.batch_stats = self._batcher.stats
+        self._ops = serving_ops(self)
+        if lockstep is not None:
+            lockstep.register(self._ops)
+
+    def _device_call(self, name: str, *args):
+        """One device call: a lockstep op when serving over ranks (every
+        follower runs it too), else the op here."""
+        if self.lockstep is not None:
+            return self.lockstep.call(name, args)
+        return self._ops[name](*args)
+
+    async def _unported_verb(self, _req: Request) -> Response:
+        return Response(
+            501, b"not ported yet under --tp/--cp (a rank holds blocks "
+            b"of the model)\n")
 
     # -- handlers -------------------------------------------------------
 
@@ -830,6 +989,10 @@ class InferenceServer:
         return wrapped
 
     async def _model_info(self, _req: Request) -> Response:
+        lockstep = None
+        if self.lockstep is not None:
+            lockstep = await asyncio.get_running_loop().run_in_executor(
+                None, self._lockstep_info)
         body = json.dumps({
             "vocab_size": self.cfg.vocab_size,
             "d_model": self.cfg.d_model,
@@ -838,7 +1001,7 @@ class InferenceServer:
             "n_layers": self.cfg.n_layers,
             "max_len": self.max_len,
             "checkpoint": self.checkpoint,
-            "mesh": None,
+            "mesh": self._mesh_info(),
             "text": self.tokenizer is not None,
             "speculative": (
                 {"draft_layers": self.draft_cfg.n_layers,
@@ -871,10 +1034,38 @@ class InferenceServer:
             ),
             "stream": self.slot_engine is not None,
             "draining": self.draining,
-            "cp": None,
+            "cp": (
+                {"seq": int(self.cp_mesh.shape["seq"]),
+                 "min_len": self.cp_min_len}
+                if self.cp_mesh is not None else None
+            ),
             "device": str(self.device),
+            "lockstep": lockstep,
         }).encode()
         return Response(200, body, content_type="application/json")
+
+    def _mesh_info(self) -> Optional[Dict[str, int]]:
+        """The mesh the params are sharded over (axis -> size), None when
+        they are whole, as the reference derives it from the params'
+        shardings: a mesh whose ``model`` axis is 1 holds whole params."""
+        if self.mesh is None or self.mesh.axis_size("model") == 1:
+            return None
+        return {str(k): int(v) for k, v in self.mesh.shape.items()}
+
+    def _lockstep_info(self) -> Dict[str, Any]:
+        """Serving over ranks: the world, the backend, the slot engine's
+        step-program mode and a fresh check of every rank (op count,
+        token digest, K1/K2 launches, whether they agree)."""
+        engine = self.slot_engine
+        return {
+            "ranks": self.lockstep.size,
+            "backend": self.mesh.backend,
+            "staging": self.mesh.staging,
+            "step_program": (engine.program.mode
+                             if engine is not None else None),
+            "staged_bytes": self.mesh.traffic["host_bytes"],
+            **self.lockstep.check(),
+        }
 
     def _parse_sampling(
         self, body: Dict[str, Any], tokens: List[List[int]],
@@ -918,6 +1109,10 @@ class InferenceServer:
                     "n does not compose with beam search (beams already "
                     "return one best row)"
                 )
+        if p["beam_width"] and self.sharded:
+            raise ValueError(
+                "beam_width is not ported yet under --tp/--cp (see "
+                "ROADMAP.md queue 1)")
         if p["beam_width"]:
             if p["temperature"] > 0.0 or p["top_k"] or p["top_p"]:
                 raise ValueError(
@@ -1199,11 +1394,8 @@ class InferenceServer:
         precision k/v where decode read the quantized cache."""
         rows = [q + g for q, g in zip(prompts, generated)]
         width = max(len(r) for r in rows)
-        padded = torch.tensor(
-            [r + [0] * (width - len(r)) for r in rows], dtype=torch.int64,
-            device=self.device,
-        )
-        picked = self._score_fn(self.params, padded).cpu().double().numpy()
+        padded = [r + [0] * (width - len(r)) for r in rows]
+        picked = self._device_call("score", padded)
         out: List[List[float]] = []
         for row_lp, prompt, gen in zip(picked, prompts, generated):
             # lp[i] scores token i + 1; generated token j sits at
@@ -1226,12 +1418,8 @@ class InferenceServer:
         except (ValueError, KeyError, TypeError) as exc:
             return Response(422, f"{exc}\n".encode())
 
-        def run() -> Any:
-            toks = torch.tensor(tokens, dtype=torch.int64, device=self.device)
-            return self._score_fn(self.params, toks).cpu().double().numpy()
-
         picked = await asyncio.get_running_loop().run_in_executor(
-            self._executor, run
+            self._executor, self._device_call, "score", tokens
         )
         return Response(
             200,
@@ -1311,6 +1499,16 @@ class InferenceServer:
                 logit_bias=p["logit_bias"],
             )
         if (
+            self.cp_mesh is not None
+            and single
+            and prompt_len >= self.cp_min_len
+        ):
+            # long prompt: the prefill, the quadratic part, rings over the
+            # seq axis; decode runs the normal loop
+            return await timed(trace, loop.run_in_executor(
+                self._executor, self._device_call, "cp", tokens, p,
+            ))
+        if (
             self.prefix_cache is not None
             and single
             and (
@@ -1329,7 +1527,7 @@ class InferenceServer:
         if self.prefill_chunk > 0 and single and (
                 prompt_len > self.prefill_chunk):
             return await timed(trace, loop.run_in_executor(
-                self._executor, serve_strategies.run_chunked, self,
+                self._executor, self._device_call, "chunked",
                 tokens, prompt_len, p["max_new"], p["temperature"],
                 p["top_k"], p["top_p"], p["eos_id"], p["seed"],
                 p["min_new"], p["presence"], p["frequency"],
@@ -1358,22 +1556,13 @@ class InferenceServer:
                      _build.build_dir())
             self._compile_cache_note = compile_cache_note(
                 _build.build_dir())
-        for prompt_len in (4, 16):
-            if prompt_len + 16 > self.max_len:
-                continue
-            prompt = torch.zeros(
-                (1, prompt_len), dtype=torch.int64, device=self.device
+        self._device_call("warm")
+        if self.draft_params is not None and self.max_len >= 20:
+            # every draft/verify round shape, before /health
+            warm_speculative(
+                self.params, self.draft_params, self.cfg,
+                self.draft_cfg, self.speculate, self.max_len,
             )
-            generate(
-                self.params, prompt, self.cfg, max_new_tokens=16,
-                max_len=self.max_len,
-            )
-            if self.draft_params is not None and prompt_len == 4:
-                # every draft/verify round shape, before /health
-                warm_speculative(
-                    self.params, self.draft_params, self.cfg,
-                    self.draft_cfg, self.speculate, self.max_len,
-                )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -1648,6 +1837,49 @@ class InferenceServer:
         await self._batcher.stop()
         await self._server.stop()
         self._executor.shutdown(wait=True)
+        if self.lockstep is not None:
+            # the followers' last op: they leave their loop and exit
+            self.lockstep.shutdown()
+
+
+class ServingFollower:
+    """A follower rank of a server over ranks (parallel/serving.py): the
+    front's device ops on this rank's blocks, no HTTP surface, no queue.
+    Built with the front's arguments, so its slot engine's step program
+    has the front's shapes; ``run`` follows the front's ops until it
+    shuts down."""
+
+    def __init__(self, cfg: TransformerConfig, params: Any, max_len: int,
+                 mesh: Any, lockstep: Any, cp_mesh: Any = None,
+                 cp_min_len: int = 0, prefill_chunk: int = 0,
+                 slots: int = 0, slot_chunk: int = 8,
+                 slot_window: int = 4) -> None:
+        self.cfg, self.params, self.max_len = cfg, params, max_len
+        self.mesh, self.lockstep = mesh, lockstep
+        self.device = params["norm_out"].device
+        self.prefill_chunk = prefill_chunk
+        self.batch_stats = {"calls": 0, "rows": 0}
+        self.cp_mesh = cp_mesh
+        self.cp_min_len = cp_min_len
+        if cp_mesh is not None:
+            self.cp_min_len = resolve_cp(cp_mesh, cp_min_len, max_len, cfg)
+        self._score_fn = score_logprobs_fn(cfg, mesh)
+        self.slot_engine = None
+        if slots > 0:
+            from .serve_slots import SlotEngine
+
+            self.slot_engine = SlotEngine(
+                cfg, params, max_len, slots=slots, chunk=slot_chunk,
+                window=slot_window_for(max_len, slot_chunk, slot_window),
+                prefill_chunk=prefill_chunk, cp_mesh=cp_mesh,
+                cp_min_len=self.cp_min_len, mesh=mesh, lockstep=lockstep,
+                worker=False,
+            )
+        lockstep.register(serving_ops(self))
+
+    def run(self) -> int:
+        with torch.inference_mode():
+            return self.lockstep.follow()
 
 
 if __name__ == "__main__":

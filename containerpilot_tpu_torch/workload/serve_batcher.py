@@ -5,7 +5,9 @@ Requests queue here; the batcher coalesces whatever accumulated while
 the device was busy into ONE generate call with per-row sampling knobs.
 Each row samples from its own generator, seeded from (request seed, row
 index), so a request's output never depends on what it was batched
-with.
+with. The device call is ``generate_rows`` on the group's host data, so
+a server over ranks can run it through its lockstep
+(parallel/serving.py) on every rank (``Batcher.run_rows``).
 """
 from __future__ import annotations
 
@@ -37,9 +39,68 @@ class GenJob:
     future: "asyncio.Future[List[List[int]]]" = field(repr=False, default=None)
 
 
+_KNOBS = ("temperature", "top_k", "top_p", "eos_id", "min_new",
+          "presence", "frequency", "logit_bias")
+
+
+def generate_rows(srv: Any, jobs: List[Dict[str, Any]]) -> List[List[int]]:
+    """One generate call for a group of jobs given as host data (each
+    ``{"rows", "seed", "max_new"}`` plus the sampling knobs), on
+    ``srv``'s params, config, max_len and mesh (runs on the inference
+    thread, or on each rank under a lockstep)."""
+    device = srv.params["norm_out"].device
+    rows: List[List[int]] = []
+    knobs: Dict[str, list] = {k: [] for k in _KNOBS}
+    gens = []
+    for job in jobs:
+        for i, r in enumerate(job["rows"]):
+            rows.append(r)
+            for key in _KNOBS:
+                knobs[key].append(job[key])
+            gens.append(row_generator(job["seed"], i, device))
+    # pad the batch to a power of two, as the reference does (its reason
+    # is compile churn; kept so batch shapes stay comparable)
+    target = 1
+    while target < len(rows):
+        target *= 2
+    pad_rows = target - len(rows)
+    for _ in range(pad_rows):
+        rows.append([0] * len(rows[0]))
+        for key, value in zip(_KNOBS, (0.0, 0, 0.0, -1, 0, 0.0, 0.0, None)):
+            knobs[key].append(value)
+        gens.append(row_generator(0, 0, device))
+    out = generate(
+        srv.params,
+        torch.tensor(rows, dtype=torch.int64, device=device),
+        srv.cfg,
+        max_new_tokens=jobs[0]["max_new"],
+        max_len=srv.max_len,
+        temperature=knobs["temperature"],
+        rng=gens,
+        top_k=knobs["top_k"],
+        top_p=knobs["top_p"],
+        eos_id=knobs["eos_id"],
+        min_new_tokens=knobs["min_new"],
+        presence_penalty=knobs["presence"],
+        frequency_penalty=knobs["frequency"],
+        logit_bias=(
+            knobs["logit_bias"] if any(b for b in knobs["logit_bias"])
+            else None
+        ),
+        mesh=getattr(srv, "mesh", None),
+    )
+    out = out[: len(rows) - pad_rows].tolist()
+    lockstep = getattr(srv, "lockstep", None)
+    if lockstep is not None:
+        lockstep.record_tokens(out)
+    return out
+
+
 class Batcher:
     """Owns the request queue and the drain loop; one generate call per
-    compatible group (same prompt length and decode length)."""
+    compatible group (same prompt length and decode length).
+    ``run_rows`` makes the group's device call (``generate_rows`` on
+    this batcher's params by default)."""
 
     def __init__(self, params: Any, cfg: Any, max_len: int,
                  max_batch_rows: int, executor: Any) -> None:
@@ -51,6 +112,7 @@ class Batcher:
         self.queue: "asyncio.Queue[GenJob]" = asyncio.Queue()
         self._task: Optional["asyncio.Task[None]"] = None
         self.stats = {"calls": 0, "rows": 0}
+        self.run_rows = lambda jobs: generate_rows(self, jobs)
 
     def idle(self) -> bool:
         return self.queue.empty()
@@ -105,58 +167,10 @@ class Batcher:
 
     def _generate_rows(self, jobs: List[GenJob]) -> List[List[int]]:
         """One generate call for a group (runs on the executor thread)."""
-        device = self.params["norm_out"].device
-        rows: List[List[int]] = []
-        knobs: Dict[str, list] = {
-            k: [] for k in ("temperature", "top_k", "top_p", "eos_id",
-                            "min_new", "presence", "frequency", "bias")
-        }
-        gens = []
-        for job in jobs:
-            for i, r in enumerate(job.rows):
-                rows.append(r)
-                for key, value in (
-                    ("temperature", job.temperature), ("top_k", job.top_k),
-                    ("top_p", job.top_p), ("eos_id", job.eos_id),
-                    ("min_new", job.min_new), ("presence", job.presence),
-                    ("frequency", job.frequency), ("bias", job.logit_bias),
-                ):
-                    knobs[key].append(value)
-                gens.append(row_generator(job.seed, i, device))
-        # pad the batch to a power of two, as the reference does (its
-        # reason is compile churn; kept so batch shapes stay comparable)
-        target = 1
-        while target < len(rows):
-            target *= 2
-        pad_rows = target - len(rows)
-        for _ in range(pad_rows):
-            rows.append([0] * len(rows[0]))
-            for key, value in (
-                ("temperature", 0.0), ("top_k", 0), ("top_p", 0.0),
-                ("eos_id", -1), ("min_new", 0), ("presence", 0.0),
-                ("frequency", 0.0), ("bias", None),
-            ):
-                knobs[key].append(value)
-            gens.append(row_generator(0, 0, device))
-        out = generate(
-            self.params,
-            torch.tensor(rows, dtype=torch.int64, device=device),
-            self.cfg,
-            max_new_tokens=jobs[0].max_new,
-            max_len=self.max_len,
-            temperature=knobs["temperature"],
-            rng=gens,
-            top_k=knobs["top_k"],
-            top_p=knobs["top_p"],
-            eos_id=knobs["eos_id"],
-            min_new_tokens=knobs["min_new"],
-            presence_penalty=knobs["presence"],
-            frequency_penalty=knobs["frequency"],
-            logit_bias=(
-                knobs["bias"] if any(b for b in knobs["bias"]) else None
-            ),
-        )
-        return out[: len(rows) - pad_rows].tolist()
+        return self.run_rows([
+            {"rows": job.rows, "seed": job.seed, "max_new": job.max_new,
+             **{key: getattr(job, key) for key in _KNOBS}}
+            for job in jobs])
 
     async def _run_group(self, jobs: List[GenJob]) -> None:
         loop = asyncio.get_running_loop()

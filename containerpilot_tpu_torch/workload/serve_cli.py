@@ -10,10 +10,25 @@ flags the port runs: --host, --port, --mux/--no-mux, --max-len,
 --slot-chunk, --slot-window, the fleet's --fleet-catalog,
 --fleet-service, --fleet-ttl, --fleet-address, --fleet-id,
 --migrate-window, --role, --standby, --weights-from and
---adopt-compile-cache, and --device (default cuda; the part
-JAX_PLATFORMS plays for the reference). Every other reference
-flag is accepted with its reference default and exits with a "not
-ported yet" message when set to anything else.
+--adopt-compile-cache, --tp, --cp, --cp-min-len, and --device (default
+cuda; the part JAX_PLATFORMS plays for the reference).
+
+``--tp N`` and ``--cp M`` serve over N*M ranks, one process a rank, as
+one command: this process is rank 0 (the front: HTTP, the
+``InferenceServer``), and it spawns the N*M - 1 followers itself, a
+hidden follower mode of the same module joined through a
+``tcp://127.0.0.1`` rendezvous (parallel/serving.py is the lockstep
+between them). Rank r serves on ``cuda:(r % device_count)``: NCCL when
+every rank has a card of its own, gloo with collectives staged through
+host buffers when ranks share one (printed at startup). Each rank
+restores the one-process checkpoint or makes the seeded init, merges a
+LoRA adapter on the float32 masters, quantizes them under --int8, and
+only then takes its blocks. The front exits non-zero when a follower
+exits or wedges; nothing falls back to one rank. Compositions the
+reference serves over a mesh but this port does not yet (--draft-layers,
+--prefix-cache, --kv-spill-mb, --standby, --role, --weights-from,
+--fleet-catalog; beams answer 422) exit at startup "... is not ported
+yet under --tp/--cp".
 
 Weights come from the latest ``step_<n>/`` checkpoint of the port's
 trainer under --checkpoint-dir (params only: the optimizer moments stay
@@ -36,12 +51,8 @@ import argparse
 import asyncio
 from typing import Any, Dict, Tuple
 
-# reference flags this slice does not run yet: dest -> (flag, default)
-_NOT_PORTED: Dict[str, Tuple[str, Any]] = {
-    "tp": ("--tp", 1),
-    "cp": ("--cp", 1),
-    "cp_min_len": ("--cp-min-len", 0),
-}
+# reference flags the port does not run yet: dest -> (flag, default)
+_NOT_PORTED: Dict[str, Tuple[str, Any]] = {}
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -215,10 +226,34 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "and nvcc is skipped",
     )
     parser.add_argument(
+        "--tp", type=int, default=1,
+        help="tensor-parallel ways: shard the model over N ranks (heads, "
+        "ffn and vocab partitioned; one process a rank, spawned by this "
+        "command); 1 = one rank",
+    )
+    parser.add_argument(
+        "--cp", type=int, default=1,
+        help="context-parallel prefill ways: long single-row prompts ring "
+        "their prefill over a seq axis of N ranks; 1 = off. Composes "
+        "with --tp (a seq x model mesh over cp*tp ranks) and --slots; "
+        "rejects --draft-layers/--prefix-cache/--window",
+    )
+    parser.add_argument(
+        "--cp-min-len", type=int, default=0,
+        help="prompts at least this long take the --cp ring (default 8x "
+        "the seq axis)",
+    )
+    parser.add_argument(
         "--device", default="cuda",
         help="torch device to serve on (default cuda; 'cpu' runs the "
         "plain torch versions of the kernels)",
     )
+    # the follower mode the front spawns (--tp/--cp): never set by hand
+    parser.add_argument("--follower-rank", type=int, default=0,
+                        help=argparse.SUPPRESS)
+    parser.add_argument("--rendezvous", default="", help=argparse.SUPPRESS)
+    parser.add_argument("--lockstep-deadline", type=float, default=600.0,
+                        help=argparse.SUPPRESS)
     not_ported = parser.add_argument_group(
         "reference flags not ported yet (any value but the default "
         "exits)"
@@ -237,24 +272,64 @@ def build_arg_parser() -> argparse.ArgumentParser:
 
 
 def check_ported(args: argparse.Namespace) -> None:
-    """Exit with a clear message when a flag this slice does not run is
-    set to anything but its default."""
+    """Refuse at startup, before any rank starts, what the reference
+    refuses (its messages: --tp that does not divide the model, the
+    compositions --cp rejects, LoRA flag misuse), and exit with a clear
+    message for a flag this port does not run yet, or not yet under
+    --tp/--cp."""
+    from .modelcfg import derive_d_ff, validate_lora_flags
+    from .serve import refuse_cp_compositions, unported_under_mesh
+
     for dest, (flag, default) in _NOT_PORTED.items():
         if getattr(args, dest) != default:
             raise SystemExit(
                 f"{flag} is not ported yet to the PyTorch/CUDA server "
                 "(see ROADMAP.md queue 1)"
             )
+    tp, cp = max(args.tp, 1), max(args.cp, 1)
+    if tp > 1:
+        _validate_tp(args.n_heads, derive_d_ff(args.d_model), args.vocab,
+                     args.moe_experts, tp)
+    if cp > 1:
+        refuse_cp_compositions(args.draft_layers, args.prefix_cache,
+                               args.window)
+    validate_lora_flags(args.lora_dir, args.lora_rank)
+    if tp * cp > 1:
+        role = "standby" if args.standby else (
+            "active" if args.role == "mixed" else args.role)
+        refused = unported_under_mesh(
+            args.draft_layers, args.prefix_cache, args.kv_spill_mb, role)
+        for flag, on in (("--weights-from", bool(args.weights_from)),
+                         ("--fleet-catalog", bool(args.fleet_catalog))):
+            if refused is None and on:
+                refused = (flag, f"{flag} is not ported yet under "
+                           "--tp/--cp (see ROADMAP.md queue 1)")
+        if refused is not None:
+            raise SystemExit(refused[1])
 
 
-def load_model(args: argparse.Namespace):
+def _validate_tp(n_heads: int, d_ff: int, vocab: int, moe_experts: int,
+                 tp: int) -> None:
+    """Every axis the partition rules put on ``model`` must divide by
+    tp (the reference's messages)."""
+    for name, size in (("n_heads", n_heads), ("d_ff", d_ff),
+                       ("vocab", vocab)):
+        if size % tp:
+            raise SystemExit(f"--tp {tp} must divide {name} ({size})")
+    if moe_experts > 1 and moe_experts % tp:
+        raise SystemExit(f"--tp {tp} must divide moe_experts ({moe_experts})")
+
+
+def load_model(args: argparse.Namespace, mesh=None, device=None):
     """-> (cfg, params, checkpoint) per the flags: float32 masters from
     the latest checkpoint under --checkpoint-dir (its EMA shadow with
     --use-ema, the raw params with a warning when it has none) or, with
     no checkpoint there, seeded; a --lora-dir adapter merged into them;
-    quantized under --int8 (on the merged masters), then cast once to
-    the compute dtype. ``checkpoint`` is {"step", "ema"} of what was
-    restored, None for the seeded init."""
+    quantized under --int8 (on the merged masters); on a ``mesh``, cut
+    to this rank's blocks (``shard_params``, the int8 leaves with the
+    float rules); then cast once to the compute dtype. ``checkpoint`` is
+    {"step", "ema"} of what was restored, None for the seeded init.
+    ``device`` defaults to --device."""
     from .. import resolve_device
     from ..models.quantized import (
         cast_params,
@@ -277,12 +352,13 @@ def load_model(args: argparse.Namespace):
         window=args.window,
         kv_int8=args.kv_int8,
     )
+    device = args.device if device is None else device
     params, checkpoint = None, None
     if args.checkpoint_dir:
         # params only: serving never pays train-state memory
         restored = restore_params(
             args.checkpoint_dir, abstract_train_state(cfg),
-            prefer_ema=args.use_ema, device=resolve_device(args.device),
+            prefer_ema=args.use_ema, device=resolve_device(device),
         )
         if restored is not None:
             params, step = restored
@@ -290,7 +366,7 @@ def load_model(args: argparse.Namespace):
             print(f"serving checkpoint step {step}"
                   + (" (EMA weights)" if restored.ema else ""))
     if params is None:
-        params = init_params(0, cfg, device=args.device)
+        params = init_params(0, cfg, device=device)
     validate_lora_flags(args.lora_dir, args.lora_rank)
     if args.lora_dir:
         params, lora_step = merge_lora(params, cfg, args.lora_dir,
@@ -305,6 +381,10 @@ def load_model(args: argparse.Namespace):
             f"int8: resident params {dense} -> {quant} bytes "
             f"({dense / quant:.1f}x smaller)"
         )
+    if mesh is not None and mesh.size > 1:
+        from ..parallel.sharding import shard_params
+
+        params = shard_params(params, mesh, cfg)
     return cfg, cast_params(params, cfg.dtype), checkpoint
 
 
@@ -326,18 +406,145 @@ def fetch_peer_weights(args: argparse.Namespace, params):
     return fetched
 
 
-def main(argv=None) -> int:
-    import logging
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _join(args: argparse.Namespace, rank: int, world: int, url: str):
+    """This rank's process group, mesh and lockstep: NCCL when every
+    rank has a card of its own, else gloo (collectives on CUDA tensors
+    staged through host buffers)."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from .. import resolve_device
+    from ..parallel.distributed import _backend_for
+    from ..parallel.mesh import MeshPlan, make_mesh, rank_device
+    from ..parallel.serving import Lockstep
+
+    device = resolve_device(rank_device(rank, args.device))
+    backend = _backend_for(device, world)
+    if backend == "nccl":
+        torch.cuda.set_device(device)
+    dist.init_process_group(
+        backend, init_method=url, rank=rank, world_size=world,
+        timeout=datetime.timedelta(
+            seconds=max(args.lockstep_deadline, 300.0)))
+    mesh = make_mesh(MeshPlan(data=1, model=max(args.tp, 1),
+                              seq=max(args.cp, 1)), device=device)
+    if rank == 0:
+        print(f"mesh: {mesh.shape} on {device.type}", flush=True)
+    print(f"rank {rank} of {mesh.size}: collectives over {mesh.backend}"
+          + (", staged through host buffers" if mesh.staging else ""),
+          flush=True)
+    # armed now: a rank that wedges while loading or warming ends the
+    # world (the first deadline at least 120 s, for the model's load)
+    lockstep = Lockstep(args.lockstep_deadline)
+    return mesh, lockstep.start(grace_s=max(args.lockstep_deadline, 120.0))
+
+
+def serve_over_ranks(args: argparse.Namespace, argv=None,
+                     follower_cmd=None) -> int:
+    """--tp/--cp: rank 0 spawns the followers (``follower_cmd`` + this
+    command's arguments + the hidden follower flags; default ``python
+    -m containerpilot_tpu_torch.workload.serve``), every rank joins the
+    world, loads its blocks and builds its side of the server; the
+    front serves HTTP until SIGTERM and exits non-zero as soon as a
+    follower exits on its own."""
     import os
     import signal
+    import subprocess
+    import sys
+    import threading
 
-    from .serve import InferenceServer
+    import torch
+    import torch.distributed as dist
+
+    from ..parallel.watchdog import EXIT_CODE
+    from .serve import ServingFollower
+
+    world = max(args.tp, 1) * max(args.cp, 1)
+    rank = args.follower_rank
+    procs = []
+    if rank == 0:
+        if torch.device(args.device).type == "cuda":
+            from ..ops import _build
+
+            # built once, before the followers load them
+            _build.build_all()
+        url = f"tcp://127.0.0.1:{_free_port()}"
+        cmd = follower_cmd or [sys.executable, "-m",
+                               "containerpilot_tpu_torch.workload.serve"]
+        base = list(sys.argv[1:] if argv is None else argv)
+        for r in range(1, world):
+            procs.append(subprocess.Popen(
+                [*cmd, *base, "--follower-rank", str(r), "--rendezvous",
+                 url]))
+        print(f"serving over {world} ranks: follower pids "
+              f"{[p.pid for p in procs]}", flush=True)
+    else:
+        url = args.rendezvous
+        # a follower ends by the front's shutdown op (or when the front
+        # is gone); a signal to the process group is the front's to take
+        for sig in (signal.SIGTERM, signal.SIGINT):
+            signal.signal(sig, signal.SIG_IGN)
+    stopping = threading.Event()
+
+    def watch_followers() -> None:
+        while not stopping.wait(0.2):
+            for r, p in enumerate(procs, start=1):
+                if p.poll() is not None and not stopping.is_set():
+                    print(f"follower rank {r} exited with code "
+                          f"{p.returncode}; the front exits {EXIT_CODE}",
+                          file=sys.stderr, flush=True)
+                    os._exit(EXIT_CODE)
+
+    try:
+        if procs:
+            threading.Thread(target=watch_followers, daemon=True,
+                             name="followers").start()
+        mesh, lockstep = _join(args, rank, world, url)
+        cp_mesh = mesh if args.cp > 1 else None
+        cfg, params, checkpoint = load_model(args, mesh, mesh.device)
+        if rank == 0:
+            return _serve(args, cfg, params, checkpoint, mesh=mesh,
+                          cp_mesh=cp_mesh, lockstep=lockstep,
+                          stopping=stopping)
+        follower = ServingFollower(
+            cfg, params, args.max_len, mesh, lockstep, cp_mesh=cp_mesh,
+            cp_min_len=args.cp_min_len, prefill_chunk=args.prefill_chunk,
+            slots=args.slots, slot_chunk=args.slot_chunk,
+            slot_window=args.slot_window)
+        return follower.run()
+    finally:
+        stopping.set()
+        for p in procs:
+            try:
+                p.wait(timeout=30)
+            except subprocess.TimeoutExpired:
+                p.kill()
+                p.wait()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+
+
+def main(argv=None, follower_cmd=None) -> int:
+    import logging
+    import os
 
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(name)s %(message)s"
     )
     args = build_arg_parser().parse_args(argv)
     check_ported(args)
+    if max(args.tp, 1) * max(args.cp, 1) > 1:
+        return serve_over_ranks(args, argv, follower_cmd)
     backend = None
     if args.fleet_catalog:
         from ..discovery.factory import new_backend
@@ -374,6 +581,16 @@ def main(argv=None) -> int:
         else:
             print("peer weight transfer failed; serving the seeded "
                   "weights", flush=True)
+    return _serve(args, cfg, params, checkpoint, backend=backend)
+
+
+def _serve(args: argparse.Namespace, cfg, params, checkpoint, backend=None,
+           mesh=None, cp_mesh=None, lockstep=None, stopping=None) -> int:
+    """Build the server (the front, over ranks) and serve until SIGTERM."""
+    import signal
+
+    from .serve import InferenceServer
+
     # --standby wins; "mixed" is the server's "active", so fleets that
     # never pass --role send the notes they always did
     role = "standby" if args.standby else (
@@ -381,14 +598,26 @@ def main(argv=None) -> int:
     server = InferenceServer(
         cfg, params, args.host, args.port, args.max_len,
         checkpoint=checkpoint,
-        max_batch_rows=args.max_batch_rows, device=args.device,
+        max_batch_rows=args.max_batch_rows,
+        device=args.device if mesh is None else mesh.device,
         prefix_cache_entries=args.prefix_cache,
         kv_spill_bytes=int(args.kv_spill_mb * 1024 * 1024),
         prefill_chunk=args.prefill_chunk, slots=args.slots,
         slot_chunk=args.slot_chunk, slot_window=args.slot_window,
         draft_layers=args.draft_layers, speculate=args.speculate,
         text=args.text, mux=args.mux, role=role,
+        mesh=mesh, cp_mesh=cp_mesh, cp_min_len=args.cp_min_len,
+        lockstep=lockstep,
     )
+    if server.slot_engine is not None and mesh is not None:
+        mode = server.slot_engine.program.mode
+        why = ("collectives staged through host buffers cannot be "
+               "captured" if mesh.staging else
+               "NCCL collectives in a captured round are not ported")
+        print(f"step program: {mode}"
+              + (f" ({why})" if mode == "uncaptured" else ""), flush=True)
+    if lockstep is not None:
+        lockstep.start_checks()
     member = None
     if backend is not None:
         from ..fleet import FleetMember
@@ -416,6 +645,8 @@ def main(argv=None) -> int:
             # --migrate-window, deregister, finish in-flight work
             await member.drain(timeout=30.0)
             await member.stop(deregister=False)
+        if stopping is not None:
+            stopping.set()  # the followers' exits are expected from here
         await server.stop()
 
     asyncio.run(serve())

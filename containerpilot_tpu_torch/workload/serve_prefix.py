@@ -244,14 +244,15 @@ def reuse_admission(pc: PrefixCache, row_tokens: List[int], cfg, params,
 
 @torch.inference_mode()
 def prefill_row(pc: Optional[PrefixCache], row: List[int], cfg, params,
-                max_len: int, prefill_chunk: int = 0):
+                max_len: int, prefill_chunk: int = 0, mesh=None):
     """The one admission prefill policy of the serving paths (the slot
     engine, the prefix path, chunked prefill): with a prefix cache, a
     hit's copy+rewind+extend (``reuse_admission``); on a miss or without
     one, ``chunked_prefill`` when the prompt outgrows ``prefill_chunk``,
     else one ``prefill``. With a prefix cache the completed prompt's
     cache is then stored in it, so the caller must never write that
-    cache (it decodes a copy). Returns (logits [1, vocab], cache)."""
+    cache (it decodes a copy). Returns (logits [1, vocab], cache).
+    ``mesh``: the params are a rank's blocks (no prefix cache then)."""
     from ..models.decode import chunked_prefill, prefill
 
     hit = None if pc is None else reuse_admission(
@@ -265,10 +266,10 @@ def prefill_row(pc: Optional[PrefixCache], row: List[int], cfg, params,
         )
         if 0 < prefill_chunk < len(row):
             logits, cache = chunked_prefill(
-                params, prompt, cfg, max_len, prefill_chunk
+                params, prompt, cfg, max_len, prefill_chunk, mesh
             )
         else:
-            logits, cache = prefill(params, prompt, cfg, max_len)
+            logits, cache = prefill(params, prompt, cfg, max_len, mesh)
     if pc is not None:
         pc.store(tuple(row), cache)
     return logits, cache

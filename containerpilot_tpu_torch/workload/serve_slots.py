@@ -19,8 +19,19 @@ window N's tokens when none is (the one-window lookahead).
 Per-request output equals a solo ``generate`` with the same arguments:
 each slot samples from its own generator re-seeded as ``generate`` seeds
 row 0, and a fused window runs the same step body as K sequential
-chunks. Not ported: the context-parallel admission (``cp_mesh``, which
-raises when set) and the synthetic prefill floor.
+chunks. With ``cp_mesh`` an admission whose prompt is at least
+``cp_min_len`` long rings its prefill over the mesh's ``seq`` axis
+(``parallel.context.cp_prefill_with_remainder``, the maximal head) before
+it joins the pool. Not ported: the synthetic prefill floor.
+
+Serving over ranks (``mesh``, ``lockstep``: parallel/serving.py), the
+params are each rank's blocks and every device verb of the engine
+(admit, dispatch, tokens, retire, reset) goes through the lockstep: the
+front's engine broadcasts the verb and its host arguments before it
+runs it, and each follower's engine (``worker=False``, no thread, no
+queue) runs the same verb on its shard. Every decision (which request,
+which slot, fused or not, the budgets) is the front's and travels with
+the verb.
 
 The device-time ledger (``ledger``, telemetry/goodput.py) is stamped
 where the reference stamps it, on the worker thread at request
@@ -52,6 +63,7 @@ from ..models.decode import BIAS_SLOTS_MAX, normalize_logit_bias
 from ..models.slots import append_chunk
 from ..models.stepprog import make_step_program
 from ..models.transformer import TransformerConfig
+from ..parallel.context import cp_prefill_with_remainder, resolve_cp_min_len
 from .serve_prefix import MIN_REUSE as PREFIX_MIN_REUSE
 from .serve_prefix import prefill_row
 
@@ -87,6 +99,14 @@ class _Request:
     future: Future = field(default_factory=Future)
 
 
+# what a follower's engine needs of a request to replay its admission
+_DEVICE_FIELDS = ("tokens", "max_new", "temperature", "top_k", "top_p",
+                  "eos_id", "pad_id", "seed", "min_new", "presence",
+                  "frequency", "bias_idx", "bias_val")
+# the engine's device verbs, each ``SlotEngine._do_<verb>``
+VERBS = ("admit", "dispatch", "tokens", "retire", "reset")
+
+
 @dataclass
 class _Slot:
     req: _Request
@@ -109,16 +129,36 @@ class SlotEngine:
         prefix_cache=None,
         ledger=None,
         program=None,
+        cp_min_len: int = 0,
+        mesh=None,
+        lockstep=None,
+        worker: bool = True,
     ) -> None:
         if slots < 1 or chunk < 1:
             raise ValueError("slots and chunk must be >= 1")
         if window < 1:
             raise ValueError("window must be >= 1")
-        if cp_mesh is not None:
-            raise NotImplementedError(
-                "cp_mesh (context-parallel admission) is not ported yet "
-                "(ROADMAP.md queue 1)"
+        # context-parallel admission: prompts at least cp_min_len long
+        # ring their prefill over cp_mesh's seq axis, the maximal head
+        if cp_mesh is not None and cfg.window > 0:
+            raise ValueError(
+                "cp does not compose with sliding windows (ring "
+                "attention rejects them)"
             )
+        self.cp_mesh = cp_mesh
+        self.cp_min_len = cp_min_len
+        if cp_mesh is not None:
+            if cp_mesh.shape.get("seq", 1) <= 1:
+                raise ValueError(
+                    "--cp mesh needs a seq axis > 1 (MeshPlan(seq=...))"
+                )
+            # the ONE threshold policy (derive/clamp/never-engages),
+            # whoever constructs the engine
+            self.cp_min_len = resolve_cp_min_len(
+                cp_min_len, cp_mesh.shape.get("seq", 1), max_len
+            )
+        # the mesh the params are blocks of (the cp mesh serves both)
+        self.mesh = mesh if mesh is not None else cp_mesh
         if prefill_chunk < 0:
             raise ValueError("prefill_chunk must be >= 0")
         # chunked admission: prompts longer than prefill_chunk prefill in
@@ -130,6 +170,11 @@ class SlotEngine:
         # reuse_admission extends a copy and insert_row copies the row
         # into the pool
         self.prefix_cache = prefix_cache
+        if prefix_cache is not None and cp_mesh is not None:
+            raise ValueError(
+                "prefix cache does not compose with cp (cached "
+                "prefixes bypass the ring)"
+            )
         if prefix_cache is not None and cfg.window > 0:
             raise ValueError(
                 "prefix cache does not compose with sliding "
@@ -160,9 +205,17 @@ class SlotEngine:
         # chunk, which win
         if program is None:
             program = make_step_program(
-                cfg, params, max_len, slots, chunk, rounds=window
+                cfg, params, max_len, slots, chunk, rounds=window,
+                mesh=self.mesh,
             )
         self.program = program
+        # dispatched windows whose tokens are not fetched yet, oldest
+        # first (the lookahead keeps at most two)
+        self._handles: "deque" = deque()
+        self.lockstep = lockstep
+        if lockstep is not None:
+            lockstep.register({f"slot.{verb}": getattr(self, f"_do_{verb}")
+                               for verb in VERBS})
         self.slots = program.slots
         self.chunk = program.chunk
         self.window = program.rounds
@@ -173,10 +226,12 @@ class SlotEngine:
         self._queue: "queue.Queue[Optional[_Request]]" = queue.Queue()
         self._submit_lock = threading.Lock()
         self._stopped = threading.Event()
-        self._thread = threading.Thread(
-            target=self._run, name="slot-engine", daemon=True
-        )
-        self._thread.start()
+        self._thread = None
+        if worker:
+            self._thread = threading.Thread(
+                target=self._run, name="slot-engine", daemon=True
+            )
+            self._thread.start()
 
     # ------------------------------------------------------------- API
 
@@ -240,7 +295,8 @@ class SlotEngine:
         with self._submit_lock:
             self._stopped.set()
         self._queue.put(None)  # wake the worker
-        self._thread.join(timeout=30)
+        if self._thread is not None:
+            self._thread.join(timeout=30)
         for slot in self._active:
             if slot is not None and not slot.req.future.done():
                 slot.req.future.cancel()
@@ -278,18 +334,24 @@ class SlotEngine:
     # ----------------------------------------------------------- worker
 
     def _prefill(self, req: _Request):
-        """The serving paths' admission policy (``prefill_row``).
-        Prompts shorter than MIN_REUSE can never be reused, so they skip
-        the prefix machinery (this also keeps warmup's request out of
-        it); the stored row cache is never written again, because the
-        pool copies it. Returns (logits [1, vocab], row_cache)."""
+        """The serving paths' admission policy (``prefill_row``), or the
+        cp ring for a long prompt under ``cp_mesh``. Prompts shorter
+        than MIN_REUSE can never be reused, so they skip the prefix
+        machinery (this also keeps warmup's request out of it); the
+        stored row cache is never written again, because the pool copies
+        it. Returns (logits [1, vocab], row_cache)."""
+        if self.cp_mesh is not None and len(req.tokens) >= self.cp_min_len:
+            return cp_prefill_with_remainder(
+                self.params, np.asarray([req.tokens], np.int64), self.cfg,
+                self.cp_mesh, self.max_len, prefill_chunk=self.prefill_chunk,
+            )
         pc = self.prefix_cache
         if len(req.tokens) < PREFIX_MIN_REUSE:
             pc = None
         if pc is not None:
             pc.readmit_seconds = 0.0
         out = prefill_row(pc, req.tokens, self.cfg, self.params,
-                          self.max_len, self.prefill_chunk)
+                          self.max_len, self.prefill_chunk, self.mesh)
         if pc is not None and pc.readmit_seconds > 0.0:
             # a spilled base copied back to the device: the trace's
             # ``kv`` stage and the ledger's kv_readmit, carved out of
@@ -307,8 +369,7 @@ class SlotEngine:
             req.timings["admitted"] = time.monotonic()
         if self.ledger is not None:
             self.ledger.enter("prefill")
-        logits, row_cache = self._prefill(req)
-        first_host = self.program.admit(slot_id, req, logits, row_cache)
+        first_host = self._device("admit", slot_id, req)
         state = _Slot(req=req, emitted=[first_host])
         if first_host == req.eos_id or req.max_new <= 1:
             state.finished = True
@@ -332,7 +393,7 @@ class SlotEngine:
             req.timings["done"] = time.monotonic()
             req.timings["rounds"] = state.rounds
         self._active[slot_id] = None
-        self.program.retire(slot_id)
+        self._device("retire", slot_id)
         if not req.future.done():
             req.future.set_result(out)
 
@@ -360,7 +421,7 @@ class SlotEngine:
                     s.req.timings["done"] = time.monotonic()
                     s.req.timings["rounds"] = s.rounds
                 self._active[i] = None
-                self.program.retire(i)
+                self._device("retire", i)
                 if not s.req.future.done():
                     s.req.future.set_result(list(s.emitted))
                 log.info(
@@ -376,6 +437,47 @@ class SlotEngine:
             if s is not None and not s.req.future.done():
                 s.req.future.set_exception(exc)
             self._active[i] = None
+        self._device("reset")
+
+    # -- device verbs ---------------------------------------------------
+    # The only calls that touch the device. Under a lockstep each goes to
+    # the followers first with its host arguments (a request travels as
+    # its _DEVICE_FIELDS), and their engines run the same _do_<verb>.
+
+    def _device(self, verb: str, *args):
+        if self.lockstep is None:
+            return getattr(self, f"_do_{verb}")(*args)
+        wire = tuple(
+            {f: getattr(a, f) for f in _DEVICE_FIELDS}
+            if isinstance(a, _Request) else a for a in args)
+        return self.lockstep.call(f"slot.{verb}", wire)
+
+    def _do_admit(self, slot_id: int, req) -> int:
+        """Prefill the prompt (engine policy) and hand the result to the
+        step program, which samples token 0 and writes the slot."""
+        if isinstance(req, dict):
+            req = _Request(**req)
+        logits, row_cache = self._prefill(req)
+        return self.program.admit(slot_id, req, logits, row_cache)
+
+    def _do_dispatch(self, budgets, fused: bool):
+        handle = self.program.dispatch(budgets, fused)
+        self._handles.append(handle)
+        return handle
+
+    def _do_tokens(self):
+        """The oldest dispatched window's tokens (the loop fetches in
+        dispatch order)."""
+        toks, valid, rounds_run = self.program.tokens(self._handles.popleft())
+        if self.lockstep is not None:
+            self.lockstep.record_tokens(toks)
+        return toks, valid, rounds_run
+
+    def _do_retire(self, slot_id: int) -> None:
+        self.program.retire(slot_id)
+
+    def _do_reset(self) -> None:
+        self._handles.clear()
         self.program.reset()
 
     def _cancel_pending(self) -> bool:
@@ -463,7 +565,7 @@ class SlotEngine:
                 )
                 tj = time.perf_counter()
                 try:
-                    handle = program.dispatch(self._budgets(), fused)
+                    handle = self._device("dispatch", self._budgets(), fused)
                 except Exception as exc:  # noqa: BLE001
                     self._fail_and_rebuild(exc)
                     continue
@@ -487,7 +589,7 @@ class SlotEngine:
             ):
                 tj = time.perf_counter()
                 try:
-                    pending = program.dispatch(ahead, True)
+                    pending = self._device("dispatch", ahead, True)
                 except Exception as exc:  # noqa: BLE001
                     self._fail_and_rebuild(exc)
                     pending = None
@@ -496,7 +598,7 @@ class SlotEngine:
                 self.dispatches += program.dispatch_cost
             tj = time.perf_counter()
             try:
-                toks_host, valid, rounds_run = program.tokens(handle)
+                toks_host, valid, rounds_run = self._device("tokens")
             except Exception as exc:  # noqa: BLE001
                 self._fail_and_rebuild(exc)
                 pending = None

@@ -1,8 +1,9 @@
 """Non-batched decode strategies for the inference server (counterpart
-of ``containerpilot_tpu/workload/serve_strategies.py``): beam search and
-chunked prefill. Each runs on the inference thread and returns the
-generated rows. Context-parallel prefill is not ported yet (ROADMAP.md
-queue 1); speculative decoding rides a slot engine (serve_slots.py)."""
+of ``containerpilot_tpu/workload/serve_strategies.py``): beam search,
+context-parallel prefill and chunked prefill. Each runs on the inference
+thread (on every rank under a lockstep, parallel/serving.py; beams are
+not ported there yet) and returns the generated rows; speculative
+decoding rides a slot engine (serve_slots.py)."""
 from __future__ import annotations
 
 from typing import Any, List
@@ -31,6 +32,36 @@ def run_beam(
     return [out.tolist()]
 
 
+def _record(srv: Any, out: List[List[int]]) -> List[List[int]]:
+    lockstep = getattr(srv, "lockstep", None)
+    if lockstep is not None:
+        lockstep.record_tokens(out)
+    return out
+
+
+@torch.inference_mode()
+def run_cp(srv: Any, tokens: List[List[int]], p: dict) -> List[List[int]]:
+    """Context-parallel prefill for one long row: ring attention over the
+    server's seq mesh, the cache gathered once, then the normal decode
+    (``parallel.cp_generate``) with the server's sampling convention
+    (row 0 of the request's seed)."""
+    from ..models.decode import row_generator
+    from ..parallel.context import cp_generate
+
+    srv.batch_stats["calls"] += 1
+    srv.batch_stats["rows"] += 1
+    out = cp_generate(
+        srv.params, torch.tensor(tokens, dtype=torch.int64), srv.cfg,
+        srv.cp_mesh, p["max_new"], srv.max_len,
+        temperature=p["temperature"],
+        rng=[row_generator(p["seed"], 0, srv.device)],
+        top_k=p["top_k"], top_p=p["top_p"], eos_id=p["eos_id"],
+        min_new_tokens=p["min_new"], presence_penalty=p["presence"],
+        frequency_penalty=p["frequency"], logit_bias=p["logit_bias"],
+    )
+    return _record(srv, out.tolist())
+
+
 @torch.inference_mode()
 def run_chunked(
     srv: Any, tokens: List[List[int]], prompt_len: int, max_new: int,
@@ -47,9 +78,10 @@ def run_chunked(
     from ..models.decode import generate_from_cache, row_generator
     from .serve_prefix import prefill_row
 
+    mesh = getattr(srv, "mesh", None)
     logits, cache = prefill_row(
         None, tokens[0], srv.cfg, srv.params, srv.max_len,
-        srv.prefill_chunk,
+        srv.prefill_chunk, mesh,
     )
     srv.batch_stats["calls"] += 1
     srv.batch_stats["rows"] += 1
@@ -59,6 +91,6 @@ def run_chunked(
         rng=[row_generator(seed, 0, logits.device)],
         top_k=top_k, top_p=top_p, eos_id=eos_id,
         min_new_tokens=min_new, presence_penalty=presence,
-        frequency_penalty=frequency, logit_bias=logit_bias,
+        frequency_penalty=frequency, logit_bias=logit_bias, mesh=mesh,
     )
-    return out.tolist()
+    return _record(srv, out.tolist())

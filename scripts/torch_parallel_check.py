@@ -4,6 +4,7 @@ the ranks' collectives run over NCCL instead of gloo through the host.
 
     python3 scripts/torch_parallel_check.py              # 4 cards
     python3 scripts/torch_parallel_check.py --device cpu # rehearsal
+    python3 scripts/torch_parallel_check.py --serve [--device cpu]
 
 On the cards it runs chip_smoke's one-rank reference (the training
 configuration, seed-0 masters, one seeded batch) and its rank job in 4
@@ -17,6 +18,13 @@ host. Prints the card's name and power limit, one JSON line per layout
 not a speed figure) and exits non-zero on a failed check. ``--device
 cpu`` runs the same flow at a tiny size over gloo, with no launch
 counts.
+
+``--serve`` runs chip_smoke's serve_parallel drive for ``--tp 2 --cp 2
+--cp-min-len 1024 --slots 8`` instead (the serve CLI at the flagship
+CLI's width, its three followers each on their own card): every request
+judged against the one-rank model, every rank's tokens equal, K1 never
+for the ringed heads, the mesh, cp and NCCL reported by ``/v1/model``,
+nothing staged through the host.
 """
 from __future__ import annotations
 
@@ -49,11 +57,57 @@ def _setup(device: str) -> None:
     cs.RANK_SCRIPT = os.path.abspath(__file__)
 
 
+SERVE_TINY = ["--vocab", "512", "--d-model", "64", "--n-layers", "2",
+              "--n-heads", "4", "--max-len", "256"]
+
+
+def serve_check(device: str) -> int:
+    """The tp2 x cp2 serve CLI over 4 ranks (chip_smoke's drive; on the
+    cards each rank has its own, so NCCL and no host staging)."""
+    t0 = time.perf_counter()
+    world = 4
+    card = {"kind": device}
+    if device == "cuda":
+        from containerpilot_tpu_torch.ops import _build
+
+        if torch.cuda.device_count() < world:
+            raise SystemExit(f"needs {world} cards, found "
+                             f"{torch.cuda.device_count()}")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+        print(smi, flush=True)
+        card = {"kind": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+        _build.build_all()
+    cs.PAR_RUNS = tuple(run for run in cs.PAR_RUNS if run[0] == "tp2_cp2")
+    small = device != "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        # a wedged rank dumps every thread's stack at 0.9 of its
+        # start-up deadline (120 s) and the front exits at it
+        out = cs.drive_serve_parallel(
+            tmp, card, device, model=SERVE_TINY if small else None,
+            lens={"tp": (128,), "cp": (192, 131)} if small else None,
+            min_len=128 if small else 1024,
+            extra_args=("--lockstep-deadline", "60"), timeout=240)
+    run = out["tp2_cp2"]
+    print(json.dumps({"serve": "tp2_cp2", **{k: run[k] for k in (
+        "backend", "staging", "step_program", "ranks_agree", "judged",
+        "k1_launches_by_rank", "wall_ms_by_request", "ready_s",
+        "front_staged_bytes_a_token")}}), flush=True)
+    print(json.dumps({"seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--rank-job", nargs=2, metavar=("SPEC", "RANK"))
+    parser.add_argument("--serve", action="store_true",
+                        help="the tp2 x cp2 serve CLI, a card a rank")
     args = parser.parse_args()
+    if args.serve:
+        return serve_check(args.device)
     _setup(args.device)
     if args.rank_job:
         return cs.rank_job(args.rank_job[0], int(args.rank_job[1]))

@@ -152,6 +152,18 @@ def test_cli_parses_supported_flags():
     assert "wq_q" in params["layers"] and checkpoint is None
 
 
+# what the reference does with each case's flags (its messages); None =
+# it starts (its own startup checks pass)
+_REFERENCE_OUTCOME = {
+    ("--moe-experts", "4", "--tp", "4"): None,
+    ("--draft-layers", "1", "--cp", "2"):
+        (ValueError, "--cp does not compose with --draft-layers"),
+    ("--lora-rank", "4", "--tp", "2"):
+        (SystemExit, "--lora-rank without --lora-dir does nothing"),
+    ("--cp-min-len", "64"): None,  # no --cp: the threshold is unused
+}
+
+
 @pytest.mark.parametrize("argv,flag", [
     (["--moe-experts", "4", "--tp", "4"], "--tp"),
     (["--draft-layers", "1", "--cp", "2"], "--cp"),
@@ -159,9 +171,18 @@ def test_cli_parses_supported_flags():
     (["--cp-min-len", "64"], "--cp-min-len"),
 ])
 def test_cli_flag_not_ported_yet_exits(argv, flag):
+    """--tp, --cp and --cp-min-len are ported: each case's startup
+    checks give what the reference gives for the same flags."""
     args = serve_cli.build_arg_parser().parse_args(argv)
-    with pytest.raises(SystemExit, match=f"{flag} is not ported yet"):
-        serve_cli.check_ported(args)
+    assert getattr(args, flag.lstrip("-").replace("-", "_")) != (
+        serve_cli.build_arg_parser().parse_args([]).__dict__[
+            flag.lstrip("-").replace("-", "_")])
+    outcome = _REFERENCE_OUTCOME[tuple(argv)]
+    if outcome is None:
+        serve_cli.check_ported(args)  # starts
+    else:
+        with pytest.raises(outcome[0], match=outcome[1]):
+            serve_cli.check_ported(args)
 
 
 def test_http_keepalive_serves_two_requests_on_one_connection(run):

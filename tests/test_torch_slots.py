@@ -188,8 +188,13 @@ def test_stats_and_stop(params):
 
 
 def test_engine_refuses_what_is_not_ported(params):
-    with pytest.raises(NotImplementedError, match="cp_mesh"):
-        SlotEngine(CFG, params, MAX_LEN, slots=1, chunk=2, cp_mesh=object())
+    # cp_mesh is ported: a mesh without a seq axis is refused with the
+    # reference server's message
+    from containerpilot_tpu_torch.parallel.mesh import MeshPlan, make_mesh
+
+    no_seq = make_mesh(MeshPlan(data=2, model=1), world_size=2, rank=0)
+    with pytest.raises(ValueError, match="needs a seq axis"):
+        SlotEngine(CFG, params, MAX_LEN, slots=1, chunk=2, cp_mesh=no_seq)
     # the device-time ledger is ported: accepted, and an idle engine
     # never cuts the server's boot stage short (its stamps are held in
     # tests/test_torch_telemetry.py)

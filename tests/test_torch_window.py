@@ -194,9 +194,9 @@ def test_chunked_prefill_matches_prefill_with_pieces_capped(case,
     pieces = []
     extend = tdecode.extend
 
-    def spy(params, cache, piece, cfg):
+    def spy(params, cache, piece, cfg, mesh=None):
         pieces.append(piece.shape[1])
-        return extend(params, cache, piece, cfg)
+        return extend(params, cache, piece, cfg, mesh)
 
     monkeypatch.setattr(tdecode, "extend", spy)
     tl, tc = tdecode.chunked_prefill(tp, torch.from_numpy(toks).long(), tcfg,

@@ -197,18 +197,20 @@ training phases, then beams, speculative decoding and LoRA):
 24. train_parallel: K1, K3 and K4 at a rank's shard of the training
    shape (b=4, h=4: dp 2 x tp 2) against their plain versions, twice for
    bit equality, with SDPA beside them; then the training configuration
-   (full width and depth, batch 8 x 2048) across ranks, each layout a
+   (full width, half depth: PARALLEL_CFG's 4 layers, batch 8 x 2048)
+   across ranks, each layout a
    world of child processes
    (``python3 chip_smoke.py --rank-job SPEC RANK``) on this one card,
    joined with initialize_from_env over gloo (collectives staged through
    host buffers): dp2 --zero1, dp2 --fsdp, tp2, dp2 x tp2, pp2 x tp2
-   with 4 microbatches, and 8 experts with ep2 on model, drop-free and
-   at capacity 1.25. Each starts from the seed-0 masters and one batch
+   with 4 microbatches, 8 experts with ep2 on model, drop-free and at
+   capacity 1.25, and sp2 x tp2 (data 1 x seq 2 x model 2: the
+   context-parallel step, the ring in place of K1/K3/K4). Each starts from the seed-0 masters and one batch
    also run by one rank in this process: the loss within
    TRAIN_LOSS_REL_TOL and every gathered gradient leaf within
    TRAIN_GRAD_REL_TOL (MoE on this process's routes, every flip a near
    tie); K1/K3/K4 counted a rank a step (2 / 1 / 1 per local layer and
-   microbatch); ZeRO-1's moments and FSDP's params and moments at 1/dp
+   microbatch, 0 under a seq axis); ZeRO-1's moments and FSDP's params and moments at 1/dp
    of one rank's bytes; step ms, bytes staged through the host and peak
    memory per rank (ranks share the card: no step time is a speed
    figure). Then the train CLI as 4 ranks through initialize_from_catalog
@@ -218,7 +220,8 @@ training phases, then beams, speculative decoding and LoRA):
    and K2 at a tp2 rank's CLI projections (2048x1024, 1024x2048,
    2048x3072, 3072x2048 at m = 1 and 8) against their plain versions,
    twice for bit equality, with SDPA / torch.matmul beside them; then the
-   serve CLI at the flagship CLI's width and depth over ranks on this
+   serve CLI at the flagship CLI's width and half its depth (PAR_MODEL,
+   8 layers) over ranks on this
    one card (the front spawns its followers; gloo, collectives staged
    through host buffers, the slot engine's round uncaptured): --tp 2
    --slots 8 and --tp 2 --int8 --slots 8 (a 1024-id greedy prompt, then
@@ -231,7 +234,25 @@ training phases, then beams, speculative decoding and LoRA):
    a rank for the 1024-id tp prefill and never for a ringed head, K2 on
    every rank's blocks under --int8 (each rank's counters zeroed just
    before the requests and read just after); wall ms a request, the
-   ranks' start-up seconds, bytes staged through the host a token.
+   ranks' start-up seconds, bytes staged through the host a token;
+26. train_resume: the train CLI at PARALLEL_CLI's width and depth
+   (RESUME_MODEL) as 4 ranks on the reference's mesh, data 1 x model 4
+   (``python3 chip_smoke.py
+   --train-rank LOG [--kill-after N] -- ARGS`` children logging every
+   step's loss and K1/K3/K4 launches) through a file catalog, with
+   --checkpoint-every 2: an uninterrupted 6-step run with --eval-every 3
+   on token shards of the port's own source text (every rank the same
+   losses and eval_loss); the same run with rank 1 SIGKILLed after step
+   5 (every peer exits non-zero by itself), relaunched: it resumes at
+   step 4 and its losses equal the uninterrupted run's within
+   RESUME_REL_TOL, the two step-6 checkpoints compared leaf by leaf;
+   the step-6 checkpoint restored in this process (one rank), one more
+   step within RESUME_ONE_RANK_TOL of the 4-rank continuation, and
+   served by the serve CLI (serve_checkpoint); --lora-rank 16 on 2
+   ranks (model 2) within RESUME_ONE_RANK_TOL of one rank here; K1/K3/K4
+   8 / 4 / 4 a rank a step, as the ranks logged them; start-up,
+   save (gather, write) and restore seconds, the bytes on rank 0's
+   host.
 
 Then the kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -355,7 +376,14 @@ LORA_RANK = 16
 LORA_LR = 1e-3
 
 
+T_START = time.perf_counter()
+
+
 def emit(obj) -> None:
+    """One JSON line; a phase's line also says when it ended (seconds
+    since the script started)."""
+    if "phase" in obj:
+        obj = {**obj, "ended_at_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
 
 
@@ -1886,11 +1914,12 @@ def _serve_cli_tokens(args, body, timeout=300):
     return tokens, info, out
 
 
-def serve_checkpoint(ckpt, model_args, vocab):
+def serve_checkpoint(ckpt, model_args, vocab, emas=(False, True)):
     """The serving CLI on the trainer's checkpoint, once with the raw
-    params and once with --use-ema: each greedy request's tokens must
-    equal an in-process generate on restore_params(prefer_ema=...),
-    and the server must say which weights it loaded."""
+    params and once with --use-ema (``emas``): each greedy request's
+    tokens must equal an in-process generate on
+    restore_params(prefer_ema=...), and the server must say which
+    weights it loaded."""
     from containerpilot_tpu_torch.models import decode, quantized
     from containerpilot_tpu_torch.models import transformer as tf
     from containerpilot_tpu_torch.parallel import (
@@ -1909,7 +1938,7 @@ def serve_checkpoint(ckpt, model_args, vocab):
     prompt = [(7 * i + 3) % vocab for i in range(48)]
     body = {"tokens": [prompt], "max_new_tokens": 24}
     out = {}
-    for ema in (False, True):
+    for ema in emas:
         served, info, log_text = _serve_cli_tokens(
             ["--device", "cuda", "--checkpoint-dir", ckpt, "--max-len",
              "1024", "--vocab", str(vocab), *model_args]
@@ -1937,6 +1966,8 @@ def serve_checkpoint(ckpt, model_args, vocab):
             "step": restored[1], "tokens_equal_in_process": True,
             "tokens_head": served[0][:8]}
         del params, restored
+    if len(emas) < 2:
+        return out
     raw, ema = (restore_params(ckpt, abstract_train_state(cfg),
                                prefer_ema=e, device="cuda")[0]
                 for e in (False, True))
@@ -3560,9 +3591,11 @@ def drive_moe(gen, prompt, card):
 # phase 24: training across ranks (train_parallel)
 # ---------------------------------------------------------------------------
 
-# (name, ranks, mesh plan, options, config overrides of TRAIN_CFG): every
-# layout at the training configuration's full width and depth; the
-# layouts of one world size run in one launch of its ranks, in order
+# the training configuration at half depth (4 layers): its full width
+# and shapes, the layouts' worlds inside the script's time
+PARALLEL_CFG = {**TRAIN_CFG, "n_layers": 4}
+# (name, ranks, mesh plan, options, config overrides of PARALLEL_CFG):
+# the layouts of one world size run in one launch of its ranks, in order
 PARALLEL_LAYOUTS = [
     ("dp2_zero1", 2, {"data": 2, "model": 1}, {"zero1": True}, {}),
     ("dp2_fsdp", 2, {"data": 2, "model": 1}, {"fsdp": True}, {}),
@@ -3574,6 +3607,8 @@ PARALLEL_LAYOUTS = [
     ("dp2_tp2", 4, {"data": 2, "model": 2}, {}, {}),
     ("pp2_tp2", 4, {"data": 1, "model": 2, "pipe": 2},
      {"microbatches": 4}, {}),
+    # context parallelism: the ring in place of K1/K3/K4
+    ("sp2_tp2", 4, {"data": 1, "seq": 2, "model": 2}, {}, {}),
 ]
 RANK_TIMEOUT = 420  # seconds a layout's ranks may take, start to exit
 RANK_SCRIPT = os.path.abspath(__file__)  # what a rank runs (--rank-job)
@@ -3651,7 +3686,7 @@ def parallel_reference(gen, tmp, device="cuda"):
     from containerpilot_tpu_torch.models import transformer as tf
     from containerpilot_tpu_torch.parallel import train as tr
 
-    tokens = torch.randint(0, TRAIN_CFG["vocab_size"],
+    tokens = torch.randint(0, PARALLEL_CFG["vocab_size"],
                            (TRAIN_BATCH, TRAIN_SEQ + 1), generator=gen,
                            device=device)
     torch.save(tokens.cpu(), os.path.join(tmp, "tokens.pt"))
@@ -3660,7 +3695,7 @@ def parallel_reference(gen, tmp, device="cuda"):
         key = json.dumps(over, sort_keys=True)
         if key in refs:
             continue
-        cfg = tf.TransformerConfig(**{**TRAIN_CFG, **over})
+        cfg = tf.TransformerConfig(**{**PARALLEL_CFG, **over})
         state = tr.init_train_state(0, cfg, device)
         leaves = tr.tree_leaves(state.params)
         table = {}
@@ -3736,7 +3771,7 @@ def parallel_layout(layout, spec, rank, device):
 
     on_card = device.type == "cuda"
     mesh = make_mesh(MeshPlan(**layout["plan"]), device=device)
-    cfg = tf.TransformerConfig(**{**TRAIN_CFG, **layout["over"]})
+    cfg = tf.TransformerConfig(**{**PARALLEL_CFG, **layout["over"]})
     opts = layout["opts"]
     pipeline = "microbatches" in opts
     if pipeline:
@@ -3885,7 +3920,9 @@ def drive_train_parallel(gen, tmp, device="cuda"):
                 f"train_parallel {name}: loss rel {loss_rel}, worst grad "
                 f"leaf rel {head['worst_grad_rel']} against one rank")
         stages = plan.get("pipe", 1)
-        local_layers = TRAIN_CFG["n_layers"] // stages
+        # under a seq axis the ring replaces the flash kernels
+        local_layers = (PARALLEL_CFG["n_layers"] // stages
+                        if plan.get("seq", 1) == 1 else 0)
         mb = opts.get("microbatches", 1)
         want = {"k1_launches": 2 * local_layers * mb,
                 "dq_launches": local_layers * mb,
@@ -3937,7 +3974,7 @@ def drive_train_parallel(gen, tmp, device="cuda"):
         if name.startswith("ref") or name == "tokens.pt":
             os.remove(os.path.join(tmp, name))
     cli = drive_parallel_cli(tmp, device)
-    return {"phase": "train_parallel", "config": TRAIN_CFG,
+    return {"phase": "train_parallel", "config": PARALLEL_CFG,
             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
             "per_shard_kernels": per_shard, "layouts": layouts,
             "world_seconds": seconds, "train_cli_4_ranks": cli,
@@ -3984,6 +4021,9 @@ def drive_parallel_cli(tmp, device="cuda"):
 # phase 25: tensor- and context-parallel serving through the serve CLI
 # ---------------------------------------------------------------------------
 
+# the serve CLI's flagship at its full width and half its depth
+PAR_MODEL = [*FACE_MODEL[:FACE_MODEL.index("--n-layers") + 1], "8",
+             *FACE_MODEL[FACE_MODEL.index("--n-layers") + 2:]]
 # K1 at a tp2 rank's 1024-token prefill of the CLI flagship
 SHARD_SERVE_FWD_CASE = (1, 1024, 8, 8, 128, 0)
 # K2 at a tp2 rank's projections of the CLI flagship: (k, n) -> count a
@@ -4023,7 +4063,7 @@ def drive_serve_parallel(tmp, card, device="cuda", model=None, lens=None,
     ``timeout`` bounds each CLI's start-up."""
     from containerpilot_tpu_torch.workload import serve_cli
 
-    model = FACE_MODEL if model is None else model
+    model = PAR_MODEL if model is None else model
     lens = PAR_LENS if lens is None else lens
     t_phase = time.perf_counter()
     result = {"phase": "serve_parallel", "model": model, **card}
@@ -4137,6 +4177,444 @@ def drive_serve_parallel(tmp, card, device="cuda", model=None, lens=None,
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 26: the trainer across ranks made whole (train_resume)
+# ---------------------------------------------------------------------------
+
+# the train CLI at PARALLEL_CLI's width and depth, as 4 ranks on the
+# mesh the reference factors them into (data 1 x model 4)
+RESUME_MODEL = ["--vocab", "32768", "--d-model", "1024", "--n-heads", "8",
+                "--n-layers", "4", "--seq-len", "1024", "--batch", "8",
+                "--learning-rate", "1e-3"]
+RESUME_STEPS = 6        # the uninterrupted run
+RESUME_EVAL_EVERY = 3
+RESUME_KILL = (1, 5)    # (rank, step after which it is SIGKILLed)
+RESUME_REL_TOL = 1e-6   # the relaunch's losses against the uninterrupted's
+RESUME_LORA_STEPS = 2  # checkpointed every step: both kept (keep 2)
+# the 4-rank step-7 loss and the 2-rank LoRA losses against one rank:
+# bf16 partial products summed in another order (read 2.49e-5 and
+# 3.99e-6 at dp2 x tp2 on the card, up to 1.9e-4 at the rehearsal's
+# tiny width on the CPU). A loss hardly sees a wrong LoRA gradient
+# (Adam cancels its scale), so the 2-rank run also checkpoints every
+# step, and one rank here takes each step from the 2-rank run's state
+# before it: the step's Adam first moment (0.1 x the clipped gradient
+# plus 0.9 x the shared moment before; A's gradient is 0 at step 1, B
+# being 0, and enters at step 2) is held to the 2-rank run's within
+# TRAIN_GRAD_REL_TOL (a gradient short of its model-axis sum reads near
+# 1 in the CPU rehearsal with that sum removed; PERF.md)
+RESUME_ONE_RANK_TOL = 5e-4
+RESUME_TIMEOUT = 240    # seconds a world of the phase may take
+# the train CLI's kernel launches a rank a step: forward + remat's
+# recompute of every local layer, one dq and one dk/dv each
+RESUME_LAUNCHES = {"k1": 8, "k3": 4, "k4": 4}
+
+
+def train_rank(argv) -> int:
+    """One rank of a train_resume world (``python3 chip_smoke.py
+    --train-rank LOG [--kill-after N] -- ARGS``): the train CLI's main
+    on ARGS with its train step (or LoRA step) and restore wrapped to
+    append to LOG, as JSON lines, every step's loss, start time, ms and
+    K1/K3/K4 launches, and the restore's seconds; ``--kill-after N``
+    SIGKILLs this rank right after step N is logged. Deterministic
+    algorithms are asked for (a relaunched run is compared to the bit).
+    Called in a process of its own's stead (the CPU tests run one rank
+    in theirs), it leaves the package and that setting as it found
+    them."""
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from containerpilot_tpu_torch import parallel
+    from containerpilot_tpu_torch.ops import flash
+    from containerpilot_tpu_torch.workload import train
+
+    deterministic = (torch.are_deterministic_algorithms_enabled(),
+                     torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    log_path = argv[argv.index("--train-rank") + 1]
+    kill_after = (int(argv[argv.index("--kill-after") + 1])
+                  if "--kill-after" in argv else None)
+    log = open(log_path, "a")
+
+    def record(**fields):
+        log.write(json.dumps(fields) + "\n")
+        log.flush()
+
+    def logged(step_fn):
+        def run(state, *rest):
+            before = (flash.LAUNCHES, flash.DQ_LAUNCHES, flash.DKDV_LAUNCHES)
+            start = time.time()
+            state, loss = step_fn(state, *rest)
+            value = float(loss)  # synchronizes
+            record(step=int(state.step), loss=value, start=start,
+                   ms=(time.time() - start) * 1e3,
+                   k1=flash.LAUNCHES - before[0],
+                   k3=flash.DQ_LAUNCHES - before[1],
+                   k4=flash.DKDV_LAUNCHES - before[2])
+            if state.step == kill_after:
+                os.kill(os.getpid(), signal.SIGKILL)
+            return state, loss
+
+        if hasattr(step_fn, "layout"):
+            run.layout = step_fn.layout
+        return run
+
+    make_step, make_lora, restore = (parallel.make_train_step,
+                                     parallel.make_lora_train_step,
+                                     parallel.restore_checkpoint)
+
+    def lora(*a, **k):
+        init_fn, step_fn, abstract = make_lora(*a, **k)
+        return init_fn, logged(step_fn), abstract
+
+    def timed_restore(*a, **k):
+        t0 = time.perf_counter()
+        out = restore(*a, **k)
+        record(restore_s=time.perf_counter() - t0, restored=out is not None)
+        return out
+
+    parallel.make_train_step = lambda *a, **k: logged(make_step(*a, **k))
+    parallel.make_lora_train_step = lora
+    parallel.restore_checkpoint = timed_restore
+    try:
+        return train.main(argv[argv.index("--") + 1:])
+    finally:
+        (parallel.make_train_step, parallel.make_lora_train_step,
+         parallel.restore_checkpoint) = make_step, make_lora, restore
+        torch.use_deterministic_algorithms(deterministic[0],
+                                           warn_only=deterministic[1])
+        log.close()
+
+
+def _run_world(tmp, tag, args, ranks, device, kill=None,
+               timeout=RESUME_TIMEOUT):
+    """The train CLI as ``ranks`` train_rank children meeting through a
+    file catalog of their own; waits for every child to exit BY ITSELF
+    (one still alive at the timeout is killed and reported as None).
+    Returns (exit codes, outputs, each rank's records, launch time)."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    port = _free_port()
+    env = {**os.environ, "PYTHONPATH": root,
+           "CUBLAS_WORKSPACE_CONFIG": ":4096:8"}
+    logs, procs, files = [], [], []
+    t0 = time.time()
+    try:
+        for r in range(ranks):
+            logs.append(os.path.join(tmp, f"{tag}.rank{r}.jsonl"))
+            extra = (["--kill-after", str(kill[1])]
+                     if kill is not None and kill[0] == r else [])
+            fh = open(os.path.join(tmp, f"{tag}.rank{r}.log"), "w+")
+            files.append(fh)
+            procs.append(subprocess.Popen(
+                [sys.executable, RANK_SCRIPT, "--train-rank", logs[-1], *extra,
+                 "--", "--device", device, *args,
+                 "--catalog", f"file:{os.path.join(tmp, 'catalog_' + tag)}",
+                 "--num-processes", str(ranks), "--process-id", str(r),
+                 "--advertise-address", "127.0.0.1",
+                 "--coordinator-port", str(port)],
+                cwd=root, env=env, stdout=fh, stderr=subprocess.STDOUT,
+                text=True))
+        deadline = time.monotonic() + timeout
+        while any(p.poll() is None for p in procs) and (
+                time.monotonic() < deadline):
+            time.sleep(0.2)
+    finally:
+        rcs = [p.poll() for p in procs]
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    outs = []
+    for fh in files:
+        fh.seek(0)
+        outs.append(fh.read())
+        fh.close()
+    records = []
+    for path in logs:
+        with open(path) if os.path.exists(path) else open(os.devnull) as fh:
+            records.append([json.loads(line) for line in fh])
+    return rcs, outs, records, t0
+
+
+def _steps_of(records):
+    return [r for r in records if "step" in r]
+
+
+def _world_ok(tag, rcs, outs):
+    if rcs != [0] * len(rcs):
+        i = next(i for i, rc in enumerate(rcs) if rc != 0)
+        raise AssertionError(f"train_resume {tag}: exit codes {rcs}; rank "
+                             f"{i}:\n{outs[i][-3000:]}")
+
+
+def _launches_ok(tag, records, device):
+    want = RESUME_LAUNCHES if device == "cuda" else dict.fromkeys(
+        RESUME_LAUNCHES, 0)
+    for r, recs in enumerate(records):
+        for rec in _steps_of(recs):
+            got = {k: rec[k] for k in want}
+            if got != want:
+                raise AssertionError(
+                    f"train_resume {tag} rank {r} step {rec['step']}: "
+                    f"launches {got}, want {want}")
+
+
+def _launches_read(records):
+    """The K1/K3/K4 launches a rank a step as the ranks logged them:
+    {kernel: the one count every rank read at every step, or the sorted
+    distinct counts}."""
+    out = {}
+    for k in RESUME_LAUNCHES:
+        seen = sorted({rec[k] for recs in records for rec in _steps_of(recs)})
+        out[k] = seen[0] if len(seen) == 1 else seen
+    return out
+
+
+def _save_figures(outs):
+    """The CLI's save lines of rank 0: [(step, gather s, write s, host
+    bytes)]."""
+    return [{"step": int(m[0]), "gather_s": float(m[1]),
+             "write_s": float(m[2]), "host_bytes": int(m[3])}
+            for m in re.findall(
+                r"checkpoint: step (\d+) gathered in ([\d.]+) s, written in "
+                r"([\d.]+) s, (\d+) bytes", outs[0])]
+
+
+def _lora_state_at(path, device):
+    """A LoRA TrainState from one checkpoint file (adapters replicated:
+    the file is every rank's state)."""
+    from containerpilot_tpu_torch.parallel.train import TrainState
+
+    raw = torch.load(path, weights_only=True)
+    on = lambda tree: {k: torch.as_tensor(v).to(device)
+                       for k, v in tree.items()}
+    opt = raw["opt_state"]
+    return TrainState(
+        {k: v.requires_grad_(True) for k, v in on(raw["params"]).items()},
+        {**opt, "mu": on(opt["mu"]), "nu": on(opt["nu"])}, int(raw["step"]))
+
+
+def _resume_shards(tmp, vocab):
+    """Token shards of the port's own source text (byte-level ids)."""
+    import numpy as np
+
+    from containerpilot_tpu_torch.workload.data import write_token_shards
+    from containerpilot_tpu_torch.workload.text import ByteTokenizer
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    tok = ByteTokenizer(vocab)
+    ids = []
+    for base, _dirs, names in sorted(os.walk(os.path.join(
+            root, "containerpilot_tpu_torch"))):
+        for name in sorted(names):
+            if name.endswith((".py", ".cu", ".cuh")):
+                with open(os.path.join(base, name), encoding="utf-8") as fh:
+                    ids += tok.encode(fh.read())
+    shards = os.path.join(tmp, "shards")
+    write_token_shards(np.asarray(ids), shards)
+    return shards, len(ids)
+
+
+def drive_train_resume(tmp, card, device="cuda", model=None):
+    """train_resume: the train CLI as 4 ranks (data 1 x model 4, the
+    reference's factorization of the world) through a file
+    catalog with checkpoints every 2 steps: an uninterrupted run with
+    in-loop eval on the port's own source text; the same run with rank 1
+    SIGKILLed after step 5 (its peers must exit non-zero by themselves),
+    relaunched (resumes at step 4, one step further): its losses against
+    the uninterrupted run's and the two step-6 checkpoints against each
+    other; the step-6 checkpoint in one rank here, one more step against
+    the 4-rank continuation, and served by the serve CLI; --lora-rank 16
+    on 2 ranks (model 2) against one rank here, losses and each step's
+    gradient. K1/K3/K4 a rank a step as logged; start-up, save and
+    restore seconds and the bytes staged on rank 0's host (none is a
+    speed figure: the ranks share the card)."""
+    from containerpilot_tpu_torch.models import transformer as tf
+    from containerpilot_tpu_torch.parallel import (
+        abstract_train_state,
+        make_lora_train_step,
+        make_train_step,
+        restore_checkpoint,
+        restore_params,
+    )
+    from containerpilot_tpu_torch.parallel.train import tree_leaves
+    from containerpilot_tpu_torch.workload.data import TokenShardDataset
+    from containerpilot_tpu_torch.workload.modelcfg import derive_d_ff
+
+    t_phase = time.perf_counter()
+    model = model or RESUME_MODEL
+    arg = lambda name: int(model[model.index(name) + 1])
+    vocab, seq, batch = arg("--vocab"), arg("--seq-len"), arg("--batch")
+    shards, n_tokens = _resume_shards(tmp, vocab)
+    holdout = 2 * batch
+    data = ["--data-dir", shards, "--eval-holdout", str(holdout)]
+    run = [*model, "--checkpoint-every", "2",
+           *data, "--eval-every", str(RESUME_EVAL_EVERY)]
+    full_ck, killed_ck = (os.path.join(tmp, n) for n in ("ck_full",
+                                                         "ck_killed"))
+    result = {"phase": "train_resume", "model": model, "ranks": 4,
+              "mesh": {"data": 1, "model": 4}, "tokens": n_tokens, **card}
+
+    # the uninterrupted run
+    rcs, outs, recs, t0 = _run_world(
+        tmp, "full", [*run, "--steps", str(RESUME_STEPS),
+                      "--checkpoint-dir", full_ck], 4, device)
+    _world_ok("full", rcs, outs)
+    _launches_ok("full", recs, device)
+    full = _steps_of(recs[0])
+    if not all(_steps_of(r) and [x["loss"] for x in _steps_of(r)]
+               == [x["loss"] for x in full] for r in recs):
+        raise AssertionError("train_resume full: ranks disagree on losses")
+    evals = [re.findall(r"step (\d+): eval_loss=([\d.]+)", out)
+             for out in outs]
+    if not (evals[0] and [int(s) for s, _ in evals[0]] == list(range(
+            RESUME_EVAL_EVERY, RESUME_STEPS + 1, RESUME_EVAL_EVERY))
+            and all(e == evals[0] for e in evals)):
+        raise AssertionError(f"train_resume eval lines by rank: {evals}")
+    mesh_line = f"mesh: {{'data': 1, 'model': 4}} on {device}"
+    if any(mesh_line not in out for out in outs):
+        raise AssertionError(f"train_resume mesh line:\n{outs[0][-2000:]}")
+    result["uninterrupted"] = {
+        "losses": [x["loss"] for x in full],
+        "eval_losses": {s: float(v) for s, v in evals[0]},
+        "startup_s": [_steps_of(r)[0]["start"] - t0 for r in recs],
+        "step_ms": [[x["ms"] for x in _steps_of(r)] for r in recs],
+        "saves": _save_figures(outs),
+        "launches_a_rank_a_step": _launches_read(recs)}
+
+    # rank 1 lost after step 5, then the relaunch (one step further)
+    rcs, outs, recs, t0 = _run_world(
+        tmp, "killed", [*run, "--steps", str(RESUME_STEPS),
+                        "--checkpoint-dir", killed_ck], 4, device,
+        kill=RESUME_KILL)
+    if rcs[RESUME_KILL[0]] != -signal.SIGKILL or any(
+            rc in (0, None) for rc in rcs):
+        raise AssertionError(
+            f"train_resume killed: exit codes {rcs} (rank "
+            f"{RESUME_KILL[0]} SIGKILLed, every peer must exit non-zero "
+            f"by itself):\n{outs[0][-2000:]}")
+    result["killed"] = {"exit_codes": rcs, "rank": RESUME_KILL[0],
+                        "after_step": RESUME_KILL[1],
+                        "seconds": time.time() - t0}
+    rcs, outs, recs, t0 = _run_world(
+        tmp, "relaunched", [*run, "--steps", str(RESUME_STEPS + 1),
+                            "--checkpoint-dir", killed_ck], 4, device)
+    _world_ok("relaunched", rcs, outs)
+    _launches_ok("relaunched", recs, device)
+    resumed_at = RESUME_KILL[1] - RESUME_KILL[1] % 2
+    if any(f"resumed from checkpoint at step {resumed_at}" not in out
+           for out in outs):
+        raise AssertionError(f"train_resume relaunch:\n{outs[0][-2000:]}")
+    again = _steps_of(recs[0])
+    pairs = [(a["loss"], b["loss"]) for a in full for b in again
+             if a["step"] == b["step"]]
+    worst = max(abs(a - b) / abs(a) for a, b in pairs)
+    if not (len(pairs) == RESUME_STEPS - resumed_at
+            and worst <= RESUME_REL_TOL):
+        raise AssertionError(
+            f"train_resume: relaunched losses {again} against "
+            f"{full} (worst rel {worst})")
+    a_raw, b_raw = (torch.load(os.path.join(d, f"step_{RESUME_STEPS}",
+                                            "state.pt"), weights_only=True)
+                    for d in (full_ck, killed_ck))
+    diff = {part: max((torch.as_tensor(x).float()
+                       - torch.as_tensor(y).float()).abs().max().item()
+                      for x, y in zip(tree_leaves(a_raw[part]),
+                                      tree_leaves(b_raw[part]))
+                      if isinstance(x, torch.Tensor))
+            for part in ("params", "opt_state")}
+    del a_raw, b_raw
+    continued = again[-1]
+    result["relaunched"] = {
+        "resumed_at": resumed_at, "losses": [x["loss"] for x in again],
+        "worst_loss_rel_vs_uninterrupted": worst,
+        "step6_max_abs_diff": diff,
+        "startup_s": [_steps_of(r)[0]["start"] - t0 for r in recs],
+        "restore_s": [next(x["restore_s"] for x in r if "restore_s" in x)
+                      for r in recs],
+        "saves": _save_figures(outs)}
+
+    # the step-6 checkpoint in one rank: one more step, then served
+    cfg = tf.TransformerConfig(
+        vocab_size=vocab, d_model=arg("--d-model"), n_heads=arg("--n-heads"),
+        n_layers=arg("--n-layers"), d_ff=derive_d_ff(arg("--d-model")),
+        max_seq_len=seq)
+    dataset = TokenShardDataset(shards, seq, batch, vocab_size=vocab,
+                                holdout_windows=holdout)
+    t0 = time.perf_counter()
+    state = restore_checkpoint(full_ck, abstract_train_state(cfg),
+                               device=device)
+    restore_one_s = time.perf_counter() - t0
+    step = make_train_step(cfg, learning_rate=1e-3)
+    toks = torch.from_numpy(dataset.batch_at(RESUME_STEPS)).long().to(device)
+    _state, loss = step(state, toks)
+    one = float(loss)
+    del state, _state
+    rel = abs(one - continued["loss"]) / abs(continued["loss"])
+    if not (continued["step"] == RESUME_STEPS + 1
+            and rel <= RESUME_ONE_RANK_TOL):
+        raise AssertionError(
+            f"train_resume: one rank's step {RESUME_STEPS + 1} from the "
+            f"checkpoint {one} against 4 ranks' {continued}")
+    result["one_rank"] = {"step": RESUME_STEPS + 1, "loss": one,
+                          "four_rank_loss": continued["loss"],
+                          "loss_rel": rel, "restore_s": restore_one_s}
+    gc.collect()
+    if device == "cuda":
+        torch.cuda.empty_cache()
+        result["served"] = serve_checkpoint(
+            full_ck, model[model.index("--d-model"):model.index(
+                "--d-model") + 2] + ["--n-layers", str(arg("--n-layers")),
+                                     "--n-heads", str(arg("--n-heads"))],
+            vocab, emas=(False,))
+
+    # LoRA on 2 ranks (model 2) against one rank
+    lora_ck = os.path.join(tmp, "ck_lora")
+    lora = [*model, *data, "--lora-rank",
+            str(LORA_RANK), "--base-checkpoint-dir", full_ck,
+            "--steps", str(RESUME_LORA_STEPS), "--checkpoint-dir", lora_ck,
+            "--checkpoint-every", "1"]
+    rcs, outs, recs, t0 = _run_world(tmp, "lora", lora, 2, device)
+    _world_ok("lora", rcs, outs)
+    _launches_ok("lora", recs, device)
+    got = [x["loss"] for x in _steps_of(recs[0])]
+    base, _step = restore_params(full_ck, abstract_train_state(cfg),
+                                 device=device)
+    init_fn, step_fn, _abstract = make_lora_train_step(cfg, LORA_RANK, 1e-3)
+    state = init_fn(0, device)
+    want, grad_rel = [], {}
+    for i in range(RESUME_LORA_STEPS):
+        if i:  # the 2-rank run's state after step i
+            state = _lora_state_at(
+                os.path.join(lora_ck, f"step_{i}", "state.pt"), device)
+        toks = torch.from_numpy(dataset.batch_at(i)).long().to(device)
+        state, loss = step_fn(state, base, toks)
+        want.append(float(loss))
+        got_mu = torch.load(os.path.join(lora_ck, f"step_{i + 1}",
+                                         "state.pt"),
+                            weights_only=True)["opt_state"]["mu"]
+        for k, v in state.opt_state["mu"].items():
+            v = v.detach().float().cpu()
+            err = (torch.as_tensor(got_mu[k]).float() - v).abs().max().item()
+            scale = v.abs().max().item()
+            grad_rel[f"step{i + 1}_{k}"] = (
+                err / scale if scale else (0.0 if err == 0 else math.inf))
+    del base, state
+    worst = max(abs(a - b) / abs(b) for a, b in zip(got, want))
+    if not (len(got) == RESUME_LORA_STEPS
+            and worst <= RESUME_ONE_RANK_TOL
+            and max(grad_rel.values()) <= TRAIN_GRAD_REL_TOL
+            and f"mesh: {{'data': 1, 'model': 2}} on {device}" in outs[0]):
+        raise AssertionError(
+            f"train_resume lora: 2-rank losses {got}, one rank {want}; "
+            f"step-1 gradient (Adam's first moment) rel err {grad_rel}:\n"
+            f"{outs[0][-2000:]}")
+    result["lora_tp2"] = {"rank": LORA_RANK, "losses": got,
+                          "one_rank_losses": want, "worst_loss_rel": worst,
+                          "grad_rel_by_step_and_leaf": grad_rel,
+                          "startup_s": [_steps_of(r)[0]["start"] - t0
+                                        for r in recs]}
+    result["seconds"] = time.perf_counter() - t_phase
+    return result
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a "
@@ -4145,6 +4623,8 @@ def main() -> int:
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     if sys.argv[1:2] == ["--rank-job"]:  # a train_parallel child
         return rank_job(sys.argv[2], int(sys.argv[3]))
+    if sys.argv[1:2] == ["--train-rank"]:  # a train_resume child
+        return train_rank(sys.argv[1:])
     from containerpilot_tpu_torch.models import decode, quantized
     from containerpilot_tpu_torch.models import transformer as tf
     from containerpilot_tpu_torch.ops import _build, flash, quant
@@ -4386,6 +4866,14 @@ def main() -> int:
               for label, _extra, _ranks in PAR_RUNS}
         for key in ("k1", "k2")}
 
+    # ---- the trainer across ranks: checkpoints, crash, resume, LoRA -----
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        train_resume = drive_train_resume(tmp, card)
+    emit(train_resume)
+    resume_launches = train_resume["uninterrupted"]["launches_a_rank_a_step"]
+
     # ---- summary --------------------------------------------------------
     main_flash = flash_rows[0]
     train_flash = flash_rows[FWD_CASES.index(TRAIN_FWD_CASE)]
@@ -4453,6 +4941,7 @@ def main() -> int:
                 train_parallel["per_shard_kernels"]["flash_fwd"]),
             "train_parallel_launches_a_rank_a_step":
                 parallel_launches["k1_launches"],
+            "train_resume_launches_a_rank_a_step": resume_launches["k1"],
             "per_shard_serving": {
                 **kernel_case(shard_k1),
                 "launches_by_rank": par_launches["k1"]},
@@ -4502,11 +4991,13 @@ def main() -> int:
                 },
                 "train_parallel_launches_a_rank_a_step":
                     parallel_launches[f"{key}_launches"],
+                "train_resume_launches_a_rank_a_step":
+                    resume_launches[short],
             }
-            for name, key, replaces, grads in (
-                ("flash_bwd_dq", "dq",
+            for name, key, short, replaces, grads in (
+                ("flash_bwd_dq", "dq", "k3",
                  "containerpilot_tpu/ops/flash.py:257", ("dq",)),
-                ("flash_bwd_dkdv", "dkdv",
+                ("flash_bwd_dkdv", "dkdv", "k4",
                  "containerpilot_tpu/ops/flash.py:293", ("dk", "dv")),
             )
         ),

@@ -69,16 +69,29 @@ def init_lora_params(
     return out
 
 
+def holds_block(base_leaf: torch.Tensor, b: torch.Tensor) -> bool:
+    """True when ``base_leaf`` (a target's [L, d, heads, head_dim]) is a
+    rank's block, its heads of a tensor-parallel layer: narrower than
+    the adapter's whole B."""
+    return base_leaf[0, 0].numel() < b.shape[-1]
+
+
 def apply_lora(
     params: Params,
     lora: Dict[str, torch.Tensor],
     cfg: TransformerConfig,
     alpha: float = 2.0,
+    mesh=None,
 ) -> Params:
     """Merged weights ``W + alpha * A @ B`` per target, reshaped to the
     base projection's [L, d, heads, head_dim] and added in the base's
     dtype. A new params dict; the base's tensors are untouched, so
-    gradients taken with respect to ``lora`` leave it frozen."""
+    gradients taken with respect to ``lora`` leave it frozen.
+
+    With a ``mesh``, ``params`` may be a rank's tensor-parallel blocks:
+    a target whose base holds only the rank's heads merges the rank's
+    columns of B (heads over ``model``), so A's gradient on each rank is
+    a partial sum over ``model``."""
     layers = dict(params["layers"])
     targets = sorted({k.rsplit("_", 1)[0] for k in lora})
     for target in targets:
@@ -88,8 +101,11 @@ def apply_lora(
                 "or missing); merge before quantizing"
             )
         base = layers[target]
-        delta = torch.einsum(
-            "ldr,lrn->ldn", lora[f"{target}_a"], lora[f"{target}_b"]
-        ) * alpha
+        b = lora[f"{target}_b"]
+        if mesh is not None and holds_block(base, b):
+            width = base[0, 0].numel()
+            first = mesh.axis_index("model") * width
+            b = b[..., first:first + width]
+        delta = torch.einsum("ldr,lrn->ldn", lora[f"{target}_a"], b) * alpha
         layers[target] = base + delta.reshape(base.shape).to(base.dtype)
     return {**params, "layers": layers}

@@ -32,8 +32,9 @@ exactly one rank, so the sum adds exact zeros and the routes, keep
 pattern and values are the unsharded layer's. The gate and the experts'
 input enter through ``copy_to`` (their gradient, partial per rank, is
 summed). Under data parallelism the fraction and mean router prob are
-taken over the global batch (averaged over ``data``), as the
-reference's batch-sharded program computes them.
+taken over the global batch (averaged over ``data``, and over ``seq``
+under context parallelism), as the reference's batch-sharded program
+computes them.
 """
 from __future__ import annotations
 
@@ -63,8 +64,10 @@ def _route(x: torch.Tensor, router_w: torch.Tensor, mesh=None):
     if mesh is not None and mesh.batch_stats:
         from ..parallel.collectives import mean_from
 
-        fraction = mean_from(fraction, mesh)
-        router_mean = mean_from(router_mean, mesh)
+        # the whole batch's statistics: every data and seq shard
+        for axis in ("data", "seq"):
+            fraction = mean_from(fraction, mesh, axis)
+            router_mean = mean_from(router_mean, mesh, axis)
     aux_loss = n_experts * (fraction * router_mean).sum()
     return probs, gate, onehot, aux_loss
 

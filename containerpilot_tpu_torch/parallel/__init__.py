@@ -1,10 +1,10 @@
 """Training state, optimizer, train steps, checkpoints, and training
 across ranks: the mesh as a torch.distributed world, sharding rules,
 tensor/expert/data parallelism, ZeRO-1, FSDP and the GPipe pipeline;
-context-parallel serving (``context_parallel_config``, ``cp_generate``)
+the context-parallel training step and serving
+(``context_parallel_config``, ``cp_generate``), checkpoints across ranks
 and the serving lockstep of ranks (parallel/serving.py) (counterpart of
-``containerpilot_tpu/parallel``; the context-parallel training step is
-not ported yet).
+``containerpilot_tpu/parallel``).
 """
 from .checkpoint import (
     latest_step,

@@ -2,7 +2,7 @@
 (counterpart of ``containerpilot_tpu/parallel/checkpoint.py``; no orbax).
 
 Layout: ``<dir>/step_<n>/state.pt``, one ``torch.save`` of
-``{"params", "opt_state", "step"}`` with every tensor on the host.
+``{"params", "opt_state", "step"}`` with every tensor on the host, whole.
 A save writes into ``<dir>/.step_<n>.<pid>.tmp/`` and renames the
 directory into place, so a crash mid-save never leaves a ``step_<n>``
 that ``latest_step`` would pick; older steps are pruned after each save
@@ -11,8 +11,29 @@ that ``latest_step`` would pick; older steps are pruned after each save
 ``save_checkpoint(..., wait=False)`` copies the tensors to the host
 before it returns, so the train loop may go on updating its state in
 place, and writes to disk on a background thread;
-``wait_for_checkpoints`` joins it and raises its error, if any. Single
-process only: the port has no multi-process trainer yet.
+``wait_for_checkpoints`` joins it and raises its error, if any.
+
+Across ranks (``mesh=`` a mesh of more than one rank), the reference's
+contract holds: every rank calls save and restore in lockstep on ONE
+shared directory.
+
+- The resume step is rank 0's ``latest_step``, broadcast, so every rank
+  makes the same decision (a rank that found no checkpoint while its
+  peers restore would deadlock the world).
+- A save gathers the whole state (``sharding.gather_state``: a
+  collective, synchronous on every rank) and rank 0 alone writes the
+  one-process format above and prunes; no other rank writes. With
+  ``wait=False`` rank 0 writes on its background thread.
+- A failed write on rank 0 is made every rank's failure: after a
+  synchronous write, or at the next save or ``wait_for_checkpoints``
+  for an asynchronous one, rank 0's outcome is broadcast and every rank
+  raises.
+- A restore loads the file on every rank (memory-mapped) and cuts the
+  rank's blocks (``sharding.shard_state``) under the caller's layout.
+
+Because the format is one, a checkpoint of any layout restores into any
+other, into one process, and into ``restore_params`` for serving and
+evaluation.
 """
 from __future__ import annotations
 
@@ -21,11 +42,13 @@ import os
 import re
 import shutil
 import threading
+import time
 from typing import Any, Optional
 
 import torch
 
-from .train import TrainState, tree_map
+from .sharding import gather_state, shard_state
+from .train import TrainState, tree_leaves, tree_map
 
 log = logging.getLogger("containerpilot.checkpoint")
 
@@ -97,31 +120,101 @@ def _write(directory: str, step: int, payload: dict, keep: int) -> None:
     log.info("checkpoint: saved step %d to %s", step, directory)
 
 
-def wait_for_checkpoints() -> None:
-    """Block until the in-flight background save has committed; raise
-    its error if it failed."""
+def _multi(mesh) -> bool:
+    return mesh is not None and mesh.size > 1
+
+
+def _from_rank0(mesh, value: int) -> int:
+    """Rank 0's ``value`` on every rank (a world all-reduce of a tensor
+    that only rank 0 fills)."""
+    t = torch.tensor([value if mesh.rank == 0 else 0], dtype=torch.int64,
+                     device=mesh.device)
+    return int(mesh.all_reduce_world(t).item())
+
+
+def _join() -> Optional[BaseException]:
+    """Join this process's in-flight write; its error, cleared."""
     global _pending, _pending_error
     if _pending is not None:
         _pending.join()
         _pending = None
-    if _pending_error is not None:
-        err, _pending_error = _pending_error, None
+    err, _pending_error = _pending_error, None
+    return err
+
+
+def _agree_on_write(mesh, err: Optional[BaseException]) -> None:
+    """Rank 0's write outcome on every rank (collective): every rank
+    raises when rank 0's write failed."""
+    if _from_rank0(mesh, int(err is not None)):
+        raise RuntimeError(
+            "checkpoint save failed on rank 0"
+            + (f": {err!r}" if err is not None else "")) from err
+
+
+def wait_for_checkpoints(mesh=None) -> None:
+    """Block until the in-flight background save has committed; raise
+    its error if it failed. With a ``mesh`` of several ranks this is
+    collective: rank 0's outcome is broadcast and every rank raises on
+    a failed write."""
+    err = _join()
+    if _multi(mesh):
+        _agree_on_write(mesh, err)
+    elif err is not None:
         raise RuntimeError("background checkpoint save failed") from err
 
 
 def save_checkpoint(
     directory: str, step: int, state: TrainState,
-    keep: int = KEEP_CHECKPOINTS, wait: bool = True,
-) -> None:
+    keep: int = KEEP_CHECKPOINTS, wait: bool = True, *,
+    mesh=None, layout=None,
+) -> Optional[dict]:
     """Write ``state`` as ``<directory>/step_<step>``. ``wait=False``
     returns once the device->host copy is done and commits on a
-    background thread (a second save first drains the previous one)."""
+    background thread (a second save first drains the previous one).
+
+    With a ``mesh`` of several ranks, ``state`` is the rank's blocks
+    under ``layout`` (the step's ``Layout``; None for a replicated state
+    such as LoRA adapters) and every rank must call this: the gather is
+    collective and rank 0 writes. Returns the save's figures on every
+    rank of a multi-rank world (``gather_s``, ``write_s``: rank 0's
+    synchronous write, ``host_bytes``: the full state rank 0 stages on
+    the host), else None."""
     global _pending
-    wait_for_checkpoints()
-    payload = _host_copy(state)
+    multi = _multi(mesh)
+    wait_for_checkpoints(mesh)
+    if not multi:
+        payload = _host_copy(state)
+    else:
+        t0 = time.perf_counter()
+        writer = mesh.rank == 0
+        params, opt_state = gather_state(
+            state.params, state.opt_state, mesh, layout, keep=writer,
+            host=mesh.backend == "gloo")
+        payload = None
+        if writer:
+            host = lambda t: (t.to("cpu") if isinstance(t, torch.Tensor)
+                              else t)
+            payload = {"params": tree_map(host, params),
+                       "opt_state": tree_map(host, opt_state),
+                       "step": int(state.step)}
+        del params, opt_state
+        figures = {"gather_s": time.perf_counter() - t0, "write_s": 0.0,
+                   "host_bytes": _nbytes(payload) if writer else 0}
     if wait:
-        _write(directory, step, payload, keep)
-        return
+        if not multi:
+            _write(directory, step, payload, keep)
+            return None
+        err = None
+        if payload is not None:
+            t0 = time.perf_counter()
+            try:
+                _write(directory, step, payload, keep)
+            except Exception as exc:  # every rank raises below
+                err = exc
+            figures["write_s"] = time.perf_counter() - t0
+        del payload
+        _agree_on_write(mesh, err)
+        return figures
 
     def commit() -> None:
         global _pending_error
@@ -130,9 +223,18 @@ def save_checkpoint(
         except BaseException as exc:  # surfaced by wait_for_checkpoints
             _pending_error = exc
 
-    _pending = threading.Thread(target=commit, daemon=False,
-                                name="checkpoint-commit")
-    _pending.start()
+    if payload is not None:
+        _pending = threading.Thread(target=commit, daemon=False,
+                                    name="checkpoint-commit")
+        _pending.start()
+    return figures if multi else None
+
+
+def _nbytes(tree: Any) -> int:
+    return sum(t.numel() * t.element_size()
+               for part in ("params", "opt_state")
+               for t in tree_leaves(tree[part])
+               if isinstance(t, torch.Tensor))
 
 
 def _device_of(state_like: Any, device) -> torch.device:
@@ -188,24 +290,46 @@ def _load(directory: str, step: int) -> dict:
     )
 
 
+def resume_step(directory: str, mesh=None) -> Optional[int]:
+    """``latest_step`` as every rank must see it: rank 0's, broadcast
+    (collective) over a mesh of several ranks."""
+    if not _multi(mesh):
+        return latest_step(directory)
+    step = latest_step(directory) if mesh.rank == 0 else None
+    got = _from_rank0(mesh, -1 if step is None else step)
+    return None if got < 0 else got
+
+
 def restore_checkpoint(
-    directory: str, state_like: TrainState, device=None,
+    directory: str, state_like: TrainState, device=None, *,
+    mesh=None, layout=None,
 ) -> Optional[TrainState]:
     """The latest checkpoint as a TrainState on ``device`` (default: the
     device of ``state_like``'s params), checked leaf for leaf against
-    ``state_like`` (e.g. ``abstract_train_state``, on the meta device);
-    None when no checkpoint exists. Params come back requiring grad."""
-    step = latest_step(directory)
+    ``state_like`` (e.g. ``abstract_train_state``, on the meta device:
+    the whole model's shapes); None when no checkpoint exists. Params
+    come back requiring grad.
+
+    With a ``mesh`` of several ranks (collective: every rank calls it)
+    the step is rank 0's, every rank loads that step's file and keeps
+    its blocks under ``layout`` (None: the whole state on every rank)."""
+    step = resume_step(directory, mesh)
     if step is None:
         return None
     dev = _device_of(state_like, device)
     raw = _load(directory, step)
     _check_like("params", raw["params"], state_like.params)
     _check_like("opt_state", raw["opt_state"], state_like.opt_state)
-    move = lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t
-    params = tree_map(lambda t: move(t).requires_grad_(True), raw["params"])
+    if _multi(mesh):
+        params, opt_state = shard_state(raw["params"], raw["opt_state"],
+                                        mesh, layout, dev)
+        params = tree_map(lambda t: t.requires_grad_(True), params)
+    else:
+        move = lambda t: t.to(dev) if isinstance(t, torch.Tensor) else t
+        params = tree_map(lambda t: move(t).requires_grad_(True),
+                          raw["params"])
+        opt_state = tree_map(move, raw["opt_state"])
     log.info("checkpoint: restored step %d from %s", step, directory)
-    opt_state = tree_map(move, raw["opt_state"])
     return TrainState(params, opt_state, int(raw["step"]))
 
 
@@ -226,14 +350,16 @@ class RestoredParams(tuple):
 
 def restore_params(
     directory: str, state_like: TrainState, prefer_ema: bool = False,
-    device=None,
+    device=None, *, mesh=None, rules: Any = None,
 ) -> Optional[RestoredParams]:
     """Only the params (and step) of the latest checkpoint, on ``device``:
     the optimizer moments stay on disk (the file is memory-mapped), so
     serving and evaluation pay params-sized memory. ``prefer_ema`` takes
     the EMA shadow when the checkpoint has one, else the raw params with
-    a warning. Returns None when no checkpoint exists."""
-    step = latest_step(directory)
+    a warning. Returns None when no checkpoint exists. With a ``mesh`` of
+    several ranks (collective) the step is rank 0's and each rank keeps
+    its blocks under ``rules``."""
+    step = resume_step(directory, mesh)
     if step is None:
         return None
     dev = _device_of(state_like, device)
@@ -246,5 +372,20 @@ def restore_params(
         )
     chosen = ema if ema is not None else raw["params"]
     _check_like("params", chosen, state_like.params)
-    params = tree_map(lambda t: t.to(dev), chosen)
+    if not _multi(mesh):
+        params = tree_map(lambda t: t.to(dev), chosen)
+        return RestoredParams(params, int(raw["step"]), ema is not None)
+    from .sharding import local_slice
+
+    if rules is None:
+        raise ValueError("restore_params over ranks needs the rules")
+    params = _map_rules(
+        lambda t, r: local_slice(t, r, mesh).to(dev, copy=True), chosen,
+        rules)
     return RestoredParams(params, int(raw["step"]), ema is not None)
+
+
+def _map_rules(fn, tree, rules):
+    if isinstance(tree, dict):
+        return {k: _map_rules(fn, tree[k], rules[k]) for k in tree}
+    return fn(tree, rules)

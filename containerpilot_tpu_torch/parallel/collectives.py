@@ -16,6 +16,12 @@ the PartitionSpecs, the port calls one of these:
 - ``gather_from(x, axis, dim)``: all-gather along ``dim`` forward,
   reduce-scatter (sum) backward (FSDP's gather of a parameter at use).
 
+Outside autograd, two helpers of the context-parallel step:
+``ring_shift_back`` is the ring's backward hop (to seq position i - 1,
+from i + 1), and ``all_reduce_axes`` reduces one tensor over several
+axes in turn (the gradients of params replicated over ``data`` and
+``seq``).
+
 Each is the identity, without a node, on an axis of size 1 or without a
 mesh: a one-rank world computes exactly the unsharded path.
 """
@@ -82,3 +88,21 @@ def max_over(x: torch.Tensor, mesh, axis: str = "model") -> torch.Tensor:
     """Max over ``axis``, outside autograd (a softmax's shift)."""
     x = x.detach()
     return mesh.all_reduce(x, axis, "max") if _live(mesh, axis) else x
+
+
+def ring_shift_back(tensors, mesh, axis: str = "seq"):
+    """The ring's backward hop: each tensor goes to position i - 1 along
+    ``axis`` and the one from i + 1 comes back, in one batch of sends and
+    receives (the forward hop's pattern, ``Mesh.ring_shift``)."""
+    return mesh.ring_shift(tensors, axis, back=True)
+
+
+def all_reduce_axes(t: torch.Tensor, mesh, axes=("data", "seq"),
+                    op: str = "sum") -> torch.Tensor:
+    """``t`` reduced over every live axis of ``axes`` in turn (one
+    all-reduce each); ``op`` "mean" divides by the product of their
+    sizes."""
+    for axis in axes:
+        if _live(mesh, axis):
+            t = mesh.all_reduce(t, axis, op)
+    return t

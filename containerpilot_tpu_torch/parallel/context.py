@@ -1,6 +1,6 @@
 """Context parallelism: bind ring attention into the model config, and
 the context-parallel serving prefill (counterpart of
-``containerpilot_tpu/parallel/context.py``, the forward half).
+``containerpilot_tpu/parallel/context.py``).
 
 Long sequences are sharded over the mesh's ``seq`` axis; attention runs
 as a ring (ops/ring_attention.py) while every other op stays local to
@@ -15,13 +15,18 @@ request, runs ring attention over the seq axis, then the KV cache
 gathers off the ring once and the decode runs on the ordinary path with
 the full sampling contract.
 
+Training takes the same hook: the ring is differentiable
+(ops/ring_attention.py), so ``make_train_step`` on a ``MeshPlan(data,
+seq, model)`` mesh runs each rank's sequence shard forward and backward
+with K/V and their gradients travelling around the ring
+(parallel/train.py binds this config when the caller has not).
+
 Every function here is collective: every rank of the mesh calls it
 with the same arguments (the serving lockstep, parallel/serving.py,
 makes sure of that). The reference's ``flash_parallel_config`` (the
 flash kernel per shard under ``shard_map``) has no counterpart to port:
 the port's tensor-parallel layers already run K1 on each rank's heads
-(models/transformer.py). The ring's backward (context-parallel
-training) is not ported yet.
+(models/transformer.py).
 """
 from __future__ import annotations
 

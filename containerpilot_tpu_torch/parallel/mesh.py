@@ -220,22 +220,24 @@ class Mesh:
                        group=group)
         return self._back(buf, t)
 
-    def ring_shift(self, tensors: List[torch.Tensor], axis: str
-                   ) -> List[torch.Tensor]:
+    def ring_shift(self, tensors: List[torch.Tensor], axis: str,
+                   back: bool = False) -> List[torch.Tensor]:
         """The ring's hop: each tensor goes to position i + 1 along
-        ``axis`` and the one from position i - 1 comes back, all in one
-        batch of sends and receives (no ordering for gloo to deadlock
-        on). Returns the received tensors, shaped as the sent ones."""
+        ``axis`` and the one from position i - 1 comes back (``back``:
+        to i - 1, from i + 1), all in one batch of sends and receives
+        (no ordering for gloo to deadlock on). Returns the received
+        tensors, shaped as the sent ones."""
         group = self.group(axis)
         if group is None:
             return list(tensors)
         n, i = self.axis_size(axis), self.axis_index(axis)
         ranks = self.ranks_along(axis)
+        step = -1 if back else 1
         bufs = [self._buf(t) for t in tensors]
         outs = [torch.empty_like(b) for b in bufs]
-        ops = [dist.P2POp(dist.isend, b, ranks[(i + 1) % n], group)
+        ops = [dist.P2POp(dist.isend, b, ranks[(i + step) % n], group)
                for b in bufs]
-        ops += [dist.P2POp(dist.irecv, o, ranks[(i - 1) % n], group)
+        ops += [dist.P2POp(dist.irecv, o, ranks[(i - step) % n], group)
                 for o in outs]
         for work in dist.batch_isend_irecv(ops):
             work.wait()

@@ -17,7 +17,14 @@ The reference places each leaf with ``jax.device_put`` and lets XLA
 insert the collectives; here ``shard_params`` cuts each rank's own
 slice out of the full tensor, the layers call the collectives
 themselves (``models/transformer.py``), and ``gather_params`` rebuilds
-the full tree (for checkpoints and tests).
+the full tree (for tests and evaluation).
+
+A whole training state gathers and shards too (``gather_state``,
+``shard_state``): the params under their rules, Adam's moments under the
+layout's moment rules (ZeRO-1's slice over ``data`` added), the EMA
+shadow under the params' rules, scalars whole. So a checkpoint holds
+one full state whatever layout wrote it, and restores into any layout
+(parallel/checkpoint.py).
 
 A serving tree quantized by ``models.quantized.quantize_model_params``
 (the reference quantizes after ``shard_params``; here the full masters
@@ -206,3 +213,77 @@ def gather_params(params: Any, mesh: Any, cfg: Optional[Any] = None,
         rules = param_sharding_rules(cfg, mesh)
     rules = quantized_rules(rules, params)
     return _map(lambda t, r: gather_leaf(t.detach(), r, mesh), params, rules)
+
+
+def state_rules(params: Any, opt_state: Any, layout: Any):
+    """(param rules, optimizer-state rules) of a sharded TrainState's
+    leaves under ``layout`` (``parallel.train.Layout``; None: everything
+    replicated, as LoRA adapters are): the moments take the layout's
+    moment rules, computed from the rank's param blocks, the EMA shadow
+    the params' rules, and anything else (the update count) ``()``."""
+    if layout is None:
+        prules = _map(lambda _t: (), params)
+        mrules = prules
+    else:
+        prules = layout.rules
+        mrules = layout.moment_rule_tree(params)
+
+    def walk(node):
+        out = {}
+        for key, value in node.items():
+            if key in ("mu", "nu"):
+                out[key] = mrules
+            elif key == "ema":
+                out[key] = prules
+            elif isinstance(value, dict):
+                out[key] = walk(value)
+            else:
+                out[key] = ()
+        return out
+
+    return prules, walk(opt_state)
+
+
+def gather_state(params: Any, opt_state: Any, mesh: Any, layout: Any,
+                 keep: bool = True, host: bool = False):
+    """The full (params, opt_state) trees from the rank's blocks, leaf by
+    leaf (collective: every rank calls it). ``keep`` False drops each
+    gathered leaf at once (ranks that do not write), so a rank holds at
+    most one full leaf; ``host`` gathers through host buffers (a gloo
+    world: no staging copy back to the card) and returns host tensors.
+    Non-tensor leaves come back as they are."""
+    prules, orules = state_rules(params, opt_state, layout)
+
+    def leaf(t, rule):
+        if not isinstance(t, torch.Tensor):
+            return t
+        src = t.detach()
+        full = gather_leaf(src.to("cpu") if host else src, rule, mesh)
+        if not keep:
+            return None
+        # an unsharded leaf comes back as the live tensor: copy it, so
+        # the caller never holds a view the train loop updates in place
+        return full.clone() if full is src else full
+
+    return _map(leaf, params, prules), _map(leaf, opt_state, orules)
+
+
+def shard_state(params: Any, opt_state: Any, mesh: Any, layout: Any,
+                device: Any):
+    """The rank's blocks of a full (params, opt_state) pair (a restored
+    checkpoint) under ``layout`` on ``device``: each leaf cut with
+    ``local_slice`` and copied (so the full tree can be freed), the
+    moments' ZeRO-1 slices from the cut params' shapes."""
+    if layout is None:
+        prules = _map(lambda _t: (), params)
+    else:
+        prules = layout.rules
+
+    def cut(t, rule):
+        if not isinstance(t, torch.Tensor):
+            return t
+        return local_slice(t, rule, mesh).to(device, copy=True)
+
+    local = _map(cut, params, prules)
+    _prules, orules = state_rules(local, opt_state, layout)
+    return local, _map(cut, opt_state, orules)

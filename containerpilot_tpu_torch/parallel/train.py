@@ -36,10 +36,17 @@ step writes out what the reference's XLA inserts:
   reduce-scattered (``collectives.gather_from``);
 - the global-norm clip over the whole model: each leaf's sum of squares
   divided by the number of ranks holding the same block, summed over
-  the world.
+  the world;
+- context parallelism (a ``seq`` axis): each rank takes its rows of
+  ``data`` and its positions of ``seq`` (``local_rows``), attention is
+  the differentiable ring (``parallel/context.py``, bound here when the
+  config has no hook), and the gradients of params replicated over
+  ``seq`` are averaged over ``data`` and ``seq``.
 
 ``make_pipeline_train_step`` runs the GPipe pipeline
 (``parallel/pipeline.py``) with the same state and optimizer.
+``make_lora_train_step(..., mesh=)`` trains replicated adapters over a
+base held in the rank's blocks.
 """
 from __future__ import annotations
 
@@ -306,8 +313,9 @@ def make_train_step(
     rank's blocks from ``init_train_state(..., mesh=mesh, zero1=zero1,
     rules=...)``. ``zero1`` keeps Adam's moments on the rank's data
     slice; ``fsdp`` shards params, gradients and moments over ``data``
-    (``fsdp_sharding_rules`` of ``rules``); the loss returned is the
-    global batch's.
+    (``fsdp_sharding_rules`` of ``rules``); a ``seq`` axis (``MeshPlan(
+    data, seq, model)``) trains each rank's positions with the ring; the
+    loss returned is the global batch's.
 
     ``accum_steps > 1`` splits the batch into that many sequential
     chunks, averages the chunks' losses and gradients (equal chunks: the
@@ -370,6 +378,8 @@ def make_lora_train_step(
     learning_rate: float = 1e-4,
     optimizer=None,
     alpha: float = 2.0,
+    *,
+    mesh=None,
 ):
     """LoRA fine-tuning -> ``(init_fn, step_fn, abstract)``.
 
@@ -380,11 +390,22 @@ def make_lora_train_step(
     and the optimizer's state (and EMA, where asked) in place; the base
     rides along detached, so it never requires grad and gets no gradient
     buffers. ``abstract`` is the checkpoint-restore target
-    (``lora_abstract_state``)."""
+    (``lora_abstract_state``).
+
+    With a ``mesh`` of several ranks the base is the rank's blocks
+    (``shard_params``, the tensor-parallel rules), the adapters are
+    replicated (the same on every rank), every rank passes the global
+    batch and trains on its rows, and the adapters' gradients are summed
+    over ``model`` where the target's base is sharded there (each rank's
+    merge uses its own columns of B, so each holds a partial sum), then
+    averaged over ``data`` and ``seq``: every rank makes the same
+    update."""
     from ..models.lora import apply_lora, init_lora_params
 
     optimizer = optimizer or make_optimizer(learning_rate)
     abstract = lora_abstract_state(cfg, rank, optimizer, learning_rate)
+    multi = _multi(mesh)
+    step_cfg = seq_train_config(cfg, mesh) if multi else cfg
 
     def init_fn(rng, device="cuda") -> TrainState:
         lora = _master(init_lora_params(rng, cfg, rank, device=device))
@@ -394,14 +415,51 @@ def make_lora_train_step(
     def step_fn(state: TrainState, base: Params, tokens: torch.Tensor):
         frozen = tree_map(torch.Tensor.detach, base)
         leaves = tree_leaves(state.params)
-        loss = loss_fn(apply_lora(frozen, state.params, cfg, alpha),
-                       tokens, cfg)
+        if multi:
+            tokens = local_rows(tokens, mesh)
+        merged = apply_lora(frozen, state.params, cfg, alpha, mesh=mesh)
+        loss = loss_fn(merged, tokens, step_cfg, mesh if multi else None)
         grads = list(torch.autograd.grad(loss, leaves))
+        if multi:
+            grads = _sync_lora_grads(grads, state.params, frozen, mesh)
+            loss = batch_mean(loss.detach(), mesh)
         opt_state = optimizer.update(grads, state.opt_state, state.params)
         state = TrainState(state.params, opt_state, state.step + 1)
         return state, loss.detach()
 
     return init_fn, step_fn, abstract
+
+
+def _sync_lora_grads(grads, lora: Params, base: Params, mesh):
+    """Adapter gradients made whole and averaged: summed over ``model``
+    for targets whose base leaf the rank holds a block of, then one flat
+    mean over ``data`` and ``seq``."""
+    from ..models.lora import holds_block
+
+    # tree_leaves' order of a flat dict: each leaf's target
+    targets = [name.rsplit("_", 1)[0] for name in sorted(lora)]
+    out = list(grads)
+    partial = [i for i, t in enumerate(targets)
+               if holds_block(base["layers"][t], lora[f"{t}_b"])]
+    _flat_reduce(out, partial, mesh, ("model",), "sum")
+    _flat_reduce(out, range(len(out)), mesh, ("data", "seq"), "mean")
+    return out
+
+
+def _flat_reduce(tensors: List[torch.Tensor], which, mesh, axes,
+                 op: str) -> None:
+    """Reduce ``tensors[i]`` for i in ``which`` over ``axes`` in place of
+    the list, as one flat buffer (one all-reduce an axis); nothing when
+    no axis is live."""
+    from .collectives import all_reduce_axes
+
+    which = list(which)
+    if not which or all(mesh.axis_size(a) == 1 for a in axes):
+        return
+    buf = torch.cat([tensors[i].reshape(-1) for i in which])
+    buf = all_reduce_axes(buf, mesh, axes, op)
+    for i, part in zip(which, buf.split([tensors[i].numel() for i in which])):
+        tensors[i] = part.view_as(tensors[i])
 
 
 # ---------------------------------------------------------------------------
@@ -486,24 +544,27 @@ class Layout:
         return torch.sqrt(self.mesh.all_reduce_world(squares.sum()))
 
     def sync_grads(self, grads: List[torch.Tensor]) -> List[torch.Tensor]:
-        """Average the gradients over ``data`` (one flat all-reduce for
-        the leaves without a data axis; FSDP's data-sharded leaves were
-        reduce-scattered at use and only need the mean's division)."""
+        """Average the gradients over ``data`` and ``seq`` (one flat
+        all-reduce an axis for the leaves without a data axis; FSDP's
+        data-sharded leaves were reduce-scattered at use and only need
+        the mean's division and the mean over ``seq``)."""
         dp = self.mesh.axis_size("data")
-        if dp == 1:
-            return grads
         out = list(grads)
         flat = [i for i, r in enumerate(self.leaf_rules) if "data" not in r]
-        for i, r in enumerate(self.leaf_rules):
-            if "data" in r:
-                out[i] = grads[i] / dp
-        if flat:
-            buf = torch.cat([grads[i].reshape(-1) for i in flat])
-            buf = self.mesh.all_reduce(buf, "data", "mean")
-            for i, part in zip(flat, buf.split(
-                    [grads[i].numel() for i in flat])):
-                out[i] = part.view_as(grads[i])
+        sharded = [i for i, r in enumerate(self.leaf_rules) if "data" in r]
+        _flat_reduce(out, flat, self.mesh, ("data", "seq"), "mean")
+        for i in sharded:
+            out[i] = grads[i] / dp
+        _flat_reduce(out, sharded, self.mesh, ("seq",), "mean")
         return out
+
+    def moment_rule_tree(self, params: Params) -> Params:
+        """The rule of each moment leaf (ZeRO-1's data slice added), from
+        the rank's param blocks: what ``sharding.gather_state`` gathers
+        and ``sharding.shard_state`` cuts."""
+        return tree_unflatten(params, [
+            self.moment_rule(r, t.shape)
+            for r, t in zip(self.leaf_rules, tree_leaves(params))])
 
 
 def train_state_shardings(cfg: TransformerConfig, mesh, zero1: bool = False,
@@ -532,10 +593,14 @@ def train_state_shardings(cfg: TransformerConfig, mesh, zero1: bool = False,
 
 def local_rows(tokens: torch.Tensor, mesh, accum_steps: int = 1
                ) -> torch.Tensor:
-    """This rank's rows of the global batch: each of the ``accum_steps``
-    consecutive chunks split over ``data`` (contiguous rows when 1), so
-    chunk c of every rank together is chunk c of the batch, as the
-    reference's accumulation scan shards it."""
+    """This rank's rows of the global batch [b, s + 1]: each of the
+    ``accum_steps`` consecutive chunks split over ``data`` (contiguous
+    rows when 1), so chunk c of every rank together is chunk c of the
+    batch, as the reference's accumulation scan shards it. Under a
+    ``seq`` axis of P, the rank at seq position i takes the window
+    ``[i * s/P, (i + 1) * s/P + 1)``: its inputs are positions i * s/P
+    onwards and its targets the next tokens, cut from the whole window
+    before the split, so no halo crosses a shard boundary."""
     dp = mesh.axis_size("data")
     b = tokens.shape[0]
     if b % (accum_steps * dp):
@@ -544,7 +609,46 @@ def local_rows(tokens: torch.Tensor, mesh, accum_steps: int = 1
             f"axis {dp}")
     chunks = tokens.reshape(accum_steps, b // accum_steps, *tokens.shape[1:])
     mine = chunks.chunk(dp, dim=1)[mesh.axis_index("data")]
-    return mine.reshape(-1, *tokens.shape[1:])
+    mine = mine.reshape(-1, *tokens.shape[1:])
+    sp = mesh.axis_size("seq")
+    if sp > 1:
+        s = tokens.shape[1] - 1
+        if s % sp:
+            raise ValueError(
+                f"seq len {s} not divisible by the seq axis {sp}")
+        first = mesh.axis_index("seq") * (s // sp)
+        mine = mine[:, first:first + s // sp + 1]
+    return mine
+
+
+def seq_train_config(cfg: TransformerConfig, mesh) -> TransformerConfig:
+    """``cfg`` with the ring bound over a live ``seq`` axis (as the
+    caller's ``context_parallel_config`` would bind it); a config already
+    bound is kept, any other attention hook refused (it would see only
+    the rank's shard)."""
+    if mesh.axis_size("seq") == 1:
+        return cfg
+    if cfg.moe_train_capacity > 0:
+        raise ValueError(
+            "moe_train_capacity bounds each expert per whole row; a seq "
+            "axis splits rows (use drop-free routing under seq)")
+    if getattr(cfg.attention_fn, "seq_mesh", None) is not None:
+        return cfg
+    if cfg.attention_fn is not None:
+        raise ValueError(
+            "a seq axis needs the ring as its attention hook "
+            "(context_parallel_config); this config binds another")
+    from .context import context_parallel_config
+
+    return context_parallel_config(cfg, mesh)
+
+
+def batch_mean(t: torch.Tensor, mesh) -> torch.Tensor:
+    """A per-rank mean made the global batch's: averaged over ``data``
+    and ``seq`` (every rank's rows and positions count the same)."""
+    from .collectives import all_reduce_axes
+
+    return all_reduce_axes(t, mesh, ("data", "seq"), "mean")
 
 
 def sharded_value_and_grad(params: Params, tokens: torch.Tensor,
@@ -557,6 +661,7 @@ def sharded_value_and_grad(params: Params, tokens: torch.Tensor,
 
     if layout is None:
         layout = Layout(mesh, fsdp_rules or param_sharding_rules(cfg, mesh))
+    cfg = seq_train_config(cfg, mesh)
     view = mesh.with_options(fsdp=fsdp_rules)
     leaves = tree_leaves(params)
     rows = local_rows(tokens, mesh, accum_steps)
@@ -573,7 +678,7 @@ def sharded_value_and_grad(params: Params, tokens: torch.Tensor,
         torch._foreach_div_(grad_sum, float(accum_steps))
         loss_sum = loss_sum / accum_steps
     grads = layout.sync_grads(grad_sum)
-    return mesh.all_reduce(loss_sum, "data", "mean"), grads
+    return batch_mean(loss_sum, mesh), grads
 
 
 def _sharded_step(cfg, optimizer, accum_steps, mesh, zero1, fsdp, rules):

@@ -133,16 +133,41 @@ def parse_stop_strings(raw: Any):
 
 
 def average_eval_loss(
-    params, cfg, n: int, batch_at: Callable[[int], np.ndarray]
+    params, cfg, n: int, batch_at: Callable[[int], np.ndarray],
+    mesh: Any = None, microbatches: int = 0,
 ) -> float:
     """The one eval-loss computation (loss_fn averaged over n batches,
     no autograd) shared by the trainer's in-loop eval and the standalone
-    evaluate CLI, so their numbers are comparable by construction."""
+    evaluate CLI, so their numbers are comparable by construction.
+
+    With a ``mesh`` of several ranks (collective: every rank calls it
+    with the same batches) ``params`` are the rank's blocks (FSDP's
+    under ``mesh.fsdp``, a pipeline's when ``microbatches`` > 0): each
+    rank scores its rows and positions and the means are averaged over
+    ``data`` and ``seq``, so every rank returns the same number, one
+    rank's eval of the gathered params up to reassociation."""
+    multi = mesh is not None and mesh.size > 1
     device = params["norm_out"].device
     total = 0.0
-    for i in range(n):
-        toks = torch.as_tensor(np.asarray(batch_at(i))).long().to(device)
-        total += float(loss_fn(params, toks, cfg))
+    with torch.no_grad():
+        for i in range(n):
+            toks = torch.as_tensor(np.asarray(batch_at(i))).long().to(device)
+            if not multi:
+                total += float(loss_fn(params, toks, cfg))
+                continue
+            from ..parallel import train as ptrain
+
+            if microbatches:
+                from ..parallel.mesh import wait_all
+                from ..parallel.pipeline import pipeline_loss_fn
+
+                loss = pipeline_loss_fn(params, toks, cfg, mesh,
+                                        microbatches)
+                wait_all(mesh.traffic["pending"])
+            else:
+                loss = loss_fn(params, ptrain.local_rows(toks, mesh),
+                               ptrain.seq_train_config(cfg, mesh), mesh)
+            total += float(ptrain.batch_mean(loss, mesh))
     return total / n
 
 

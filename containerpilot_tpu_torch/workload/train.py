@@ -11,7 +11,10 @@ What a job's ``exec`` points at, supervised by containerpilot-tpu:
   (``--data-dir``) on one device: ``--device cuda`` (the default; raises
   without a card) or ``--device cpu``;
 - on SIGTERM finishes the in-flight step, saves a checkpoint and exits 0;
-  a restart resumes at exactly that step and replays the same data;
+  a restart resumes at exactly that step and replays the same data
+  (across ranks: no save from the signal, as in the reference; every
+  rank exits 0 at the same step and a restart resumes from the last
+  periodic checkpoint);
 - with ``--lora-rank R`` fine-tunes rank-R LoRA adapters on attention q/v
   over a frozen base: the params of the latest checkpoint under
   ``--base-checkpoint-dir`` (a params-only restore), or a fresh init
@@ -40,9 +43,13 @@ reference builds it from its devices: ``--pipeline-stages S
 mesh of S stages and T-way tensor parallelism, else the world factors
 into (data, model) with up to 4 on model. ``--zero1`` and ``--fsdp``
 shard the optimizer state (and, for fsdp, the params) over data. Every
-rank reads the same global batch and trains on its own rows. A world of
-more than one rank refuses ``--checkpoint-dir``, ``--lora-rank`` and
-``--eval-every`` (not ported yet).
+rank reads the same global batch and trains on its own rows.
+``--checkpoint-dir`` names one directory shared by every rank: the
+ranks save and restore in lockstep (parallel/checkpoint.py: rank 0
+decides the resume step and writes the gathered state, in the
+one-process format, so a run of any layout resumes in any other).
+``--lora-rank`` trains replicated adapters over the base's blocks, and
+``--eval-every`` prints the same ``eval_loss`` on every rank.
 
     python -m containerpilot_tpu_torch.workload.train --device cpu \
         --catalog file:/tmp/cat --num-processes 4 --process-id R \
@@ -283,13 +290,6 @@ def main(argv=None) -> int:
               f"{mesh.backend}"
               + (", staged through host buffers" if mesh.staging else ""),
               flush=True)
-        for flag, value in (("--checkpoint-dir", args.checkpoint_dir),
-                            ("--lora-rank", args.lora_rank),
-                            ("--eval-every", args.eval_every)):
-            if value:
-                raise SystemExit(
-                    f"{flag} with more than one rank is not ported yet "
-                    "(see ROADMAP.md)")
     optimizer = make_optimizer(
         args.learning_rate,
         warmup_steps=args.warmup_steps,
@@ -304,7 +304,7 @@ def main(argv=None) -> int:
                 or args.accum_steps > 1):
             raise SystemExit(_LORA_PLAIN_ONLY)
         base_params, lora_init, train_step, abstract = _lora_setup(
-            args, cfg, optimizer, device)
+            args, cfg, optimizer, device, mesh)
     elif args.pipeline_stages > 1:
         if args.accum_steps > 1:
             raise SystemExit(
@@ -336,12 +336,16 @@ def main(argv=None) -> int:
                                      fsdp=args.fsdp, rules=rules)
         abstract = abstract_train_state(cfg, optimizer)
 
+    # the step's layout of a sharded state (None: replicated adapters,
+    # or one rank)
+    layout = getattr(train_step, "layout", None)
+    eval_mesh = mesh.with_options(fsdp=rules) if args.fsdp and multi else mesh
     state = None
     start_step = 0
     if args.checkpoint_dir:
         # restore into a meta-device skeleton: no throwaway init
         state = restore_checkpoint(args.checkpoint_dir, abstract,
-                                   device=device)
+                                   device=device, mesh=mesh, layout=layout)
         if state is not None:
             start_step = state.step
             print(f"resumed from checkpoint at step {start_step}", flush=True)
@@ -391,7 +395,7 @@ def main(argv=None) -> int:
         n_frozen = 0
         if base_params is not None:
             # the frozen base forwards and carries gradients, trains nothing
-            n_frozen = count_params(base_params)
+            n_frozen = n_params
             n_params = count_params(state.params) + n_frozen
         flops_per_token = train_flops_per_token(cfg, n_params, args.seq_len,
                                                 n_frozen=n_frozen)
@@ -402,8 +406,13 @@ def main(argv=None) -> int:
 
         t0 = time.monotonic()
         for step in range(start_step, args.steps):
-            if preempted.is_set():
-                if args.checkpoint_dir:  # one process only (refused above)
+            if _stop_agreed(preempted, mesh):
+                if multi:
+                    # a world cannot save from one rank's signal (the
+                    # reference's rule): every rank leaves at this step
+                    print("preempted: exiting (resume from last periodic "
+                          "checkpoint)", flush=True)
+                elif args.checkpoint_dir:
                     wait_for_checkpoints()  # drain async saves first
                     save_checkpoint(args.checkpoint_dir, step, state)
                     print(f"preempted: checkpoint saved at step {step}; "
@@ -426,8 +435,15 @@ def main(argv=None) -> int:
                 _stop_profiler(profiler, args.profile_dir)
                 profiler = None
             if args.checkpoint_dir and (step + 1) % args.checkpoint_every == 0:
-                save_checkpoint(args.checkpoint_dir, step + 1, state,
-                                wait=not args.checkpoint_async)
+                figures = save_checkpoint(
+                    args.checkpoint_dir, step + 1, state,
+                    wait=not args.checkpoint_async, mesh=mesh, layout=layout)
+                if figures is not None:
+                    print(f"checkpoint: step {step + 1} gathered in "
+                          f"{figures['gather_s']:.3f} s, written in "
+                          f"{figures['write_s']:.3f} s, "
+                          f"{figures['host_bytes']} bytes on rank 0's host",
+                          flush=True)
             if args.progress_file:
                 _write_progress(args.progress_file, step + 1, loss_value)
             if (step + 1) % 10 == 0 or step == start_step:
@@ -455,9 +471,12 @@ def main(argv=None) -> int:
                 if base_params is not None:
                     from ..models.lora import apply_lora
 
-                    params = apply_lora(base_params, params, cfg)
+                    params = apply_lora(base_params, params, cfg, mesh=mesh)
                 eval_loss = average_eval_loss(
-                    params, cfg, dataset.n_eval_batches, dataset.eval_batch
+                    params, cfg, dataset.n_eval_batches, dataset.eval_batch,
+                    mesh=eval_mesh,
+                    microbatches=(args.microbatches
+                                  if args.pipeline_stages > 1 else 0),
                 )
                 print(f"step {step + 1}: eval_loss={eval_loss:.4f}",
                       flush=True)
@@ -465,41 +484,61 @@ def main(argv=None) -> int:
                     _post(client, {"training_eval_loss": eval_loss})
     finally:
         signal.signal(signal.SIGTERM, prev_term)
-        if dist.is_initialized():
-            dist.destroy_process_group()
         if prefetcher is not None:
             prefetcher.stop()
         if profiler is not None:
             profiler.stop()
-        if args.checkpoint_async and args.checkpoint_dir:
-            # an in-flight background save must commit before exit, but
-            # its error must not mask one already propagating
-            propagating = sys.exc_info()[0] is not None
-            try:
-                wait_for_checkpoints()
-            except Exception:
-                if not propagating:
-                    raise
-                logging.getLogger("containerpilot.train").exception(
-                    "async checkpoint commit failed"
-                )
+        propagating = sys.exc_info()[0] is not None
+        try:
+            if args.checkpoint_async and args.checkpoint_dir:
+                # an in-flight background save must commit before exit,
+                # every rank failing if rank 0's write did (a collective
+                # only on a clean exit: a failing world may have lost a
+                # peer), but its error must not mask one propagating
+                try:
+                    wait_for_checkpoints(None if propagating else mesh)
+                except Exception:
+                    if not propagating:
+                        raise
+                    logging.getLogger("containerpilot.train").exception(
+                        "async checkpoint commit failed"
+                    )
+        finally:
+            if dist.is_initialized():
+                dist.destroy_process_group()
     return 0
 
 
-def _lora_setup(args, cfg, optimizer, device):
+def _stop_agreed(preempted: threading.Event, mesh) -> bool:
+    """Whether to leave at this step boundary: this rank's SIGTERM flag,
+    or across ranks any rank's (a max over the world, so every rank
+    leaves at the same step and none is left in a collective)."""
+    stop = preempted.is_set()
+    if mesh.size == 1:
+        return stop
+    flag = torch.tensor([float(stop)], device=mesh.device)
+    return bool(mesh.all_reduce_world(flag).item() > 0)
+
+
+def _lora_setup(args, cfg, optimizer, device, mesh):
     """The frozen base (restored params-only from --base-checkpoint-dir,
-    else a fresh init) and the LoRA step over it -> (base, init_fn,
-    train_step, abstract state)."""
+    else a fresh init; the rank's blocks across ranks) and the LoRA step
+    over it -> (base, init_fn, train_step, abstract state)."""
     from ..models.transformer import init_params
     from ..parallel import (
         abstract_train_state,
         make_lora_train_step,
+        param_sharding_rules,
         restore_params,
+        shard_params,
     )
 
+    multi = mesh.size > 1
+    rules = param_sharding_rules(cfg, mesh) if multi else None
     if args.base_checkpoint_dir:
         restored = restore_params(args.base_checkpoint_dir,
-                                  abstract_train_state(cfg), device=device)
+                                  abstract_train_state(cfg), device=device,
+                                  mesh=mesh, rules=rules)
         if restored is None:
             raise SystemExit(f"no checkpoint in {args.base_checkpoint_dir}")
         base, base_step = restored
@@ -507,9 +546,12 @@ def _lora_setup(args, cfg, optimizer, device):
               flush=True)
     else:
         base = init_params(0, cfg, device)
+        if multi:
+            base = shard_params(base, mesh, rules=rules)
         print("lora: fresh-init frozen base (demo mode)", flush=True)
     lora_init, lora_step, abstract = make_lora_train_step(
-        cfg, args.lora_rank, args.learning_rate, optimizer=optimizer)
+        cfg, args.lora_rank, args.learning_rate, optimizer=optimizer,
+        mesh=mesh)
     print(f"lora: rank {args.lora_rank} adapters on attention q/v",
           flush=True)
 

@@ -1,17 +1,20 @@
 """Hold the 4-rank layouts of ``chip_smoke.py``'s train_parallel phase
-(dp2 x tp2, pp2 x tp2 with 4 microbatches) with one card a rank, where
-the ranks' collectives run over NCCL instead of gloo through the host.
+(dp2 x tp2, pp2 x tp2 with 4 microbatches, sp2 x tp2) with one card a
+rank, where the ranks' collectives run over NCCL instead of gloo through
+the host.
 
     python3 scripts/torch_parallel_check.py              # 4 cards
     python3 scripts/torch_parallel_check.py --device cpu # rehearsal
     python3 scripts/torch_parallel_check.py --serve [--device cpu]
+    python3 scripts/torch_parallel_check.py --resume [--device cpu]
 
 On the cards it runs chip_smoke's one-rank reference (the training
 configuration, seed-0 masters, one seeded batch) and its rank job in 4
 child processes, each on ``cuda:<rank>``, and checks what the phase
 checks: the loss within TRAIN_LOSS_REL_TOL and every gathered gradient
 leaf within TRAIN_GRAD_REL_TOL of the one-rank run, K1/K3/K4 exactly
-2 / 1 / 1 per local layer and microbatch a rank a step, every rank on
+2 / 1 / 1 per local layer and microbatch a rank a step (0 under a seq
+axis: the ring), every rank on
 the same step loss, and the backend NCCL with nothing staged through the
 host. Prints the card's name and power limit, one JSON line per layout
 (step ms of the first step, which also builds NCCL's communicators:
@@ -25,6 +28,16 @@ CLI's width, its three followers each on their own card): every request
 judged against the one-rank model, every rank's tokens equal, K1 never
 for the ringed heads, the mesh, cp and NCCL reported by ``/v1/model``,
 nothing staged through the host.
+
+``--resume`` runs chip_smoke's train_resume drive (the train CLI as 4
+ranks, data 1 x model 4, with checkpoints, a rank SIGKILLed, the
+relaunch, one rank, the served checkpoint, LoRA on 2 ranks) with a card
+a rank: the
+checkpoints' gather and rank 0's outcome then go over NCCL. NCCL does
+not see a peer die: the survivors of the SIGKILLed rank wait in their
+collective until the process group's timeout (300 s, the trainer's
+rendezvous default) and NCCL's watchdog ends them, so the killed world
+is given NCCL_KILL_TIMEOUT instead of chip_smoke's RESUME_TIMEOUT.
 """
 from __future__ import annotations
 
@@ -49,8 +62,8 @@ TINY = dict(vocab_size=256, d_model=64, n_heads=4, n_layers=4, d_ff=128,
 
 def _setup(device: str) -> None:
     if device == "cpu":
-        cs.TRAIN_CFG.clear()
-        cs.TRAIN_CFG.update(TINY)
+        cs.PARALLEL_CFG.clear()
+        cs.PARALLEL_CFG.update(TINY)
         cs.TRAIN_BATCH, cs.TRAIN_SEQ = 8, 128
     cs.PARALLEL_LAYOUTS[:] = [lay for lay in cs.PARALLEL_LAYOUTS
                               if lay[1] == 4]
@@ -99,15 +112,64 @@ def serve_check(device: str) -> int:
     return 0
 
 
+NCCL_KILL_TIMEOUT = 480  # the 300 s group timeout, the watchdog, start-up
+RESUME_TINY = ["--vocab", "512", "--d-model", "64", "--n-heads", "4",
+               "--n-layers", "2", "--seq-len", "64", "--batch", "4",
+               "--learning-rate", "1e-3"]
+
+
+def resume_check(device: str) -> int:
+    """chip_smoke's train_resume drive, a card a rank on the cards."""
+    t0 = time.perf_counter()
+    card = {"kind": device}
+    if device == "cuda":
+        from containerpilot_tpu_torch.ops import _build
+
+        if torch.cuda.device_count() < 4:
+            raise SystemExit(f"needs 4 cards, found "
+                             f"{torch.cuda.device_count()}")
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit",
+             "--format=csv,noheader"], capture_output=True, text=True,
+            timeout=60, check=True).stdout.strip().splitlines()[0]
+        print(smi, flush=True)
+        card = {"kind": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+        _build.build_all()
+    run_world = cs._run_world
+
+    def patient(*args, **kwargs):
+        if kwargs.get("kill") is not None and device == "cuda":
+            kwargs["timeout"] = NCCL_KILL_TIMEOUT
+        return run_world(*args, **kwargs)
+
+    cs._run_world = patient
+    with tempfile.TemporaryDirectory() as tmp:
+        out = cs.drive_train_resume(
+            tmp, card, device,
+            model=RESUME_TINY if device != "cuda" else None)
+    print(json.dumps(out), flush=True)
+    print(json.dumps({"seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
 def main() -> int:
+    if sys.argv[1:2] == ["--train-rank"]:  # a train_resume child
+        cs.RANK_SCRIPT = os.path.abspath(__file__)
+        return cs.train_rank(sys.argv[1:])
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--device", default="cuda")
     parser.add_argument("--rank-job", nargs=2, metavar=("SPEC", "RANK"))
     parser.add_argument("--serve", action="store_true",
                         help="the tp2 x cp2 serve CLI, a card a rank")
+    parser.add_argument("--resume", action="store_true",
+                        help="the train CLI's checkpoints across 4 "
+                        "ranks, a card a rank")
     args = parser.parse_args()
     if args.serve:
         return serve_check(args.device)
+    if args.resume:
+        cs.RANK_SCRIPT = os.path.abspath(__file__)
+        return resume_check(args.device)
     _setup(args.device)
     if args.rank_job:
         return cs.rank_job(args.rank_job[0], int(args.rank_job[1]))
@@ -159,7 +221,8 @@ def main() -> int:
                     ranks.append(json.load(fh))
             head = ranks[0]
             loss_rel = abs(head["loss"] - ref["loss"]) / abs(ref["loss"])
-            local = cs.TRAIN_CFG["n_layers"] // job["plan"].get("pipe", 1)
+            local = (cs.PARALLEL_CFG["n_layers"] // job["plan"].get("pipe", 1)
+                     if job["plan"].get("seq", 1) == 1 else 0)
             mb = job["opts"].get("microbatches", 1)
             want = [2 * local * mb, local * mb, local * mb]
             got = [[rk["k1_launches"], rk["dq_launches"],

@@ -1,5 +1,5 @@
 """One rank of a gloo world on the CPU, for the multi-rank parity tests
-(``tests/test_torch_parallel.py``):
+(``tests/test_torch_parallel.py``, ``tests/test_torch_cp_train.py``):
 
     python -m torch_rank_jobs SPEC.json RANK
 
@@ -8,6 +8,11 @@ with ``tests/`` on PYTHONPATH. The spec names the world size, a
 test process wrote) and the cases; each case runs on its own mesh, and
 rank 0 writes ``<out>/<case>.npz`` with the loss, the gathered gradients
 and params after one step, and the per-rank facts the tests assert on.
+A plan with a ``seq`` axis trains with the ring (context parallelism).
+A ``ring`` case instead takes whole q/k/v and a cotangent from its
+``.npz``, runs ``ring_attention_local`` on the rank's blocks
+(``ring_blocks``) and writes the whole output and the gradients of
+sum(out * cotangent), each rank's part summed over the world.
 The child imports torch and the port only, uses one thread, and never
 outlives its world (every collective has the group's timeout).
 """
@@ -62,10 +67,32 @@ def flatten(tree, prefix="") -> dict:
     return out
 
 
+def run_ring(case: dict, spec: dict, rank: int, mesh) -> None:
+    from containerpilot_tpu_torch.ops import ring_attention as tring
+
+    with np.load(case["inputs"]) as npz:
+        q, k, v, cot = (torch.from_numpy(npz[n]).requires_grad_(n != "cot")
+                        for n in ("q", "k", "v", "cot"))
+    blocks = tring.ring_blocks(q, k, v, mesh)
+    out = tring.ring_attention_local(*blocks, mesh)
+    cot_block = tring.ring_blocks(cot, cot, cot, mesh)[0]
+    (out * cot_block).sum().backward()
+    whole = {"dq": q.grad, "dk": k.grad, "dv": v.grad}
+    whole = {n: mesh.all_reduce_world(g) for n, g in whole.items()}
+    out = out.detach()
+    for dim, axis in ((2, "model"), (1, "seq"), (0, "data")):
+        out = mesh.all_gather(out, axis, dim)
+    if rank == 0:
+        np.savez(os.path.join(spec["out"], f"{case['name']}.npz"),
+                 out=out.numpy(), **{n: g.numpy() for n, g in whole.items()})
+
+
 def run_case(case: dict, spec: dict, rank: int) -> None:
-    cfg = ttf.TransformerConfig(**bridge.config_kwargs(case["config"]))
     plan = tmesh.MeshPlan(**case["plan"])
     mesh = tmesh.make_mesh(plan, device="cpu")
+    if case["kind"] == "ring":
+        return run_ring(case, spec, rank, mesh)
+    cfg = ttf.TransformerConfig(**bridge.config_kwargs(case["config"]))
     with np.load(case["params"]) as npz:
         full = unflatten(npz)
     with np.load(case["tokens"]) as npz:

@@ -197,7 +197,8 @@ training phases, then beams, speculative decoding and LoRA):
 24. train_parallel: K1, K3 and K4 at a rank's shard of the training
    shape (b=4, h=4: dp 2 x tp 2) against their plain versions, twice for
    bit equality, with SDPA beside them; then the training configuration
-   (full width, half depth: PARALLEL_CFG's 4 layers, batch 8 x 2048)
+   (full width, an eighth of its depth: PARALLEL_CFG's 2 layers, batch
+   8 x 2048)
    across ranks, each layout a
    world of child processes
    (``python3 chip_smoke.py --rank-job SPEC RANK``) on this one card,
@@ -220,8 +221,8 @@ training phases, then beams, speculative decoding and LoRA):
    and K2 at a tp2 rank's CLI projections (2048x1024, 1024x2048,
    2048x3072, 3072x2048 at m = 1 and 8) against their plain versions,
    twice for bit equality, with SDPA / torch.matmul beside them; then the
-   serve CLI at the flagship CLI's width and half its depth (PAR_MODEL,
-   8 layers) over ranks on this
+   serve CLI at the flagship CLI's width and a quarter of its depth
+   (PAR_MODEL, 4 layers) over ranks on this
    one card (the front spawns its followers; gloo, collectives staged
    through host buffers, the slot engine's round uncaptured): --tp 2
    --slots 8 and --tp 2 --int8 --slots 8 (a 1024-id greedy prompt, then
@@ -250,9 +251,23 @@ training phases, then beams, speculative decoding and LoRA):
    step within RESUME_ONE_RANK_TOL of the 4-rank continuation, and
    served by the serve CLI (serve_checkpoint); --lora-rank 16 on 2
    ranks (model 2) within RESUME_ONE_RANK_TOL of one rank here; K1/K3/K4
-   8 / 4 / 4 a rank a step, as the ranks logged them; start-up,
-   save (gather, write) and restore seconds, the bytes on rank 0's
-   host.
+   4 / 2 / 2 a rank a step (2 layers), as the ranks logged them;
+   start-up, save (gather, write) and restore seconds, the bytes on
+   rank 0's host;
+27. serve_pod: the pod server (python -m
+   containerpilot_tpu_torch.workload.serve_dist) as 2 ranks on this card
+   (COUNTED_POD children; gloo, tp2, the slot round uncaptured) on a
+   file catalog, the serve CLI flagship's width at 8 layers (POD_MODEL)
+   with --slots 8 --int8 --prefix-cache 4 --watchdog 120: a 1024-id
+   greedy prompt, 8 concurrent 15-token requests (one sampled),
+   /v1/score, a beam of width 2, an SSE stream and a prefix hit, each
+   rank's counters zeroed just before; then SIGTERM to the frontend.
+   Every rank exits 0; K1 8 times and K2 on every rank's blocks, as the
+   ranks log them; the ranks' token digests agree; no capture, build or
+   load after warm-up; every answer judged against the one-rank model
+   (judge_served), the score within E2E_REL_TOL; rank start-up and
+   warm-up seconds, wall ms a request, bytes staged a token, the step
+   program's mode.
 
 Then the kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -3591,9 +3606,9 @@ def drive_moe(gen, prompt, card):
 # phase 24: training across ranks (train_parallel)
 # ---------------------------------------------------------------------------
 
-# the training configuration at half depth (4 layers): its full width
-# and shapes, the layouts' worlds inside the script's time
-PARALLEL_CFG = {**TRAIN_CFG, "n_layers": 4}
+# the training configuration at a quarter of its depth (2 layers): its
+# full width and shapes, the layouts' worlds inside the script's time
+PARALLEL_CFG = {**TRAIN_CFG, "n_layers": 2}
 # (name, ranks, mesh plan, options, config overrides of PARALLEL_CFG):
 # the layouts of one world size run in one launch of its ranks, in order
 PARALLEL_LAYOUTS = [
@@ -3614,7 +3629,7 @@ RANK_TIMEOUT = 420  # seconds a layout's ranks may take, start to exit
 RANK_SCRIPT = os.path.abspath(__file__)  # what a rank runs (--rank-job)
 # the train CLI across 4 ranks (file catalog rendezvous, pp2 x tp2)
 PARALLEL_CLI = ["--vocab", "32768", "--d-model", "1024", "--n-heads", "8",
-                "--n-layers", "4", "--seq-len", "1024", "--batch", "8",
+                "--n-layers", "2", "--seq-len", "1024", "--batch", "8",
                 "--steps", "10", "--learning-rate", "1e-3",
                 "--pipeline-stages", "2", "--tensor-parallel", "2"]
 
@@ -4021,8 +4036,8 @@ def drive_parallel_cli(tmp, device="cuda"):
 # phase 25: tensor- and context-parallel serving through the serve CLI
 # ---------------------------------------------------------------------------
 
-# the serve CLI's flagship at its full width and half its depth
-PAR_MODEL = [*FACE_MODEL[:FACE_MODEL.index("--n-layers") + 1], "8",
+# the serve CLI's flagship at its full width and a quarter of its depth
+PAR_MODEL = [*FACE_MODEL[:FACE_MODEL.index("--n-layers") + 1], "4",
              *FACE_MODEL[FACE_MODEL.index("--n-layers") + 2:]]
 # K1 at a tp2 rank's 1024-token prefill of the CLI flagship
 SHARD_SERVE_FWD_CASE = (1, 1024, 8, 8, 128, 0)
@@ -4184,7 +4199,7 @@ def drive_serve_parallel(tmp, card, device="cuda", model=None, lens=None,
 # the train CLI at PARALLEL_CLI's width and depth, as 4 ranks on the
 # mesh the reference factors them into (data 1 x model 4)
 RESUME_MODEL = ["--vocab", "32768", "--d-model", "1024", "--n-heads", "8",
-                "--n-layers", "4", "--seq-len", "1024", "--batch", "8",
+                "--n-layers", "2", "--seq-len", "1024", "--batch", "8",
                 "--learning-rate", "1e-3"]
 RESUME_STEPS = 6        # the uninterrupted run
 RESUME_EVAL_EVERY = 3
@@ -4206,7 +4221,9 @@ RESUME_ONE_RANK_TOL = 5e-4
 RESUME_TIMEOUT = 240    # seconds a world of the phase may take
 # the train CLI's kernel launches a rank a step: forward + remat's
 # recompute of every local layer, one dq and one dk/dv each
-RESUME_LAUNCHES = {"k1": 8, "k3": 4, "k4": 4}
+_RESUME_LAYERS = int(RESUME_MODEL[RESUME_MODEL.index("--n-layers") + 1])
+RESUME_LAUNCHES = {"k1": 2 * _RESUME_LAYERS, "k3": _RESUME_LAYERS,
+                   "k4": _RESUME_LAYERS}
 
 
 def train_rank(argv) -> int:
@@ -4615,6 +4632,255 @@ def drive_train_resume(tmp, card, device="cuda", model=None):
     return result
 
 
+# ---------------------------------------------------------------------------
+# phase 27: the pod server (serve_pod)
+# ---------------------------------------------------------------------------
+
+# the serve CLI flagship's width (d_ff 6144 as the CLI derives it) at 8
+# layers, two serve_dist ranks sharing the card (tp2, gloo)
+POD_MODEL = [*FACE_MODEL[:FACE_MODEL.index("--n-layers") + 1], "8",
+             *FACE_MODEL[FACE_MODEL.index("--n-layers") + 2:]]
+POD_ARGS = ["--slots", "8", "--int8", "--prefix-cache", "4",
+            "--watchdog", "120"]
+POD_RANKS = 2
+POD_NEW = 15
+POD_TIMEOUT = 300  # seconds the ranks may take to start
+# serve_dist's main with the kernel counters zeroable from outside: a
+# thread of its own takes SIGUSR2 (a rank's main thread may be waiting
+# in gloo, where a Python signal handler would not run), zeroes K1/K2's
+# counters and acknowledges by writing argv[1]; each rank logs its
+# counters at exit ("pod rank stats")
+COUNTED_POD = """
+import json, os, signal, sys, threading
+
+ACK = sys.argv[1]
+# blocked before torch is imported: every thread made later inherits it
+signal.pthread_sigmask(signal.SIG_BLOCK, {signal.SIGUSR2})
+
+def zeroing():
+    while True:
+        signal.sigwait({signal.SIGUSR2})
+        from containerpilot_tpu_torch.ops import flash, quant
+        flash.LAUNCHES = quant.LAUNCHES = 0
+        with open(ACK + ".tmp", "w") as fh:
+            json.dump({"k1": 0, "k2": 0}, fh)
+        os.replace(ACK + ".tmp", ACK)
+
+threading.Thread(target=zeroing, daemon=True).start()
+from containerpilot_tpu_torch.workload.serve_dist import main
+sys.exit(main(sys.argv[2:]))
+"""
+
+
+def _pod_rank_lines(log):
+    """(the rank's exit figures, its start-up line's seconds) from a
+    serve_dist log."""
+    stats = [ln for ln in log.splitlines()
+             if ln.startswith("pod rank stats ")]
+    if not stats:
+        raise AssertionError(f"a pod rank logged no stats:\n{log[-3000:]}")
+    start = re.search(r"joined in ([0-9.]+)s, loaded in ([0-9.]+)s, warm "
+                      r"in ([0-9.]+)s", log)
+    return (json.loads(stats[-1][len("pod rank stats "):]),
+            {k: float(v) for k, v in zip(("joined_s", "loaded_s", "warm_s"),
+                                         start.groups())})
+
+
+def drive_serve_pod(tmp, card, device="cuda", model=None, long_len=PROMPT_LEN,
+                    timeout=POD_TIMEOUT, ranks=POD_RANKS, extra_args=()):
+    """serve_pod: python -m containerpilot_tpu_torch.workload.serve_dist
+    as POD_RANKS processes on this card (COUNTED_POD), rendezvoused on a
+    file catalog, POD_MODEL with POD_ARGS. With every rank's counters
+    zeroed just before: a ``long_len``-id prompt (the K1 prefill, a
+    prefix-cache miss), 8 concurrent 15-token requests (the last
+    sampled), /v1/score, a beam of width 2, an SSE stream and a prefix
+    hit (the long prompt plus 16 ids); then SIGTERM to the frontend.
+    Checks: every rank exits 0; K1 ``n_layers`` times a rank and K2 on
+    every rank's blocks, as the ranks log them; the ranks' token
+    digests and op counts agree; no capture, kernel build or load after
+    warm-up on any rank; every greedy and sampled answer, the stream's
+    included, judged against the one-rank model (judge_served); the
+    score within E2E_REL_TOL of the one-rank scorer; the prefix hit
+    counted. ``device="cpu"`` rehearses it on the plain versions with a
+    small ``model`` (no kernel to count). ``ranks`` processes, with
+    ``extra_args`` (e.g. ``--dp 2``) added to every one."""
+    from containerpilot_tpu_torch.workload import modelcfg, serve_cli
+    from containerpilot_tpu_torch.workload import serve_dist
+
+    model = POD_MODEL if model is None else model
+    t_phase = time.perf_counter()
+    root = os.path.dirname(os.path.abspath(__file__))
+    cat = os.path.join(tmp, "pod_catalog")
+    http_port, coord = _free_port(), _free_port()
+    argv = ["--device", device, "--num-processes", str(ranks),
+            "--catalog", f"file:{cat}", "--coordinator-port", str(coord),
+            "--advertise-address", "127.0.0.1", "--host", "127.0.0.1",
+            "--port", str(http_port), *model, *POD_ARGS, *extra_args]
+    procs, logs, acks = [], [], []
+    try:
+        for r in range(ranks):
+            acks.append(os.path.join(tmp, f"pod_zeroed{r}.json"))
+            logs.append(os.path.join(tmp, f"pod{r}.log"))
+            with open(logs[-1], "w") as fh:
+                procs.append(subprocess.Popen(
+                    [sys.executable, "-c", COUNTED_POD, acks[-1],
+                     "--process-id", str(r), *argv],
+                    cwd=root, env={**os.environ, "PYTHONPATH": root},
+                    stdout=fh, stderr=subprocess.STDOUT))
+        t_boot = time.perf_counter()
+        # the one-rank model of the same flags (every rank seeds the same
+        # whole params, then cuts its blocks), for the judge
+        parsed = serve_dist.build_arg_parser().parse_args(
+            ["--process-id", "0", *argv])
+        cfg, params, _ = serve_cli.load_model(parsed, say=lambda line: None)
+        ids = torch.randint(0, cfg.vocab_size, (long_len + 16,),
+                            generator=torch.Generator().manual_seed(27)
+                            ).tolist()
+        longs, shorts = parallel_bodies(ids, (long_len,), shorts=8)
+        for body in longs + shorts:
+            body["max_new_tokens"] = POD_NEW
+        hit = {"tokens": [ids[:long_len + 16]], "max_new_tokens": POD_NEW}
+        stream = {**shorts[0], "stream": True}
+        score_row = ids[40:104]
+        beam = {"tokens": [ids[20:30]], "max_new_tokens": POD_NEW,
+                "beam_width": 2}
+        deadline = time.monotonic() + timeout
+        while True:
+            for r, proc in enumerate(procs):
+                if proc.poll() is not None:
+                    raise AssertionError(
+                        f"pod rank {r} exited {proc.returncode}:\n"
+                        + open(logs[r]).read()[-3000:])
+            try:
+                asyncio.run(http(http_port, "GET", "/health"))
+                break
+            except (OSError, AssertionError):
+                if time.monotonic() > deadline:
+                    raise AssertionError("the pod never became healthy")
+                time.sleep(0.2)
+        ready_s = time.perf_counter() - t_boot
+        for ack in acks:
+            if os.path.exists(ack):
+                os.remove(ack)
+        for proc in procs:
+            os.kill(proc.pid, signal.SIGUSR2)
+        while not all(os.path.exists(a) for a in acks):
+            if time.monotonic() > deadline:
+                raise AssertionError("a pod rank did not zero its counters")
+            time.sleep(0.01)
+        t0 = time.perf_counter()
+        walls, served, judged_bodies = {}, [], []
+        rows, wall = asyncio.run(generate_tokens(http_port, longs[0]))
+        walls["long"] = wall * 1e3
+        served.append(rows[0])
+        judged_bodies.append(longs[0])
+
+        async def concurrent():
+            return await asyncio.gather(*[generate_tokens(http_port, b)
+                                          for b in shorts])
+
+        walls["concurrent"] = []
+        for (rows, wall), body in zip(asyncio.run(concurrent()), shorts):
+            walls["concurrent"].append(wall * 1e3)
+            served.append(rows[0])
+            judged_bodies.append(body)
+        t1 = time.perf_counter()
+        scored = json.loads(asyncio.run(http(
+            http_port, "POST", "/v1/score", {"tokens": [score_row]})))
+        walls["score"] = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        beam_rows, _wall = asyncio.run(generate_tokens(http_port, beam))
+        walls["beam"] = (time.perf_counter() - t1) * 1e3
+        t1 = time.perf_counter()
+        events = asyncio.run(read_sse(http_port, stream))
+        walls["stream"] = (time.perf_counter() - t1) * 1e3
+        if not events or events[-1].get("done") is not True:
+            raise AssertionError(f"the pod's stream ended with {events[-1:]}")
+        streamed = sum((e["tokens"] for e in events if "tokens" in e), [])
+        served.append(streamed)
+        judged_bodies.append(shorts[0])
+        rows, wall = asyncio.run(generate_tokens(http_port, hit))
+        walls["prefix_hit"] = wall * 1e3
+        served.append(rows[0])
+        judged_bodies.append(hit)
+        drive_s = time.perf_counter() - t0
+        info = json.loads(asyncio.run(http(http_port, "GET", "/v1/model")))
+        procs[0].send_signal(signal.SIGTERM)
+        rcs = [proc.wait(timeout=60) for proc in procs]
+    finally:
+        for proc in procs:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=30)
+    texts = [open(path).read() for path in logs]
+    if rcs != [0] * ranks:
+        raise AssertionError(f"pod ranks exited {rcs}:\n"
+                             + "\n".join(t[-2000:] for t in texts))
+    rank_stats, startup = zip(*(_pod_rank_lines(t) for t in texts))
+    judged = []
+    for body, got in zip(judged_bodies, served):
+        first, worst, _typical = judge_served(cfg, params, body, got,
+                                              parsed.max_len)
+        if len(got) != POD_NEW or worst > NEAR_TIE_TOL:
+            raise AssertionError(
+                f"serve_pod: served tokens off the one-rank model (prompt "
+                f"{len(body['tokens'][0])}): {len(got)} tokens, worst gap "
+                f"{worst}, first differing position {first}")
+        judged.append({"prompt_len": len(body["tokens"][0]),
+                       "sampled": bool(body.get("temperature")),
+                       "equal_one_rank": first is None,
+                       "worst_gap": worst})
+    check_rows(beam_rows, 1, POD_NEW, cfg.vocab_size)
+    with torch.inference_mode():
+        want = modelcfg.score_logprobs_fn(cfg)(
+            params, torch.tensor([score_row], device=device))[0]
+    score_err = rel_norm_err(torch.tensor(scored["logprobs"][0]),
+                             want.float().cpu())
+    if score_err > E2E_REL_TOL:
+        raise AssertionError(f"serve_pod: /v1/score off one rank: "
+                             f"{score_err}")
+    k1 = [r["k1_launches"] for r in rank_stats]
+    k2 = [r["k2_launches"] for r in rank_stats]
+    if device == "cuda" and (k1 != [cfg.n_layers] * ranks
+                             or not all(n > 0 for n in k2)):
+        raise AssertionError(f"serve_pod: K1 {k1}, K2 {k2} launches by rank")
+    mode = "uncaptured" if device == "cuda" else "eager"
+    first_use = [(r["captures_after_warm"], r["builds_after_warm"],
+                  r["loads_after_warm"]) for r in rank_stats]
+    if not (all(r["digest"] == rank_stats[0]["digest"]
+                and r["ops"] == rank_stats[0]["ops"] for r in rank_stats)
+            and all(r["step_program"] == mode for r in rank_stats)
+            and first_use == [(0, 0, 0)] * ranks
+            and info["prefix_cache"]["hits"] >= 1
+            and info["pod"]["mesh"] == {"data": parsed.dp, "seq": 1,
+                                        "model": ranks // parsed.dp}):
+        raise AssertionError(f"serve_pod: ranks {rank_stats}, /v1/model "
+                             f"{info}")
+    tokens = sum(len(t) for t in served) + POD_NEW
+    del params
+    if device == "cuda":
+        torch.cuda.empty_cache()
+    return {
+        "phase": "serve_pod", "model": model,
+        "args": [*POD_ARGS, *extra_args],
+        "ranks": ranks, "mesh": info["pod"]["mesh"],
+        "k1_launches_by_rank": k1, "k2_launches_by_rank": k2,
+        "digests": [r["digest"] for r in rank_stats],
+        "ops_by_rank": [r["ops"] for r in rank_stats],
+        "step_program": rank_stats[0]["step_program"],
+        "captures_builds_loads_after_warm": first_use,
+        "first_dispatches_after_warm": [r["fresh_after_warm"]
+                                        for r in rank_stats],
+        "judged": judged, "score_rel_err": score_err,
+        "prefix_cache": info["prefix_cache"],
+        "ready_s": ready_s, "rank_startup_s": list(startup),
+        "wall_ms": walls, "drive_s": drive_s, "tokens": tokens,
+        "front_staged_bytes_a_token": rank_stats[0]["staged_bytes"] / tokens,
+        "exit_codes": rcs, "seconds": time.perf_counter() - t_phase,
+        **card,
+    }
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a "
@@ -4874,6 +5140,13 @@ def main() -> int:
     emit(train_resume)
     resume_launches = train_resume["uninterrupted"]["launches_a_rank_a_step"]
 
+    # ---- the pod server: serve_dist ranks on this card ------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        serve_pod = drive_serve_pod(tmp, card)
+    emit(serve_pod)
+
     # ---- summary --------------------------------------------------------
     main_flash = flash_rows[0]
     train_flash = flash_rows[FWD_CASES.index(TRAIN_FWD_CASE)]
@@ -4944,7 +5217,9 @@ def main() -> int:
             "train_resume_launches_a_rank_a_step": resume_launches["k1"],
             "per_shard_serving": {
                 **kernel_case(shard_k1),
-                "launches_by_rank": par_launches["k1"]},
+                "launches_by_rank": par_launches["k1"],
+                "serve_pod_launches_by_rank":
+                    serve_pod["k1_launches_by_rank"]},
         },
         *(
             {
@@ -5052,7 +5327,9 @@ def main() -> int:
                 "per_layer": {f"m={m}": int8_layer_sum(shard_k2, m,
                                                        SHARD_INT8_PROJ)
                               for m in (1, 8)},
-                "launches_by_rank": par_launches["k2"]},
+                "launches_by_rank": par_launches["k2"],
+                "serve_pod_launches_by_rank":
+                    serve_pod["k2_launches_by_rank"]},
         },
     ]
     emit({"kernels": kernels})

@@ -22,6 +22,11 @@ Intended differences from the reference:
   descending sort instead, so the same tokens come out.
 - A gather builds new cache leaves (``index_select``) where XLA reuses
   the buffers; the old leaves are freed as the new ones are made.
+
+On a mesh (``mesh=``, serving over ranks) the params are the rank's
+blocks and the cache holds the rank's kv heads (``cache_kv_heads``);
+the logits come out of every step gathered whole over ``model``, so
+every rank picks the same beams and reorders its own cache leaves.
 """
 from __future__ import annotations
 
@@ -61,7 +66,7 @@ def _penalize(scores: torch.Tensor, lengths: torch.Tensor,
 def _beam_loop(params: Params, cache: Cache, logits: torch.Tensor,
                cfg: TransformerConfig, max_new_tokens: int,
                beam_width: int, eos_id: int, pad_id: int,
-               length_penalty: float):
+               length_penalty: float, mesh=None):
     """From a batch-1 (cache, next-token logits) -> (best tokens
     [max_new_tokens] int64, its score, a 0-d tensor)."""
     dev = logits.device
@@ -81,7 +86,7 @@ def _beam_loop(params: Params, cache: Cache, logits: torch.Tensor,
     frozen[pad_id] = 0.0
     last = first
     for step_idx in range(1, max_new_tokens):
-        logits, cache = decode_step(params, cache, last, cfg)
+        logits, cache = decode_step(params, cache, last, cfg, mesh)
         logp = torch.log_softmax(logits.float(), dim=-1)  # [beam, vocab]
         logp = torch.where(done[:, None], frozen[None, :], logp)
         total = scores[:, None] + logp
@@ -133,12 +138,15 @@ def beam_search(
     pad_id: int = 0,
     length_penalty: float = 0.0,
     prefill_chunk: int = 0,
+    mesh=None,
 ) -> Tuple[torch.Tensor, float]:
     """Deterministic beam search; ``prompt`` is [1, prompt_len] on the
     params' device. Returns (tokens [max_new_tokens] int64, score): the
     highest-scoring beam, padded with ``pad_id`` past its eos.
     ``beam_width=1`` is greedy ``generate``. ``prefill_chunk > 0``
-    streams a longer prompt through ``chunked_prefill``."""
+    streams a longer prompt through ``chunked_prefill``. ``mesh``: the
+    params are this rank's blocks (every rank calls it with the same
+    arguments and gets the same tokens)."""
     validate_beam_args(cfg, prompt.shape[0], beam_width)
     if max_new_tokens < 1:
         raise ValueError("max_new_tokens must be >= 1")
@@ -155,12 +163,12 @@ def beam_search(
     prompt = prompt.to(params["norm_out"].device)
     if prefill_chunk > 0 and prompt.shape[1] > prefill_chunk:
         logits, cache = chunked_prefill(params, prompt, cfg, max_len,
-                                        prefill_chunk)
+                                        prefill_chunk, mesh)
     else:
-        logits, cache = prefill(params, prompt, cfg, max_len)
+        logits, cache = prefill(params, prompt, cfg, max_len, mesh)
     tokens, score = _beam_loop(
         params, cache, logits, cfg, max_new_tokens, beam_width,
-        int(eos_id), int(pad_id), float(length_penalty),
+        int(eos_id), int(pad_id), float(length_penalty), mesh,
     )
     return tokens, float(score)
 

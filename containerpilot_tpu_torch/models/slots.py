@@ -158,12 +158,14 @@ def clear_slot_state(state: dict) -> None:
         g.manual_seed(0)
 
 
-def seed_slot(state: dict, slot: int, seed: int) -> torch.Generator:
-    """Re-seed ``slot``'s generator for a request seeded ``seed`` (the
-    stream ``row_generator(seed, 0)`` gives a solo ``generate``) and
-    return it; ``first_sample`` draws token 0 from it."""
+def seed_slot(state: dict, slot: int, seed: int,
+              row: int = 0) -> torch.Generator:
+    """Re-seed ``slot``'s generator for row ``row`` of a request seeded
+    ``seed`` (the stream ``row_generator(seed, row)`` gives that row of a
+    solo ``generate``) and return it; ``first_sample`` draws token 0
+    from it."""
     gen = state["keys"][slot]
-    gen.manual_seed(row_seed(seed, 0))
+    gen.manual_seed(row_seed(seed, row))
     return gen
 
 

@@ -21,6 +21,13 @@ One host fetch per round (the proposals and the target's choices
 together), the cadence of a plain decode loop's sampled token. On the
 card the draft runs K2 at m = 1 under int8 weights and the verify chunk
 at m = k + 1; prefills of long prompts run K1.
+
+On a mesh (``mesh=``, serving over ranks) the target and the draft are
+the rank's blocks (``layer_prefix_draft`` slices a rank's blocks as well
+as whole params) and their caches hold the rank's kv heads. Every
+logits tensor is gathered whole over ``model`` before its argmax, so
+each acceptance decision is made from values every rank holds, and
+every rank takes the same branches and calls the same collectives.
 """
 from __future__ import annotations
 
@@ -52,7 +59,7 @@ def layer_prefix_draft(
 
 
 def _draft_round(draft_params: Params, draft_cfg: TransformerConfig,
-                 dcache: Cache, prev: torch.Tensor, k: int):
+                 dcache: Cache, prev: torch.Tensor, k: int, mesh=None):
     """k greedy proposals from (dcache, prev) by k+1 decode steps: the
     last step consumes the k-th proposal, so the draft cache holds k/v
     for all of them (rows pos..pos+k), aligned with the target's verify
@@ -60,18 +67,19 @@ def _draft_round(draft_params: Params, draft_cfg: TransformerConfig,
     drafts = []
     tok = prev
     for _ in range(k + 1):
-        logits, dcache = decode_step(draft_params, dcache, tok, draft_cfg)
+        logits, dcache = decode_step(draft_params, dcache, tok, draft_cfg,
+                                     mesh)
         tok = torch.argmax(logits, dim=-1)
         drafts.append(tok)
     return torch.cat(drafts[:k]), dcache
 
 
 def _verify_round(params: Params, cfg: TransformerConfig, cache: Cache,
-                  chunk: torch.Tensor):
+                  chunk: torch.Tensor, mesh=None):
     """One target forward over the m = k+1 tokens [prev, d_1..d_k] ->
     (the target's greedy choice at each position [k+1], cache): its
     choices for d_1..d_k, then the bonus token after a full accept."""
-    logits, cache = decode_chunk(params, cache, chunk, cfg)
+    logits, cache = decode_chunk(params, cache, chunk, cfg, mesh)
     return torch.argmax(logits, dim=-1)[0], cache
 
 
@@ -84,13 +92,14 @@ def _clamp_k(speculate: int, remaining: int, max_len: int, pos: int) -> int:
 
 def _dispatch_round(params, draft_params, cfg: TransformerConfig,
                     draft_cfg: TransformerConfig, cache: Cache,
-                    dcache: Cache, prev: torch.Tensor, k: int):
+                    dcache: Cache, prev: torch.Tensor, k: int, mesh=None):
     """The device half of one round, no host sync: k draft proposals
     from ``prev``, then the target's verify chunk over [prev, d_1..d_k].
     Returns (drafts [k], target_choice [k+1], cache, dcache)."""
-    drafts, dcache = _draft_round(draft_params, draft_cfg, dcache, prev, k)
+    drafts, dcache = _draft_round(draft_params, draft_cfg, dcache, prev, k,
+                                  mesh)
     chunk = torch.cat([prev, drafts])[None, :]
-    target_choice, cache = _verify_round(params, cfg, cache, chunk)
+    target_choice, cache = _verify_round(params, cfg, cache, chunk, mesh)
     return drafts, target_choice, cache, dcache
 
 
@@ -145,6 +154,7 @@ def speculative_generate(
     max_len: int,
     speculate: int = 4,
     eos_id: int = -1,
+    mesh=None,
 ) -> Tuple[torch.Tensor, dict]:
     """Greedy generation by draft-and-verify; batch 1.
 
@@ -152,7 +162,9 @@ def speculative_generate(
     rounds and accepted drafts. The tokens equal ``generate(...,
     temperature=0)`` up to and including the first ``eos_id``: with
     ``eos_id >= 0`` the loop stops after the round that emits it, so
-    the row may be shorter than ``max_new_tokens``."""
+    the row may be shorter than ``max_new_tokens``. ``mesh``: the params
+    are this rank's blocks (every rank calls it with the same
+    arguments)."""
     if prompt.shape[0] != 1:
         raise ValueError("speculative decoding serves batch 1")
     _check_pair(cfg, draft_cfg, speculate)
@@ -164,8 +176,9 @@ def speculative_generate(
             f"{max_new_tokens} exceeds max_len {max_len}"
         )
     prompt = prompt.to(params["norm_out"].device)
-    logits, cache = prefill(params, prompt, cfg, max_len)
-    _dlogits, dcache = prefill(draft_params, prompt, draft_cfg, max_len)
+    logits, cache = prefill(params, prompt, cfg, max_len, mesh)
+    _dlogits, dcache = prefill(draft_params, prompt, draft_cfg, max_len,
+                               mesh)
     prev = torch.argmax(logits, dim=-1)  # [1]
     out = [int(prev[0])]
     pos = cache["pos"]
@@ -178,6 +191,7 @@ def speculative_generate(
         assert k >= 1, (pos, len(out))
         drafts, target_choice, cache, dcache = _dispatch_round(
             params, draft_params, cfg, draft_cfg, cache, dcache, prev, k,
+            mesh,
         )
         emitted = _accept_round(*_fetch_round(drafts, target_choice), k)
         out.extend(emitted)
@@ -207,13 +221,15 @@ def warm_speculative(
     draft_cfg: TransformerConfig,
     speculate: int,
     max_len: int,
+    mesh=None,
 ) -> None:
     """Run every program shape the speculative path dispatches, before a
     server reports healthy: one tiny end-to-end generation, then a draft
     round and a verify chunk for every k in 1..``speculate`` (a request's
     k is decided per round at run time). Eager torch compiles nothing,
     but the first call of a shape pays for its library plans, K2's
-    split-k workspace and the allocator's blocks."""
+    split-k workspace and the allocator's blocks. ``mesh``: as
+    ``speculative_generate``'s."""
     plen = 4
     device = params["norm_out"].device
     prompt = torch.zeros((1, plen), dtype=torch.int64, device=device)
@@ -222,18 +238,20 @@ def warm_speculative(
         speculative_generate(
             params, draft_params, prompt, cfg, draft_cfg,
             max_new_tokens=max_new, max_len=max_len, speculate=speculate,
+            mesh=mesh,
         )
-    _logits, tcache = prefill(params, prompt, cfg, max_len)
-    _dlogits, dcache = prefill(draft_params, prompt, draft_cfg, max_len)
+    _logits, tcache = prefill(params, prompt, cfg, max_len, mesh)
+    _dlogits, dcache = prefill(draft_params, prompt, draft_cfg, max_len,
+                               mesh)
     prev = torch.zeros((1,), dtype=torch.int64, device=device)
     # a request's k is at most max_len - pos - 1 with pos >= 1; each k
     # starts from the prompt's frontier (a rewind, as after a round)
     for k in range(1, min(speculate, max_len - 2) + 1):
         _draft_round(draft_params, draft_cfg, {**dcache, "pos": plen},
-                     prev, k)
+                     prev, k, mesh)
         _verify_round(params, cfg, {**tcache, "pos": plen},
                       torch.zeros((1, k + 1), dtype=torch.int64,
-                                  device=device))
+                                  device=device), mesh)
 
 
 class SpeculativeStepProgram:

@@ -246,9 +246,10 @@ class PlainStepProgram:
     def admit(self, slot: int, req: Any, logits: torch.Tensor,
               row_cache: Dict[str, Any]) -> int:
         """Sample token 0 from ``logits`` [1, vocab] with the slot's
-        generator re-seeded for ``req.seed`` (row 0), copy the prefilled
-        row into the pool and write the slot's state; returns token 0."""
-        gen = seed_slot(self._state, slot, req.seed)
+        generator re-seeded for ``req.seed`` and row ``req.row``, copy the
+        prefilled row into the pool and write the slot's state; returns
+        token 0."""
+        gen = seed_slot(self._state, slot, req.seed, req.row)
         first = first_sample(
             logits, gen, req.temperature, req.top_k, req.top_p,
             eos_id=req.eos_id, min_new=req.min_new,

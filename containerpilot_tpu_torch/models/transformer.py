@@ -159,13 +159,17 @@ def init_params(
     )
     kv = cfg.kv_heads
 
-    def normal(shape):
+    def normal(shape, scale):
+        if dev.type == "meta":
+            # shapes only: an op on meta tensors imports torch._dynamo
+            # (seconds), which a restore target does not need
+            return torch.empty(shape, dtype=torch.float32, device=dev)
         return torch.randn(
             shape, generator=gen, dtype=torch.float32, device=dev
-        )
+        ) * scale
 
     def dense(shape, fan_in):
-        return normal(shape) * (fan_in ** -0.5)
+        return normal(shape, fan_in ** -0.5)
 
     layers = {
         "wq": dense((L, d, h, hd), d),
@@ -185,7 +189,7 @@ def init_params(
         layers["w_up"] = dense((L, d, f), d)
         layers["w_down"] = dense((L, f, d), f)
     return {
-        "embed": normal((cfg.vocab_size, d)) * 0.02,
+        "embed": normal((cfg.vocab_size, d), 0.02),
         "layers": layers,
         "norm_out": torch.ones((d,), dtype=torch.float32, device=dev),
         "unembed": dense((d, cfg.vocab_size), d),

@@ -38,6 +38,8 @@ NVCC_FLAGS = [
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+# nvcc runs this process made (a library already built costs none)
+BUILDS = 0
 
 
 def build_dir() -> str:
@@ -98,8 +100,10 @@ def _start(name: str):
 
 
 def _finish(name: str, out: str, tmp: str, proc) -> None:
+    global BUILDS
     if proc is None:
         return
+    BUILDS += 1
     log, _ = proc.communicate()
     if proc.returncode != 0:
         if os.path.exists(tmp):

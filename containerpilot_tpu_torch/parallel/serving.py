@@ -108,7 +108,10 @@ class Lockstep:
                                         name="lockstep-check", daemon=True)
         self._pinger.start()
 
-    def _beat(self) -> None:
+    def beat(self) -> None:
+        """Feed this rank's watchdog, which from here keeps the deadline
+        instead of the startup grace (a rank calls it when its loading
+        and warm-up are done; every op beats as it ends)."""
         self._dog.beat()
         self._stacks_before(self.deadline_s)
 
@@ -133,7 +136,7 @@ class Lockstep:
             finally:
                 self.ops += 1
                 self._last = time.monotonic()
-                self._beat()
+                self.beat()
 
     def check(self) -> Dict[str, Any]:
         """Every rank's op count, token digest and kernel launches, and
@@ -192,7 +195,7 @@ class Lockstep:
             except Exception:  # noqa: BLE001 — the front saw the same
                 log.exception("rank %d: op %s raised", self.rank, name)
             self.ops += 1
-            self._beat()
+            self.beat()
 
     # -- both -----------------------------------------------------------
 
@@ -202,11 +205,15 @@ class Lockstep:
         self._digest.update(arr.tobytes())
         self.tokens += int(arr.size)
 
+    def digest(self) -> str:
+        """This rank's token digest so far (hex)."""
+        return self._digest.hexdigest()
+
     def _check(self) -> Dict[str, Any]:
         from ..ops import flash, quant
 
         mine = {"rank": self.rank, "ops": self.ops, "tokens": self.tokens,
-                "digest": self._digest.hexdigest(),
+                "digest": self.digest(),
                 "k1_launches": flash.LAUNCHES, "k2_launches": quant.LAUNCHES}
         ranks = [None] * self.size
         dist.all_gather_object(ranks, mine, group=self.group)

@@ -181,11 +181,13 @@ def validate_lora_flags(lora_dir: str, lora_rank: int) -> None:
 
 
 def merge_lora(params, cfg, lora_dir: str, lora_rank: int,
-               device=None) -> Tuple[Any, int]:
+               device=None, mesh=None) -> Tuple[Any, int]:
     """Restore a trained adapter (params only) from the latest
     checkpoint under ``lora_dir`` onto ``device`` (default: the params')
     and fold it into the base weights -> (merged params, adapter step).
-    Merge before any quantization: an int8 base is not adaptable."""
+    Merge before any quantization: an int8 base is not adaptable.
+    ``mesh``: ``params`` may be this rank's blocks (``apply_lora``'s
+    ``mesh``); every rank restores the whole adapter, which is small."""
     from ..models.lora import apply_lora
     from ..parallel import lora_abstract_state, restore_params
 
@@ -195,7 +197,30 @@ def merge_lora(params, cfg, lora_dir: str, lora_rank: int,
     )
     if adapter is None:
         raise SystemExit(f"no adapter checkpoint in {lora_dir}")
-    return apply_lora(params, adapter[0], cfg), int(adapter[1])
+    return apply_lora(params, adapter[0], cfg, mesh=mesh), int(adapter[1])
+
+
+def restore_params_only(cfg, mesh, checkpoint_dir: str,
+                        use_ema: bool = False, device="cuda"):
+    """The serving restore: params only (the EMA shadow with
+    ``use_ema``) of the latest checkpoint under ``checkpoint_dir`` ->
+    ``RestoredParams`` (params, step), or None when there is none. With
+    a ``mesh`` of several ranks (collective: every rank calls it) the
+    step is rank 0's and each rank keeps only its blocks under the
+    tensor-parallel rules, so no rank holds the whole model."""
+    from ..models.transformer import init_params
+    from ..parallel import TrainState, restore_params
+    from ..parallel.sharding import param_sharding_rules
+
+    multi = mesh is not None and mesh.size > 1
+    # the params' structure on the meta device: a restore reads only the
+    # params, so no optimizer is built (its first init imports much)
+    like = TrainState(init_params(0, cfg, device="meta"), {}, 0)
+    return restore_params(
+        checkpoint_dir, like, prefer_ema=use_ema,
+        device=device, mesh=mesh if multi else None,
+        rules=param_sharding_rules(cfg, mesh) if multi else None,
+    )
 
 
 def restore_merged_params(cfg, checkpoint_dir: str, use_ema: bool = False,

@@ -320,16 +320,22 @@ def _validate_tp(n_heads: int, d_ff: int, vocab: int, moe_experts: int,
         raise SystemExit(f"--tp {tp} must divide moe_experts ({moe_experts})")
 
 
-def load_model(args: argparse.Namespace, mesh=None, device=None):
-    """-> (cfg, params, checkpoint) per the flags: float32 masters from
-    the latest checkpoint under --checkpoint-dir (its EMA shadow with
-    --use-ema, the raw params with a warning when it has none) or, with
-    no checkpoint there, seeded; a --lora-dir adapter merged into them;
-    quantized under --int8 (on the merged masters); on a ``mesh``, cut
-    to this rank's blocks (``shard_params``, the int8 leaves with the
-    float rules); then cast once to the compute dtype. ``checkpoint`` is
-    {"step", "ema"} of what was restored, None for the seeded init.
-    ``device`` defaults to --device."""
+def load_model(args: argparse.Namespace, mesh=None, device=None,
+               say=print):
+    """-> (cfg, params, checkpoint) per the flags, in the reference's
+    order: float32 masters from the latest checkpoint under
+    --checkpoint-dir (its EMA shadow with --use-ema, the raw params with
+    a warning when it has none) or, with no checkpoint there, seeded; a
+    --lora-dir adapter merged into them; quantized under --int8 (on the
+    merged masters); then cast once to the compute dtype. On a ``mesh``
+    of several ranks each rank keeps its blocks: restored as blocks
+    (``restore_params_only``) and merged block by block, except under
+    --int8, where the whole tree is quantized and then cut
+    (``shard_params``, the int8 leaves with the float rules), so a
+    row-parallel weight's per-column scales are the whole weight's.
+    ``checkpoint`` is {"step", "ema"} of what was restored, None for the
+    seeded init. ``device`` defaults to --device; ``say`` prints the
+    load's progress lines."""
     from .. import resolve_device
     from ..models.quantized import (
         cast_params,
@@ -337,8 +343,13 @@ def load_model(args: argparse.Namespace, mesh=None, device=None):
         quantize_model_params,
     )
     from ..models.transformer import TransformerConfig, init_params
-    from ..parallel import abstract_train_state, restore_params
-    from .modelcfg import derive_d_ff, merge_lora, validate_lora_flags
+    from ..parallel.sharding import shard_params
+    from .modelcfg import (
+        derive_d_ff,
+        merge_lora,
+        restore_params_only,
+        validate_lora_flags,
+    )
 
     cfg = TransformerConfig(
         vocab_size=args.vocab,
@@ -353,37 +364,41 @@ def load_model(args: argparse.Namespace, mesh=None, device=None):
         kv_int8=args.kv_int8,
     )
     device = args.device if device is None else device
+    multi = mesh is not None and mesh.size > 1
+    # blocks from the start, unless --int8 needs the whole tree first
+    blocks = multi and not args.int8
     params, checkpoint = None, None
     if args.checkpoint_dir:
         # params only: serving never pays train-state memory
-        restored = restore_params(
-            args.checkpoint_dir, abstract_train_state(cfg),
-            prefer_ema=args.use_ema, device=resolve_device(device),
+        restored = restore_params_only(
+            cfg, mesh if blocks else None, args.checkpoint_dir,
+            use_ema=args.use_ema, device=resolve_device(device),
         )
         if restored is not None:
             params, step = restored
             checkpoint = {"step": int(step), "ema": restored.ema}
-            print(f"serving checkpoint step {step}"
-                  + (" (EMA weights)" if restored.ema else ""))
+            say(f"serving checkpoint step {step}"
+                + (" (EMA weights)" if restored.ema else ""))
     if params is None:
         params = init_params(0, cfg, device=device)
+        if blocks:
+            params = shard_params(params, mesh, cfg)
     validate_lora_flags(args.lora_dir, args.lora_rank)
     if args.lora_dir:
         params, lora_step = merge_lora(params, cfg, args.lora_dir,
-                                       args.lora_rank)
-        print(f"merged lora adapter (rank {args.lora_rank}, "
-              f"step {lora_step})")
+                                       args.lora_rank,
+                                       mesh=mesh if blocks else None)
+        say(f"merged lora adapter (rank {args.lora_rank}, "
+            f"step {lora_step})")
     if args.int8:
         dense = param_bytes(cast_params(params, cfg.dtype))
         params = quantize_model_params(params)
         quant = param_bytes(cast_params(params, cfg.dtype))
-        print(
+        say(
             f"int8: resident params {dense} -> {quant} bytes "
             f"({dense / quant:.1f}x smaller)"
         )
-    if mesh is not None and mesh.size > 1:
-        from ..parallel.sharding import shard_params
-
+    if multi and not blocks:
         params = shard_params(params, mesh, cfg)
     return cfg, cast_params(params, cfg.dtype), checkpoint
 

@@ -217,12 +217,14 @@ def _rewound_copy(base: Any, reuse: int) -> dict:
 
 @torch.inference_mode()
 def reuse_admission(pc: PrefixCache, row_tokens: List[int], cfg, params,
-                    chunk_len: int = 0):
+                    chunk_len: int = 0, mesh=None):
     """The admission-side reuse protocol: plan the reuse, copy the cached
     base up to the reused length, extend the bucketed suffix (in bounded
     pieces when ``chunk_len`` applies) and count the hit/miss. Returns
     (logits [1, vocab], cache) on a hit, None on a miss; the caller
-    stores the completed prompt's cache afterwards."""
+    stores the completed prompt's cache afterwards. ``mesh``: the params
+    are a rank's blocks and the entries hold its kv heads (every rank
+    keeps an identical cache: the pod's lockstep admissions)."""
     from ..models.decode import extend, extend_pieces
 
     reuse, base = plan_reuse(pc, row_tokens)
@@ -234,9 +236,10 @@ def reuse_admission(pc: PrefixCache, row_tokens: List[int], cfg, params,
         [row_tokens[reuse:]], dtype=torch.int64, device=base["k"].device
     )
     if 0 < chunk_len < suffix.shape[1]:
-        logits, cache = extend_pieces(params, cache, suffix, cfg, chunk_len)
+        logits, cache = extend_pieces(params, cache, suffix, cfg, chunk_len,
+                                      mesh)
     else:
-        logits, cache = extend(params, cache, suffix, cfg)
+        logits, cache = extend(params, cache, suffix, cfg, mesh)
     pc.stats["hits"] += 1
     pc.stats["tokens_reused"] += reuse
     return logits, cache
@@ -252,11 +255,11 @@ def prefill_row(pc: Optional[PrefixCache], row: List[int], cfg, params,
     else one ``prefill``. With a prefix cache the completed prompt's
     cache is then stored in it, so the caller must never write that
     cache (it decodes a copy). Returns (logits [1, vocab], cache).
-    ``mesh``: the params are a rank's blocks (no prefix cache then)."""
+    ``mesh``: the params are a rank's blocks."""
     from ..models.decode import chunked_prefill, prefill
 
     hit = None if pc is None else reuse_admission(
-        pc, row, cfg, params, chunk_len=prefill_chunk
+        pc, row, cfg, params, chunk_len=prefill_chunk, mesh=mesh
     )
     if hit is not None:
         logits, cache = hit

@@ -83,6 +83,9 @@ class _Request:
     min_new: int = 0
     presence: float = 0.0
     frequency: float = 0.0
+    # the row's index within its request: it samples from the generator
+    # of (seed, row)
+    row: int = 0
     # [BIAS_SLOTS_MAX] logit_bias row (idx -1 = unused), always at the
     # engine's one static width
     bias_idx: Optional[object] = None

@@ -6,6 +6,7 @@ the host.
     python3 scripts/torch_parallel_check.py              # 4 cards
     python3 scripts/torch_parallel_check.py --device cpu # rehearsal
     python3 scripts/torch_parallel_check.py --serve [--device cpu]
+    python3 scripts/torch_parallel_check.py --pod [--device cpu]
     python3 scripts/torch_parallel_check.py --resume [--device cpu]
 
 On the cards it runs chip_smoke's one-rank reference (the training
@@ -28,6 +29,15 @@ CLI's width, its three followers each on their own card): every request
 judged against the one-rank model, every rank's tokens equal, K1 never
 for the ringed heads, the mesh, cp and NCCL reported by ``/v1/model``,
 nothing staged through the host.
+
+``--pod`` runs chip_smoke's serve_pod drive as a dp2 x tp2 pod of 4
+serve_dist ranks (a card each, NCCL): every answer judged against the
+one-rank model, every rank's digest equal, K1 ``n_layers`` times a rank,
+nothing staged through the host; then the wedge drill: a fresh 4-rank
+pod with ``--watchdog POD_WATCHDOG`` whose rank 1 finds its
+``--wedge-file`` and stops without exiting; every rank must exit 86
+within the deadline (plus start of the next check op and the
+watchdog's poll), not at the process group's 300 s timeout.
 
 ``--resume`` runs chip_smoke's train_resume drive (the train CLI as 4
 ranks, data 1 x model 4, with checkpoints, a rank SIGKILLed, the
@@ -112,6 +122,110 @@ def serve_check(device: str) -> int:
     return 0
 
 
+POD_WATCHDOG = 20  # the wedge drill's --watchdog, seconds
+POD_TINY = ["--vocab", "512", "--d-model", "64", "--n-layers", "2",
+            "--n-heads", "4", "--max-len", "256"]
+
+
+def _card(device: str, world: int) -> dict:
+    """The card's figures (and every kernel built) on the cards."""
+    if device != "cuda":
+        return {"kind": device}
+    from containerpilot_tpu_torch.ops import _build
+
+    if torch.cuda.device_count() < world:
+        raise SystemExit(f"needs {world} cards, found "
+                         f"{torch.cuda.device_count()}")
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(smi, flush=True)
+    _build.build_all()
+    return {"kind": torch.cuda.get_device_name(0), "nvidia_smi": smi}
+
+
+def pod_wedge(tmp: str, device: str, model) -> dict:
+    """A 4-rank dp2 x tp2 pod whose rank 1 wedges once healthy: every
+    rank's exit code and the seconds from the wedge to the last exit."""
+    import urllib.request
+
+    world, port = 4, cs._free_port()
+    wedge = os.path.join(tmp, "wedge")
+    argv = [sys.executable, "-m", "containerpilot_tpu_torch.workload."
+            "serve_dist", "--device", device, "--num-processes",
+            str(world), "--catalog", f"file:{tmp}/wedge_catalog",
+            "--coordinator-port", str(cs._free_port()),
+            "--advertise-address", "127.0.0.1", "--host", "127.0.0.1",
+            "--port", str(port), "--dp", "2", "--watchdog",
+            str(POD_WATCHDOG), *model]
+    procs, logs = [], []
+    try:
+        for r in range(world):
+            logs.append(os.path.join(tmp, f"wedge{r}.log"))
+            with open(logs[-1], "w") as fh:
+                procs.append(subprocess.Popen(
+                    argv + ["--process-id", str(r)]
+                    + (["--wedge-file", wedge] if r == 1 else []),
+                    cwd=ROOT, env={**os.environ, "PYTHONPATH": ROOT},
+                    stdout=fh, stderr=subprocess.STDOUT))
+        deadline = time.monotonic() + cs.POD_TIMEOUT
+        while True:
+            try:
+                urllib.request.urlopen(f"http://127.0.0.1:{port}/health",
+                                       timeout=2)
+                break
+            except Exception:
+                if any(p.poll() is not None for p in procs) or (
+                        time.monotonic() > deadline):
+                    raise AssertionError("the wedge pod never became "
+                                         "healthy")
+                time.sleep(0.2)
+        t0 = time.monotonic()
+        with open(wedge, "w") as fh:
+            fh.write("1")
+        rcs = [p.wait(timeout=240) for p in procs]
+        seconds = time.monotonic() - t0
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    wedged = "follower: injected wedge" in open(logs[1]).read()
+    return {"exit_codes": rcs, "seconds_to_exit": seconds,
+            "wedged": wedged}
+
+
+def pod_check(device: str) -> int:
+    """chip_smoke's serve_pod drive as a dp2 x tp2 pod of 4 ranks, then
+    the wedge drill."""
+    t0 = time.perf_counter()
+    card = _card(device, 4)
+    small = device != "cuda"
+    with tempfile.TemporaryDirectory() as tmp:
+        out = cs.drive_serve_pod(
+            tmp, card, device, model=POD_TINY if small else None,
+            long_len=160 if small else cs.PROMPT_LEN, ranks=4,
+            extra_args=("--dp", "2"))
+    print(json.dumps({k: out[k] for k in (
+        "mesh", "k1_launches_by_rank", "k2_launches_by_rank", "digests",
+        "step_program", "captures_builds_loads_after_warm", "judged",
+        "score_rel_err", "ready_s", "rank_startup_s", "wall_ms",
+        "front_staged_bytes_a_token", "exit_codes", "seconds")}),
+        flush=True)
+    if device == "cuda" and out["front_staged_bytes_a_token"] != 0:
+        raise AssertionError("a card a rank staged bytes through the host")
+    with tempfile.TemporaryDirectory() as tmp:
+        drill = pod_wedge(tmp, device, POD_TINY if small else cs.POD_MODEL)
+    print(json.dumps({"wedge": drill}), flush=True)
+    # the deadline, the next check op (a quarter of it) and the
+    # watchdog's poll, well before the 300 s group timeout
+    if not (drill["wedged"] and drill["exit_codes"] == [86] * 4
+            and drill["seconds_to_exit"] < 2 * POD_WATCHDOG):
+        raise AssertionError(f"the wedge drill: {drill}")
+    print(json.dumps({"seconds": time.perf_counter() - t0}), flush=True)
+    return 0
+
+
 NCCL_KILL_TIMEOUT = 480  # the 300 s group timeout, the watchdog, start-up
 RESUME_TINY = ["--vocab", "512", "--d-model", "64", "--n-heads", "4",
                "--n-layers", "2", "--seq-len", "64", "--batch", "4",
@@ -161,12 +275,17 @@ def main() -> int:
     parser.add_argument("--rank-job", nargs=2, metavar=("SPEC", "RANK"))
     parser.add_argument("--serve", action="store_true",
                         help="the tp2 x cp2 serve CLI, a card a rank")
+    parser.add_argument("--pod", action="store_true",
+                        help="the dp2 x tp2 pod server and its wedge "
+                        "drill, a card a rank")
     parser.add_argument("--resume", action="store_true",
                         help="the train CLI's checkpoints across 4 "
                         "ranks, a card a rank")
     args = parser.parse_args()
     if args.serve:
         return serve_check(args.device)
+    if args.pod:
+        return pod_check(args.device)
     if args.resume:
         cs.RANK_SCRIPT = os.path.abspath(__file__)
         return resume_check(args.device)

@@ -225,12 +225,23 @@ training phases, then beams, speculative decoding and LoRA):
    (PAR_MODEL, 4 layers) over ranks on this
    one card (the front spawns its followers; gloo, collectives staged
    through host buffers, the slot engine's round uncaptured): --tp 2
-   --slots 8 and --tp 2 --int8 --slots 8 (a 1024-id greedy prompt, then
-   8 concurrent short requests of 15 new tokens, one sampled), and --tp
-   2 --cp 2 --cp-min-len 1024 --slots 8 (a 1536-id and a 1031-id prompt,
-   each ringed, the second with a 1-token remainder, then one short
-   prompt). Every request judged against the one-rank model
-   (judge_served), every rank's tokens equal (the lockstep's digests),
+   --slots 8 (a 1024-id greedy prompt, then 8 concurrent short requests
+   of 15 new tokens, one sampled); the composed pod P (``--tp 2 --int8
+   --slots 8 --prefix-cache 4 --kv-spill-mb 64 --draft-layers 2
+   --standby --weights-from E --fleet-catalog``) beside the one-rank E
+   it fetches its weights from (drive_composed_pod: promotion, the
+   1024-id request and the 8 concurrent ones, all sampled, each with a
+   seed of its own, so the int8 pool decodes the shorts together and K2
+   a pool step is read over the rows live, a beam of width 2
+   and a speculative row on 1024-id prompts, a prefix hit, KV pulled out
+   of P by E and into P from E, /v1/weights against E's, a drain
+   migrating P's sessions to E; K1/K2 a rank by path, every rank's
+   prefix-cache keys equal); and --tp 2 --cp 2 --cp-min-len 1024 --slots
+   8 (a 1536-id and a 1031-id prompt, each ringed, the second with a
+   1-token remainder, one short prompt, then a beam of width 2 on the
+   model axis). Every request judged against the one-rank model
+   (judge_served; beams judge_beam), every rank's tokens equal (the
+   lockstep's digests),
    /v1/model's mesh, cp and step-program mode, K1 exactly n_layers times
    a rank for the 1024-id tp prefill and never for a ringed head, K2 on
    every rank's blocks under --int8 (each rank's counters zeroed just
@@ -4046,28 +4057,469 @@ SHARD_SERVE_FWD_CASE = (1, 1024, 8, 8, 128, 0)
 SHARD_INT8_PROJ = {(2048, 1024): 3, (1024, 2048): 1, (2048, 3072): 2,
                    (3072, 2048): 1}
 PAR_ARGS = ["--slots", "8"]
-# label -> (extra flags, ranks); a --cp run also gets --cp-min-len
+# label -> (extra flags, ranks); a --cp run also gets --cp-min-len.
+# Beside them the phase runs the composed pod P (drive_composed_pod),
+# its result under "tp2_int8"
 PAR_RUNS = (
     ("tp2", ["--tp", "2"], 2),
-    ("tp2_int8", ["--tp", "2", "--int8"], 2),
     ("tp2_cp2", ["--tp", "2", "--cp", "2"], 4),
 )
+# the composed pod P and the one-rank replica E it fetches its weights
+# from, in one file catalog: E --int8 --slots 8 --prefix-cache 4 (with a
+# spill tier for the entries it pulls), P the same model over tp2 with
+# a spill tier of 64 MiB a rank, a 2-layer draft, a standby
+COMPOSED_ARGS = ["--int8", "--prefix-cache", "4", "--fleet-ttl", "2"]
+E_ARGS = [*COMPOSED_ARGS, "--kv-spill-mb", "1024", "--migrate-window", "0"]
+P_ARGS = [*COMPOSED_ARGS, "--tp", "2", "--kv-spill-mb", "64",
+          "--draft-layers", "2", "--standby", "--migrate-window", "120"]
+PAR_BEAM_WIDTH = 2
+# the rows the composed pod's int8 pool holds live a step, at least,
+# over its 8 concurrent sampled shorts (8 when all are admitted at once)
+POOL_MIN_ROWS = 4
+# a KV entry a pod exported against a solo prefill of its prompt, abs
+# err / max|ref|: bf16 k/v of a stack whose tp all-reduces round the
+# hidden state once more a block than one rank does, held to the
+# script's end-to-end bound
+KV_REL_TOL = E2E_REL_TOL
 # the long prompts: the tp runs' flash prefill, the cp run's two ringed
 # heads (the second with a 1-token remainder)
 PAR_LENS = {"tp": (1024,), "cp": (1536, 1031)}
 PAR_NEW = 15
 
 
-def parallel_bodies(ids, lens, shorts=8):
+def parallel_bodies(ids, lens, shorts=8, sampled=1):
     """(long bodies, short bodies) of one serve_parallel run: greedy long
     prompts (prefixes of ``ids``) and concurrent short prompts of 5-19
-    ids, the last sampled (temperature 0.8, seed 7; no top-k, whose cut
-    can split a near tie), each PAR_NEW new tokens."""
+    ids, the last ``sampled`` of them sampled (temperature 0.8, seeds 7,
+    8, ... from the last back; no top-k, whose cut can split a near
+    tie), each PAR_NEW new tokens."""
     longs = [{"tokens": [ids[:n]], "max_new_tokens": PAR_NEW} for n in lens]
     short = [{"tokens": [ids[100 + 7 * i:105 + 9 * i]],
               "max_new_tokens": PAR_NEW} for i in range(shorts)]
-    short[-1].update(temperature=0.8, seed=7)
+    for j in range(sampled):
+        short[-1 - j].update(temperature=0.8, seed=7 + j)
     return longs, short
+
+
+def judge_beam(cfg, params, body, got, max_len=MAX_LEN):
+    """Hold a served beam to one rank's plain beam search on the same
+    prompt: the same tokens, or (past a near tie between beams, which
+    tp's rounding can tip) a sequence whose teacher-forced
+    log-probability is no more than BEAM_SCORE_REL_TOL below that of the
+    one-rank best beam's tokens. Returns (equal, the relative gap;
+    negative when the served beam scores higher)."""
+    from containerpilot_tpu_torch.models import beam
+    from containerpilot_tpu_torch.workload import modelcfg
+
+    row = body["tokens"][0]
+    dev = params["norm_out"].device
+    score = modelcfg.score_logprobs_fn(cfg)
+    with torch.inference_mode():
+        local, _score = beam.beam_search(
+            params, torch.tensor([row], device=dev), cfg,
+            body["max_new_tokens"], max_len,
+            beam_width=body["beam_width"])
+        if local.tolist() == got:
+            return True, 0.0
+        served, best = (
+            float(score(params, torch.tensor([row + toks], device=dev))[
+                0][len(row) - 1:].sum())
+            for toks in (got, local.tolist()))
+    gap = (best - served) / abs(best)
+    if not gap <= BEAM_SCORE_REL_TOL:
+        raise AssertionError(f"beam off one rank's: served log-prob "
+                             f"{served}, one rank's best beam's {best}")
+    return False, gap
+
+
+class RankCounts:
+    """A CountedServe over ranks: every rank's K1/K2 counters zeroed
+    once, read as per-rank deltas around each path."""
+
+    def __init__(self, srv):
+        self.srv = srv
+        self.last = srv.counts(zero=True)
+
+    def delta(self):
+        now = self.srv.counts()
+        out = [{k: n[k] - b[k] for k in n} for n, b in zip(now, self.last)]
+        self.last = now
+        return out
+
+
+def _log_time(log, text):
+    """The epoch seconds of the first line of a serve CLI's ``log`` that
+    holds ``text`` (its logging format's asctime, this host's clock)."""
+    import datetime
+
+    for line in log.splitlines():
+        if text in line:
+            stamp = datetime.datetime.strptime(line[:23],
+                                               "%Y-%m-%d %H:%M:%S,%f")
+            return stamp.timestamp()
+    raise AssertionError(f"no {text!r} in the serve CLI's log")
+
+
+def drive_composed_pod(tmp, card, device="cuda", model=None, lens=None,
+                       extra_args=(), timeout=600):
+    """serve_parallel's tp2_int8 run: the composed pod P (``--tp 2
+    --int8 --slots 8 --prefix-cache 4 --kv-spill-mb 64 --draft-layers 2
+    --standby --weights-from E --fleet-catalog``) beside E, a one-rank
+    ``--int8 --slots 8 --prefix-cache 4`` replica of the same model in
+    the same file catalog, started first. P is driven through, in order:
+    the weight wire (E -> P at start-up) and promotion; the phase's
+    1024-id request and 8 concurrent short ones, all sampled (a greedy
+    row would go to the speculative engine's one slot), so the --int8
+    slot pool admits and caches the long one and decodes the shorts
+    together: the shorts' K2 launches, 7 x n_layers a pool step at m = 8
+    and none at their admissions, give the rows live a step
+    (POOL_MIN_ROWS at least); a beam of width 2 and a
+    greedy row through the speculative engine, each on a 1024-id
+    prompt; the 1024-id request again (a prefix hit); /v1/prefill on P
+    and E's /v1/kv/pull of P's entry (export out of tp), held to a solo
+    prefill within KV_REL_TOL with the manifest of E's own entry, then
+    E serving it; E's entry pulled into P (import into tp) and P
+    serving it; P's /v1/weights against E's, chunk digest by chunk
+    digest; a SIGTERM drain of P that migrates its sessions to E. Every
+    answer is held to one rank's plain path (judge_served; beams to
+    judge_beam); every rank's K1/K2 launches are read by path, and
+    every rank's token digest and prefix-cache keys must agree."""
+    import random
+
+    from containerpilot_tpu_torch.fleet.standby import fetch_weight_chunks
+    from containerpilot_tpu_torch.kvtier.digest import prefix_fingerprint
+    from containerpilot_tpu_torch.kvtier.handoff import (
+        fetch_kv_chunks,
+        rebuild_kv,
+    )
+    from containerpilot_tpu_torch.models import decode
+    from containerpilot_tpu_torch.workload import serve_cli
+
+    model = PAR_MODEL if model is None else model
+    long_len = (lens or PAR_LENS)["tp"][0]
+    catalog = os.path.join(tmp, "composed_catalog")
+    base = ["--device", device, *model, *PAR_ARGS, "--fleet-catalog",
+            f"file:{catalog}"]
+    e_args = [*base, *E_ARGS, "--fleet-id", "E"]
+    parsed = serve_cli.build_arg_parser().parse_args(e_args)
+    cfg, params, _ = serve_cli.load_model(parsed)  # one rank, whole
+    vocab, max_len = cfg.vocab_size, parsed.max_len
+    on_card = device == "cuda"
+    rng = random.Random(25)
+    # ids also feeds the short prompts (ids[100:168])
+    ids = [rng.randrange(vocab) for _ in range(max(long_len, 256))]
+    p_spec, p_beam, p_a, p_b = (
+        [rng.randrange(vocab) for _ in range(long_len)] for _ in range(4))
+    bodies, shorts = parallel_bodies(ids, (long_len,), sampled=8)
+    long = {**bodies[0], "temperature": 0.8, "seed": 5}
+    beam = {"tokens": [p_beam], "max_new_tokens": PAR_NEW,
+            "beam_width": PAR_BEAM_WIDTH}
+    spec = {"tokens": [p_spec], "max_new_tokens": PAR_NEW}
+
+    def subdir(name):
+        path = os.path.join(tmp, f"composed_{name}")
+        os.makedirs(path, exist_ok=True)
+        return path
+
+    def model_info(port):
+        return json.loads(asyncio.run(http(port, "GET", "/v1/model")))
+
+    out = {"args": P_ARGS, "e_args": E_ARGS, "ranks": 2}
+    served, launches, walls = [], {}, {}
+    with CountedServe(e_args, subdir("e"), timeout=timeout) as e:
+        ce = Counts(e)
+        p_args = [*base, *P_ARGS, "--fleet-id", "P", "--weights-from",
+                  f"127.0.0.1:{e.port}", *extra_args]
+        with CountedServe(p_args, subdir("p"), timeout=timeout,
+                          ranks=2) as p:
+            out["ready_s"] = p.ready_s
+            # -- 1. the weight wire came in at start-up; promote -------
+            standby = http_status(p.port, "GET", "/health")
+            t0 = time.perf_counter()
+            promoted, _ = timed_post(p.port, "/v3/standby/promote", {})
+            out["promote_ms"] = (time.perf_counter() - t0) * 1e3
+            if not (standby[0] == 503 and standby[2].startswith(b"standby")
+                    and promoted["promoted"] and http_status(
+                        p.port, "GET", "/health")[0] == 200):
+                raise AssertionError(f"P's standby {standby[:1]} and "
+                                     f"promotion {promoted}")
+            before = model_info(p.port)
+            cp = RankCounts(p)
+
+            def run(label, body):
+                rows, wall = asyncio.run(generate_tokens(p.port, body))
+                served.append((label, body, rows[0]))
+                walls.setdefault(label, []).append(wall * 1e3)
+                return rows[0]
+
+            # -- 2. the phase's requests -------------------------------
+            t0 = time.perf_counter()
+            run("long", long)
+            launches["long"] = cp.delta()
+            pool = model_info(p.port)["slot_engine"]
+
+            async def concurrent():
+                return await asyncio.gather(*[generate_tokens(p.port, b)
+                                              for b in shorts])
+
+            for body, (rows, wall) in zip(shorts, asyncio.run(concurrent())):
+                served.append(("concurrent", body, rows[0]))
+                walls.setdefault("concurrent", []).append(wall * 1e3)
+            out["requests_s"] = time.perf_counter() - t0
+            launches["concurrent"] = cp.delta()
+            after = model_info(p.port)
+            pool = {k: after["slot_engine"][k] - pool[k]
+                    for k in ("dispatches", "tokens_out")}
+            staged = after["lockstep"]["staged_bytes"]
+            tokens = sum(len(x[2]) for x in served)
+            out["front_staged_bytes_a_token"] = (
+                staged - before["lockstep"]["staged_bytes"]) / tokens
+            # -- 3. a beam; 4. the speculative engine -------------------
+            beam_got = run("beam", beam)
+            launches["beam"] = cp.delta()
+            spec_before = model_info(p.port)["speculative"]["engine"]
+            run("speculative", spec)
+            launches["speculative"] = cp.delta()
+            spec_after = model_info(p.port)["speculative"]["engine"]
+            out["speculative_dispatches"] = (spec_after["dispatches"]
+                                             - spec_before["dispatches"])
+            # -- 5. the 1024-id request again: a prefix hit -------------
+            hits = model_info(p.port)["prefix_cache"]["hits"]
+            run("prefix_hit", long)
+            launches["prefix_hit"] = cp.delta()
+            if model_info(p.port)["prefix_cache"]["hits"] != hits + 1:
+                raise AssertionError("P's repeat of the 1024-id prompt "
+                                     "was not a prefix hit")
+            # -- 6. KV out of tp, and into tp --------------------------
+            pre, out["prefill_wall_s"] = timed_post(
+                p.port, "/v1/prefill", {"tokens": [p_a]})
+            launches["prefill"] = cp.delta()
+            if not pre["cached"]:
+                raise AssertionError(f"P's /v1/prefill: {pre}")
+            manifest, chunks = asyncio.run(fetch_kv_chunks(
+                "127.0.0.1", p.port, p_a, read_timeout=300.0))
+            entry = rebuild_kv(manifest, chunks)
+            del chunks
+            launches["kv_export"] = cp.delta()
+            ce.delta()
+            pull_e, pull_e_s = timed_post(e.port, "/v1/kv/pull", {
+                "tokens": [p_a], "from": f"127.0.0.1:{p.port}"})
+            launches["kv_export_pull"] = cp.delta()
+            timed_post(e.port, "/v1/prefill", {"tokens": [p_b]})
+            e_manifest, _ = asyncio.run(fetch_kv_chunks(
+                "127.0.0.1", e.port, p_b, read_timeout=300.0))
+            ce.delta()
+            readmit_e = model_info(e.port)["prefix_cache"]["readmitted"]
+            a_body = {"tokens": [p_a], "max_new_tokens": PAR_NEW}
+            e_rows, _ = asyncio.run(generate_tokens(e.port, a_body))
+            served.append(("e_on_p_entry", a_body, e_rows[0]))
+            k_e = ce.delta()
+            readmit_e = model_info(e.port)["prefix_cache"][
+                "readmitted"] - readmit_e
+            pull_p, pull_p_s = timed_post(p.port, "/v1/kv/pull", {
+                "tokens": [p_b], "from": f"127.0.0.1:{e.port}"})
+            launches["kv_import_pull"] = cp.delta()
+            readmit_p = model_info(p.port)["prefix_cache"]["readmitted"]
+            b_body = {"tokens": [p_b], "max_new_tokens": PAR_NEW,
+                      "temperature": 0.8, "seed": 9}
+            run("p_on_e_entry", b_body)
+            launches["kv_import_serve"] = cp.delta()
+            readmit_p = model_info(p.port)["prefix_cache"][
+                "readmitted"] - readmit_p
+            if readmit_e != 1 or readmit_p != 1 or k_e["k1"] or (
+                    launches["kv_import_serve"][0]["k1"]):
+                raise AssertionError(
+                    f"pulled entries: E readmitted +{readmit_e} ({k_e}), "
+                    f"P +{readmit_p} ({launches['kv_import_serve']})")
+            # -- 7. the weights ----------------------------------------
+            pm, em = weights_manifest_of(p.port), weights_manifest_of(e.port)
+            if pm["leaves"] != em["leaves"] or pm["chunks"] != em["chunks"]:
+                raise AssertionError("P's weight digests differ from E's")
+            t0 = time.perf_counter()
+            wm, wchunks = asyncio.run(fetch_weight_chunks(
+                "127.0.0.1", p.port, read_timeout=600.0))
+            weights_s = time.perf_counter() - t0
+            del wchunks
+            launches["weights"] = cp.delta()
+            info = model_info(p.port)
+            launches["total"] = [{k: n[k] for k in n} for n in p.counts()]
+            # -- 8. drain P: its sessions migrate to E ------------------
+            catalog_fields(catalog, ["E", "P"], absent=("role",),
+                           timeout=60)
+            readmit_e = model_info(e.port)["prefix_cache"]["readmitted"]
+            p.proc.send_signal(signal.SIGTERM)
+            probe = {"tokens": long["tokens"], "max_new_tokens": 4}
+            refusal, t_term = None, time.perf_counter()
+            term_wall = time.time()
+            while p.proc.poll() is None and refusal is None:
+                try:
+                    status, headers, _ = http_status(
+                        p.port, "POST", "/v1/generate", probe, 30)
+                except OSError:
+                    break
+                if status == 503 and "x-cp-migrated-to" in headers:
+                    refusal = headers
+                if time.perf_counter() - t_term > 150:
+                    raise AssertionError("P's drain never finished")
+                time.sleep(0.05)
+            if refusal is None or refusal["x-cp-migrated-to"] != "E":
+                raise AssertionError(f"P's refusal while draining: "
+                                     f"{refusal}")
+            ce.delta()
+            d_body = {"tokens": long["tokens"], "max_new_tokens": PAR_NEW}
+            d_rows, _ = asyncio.run(generate_tokens(e.port, d_body))
+            served.append(("e_migrated", d_body, d_rows[0]))
+            k_d = ce.delta()
+            readmit_d = model_info(e.port)["prefix_cache"][
+                "readmitted"] - readmit_e
+            if readmit_d != 1 or k_d["k1"]:
+                raise AssertionError(f"E on the migrated session: "
+                                     f"readmitted +{readmit_d}, {k_d}")
+            p.proc.wait(timeout=300)
+            drain_s = time.perf_counter() - t_term
+            exit_wall = time.time()
+        launches["e"] = ce.total()
+    fetched = re.findall(r"weights fetched from peer \S+ in ([\d.]+)s",
+                         p.log)
+    moved = re.findall(r"migration moved (\d+)/(\d+) entries \((\d+) "
+                       r"bytes, (\d+) failed", p.log)
+    if len(fetched) != 1 or len(moved) != 1:
+        raise AssertionError(f"P's log: {p.log[-3000:]}")
+    # the drain's seconds split by P's own log clock: SIGTERM to the
+    # maintenance line, that to the migration's summary, and the rest
+    # (the in-flight wait, deregistration, the followers' shutdown and
+    # the process group's teardown) to P's exit
+    entered = _log_time(p.log, "serve: entering maintenance (draining)")
+    migrated = _log_time(p.log, "serve: migration moved")
+    drain = {"drain_s": drain_s,
+             "to_maintenance_s": entered - term_wall,
+             "migration_s": migrated - entered,
+             "migration_to_exit_s": exit_wall - migrated,
+             "inflight_wait_timed_out": "drain timed out" in p.log,
+             "followers_killed": "did not exit in 30 s; killed" in p.log}
+    lockstep = info["lockstep"]
+    if not (lockstep["agree"] and len(lockstep["ranks"]) == 2 and len(
+            {r["prefix"] for r in lockstep["ranks"]}) == 1):
+        raise AssertionError(f"P's ranks disagree: {lockstep}")
+    # ranks sharing a card stage through the host (gloo), a card a rank
+    # is NCCL; either way the round calls collectives, uncaptured
+    own_cards = on_card and torch.cuda.device_count() >= 2
+    if (lockstep["backend"] != ("nccl" if own_cards else "gloo")
+            or lockstep["staging"] != (on_card and not own_cards)
+            or lockstep["step_program"] != ("uncaptured" if on_card
+                                            else "eager")
+            or info["mesh"] != {"data": 1, "model": 2}):
+        raise AssertionError(f"P's mesh {info['mesh']}, lockstep "
+                             f"{lockstep}")
+    # every answer against one rank's plain path
+    judged = []
+    for label, body, got in served:
+        if label == "beam":
+            continue  # judge_beam below
+        if len(got) != body["max_new_tokens"]:
+            raise AssertionError(f"P {label}: {len(got)} tokens served")
+        first, worst, _typical = judge_served(cfg, params, body, got,
+                                              max_len)
+        if worst > NEAR_TIE_TOL:
+            raise AssertionError(f"P {label}: off the one-rank model, worst "
+                                 f"gap {worst} at {first}")
+        judged.append({"path": label, "prompt_len": len(body["tokens"][0]),
+                       "sampled": bool(body.get("temperature")),
+                       "equal_one_rank": first is None, "worst_gap": worst})
+    beam_equal, beam_gap = judge_beam(cfg, params, beam, beam_got, max_len)
+    # P's exported entry against a solo prefill of its prompt
+    with torch.inference_mode():
+        _logits, solo = decode.prefill(
+            params, torch.tensor([p_a], device=params["norm_out"].device),
+            cfg, max_len)
+    kv_err = {}
+    for name in ("k", "v"):
+        ref = solo[name].float().cpu()
+        kv_err[name] = float((entry[name].float() - ref).abs().max()
+                             / ref.abs().max())
+    same_layout = (manifest["skeleton"] == e_manifest["skeleton"]
+                   and manifest["total_bytes"] == e_manifest["total_bytes"]
+                   and [(x["dtype"], x["shape"]) for x in manifest["leaves"]]
+                   == [(x["dtype"], x["shape"])
+                       for x in e_manifest["leaves"]])
+    if (max(kv_err.values()) > KV_REL_TOL or not same_layout
+            or entry["pos"] != len(p_a)):
+        raise AssertionError(f"P's KV entry: rel err {kv_err}, manifest "
+                             f"{manifest['leaves']} vs E's "
+                             f"{e_manifest['leaves']}")
+    kv_bytes = manifest["total_bytes"]
+    if pull_e["bytes"] != kv_bytes or pull_p["bytes"] != kv_bytes:
+        raise AssertionError(f"pulled {pull_e} / {pull_p} of {kv_bytes}")
+    if on_card:
+        # K1 a rank: a 1024-id admission, beam and prefill n_layers; the
+        # speculative row's target and draft prefills n_layers + draft;
+        # none for a hit's extend or the short prompts
+        draft = int(P_ARGS[P_ARGS.index("--draft-layers") + 1])
+        want = {"long": cfg.n_layers, "concurrent": 0, "beam": cfg.n_layers,
+                "speculative": cfg.n_layers + draft, "prefix_hit": 0,
+                "prefill": cfg.n_layers}
+        k2_paths = ("long", "concurrent", "beam", "speculative",
+                    "prefix_hit", "kv_import_serve")
+        bad = [(path, launches[path]) for path, k1 in want.items()
+               if [r["k1"] for r in launches[path]] != [k1, k1]]
+        bad += [(path, launches[path]) for path in k2_paths
+                if not all(r["k2"] > 0 for r in launches[path])]
+        if bad:
+            raise AssertionError(f"P's launches by path: {bad}")
+        # the shorts in the int8 pool: 7 x n_layers K2 a rank a pool
+        # step (m = 8), none at a short's one-shot admission (a prefill
+        # dequantizes its layers), so the count over 7 x n_layers is
+        # the pool steps; the tokens past each short's first (its
+        # admission's) over them are the rows live a step
+        a_step = 7 * cfg.n_layers
+        k2 = [r["k2"] for r in launches["concurrent"]]
+        steps = k2[0] // a_step
+        rows = sum(len(got) - 1 for label, _b, got in served
+                   if label == "concurrent") / max(steps, 1)
+        out["pool"] = {**pool, "k2_a_step": a_step,
+                       "steps_from_k2": steps, "rows_a_step": rows}
+        if k2[0] != k2[1] or k2[0] % a_step or rows < POOL_MIN_ROWS:
+            raise AssertionError(f"P's pool: K2 {k2} by rank over the "
+                                 f"shorts, {steps} steps, {rows} rows a "
+                                 f"step")
+    done, total, moved_bytes, failed = map(int, moved[0])
+    wbytes = wm["total_bytes"]
+    out.update({
+        "judged": judged, "beam_equal_one_rank": beam_equal,
+        "beam_score_rel_gap": beam_gap,
+        "launches_by_path": launches,
+        "k1_launches_by_rank": [r["k1"] for r in launches["total"]],
+        "k2_launches_by_rank": [r["k2"] for r in launches["total"]],
+        "mesh": info["mesh"], "backend": lockstep["backend"],
+        "staging": lockstep["staging"],
+        "step_program": lockstep["step_program"],
+        "ranks_agree": lockstep["agree"],
+        "rank_caches_agree": True,
+        "rank_digests": [r["digest"] for r in lockstep["ranks"]],
+        "lockstep_ops": lockstep["ranks"][0]["ops"],
+        "wall_ms_by_path": walls, "prefix_cache": info["prefix_cache"],
+        "kv_spill": info["kv_spill"],
+        "kv": {"total_bytes": kv_bytes, "rel_err_vs_solo": kv_err,
+               "rel_tol": KV_REL_TOL, "manifest_equal_e": same_layout,
+               "export_pull_s": pull_e_s,
+               "export_pull_gb_s": kv_bytes / pull_e_s / 1e9,
+               "import_pull_s": pull_p_s,
+               "import_pull_gb_s": kv_bytes / pull_p_s / 1e9,
+               "e_readmitted": readmit_e, "p_readmitted": readmit_p},
+        "weights": {"total_bytes": wbytes, "digests_equal_e": True,
+                    "fetch_into_p_s": float(fetched[0]),
+                    "fetch_into_p_gb_s": wbytes / float(fetched[0]) / 1e9,
+                    "fetch_from_p_s": weights_s,
+                    "fetch_from_p_gb_s": wbytes / weights_s / 1e9},
+        "drain": {**drain, "migrated_to": "E",
+                  "landed": f"{prefix_fingerprint(long['tokens'][0]):08x}",
+                  "entries": total, "moved": done, "failed": failed,
+                  "bytes": moved_bytes, "e_readmitted": readmit_d},
+    })
+    del params
+    if on_card:
+        torch.cuda.empty_cache()
+    return out
 
 
 def drive_serve_parallel(tmp, card, device="cuda", model=None, lens=None,
@@ -4092,6 +4544,9 @@ def drive_serve_parallel(tmp, card, device="cuda", model=None, lens=None,
         }
     cpu = torch.Generator()
     cpu.manual_seed(25)
+    result["tp2_int8"] = drive_composed_pod(
+        tmp, card, device, model=model, lens=lens, extra_args=extra_args,
+        timeout=timeout)
     for label, extra, ranks in PAR_RUNS:
         cp = "--cp" in extra
         if cp:
@@ -4103,6 +4558,9 @@ def drive_serve_parallel(tmp, card, device="cuda", model=None, lens=None,
                             generator=cpu).tolist()
         longs, shorts = parallel_bodies(ids, lens["cp" if cp else "tp"],
                                         shorts=1 if cp else 8)
+        # under --cp a beam too: on the model axis, seq ranks repeating it
+        beam = ({"tokens": [ids[:64]], "max_new_tokens": PAR_NEW,
+                 "beam_width": PAR_BEAM_WIDTH} if cp else None)
         out = {"args": [*PAR_ARGS, *extra], "ranks": ranks}
         if device == "cuda":
             torch.cuda.empty_cache()
@@ -4125,6 +4583,10 @@ def drive_serve_parallel(tmp, card, device="cuda", model=None, lens=None,
             for rows, wall in asyncio.run(concurrent()):
                 served.append(rows[0])
                 walls.append(wall * 1e3)
+            if beam is not None:
+                rows, wall = asyncio.run(generate_tokens(port, beam))
+                beam_got = rows[0]
+                walls.append(wall * 1e3)
             drive_s = time.perf_counter() - t0
             counts = srv.counts()
             info = json.loads(asyncio.run(http(port, "GET", "/v1/model")))
@@ -4143,6 +4605,14 @@ def drive_serve_parallel(tmp, card, device="cuda", model=None, lens=None,
             judged.append({"prompt_len": len(body["tokens"][0]),
                            "equal_one_rank": first is None,
                            "worst_gap": worst})
+        if beam is not None:
+            check_rows([beam_got], 1, PAR_NEW, cfg.vocab_size)
+            equal, gap = judge_beam(cfg, params, beam, beam_got,
+                                    parsed.max_len)
+            judged.append({"prompt_len": len(beam["tokens"][0]),
+                           "beam_width": PAR_BEAM_WIDTH,
+                           "equal_one_rank": equal,
+                           "beam_score_rel_gap": gap})
         lockstep = info["lockstep"]
         want_mesh = ({"data": 1, "seq": 2, "model": 2} if cp
                      else {"data": 1, "model": 2})
@@ -5129,7 +5599,13 @@ def main() -> int:
     shard_k2 = serve_parallel["per_shard_kernels"]["int8_matmul"]
     par_launches = {
         key: {label: serve_parallel[label][f"{key}_launches_by_rank"]
-              for label, _extra, _ranks in PAR_RUNS}
+              for label in ("tp2", "tp2_int8", "tp2_cp2")}
+        for key in ("k1", "k2")}
+    # the composed pod P: a rank's launches on each of its paths
+    pod_paths = {
+        key: {path: [r[key] for r in by_rank] for path, by_rank in
+              serve_parallel["tp2_int8"]["launches_by_path"].items()
+              if path != "e"}
         for key in ("k1", "k2")}
 
     # ---- the trainer across ranks: checkpoints, crash, resume, LoRA -----
@@ -5218,6 +5694,7 @@ def main() -> int:
             "per_shard_serving": {
                 **kernel_case(shard_k1),
                 "launches_by_rank": par_launches["k1"],
+                "composed_pod_launches_by_path": pod_paths["k1"],
                 "serve_pod_launches_by_rank":
                     serve_pod["k1_launches_by_rank"]},
         },
@@ -5328,6 +5805,7 @@ def main() -> int:
                                                        SHARD_INT8_PROJ)
                               for m in (1, 8)},
                 "launches_by_rank": par_launches["k2"],
+                "composed_pod_launches_by_path": pod_paths["k2"],
                 "serve_pod_launches_by_rank":
                     serve_pod["k2_launches_by_rank"]},
         },

@@ -138,9 +138,18 @@ def weights_manifest(
     ``tree_util`` order. Blocking (a host copy per leaf): executor-wrap
     it. The chunk bytes are re-derived at serve time, so the server
     never holds a second full copy of the params."""
+    return manifest_of_leaves(param_leaves(params), chunk_bytes)
+
+
+def manifest_of_leaves(
+    named_leaves: Any, chunk_bytes: int = WEIGHT_CHUNK
+) -> Dict[str, Any]:
+    """``weights_manifest`` of ``(name, leaf)`` pairs in flat order, an
+    iterable that may make each leaf as it is reached (a server over
+    ranks gathers them one at a time): no leaf is kept."""
     leaves: List[Dict[str, Any]] = []
     chunks: List[Dict[str, Any]] = []
-    for index, (name, leaf) in enumerate(param_leaves(params)):
+    for index, (name, leaf) in enumerate(named_leaves):
         dtype, shape, data = leaf_image(leaf)
         leaves.append(
             {"name": name, "dtype": dtype, "shape": shape,

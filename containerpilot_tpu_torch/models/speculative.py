@@ -281,8 +281,10 @@ class SpeculativeStepProgram:
         draft_params: Params,
         max_len: int,
         speculate: int = 4,
+        mesh=None,
     ) -> None:
         _check_pair(cfg, draft_cfg, speculate)
+        self.mesh = mesh
         self.cfg = cfg
         self.draft_cfg = draft_cfg
         self.params = params
@@ -313,7 +315,8 @@ class SpeculativeStepProgram:
         prompt = torch.tensor([req.tokens], dtype=torch.int64,
                               device=logits.device)
         _dlogits, self._dcache = prefill(
-            self.draft_params, prompt, self.draft_cfg, self.max_len
+            self.draft_params, prompt, self.draft_cfg, self.max_len,
+            self.mesh,
         )
         self._cache = row_cache
         self._prev = torch.argmax(logits, dim=-1)  # [1]
@@ -334,7 +337,7 @@ class SpeculativeStepProgram:
         assert k >= 1, (self._pos, budgets)
         drafts, target_choice, self._cache, self._dcache = _dispatch_round(
             self.params, self.draft_params, self.cfg, self.draft_cfg,
-            self._cache, self._dcache, self._prev, k,
+            self._cache, self._dcache, self._prev, k, self.mesh,
         )
         return drafts, target_choice, k
 

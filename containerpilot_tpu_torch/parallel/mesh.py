@@ -135,6 +135,10 @@ class Mesh:
                 f"mesh {self.shape} was made without a process group (a "
                 f"layout only): no collective over {axis!r}") from None
 
+    def coords_of(self, rank: int) -> Dict[str, int]:
+        """Rank ``rank``'s coordinates on this mesh."""
+        return dict(zip(self.axis_names, _unravel(rank, self._axes)))
+
     def ranks_along(self, axis: str) -> List[int]:
         """Global ranks of this rank's group along ``axis``, in axis
         order."""

@@ -38,7 +38,10 @@ is an op of its own.
 Every op that yields tokens or scores folds them into a per-rank digest
 (``record_tokens``); ``check`` gathers every rank's digest, op count and
 kernel launch counts, and the front reports whether the ranks agree
-(``/v1/model``'s ``lockstep``).
+(``/v1/model``'s ``lockstep``). State that each rank keeps of its own
+but that the op order must keep equal, such as a prefix cache's keys in
+LRU order, joins the check through ``watch``: a digest of it is
+gathered with the rest and must agree too.
 """
 from __future__ import annotations
 
@@ -78,6 +81,8 @@ class Lockstep:
             list(range(self.size)), backend="gloo",
             timeout=datetime.timedelta(seconds=max(4 * deadline_s, 300.0)))
         self.handlers: Dict[str, Callable] = {"check": self._check}
+        # name -> digest of rank-local state that must agree (``watch``)
+        self.watched: Dict[str, Callable[[], str]] = {}
         self.ops = 0
         self.tokens = 0
         self._digest = hashlib.blake2b(digest_size=8)
@@ -92,6 +97,12 @@ class Lockstep:
         """Add op handlers (name -> callable of the op's arguments); the
         front and every follower register the same names."""
         self.handlers.update(handlers)
+
+    def watch(self, name: str, digest: Callable[[], str]) -> None:
+        """Hold rank-local state to agreement: ``digest()`` (a string,
+        equal on every rank while the state is) joins every ``check``
+        under ``name``."""
+        self.watched[name] = digest
 
     # -- the front ------------------------------------------------------
 
@@ -214,11 +225,12 @@ class Lockstep:
 
         mine = {"rank": self.rank, "ops": self.ops, "tokens": self.tokens,
                 "digest": self.digest(),
-                "k1_launches": flash.LAUNCHES, "k2_launches": quant.LAUNCHES}
+                "k1_launches": flash.LAUNCHES, "k2_launches": quant.LAUNCHES,
+                **{name: fn() for name, fn in self.watched.items()}}
         ranks = [None] * self.size
         dist.all_gather_object(ranks, mine, group=self.group)
-        agree = all(r["digest"] == ranks[0]["digest"]
-                    and r["ops"] == ranks[0]["ops"] for r in ranks)
+        keys = ("digest", "ops", *self.watched)
+        agree = all(r[k] == ranks[0][k] for r in ranks for k in keys)
         out = {"ranks": ranks, "agree": agree}
         if self.front:
             if not agree:

@@ -169,8 +169,11 @@ def _map(fn, tree, *rest):
     return fn(tree, *rest)
 
 
-def local_slice(t: torch.Tensor, rule: Rule, mesh: Any) -> torch.Tensor:
-    """This rank's block of the full tensor ``t`` under ``rule``."""
+def local_slice(t: torch.Tensor, rule: Rule, mesh: Any,
+                coords: Optional[Dict[str, int]] = None) -> torch.Tensor:
+    """This rank's block of the full tensor ``t`` under ``rule`` (the
+    block of the rank at ``coords``, when given)."""
+    coords = mesh.coords if coords is None else coords
     for dim, axis in enumerate(rule):
         if axis is None:
             continue
@@ -179,7 +182,7 @@ def local_slice(t: torch.Tensor, rule: Rule, mesh: Any) -> torch.Tensor:
             raise ValueError(
                 f"dim {dim} of {tuple(t.shape)} does not divide by the "
                 f"{axis!r} axis of {n}")
-        t = t.chunk(n, dim=dim)[mesh.coords.get(axis, 0)]
+        t = t.chunk(n, dim=dim)[coords.get(axis, 0)]
     return t
 
 
@@ -191,8 +194,7 @@ def shard_params(params: Any, mesh: Any, cfg: Optional[Any] = None,
         rules = param_sharding_rules(cfg, mesh)
     rules = quantized_rules(rules, params)
     return _map(lambda t, r: local_slice(t, r, mesh).contiguous()
-                if any(a is not None and mesh.shape.get(a, 1) > 1
-                       for a in r) else t,
+                if sharded_by(r, mesh) else t,
                 params, rules)
 
 
@@ -213,6 +215,72 @@ def gather_params(params: Any, mesh: Any, cfg: Optional[Any] = None,
         rules = param_sharding_rules(cfg, mesh)
     rules = quantized_rules(rules, params)
     return _map(lambda t, r: gather_leaf(t.detach(), r, mesh), params, rules)
+
+
+def leaf_rules(params: Any, mesh: Any, cfg: Optional[Any] = None
+               ) -> Dict[str, Any]:
+    """The rule tree of a serving tree (float or quantized) under the
+    tensor-parallel rules; ``params`` may be whole or a rank's blocks,
+    except that a quantized tree's scale rules read its shapes."""
+    return quantized_rules(param_sharding_rules(cfg, mesh), params)
+
+
+def sharded_by(rule: Rule, mesh: Any) -> bool:
+    """Whether ``rule`` cuts a leaf on ``mesh`` (an axis of size > 1)."""
+    return any(a is not None and mesh.shape.get(a, 1) > 1 for a in rule)
+
+
+# -- a KV cache entry of a rank's kv heads --------------------------------
+# A cache entry's k/v are [layers, batch, length, kv_heads, head_dim] (the
+# int8 scales drop head_dim): a rank holds ``decode.cache_kv_heads`` of
+# them. When tp divides the kv heads they are split over ``model`` in
+# head order; otherwise each rank holds the kv of its query heads,
+# repeated from the replicated weights, and the whole entry sends each kv
+# head once. The seq axis holds replicas: nothing gathers over it.
+
+KV_HEAD_DIM = 3
+
+
+def _kv_group(cfg: Any, mesh: Any) -> int:
+    """Query heads a kv head serves when a rank's cache repeats them
+    (replicated GQA weights), 1 when the kv heads split over ``model``."""
+    tp = mesh.axis_size("model")
+    return 1 if cfg.kv_heads % tp == 0 else cfg.n_heads // cfg.kv_heads
+
+
+def gather_kv_entry(entry: Dict[str, Any], cfg: Any, mesh: Any
+                    ) -> Dict[str, Any]:
+    """The whole entry (every kv head once) from each rank's: an
+    all-gather of the head axis over ``model`` (collective: every rank
+    of the mesh calls it). ``pos`` and anything without a head axis pass
+    through."""
+    group = _kv_group(cfg, mesh)
+    out = {}
+    for name, leaf in entry.items():
+        if isinstance(leaf, torch.Tensor) and leaf.dim() > KV_HEAD_DIM:
+            leaf = mesh.all_gather(leaf, "model", KV_HEAD_DIM)
+            if group > 1:
+                leaf = leaf[(slice(None),) * KV_HEAD_DIM
+                            + (slice(None, None, group),)].contiguous()
+        out[name] = leaf
+    return out
+
+
+def local_kv_entry(entry: Dict[str, Any], cfg: Any, mesh: Any
+                   ) -> Dict[str, Any]:
+    """This rank's part of a whole entry (``gather_kv_entry``'s
+    inverse): its block of the kv heads, or the repeated kv of its query
+    heads. A contiguous copy, so the whole entry can be freed."""
+    group = _kv_group(cfg, mesh)
+    out = {}
+    for name, leaf in entry.items():
+        if isinstance(leaf, torch.Tensor) and leaf.dim() > KV_HEAD_DIM:
+            if group > 1:
+                leaf = leaf.repeat_interleave(group, dim=KV_HEAD_DIM)
+            leaf = leaf.chunk(mesh.axis_size("model"), dim=KV_HEAD_DIM)[
+                mesh.axis_index("model")].contiguous()
+        out[name] = leaf
+    return out
 
 
 def state_rules(params: Any, opt_state: Any, layout: Any):

@@ -72,16 +72,23 @@ prefill/decode/idle at request boundaries. The server speaks cp-mux/1
 Serving over ranks (``mesh``, ``lockstep``: ``--tp``/``--cp``, one
 process a rank, parallel/serving.py): this server is the FRONT, on rank
 0, over its blocks of the params. Every device call (a Batcher batch,
-chunked and context-parallel prefill, ``/v1/score``, the slot engine's
-verbs, the warmup) is a lockstep op: broadcast to the followers
-(``ServingFollower``, no HTTP surface), then run here. Single rows at
-least ``cp_min_len`` long ring their prefill over the mesh's ``seq``
-axis (``cp_mesh``; serve_strategies.run_cp, or the slot engine's
-admission). ``/v1/model`` reports ``mesh`` and ``cp`` in the reference's
-schema, and ``lockstep`` (the ranks, the step program's mode, whether
-every rank's tokens agree). Beams, the speculative engine, the prefix
-cache and the fleet's KV and weight verbs are not ported under a mesh
-and are refused, never served as if the model were whole.
+chunked and context-parallel prefill, a beam, a prefix-cache request,
+``/v1/score``, the slot and speculative engines' verbs, the warmup, the
+fleet verbs' gathers and scatters) is a lockstep op: broadcast to the
+followers (``ServingFollower``, no HTTP surface), then run here. Single
+rows at least ``cp_min_len`` long ring their prefill over the mesh's
+``seq`` axis (``cp_mesh``; serve_strategies.run_cp, or the slot engine's
+admission). Every rank keeps a prefix cache (and spill tier) of its own
+KV blocks under the same keys, and the lockstep's check holds their
+keys equal. The fleet's wire does not change: ``/v1/kv`` and
+``/v1/weights`` send whole entries and params, gathered over ``model``
+(``parallel.sharding.gather_kv_entry``, ``gather_leaf``), and
+``/v1/kv/pull`` hands the whole entry to every rank, which keeps its
+part (``local_kv_entry``), so a pod, a one-rank replica and a JAX
+replica read each other. ``/v1/model`` reports ``mesh`` and ``cp`` in
+the reference's schema, and ``lockstep`` (the ranks, the step program's
+mode, whether every rank's tokens and caches agree). Under ``--cp`` the
+reference's own refusals stand (``refuse_cp_compositions``).
 
 A fleet member (fleet/member.py) heartbeats the server's ``occupancy``,
 ``role``, ``kv_note``, ``prefix_digest_note``, ``goodput_note`` and
@@ -165,7 +172,8 @@ def score_rows(srv: Any, tokens: List[List[int]]):
 
 
 def warm_shapes(srv: Any) -> None:
-    """The warmup's device work: the default-shaped requests once."""
+    """The warmup's device work: the default-shaped requests once, then,
+    with a draft, every speculative round shape."""
     for prompt_len in (4, 16):
         if prompt_len + 16 > srv.max_len:
             continue
@@ -176,19 +184,175 @@ def warm_shapes(srv: Any) -> None:
             srv.params, prompt, srv.cfg, max_new_tokens=16,
             max_len=srv.max_len, mesh=srv.mesh,
         )
+    if srv.draft_params is not None and srv.max_len >= 20:
+        warm_speculative(
+            srv.params, srv.draft_params, srv.cfg, srv.draft_cfg,
+            srv.speculate, srv.max_len, mesh=srv.mesh,
+        )
+
+
+def _split(srv: Any) -> bool:
+    """Whether ``srv``'s params and KV are cut over a ``model`` axis."""
+    return srv.mesh is not None and srv.mesh.axis_size("model") > 1
+
+
+def _every_rank(srv: Any, flag: bool) -> bool:
+    """``flag`` and-ed over every rank (one gather on the op channel)."""
+    if srv.lockstep is None:
+        return flag
+    flags = [None] * srv.lockstep.size
+    torch.distributed.all_gather_object(flags, bool(flag),
+                                        group=srv.lockstep.group)
+    return all(flags)
+
+
+def export_kv(srv: Any, key: tuple):
+    """The prefix cache's entry for ``key`` as a whole host tree (device
+    tier first, else the spill tier; no readmit, no MRU bump), or None
+    when it is gone. Over ranks every rank's part is gathered over
+    ``model``, and the front gets the tree."""
+    from ..kvtier.spill import to_device, to_host
+    from ..parallel.sharding import gather_kv_entry
+
+    pc = srv.prefix_cache
+    entry = pc.device_entry(key)
+    if entry is None and pc.spill is not None:
+        # spilled entries are already on the host
+        entry = pc.spill.peek(key)
+    if not _every_rank(srv, entry is not None):
+        return None
+    if _split(srv):
+        entry = gather_kv_entry(to_device(entry, srv.device), srv.cfg,
+                                srv.mesh)
+        if not srv.lockstep.front:
+            return None
+    return to_host(entry)
+
+
+def adopt_kv(srv: Any, key: tuple, host_tree: Any) -> int:
+    """A whole host entry into the spill tier (``PrefixCache.adopt_host``);
+    over ranks each rank adopts its part. Returns the bytes adopted
+    here."""
+    if _split(srv):
+        from ..parallel.sharding import local_kv_entry
+
+        host_tree = local_kv_entry(host_tree, srv.cfg, srv.mesh)
+    return srv.prefix_cache.adopt_host(tuple(key), host_tree)
+
+
+def _param_leaves(srv: Any):
+    """(keystr name, leaf, rule) of the params in the wire's order; the
+    rule is None when the leaf is whole on this rank."""
+    from ..fleet.standby import param_leaves
+    from ..parallel.sharding import leaf_rules, sharded_by
+
+    leaves = param_leaves(srv.params)
+    if not _split(srv):
+        return [(name, leaf, None) for name, leaf in leaves]
+    rules = param_leaves(leaf_rules(srv.params, srv.mesh, srv.cfg))
+    return [(name, leaf, rule if sharded_by(rule, srv.mesh) else None)
+            for (name, leaf), (_n, rule) in zip(leaves, rules)]
+
+
+def _whole(srv: Any, leaf, rule):
+    """A leaf whole: gathered along its rule over ranks (collective)."""
+    from ..parallel.sharding import gather_leaf
+
+    return leaf if rule is None else gather_leaf(leaf.detach(), rule,
+                                                 srv.mesh)
+
+
+def weights_manifest_op(srv: Any):
+    """The weight wire's manifest of the whole params (the front's;
+    None on a follower, which only takes part in the gathers). Each leaf
+    is gathered as the manifest reaches it and dropped after."""
+    from ..fleet.standby import manifest_of_leaves
+
+    leaves = ((name, _whole(srv, leaf, rule))
+              for name, leaf, rule in _param_leaves(srv))
+    if srv.lockstep is not None and not srv.lockstep.front:
+        for _leaf in leaves:
+            pass
+        return None
+    return manifest_of_leaves(leaves)
+
+
+def weight_leaf_bytes(srv: Any, index: int):
+    """The byte image of whole leaf ``index`` (the front's; None on a
+    follower)."""
+    from ..fleet.standby import leaf_bytes
+
+    _name, leaf, rule = _param_leaves(srv)[index]
+    leaf = _whole(srv, leaf, rule)
+    if srv.lockstep is not None and not srv.lockstep.front:
+        return None
+    return leaf_bytes(leaf)
 
 
 def serving_ops(srv: Any) -> Dict[str, Any]:
-    """The server's lockstep ops (besides the slot engine's verbs), each
-    a call on ``srv``: an ``InferenceServer`` on the front, a
-    ``ServingFollower`` elsewhere."""
+    """The server's lockstep ops (besides the slot and speculative
+    engines' verbs), each a call on ``srv``: an ``InferenceServer`` on
+    the front, a ``ServingFollower`` elsewhere."""
     return {
         "generate": lambda jobs: generate_rows(srv, jobs),
         "chunked": lambda *args: serve_strategies.run_chunked(srv, *args),
         "cp": lambda tokens, p: serve_strategies.run_cp(srv, tokens, p),
+        "beam": lambda *args: serve_strategies.run_beam(srv, *args),
+        "prefix": lambda *args: generate_with_prefix(srv, *args),
         "score": lambda tokens: score_rows(srv, tokens),
         "warm": lambda: warm_shapes(srv),
+        "kv.export": lambda key: export_kv(srv, key),
+        "kv.adopt": lambda key, tree: adopt_kv(srv, key, tree),
+        "weights.manifest": lambda: weights_manifest_op(srv),
+        "weights.leaf": lambda index: weight_leaf_bytes(srv, index),
     }
+
+
+def make_prefix_cache(entries: int, spill_bytes: int, device,
+                      lockstep: Any = None) -> Optional[PrefixCache]:
+    """``--prefix-cache`` with its spill tier (``--kv-spill-mb``, a
+    rank's budget over ranks), held to agreement over a lockstep."""
+    if entries <= 0:
+        return None
+    spill = None
+    if spill_bytes > 0:
+        # host-RAM floor under the device LRU: evictions spill, later
+        # matches copy back (kvtier/spill.py)
+        from ..kvtier.spill import HostSpillTier
+
+        spill = HostSpillTier(spill_bytes, device=device)
+    pc = PrefixCache(entries, spill=spill)
+    if lockstep is not None:
+        lockstep.watch("prefix", pc.keys_digest)
+    return pc
+
+
+def make_spec_engine(srv: Any, draft_layers: int, prefill_chunk: int,
+                     worker: bool = True):
+    """The speculative engine: a slot engine over a
+    ``SpeculativeStepProgram`` whose draft is the target's first
+    ``draft_layers`` layers (of a rank's blocks, over ranks). Sets
+    ``srv.draft_params``/``draft_cfg``; its verbs are ``spec.*`` ops."""
+    from ..models.speculative import (
+        SpeculativeStepProgram,
+        layer_prefix_draft,
+    )
+    from .serve_slots import SlotEngine
+
+    srv.draft_params, srv.draft_cfg = layer_prefix_draft(
+        srv.params, srv.cfg, draft_layers
+    )
+    # one slot, the verify rollback a per-sequence pos rewind. No
+    # ledger: the slot engine (or, without one, the handler window in
+    # _instrumented) owns the stamps
+    return SlotEngine(
+        srv.cfg, srv.params, srv.max_len, prefill_chunk=prefill_chunk,
+        program=SpeculativeStepProgram(
+            srv.cfg, srv.draft_cfg, srv.params, srv.draft_params,
+            srv.max_len, speculate=srv.speculate, mesh=srv.mesh,
+        ),
+        mesh=srv.mesh, lockstep=srv.lockstep, worker=worker, name="spec",
+    )
 
 
 def refuse_cp_compositions(draft_layers: int, prefix_cache_entries: int,
@@ -219,23 +383,6 @@ def resolve_cp(cp_mesh, cp_min_len: int, max_len: int, cfg,
     cp_min_len = resolve_cp_min_len(cp_min_len, seq_axis, max_len)
     refuse_cp_compositions(draft_layers, prefix_cache_entries, cfg.window)
     return cp_min_len
-
-
-def unported_under_mesh(draft_layers: int = 0, prefix_cache_entries: int = 0,
-                        kv_spill_bytes: int = 0, role: str = "active"):
-    """The first composition this port does not serve over ranks, as
-    ``(flag, message)``, or None."""
-    for flag, on in (
-        ("--draft-layers", draft_layers > 0),
-        ("--prefix-cache", prefix_cache_entries > 0),
-        ("--kv-spill-mb", kv_spill_bytes > 0),
-        ("--standby", role == "standby"),
-        ("--role", role in ("prefill", "decode")),
-    ):
-        if on:
-            return flag, (f"{flag} is not ported yet under --tp/--cp "
-                          "(see ROADMAP.md queue 1)")
-    return None
 
 
 def _parse_token_rows(body: Dict[str, Any], vocab: int, min_row_len: int):
@@ -355,10 +502,6 @@ class InferenceServer:
                 cp_mesh, cp_min_len, max_len, cfg, draft_layers,
                 prefix_cache_entries)
         if self.sharded:
-            refused = unported_under_mesh(draft_layers, prefix_cache_entries,
-                                          kv_spill_bytes, role)
-            if refused is not None:
-                raise ValueError(refused[1])
             if lockstep is None and torch.distributed.is_initialized():
                 raise ValueError(
                     "serving over ranks needs a lockstep "
@@ -395,17 +538,8 @@ class InferenceServer:
                 "--kv-spill requires --prefix-cache (the spill tier "
                 "catches the prefix cache's evictions)"
             )
-        spill = None
-        if kv_spill_bytes > 0:
-            # host-RAM floor under the device LRU: evictions spill, later
-            # matches copy back (kvtier/spill.py)
-            from ..kvtier.spill import HostSpillTier
-
-            spill = HostSpillTier(kv_spill_bytes, device=self.device)
-        self.prefix_cache = (
-            PrefixCache(prefix_cache_entries, spill=spill)
-            if prefix_cache_entries > 0 else None
-        )
+        self.prefix_cache = make_prefix_cache(
+            prefix_cache_entries, kv_spill_bytes, self.device, lockstep)
         # continuous decode admission: single-row requests join a running
         # chunk loop over a fixed slot pool (serve_slots.py)
         self.slot_engine = None
@@ -438,28 +572,11 @@ class InferenceServer:
                 cp_mesh=cp_mesh, cp_min_len=self.cp_min_len,
                 mesh=self.mesh, lockstep=lockstep,
             )
-        self.spec_engine = None
-        if draft_layers > 0:
-            from ..models.speculative import (
-                SpeculativeStepProgram,
-                layer_prefix_draft,
-            )
-            from .serve_slots import SlotEngine
-
-            self.draft_params, self.draft_cfg = layer_prefix_draft(
-                params, cfg, draft_layers
-            )
-            # speculative decoding rides a slot engine of its own as a
-            # step program: one slot, the verify rollback a per-sequence
-            # pos rewind. No ledger: the slot engine (or, without one,
-            # the handler window in _instrumented) owns the stamps
-            self.spec_engine = SlotEngine(
-                cfg, params, max_len, prefill_chunk=prefill_chunk,
-                program=SpeculativeStepProgram(
-                    cfg, self.draft_cfg, params, self.draft_params,
-                    max_len, speculate=speculate,
-                ),
-            )
+        # speculative decoding rides a slot engine of its own
+        self.spec_engine = (
+            make_spec_engine(self, draft_layers, prefill_chunk)
+            if draft_layers > 0 else None
+        )
         self._executor = ThreadPoolExecutor(
             max_workers=1, thread_name_prefix="inference"
         )
@@ -507,8 +624,7 @@ class InferenceServer:
         )
         # the disaggregated prefill/decode handoff (kvtier/handoff.py)
         # and drain migration, registered outside _instrumented: a
-        # draining replica still serves them; over ranks none of them
-        # is ported (a rank holds blocks, not the whole model)
+        # draining replica still serves them
         for method, path, handler in (
             ("GET", "/v1/weights", self._weights),
             ("POST", "/v1/prefill", self._prefill_verb),
@@ -516,8 +632,7 @@ class InferenceServer:
             ("POST", "/v1/kv/pull", self._kv_pull),
             ("POST", "/v1/migrate", self._migrate_verb),
         ):
-            self._server.route(method, path, self._unported_verb
-                               if self.sharded else handler)
+            self._server.route(method, path, handler)
         route = self._instrumented
         self._server.route("GET", "/v1/model",
                            route("model", self._model_info))
@@ -549,11 +664,6 @@ class InferenceServer:
         if self.lockstep is not None:
             return self.lockstep.call(name, args)
         return self._ops[name](*args)
-
-    async def _unported_verb(self, _req: Request) -> Response:
-        return Response(
-            501, b"not ported yet under --tp/--cp (a rank holds blocks "
-            b"of the model)\n")
 
     # -- handlers -------------------------------------------------------
 
@@ -642,10 +752,12 @@ class InferenceServer:
             self._weights_lock = asyncio.Lock()
         async with self._weights_lock:
             if self._weights_manifest_cache is None:
-                from ..fleet.standby import encode_manifest, weights_manifest
+                from ..fleet.standby import encode_manifest
 
+                # over ranks every leaf is gathered, digested on the
+                # front and dropped
                 manifest = await asyncio.get_running_loop().run_in_executor(
-                    None, weights_manifest, self.params
+                    None, self._device_call, "weights.manifest"
                 )
                 self._weights_manifest_bytes = encode_manifest(manifest)
                 self._weights_manifest_cache = manifest
@@ -666,7 +778,8 @@ class InferenceServer:
         """``GET /v1/weights[?chunk=K]``: the params as a length-prefixed
         manifest followed by digest-verified chunks from flat chunk index
         K (the resume point after a connection death). Each leaf is
-        copied to the host on an executor as the stream reaches it."""
+        copied to the host on an executor as the stream reaches it (over
+        ranks, gathered whole first: a lockstep op a leaf)."""
         manifest = await self._ensure_weights_manifest()
         start = self._chunk_start(req)
         if isinstance(start, Response):
@@ -676,10 +789,7 @@ class InferenceServer:
             return Response(
                 422, f"chunk must be in [0, {len(chunk_specs)}]\n".encode()
             )
-        from ..fleet.standby import leaf_bytes, param_leaves
-
         head = self._weights_manifest_bytes
-        flat_leaves = [leaf for _name, leaf in param_leaves(self.params)]
         loop = asyncio.get_running_loop()
 
         async def body():
@@ -690,7 +800,7 @@ class InferenceServer:
                 if spec["leaf"] != current:
                     current = spec["leaf"]
                     data = await loop.run_in_executor(
-                        None, leaf_bytes, flat_leaves[current]
+                        None, self._device_call, "weights.leaf", current
                     )
                 yield data[spec["offset"]:spec["offset"] + spec["len"]]
 
@@ -752,8 +862,9 @@ class InferenceServer:
         """``POST /v1/kv[?chunk=K] {"tokens": [[...]]}``: this replica's
         prefix-cache entry for exactly that prompt, as a length-prefixed
         manifest followed by digest-verified chunks from flat index K.
-        404 when the entry is gone from both tiers. The host copy and
-        serialization run on an executor."""
+        404 when the entry is gone from both tiers. The host copy (over
+        ranks, the gather of every rank's part) and serialization run on
+        an executor."""
         pc = self.prefix_cache
         if pc is None:
             return Response(409, b"no prefix cache on this replica\n")
@@ -768,16 +879,8 @@ class InferenceServer:
 
         def plan():
             from ..kvtier.handoff import kv_transfer_plan
-            from ..kvtier.spill import to_host
 
-            cache = pc.device_entry(key)
-            if cache is not None:
-                host = to_host(cache)
-            elif pc.spill is not None:
-                # spilled entries are already on the host
-                host = pc.spill.peek(key)
-            else:
-                host = None
+            host = self._device_call("kv.export", key)
             return None if host is None else kv_transfer_plan(host)
 
         built = await asyncio.get_running_loop().run_in_executor(None, plan)
@@ -843,8 +946,10 @@ class InferenceServer:
                 trace.finish(502)
             return Response(502, b"kv fetch failed\n")
         host_tree, total_bytes = fetched
+        # over ranks the whole entry reaches every rank (the op's
+        # arguments) and each keeps its part
         adopted = await asyncio.get_running_loop().run_in_executor(
-            None, pc.adopt_host, tuple(row), host_tree
+            None, self._device_call, "kv.adopt", tuple(row), host_tree
         )
         if trace is not None:
             trace.add_span("kv_migrate", t0, time.monotonic())
@@ -1109,10 +1214,6 @@ class InferenceServer:
                     "n does not compose with beam search (beams already "
                     "return one best row)"
                 )
-        if p["beam_width"] and self.sharded:
-            raise ValueError(
-                "beam_width is not ported yet under --tp/--cp (see "
-                "ROADMAP.md queue 1)")
         if p["beam_width"]:
             if p["temperature"] > 0.0 or p["top_k"] or p["top_p"]:
                 raise ValueError(
@@ -1469,7 +1570,7 @@ class InferenceServer:
         single = len(tokens) == 1
         if p["beam_width"]:
             return await timed(trace, loop.run_in_executor(
-                self._executor, serve_strategies.run_beam, self, tokens,
+                self._executor, self._device_call, "beam", tokens,
                 p["max_new_requested"], p["beam_width"], p["eos_id"],
                 p["length_penalty"],
             ))
@@ -1519,7 +1620,7 @@ class InferenceServer:
             # hit -> reuse; miss -> still seed the cache, but only when
             # nothing is queued for the batcher
             return await timed(trace, loop.run_in_executor(
-                self._executor, generate_with_prefix, self, tokens[0],
+                self._executor, self._device_call, "prefix", tokens[0],
                 p["max_new"], p["temperature"], p["top_k"], p["top_p"],
                 p["eos_id"], p["seed"], p["min_new"], p["presence"],
                 p["frequency"], p["logit_bias"],
@@ -1556,13 +1657,8 @@ class InferenceServer:
                      _build.build_dir())
             self._compile_cache_note = compile_cache_note(
                 _build.build_dir())
+        # with a draft, every draft/verify round shape too, before /health
         self._device_call("warm")
-        if self.draft_params is not None and self.max_len >= 20:
-            # every draft/verify round shape, before /health
-            warm_speculative(
-                self.params, self.draft_params, self.cfg,
-                self.draft_cfg, self.speculate, self.max_len,
-            )
         if self.device.type == "cuda":
             torch.cuda.synchronize(self.device)
 
@@ -1845,15 +1941,18 @@ class InferenceServer:
 class ServingFollower:
     """A follower rank of a server over ranks (parallel/serving.py): the
     front's device ops on this rank's blocks, no HTTP surface, no queue.
-    Built with the front's arguments, so its slot engine's step program
-    has the front's shapes; ``run`` follows the front's ops until it
-    shuts down."""
+    Built with the front's arguments, so its slot and speculative
+    engines' step programs have the front's shapes and its prefix cache
+    (with its spill tier, a rank's budget) the front's keys; ``run``
+    follows the front's ops until it shuts down."""
 
     def __init__(self, cfg: TransformerConfig, params: Any, max_len: int,
                  mesh: Any, lockstep: Any, cp_mesh: Any = None,
                  cp_min_len: int = 0, prefill_chunk: int = 0,
                  slots: int = 0, slot_chunk: int = 8,
-                 slot_window: int = 4) -> None:
+                 slot_window: int = 4, draft_layers: int = 0,
+                 speculate: int = 4, prefix_cache_entries: int = 0,
+                 kv_spill_bytes: int = 0) -> None:
         self.cfg, self.params, self.max_len = cfg, params, max_len
         self.mesh, self.lockstep = mesh, lockstep
         self.device = params["norm_out"].device
@@ -1862,8 +1961,11 @@ class ServingFollower:
         self.cp_mesh = cp_mesh
         self.cp_min_len = cp_min_len
         if cp_mesh is not None:
-            self.cp_min_len = resolve_cp(cp_mesh, cp_min_len, max_len, cfg)
+            self.cp_min_len = resolve_cp(cp_mesh, cp_min_len, max_len, cfg,
+                                         draft_layers, prefix_cache_entries)
         self._score_fn = score_logprobs_fn(cfg, mesh)
+        self.prefix_cache = make_prefix_cache(
+            prefix_cache_entries, kv_spill_bytes, self.device, lockstep)
         self.slot_engine = None
         if slots > 0:
             from .serve_slots import SlotEngine
@@ -1872,9 +1974,16 @@ class ServingFollower:
                 cfg, params, max_len, slots=slots, chunk=slot_chunk,
                 window=slot_window_for(max_len, slot_chunk, slot_window),
                 prefill_chunk=prefill_chunk, cp_mesh=cp_mesh,
-                cp_min_len=self.cp_min_len, mesh=mesh, lockstep=lockstep,
-                worker=False,
+                cp_min_len=self.cp_min_len, prefix_cache=self.prefix_cache,
+                mesh=mesh, lockstep=lockstep, worker=False,
             )
+        self.draft_params = self.draft_cfg = None
+        self.speculate = speculate
+        self.spec_engine = (
+            make_spec_engine(self, draft_layers, prefill_chunk,
+                             worker=False)
+            if draft_layers > 0 else None
+        )
         lockstep.register(serving_ops(self))
 
     def run(self) -> int:

@@ -24,11 +24,13 @@ host buffers when ranks share one (printed at startup). Each rank
 restores the one-process checkpoint or makes the seeded init, merges a
 LoRA adapter on the float32 masters, quantizes them under --int8, and
 only then takes its blocks. The front exits non-zero when a follower
-exits or wedges; nothing falls back to one rank. Compositions the
-reference serves over a mesh but this port does not yet (--draft-layers,
---prefix-cache, --kv-spill-mb, --standby, --role, --weights-from,
---fleet-catalog; beams answer 422) exit at startup "... is not ported
-yet under --tp/--cp".
+exits or wedges; nothing falls back to one rank. Every composition the
+reference serves over a mesh is served: beams, --draft-layers,
+--prefix-cache with --kv-spill-mb (a budget a rank: every rank spills
+its own KV blocks, so the same number on each), --standby, --role,
+--weights-from and --fleet-catalog (the front is the fleet member, and
+it alone dials a peer: it fetches the whole params once and hands each
+follower its blocks). Under --cp the reference's refusals stand.
 
 Weights come from the latest ``step_<n>/`` checkpoint of the port's
 trainer under --checkpoint-dir (params only: the optimizer moments stay
@@ -274,11 +276,11 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def check_ported(args: argparse.Namespace) -> None:
     """Refuse at startup, before any rank starts, what the reference
     refuses (its messages: --tp that does not divide the model, the
-    compositions --cp rejects, LoRA flag misuse), and exit with a clear
-    message for a flag this port does not run yet, or not yet under
-    --tp/--cp."""
+    compositions --cp rejects, LoRA flag misuse, a --weights-from that
+    is not host:port), and exit with a clear message for a flag this
+    port does not run yet."""
     from .modelcfg import derive_d_ff, validate_lora_flags
-    from .serve import refuse_cp_compositions, unported_under_mesh
+    from .serve import refuse_cp_compositions
 
     for dest, (flag, default) in _NOT_PORTED.items():
         if getattr(args, dest) != default:
@@ -294,18 +296,11 @@ def check_ported(args: argparse.Namespace) -> None:
         refuse_cp_compositions(args.draft_layers, args.prefix_cache,
                                args.window)
     validate_lora_flags(args.lora_dir, args.lora_rank)
-    if tp * cp > 1:
-        role = "standby" if args.standby else (
-            "active" if args.role == "mixed" else args.role)
-        refused = unported_under_mesh(
-            args.draft_layers, args.prefix_cache, args.kv_spill_mb, role)
-        for flag, on in (("--weights-from", bool(args.weights_from)),
-                         ("--fleet-catalog", bool(args.fleet_catalog))):
-            if refused is None and on:
-                refused = (flag, f"{flag} is not ported yet under "
-                           "--tp/--cp (see ROADMAP.md queue 1)")
-        if refused is not None:
-            raise SystemExit(refused[1])
+    if args.weights_from and not args.weights_from.rpartition(":")[
+            2].isdigit():
+        raise SystemExit(
+            f"--weights-from wants host:port, got {args.weights_from!r}"
+        )
 
 
 def _validate_tp(n_heads: int, d_ff: int, vocab: int, moe_experts: int,
@@ -318,6 +313,25 @@ def _validate_tp(n_heads: int, d_ff: int, vocab: int, moe_experts: int,
             raise SystemExit(f"--tp {tp} must divide {name} ({size})")
     if moe_experts > 1 and moe_experts % tp:
         raise SystemExit(f"--tp {tp} must divide moe_experts ({moe_experts})")
+
+
+def model_config(args: argparse.Namespace):
+    """The model's ``TransformerConfig`` per the flags."""
+    from ..models.transformer import TransformerConfig
+    from .modelcfg import derive_d_ff
+
+    return TransformerConfig(
+        vocab_size=args.vocab,
+        d_model=args.d_model,
+        n_heads=args.n_heads,
+        n_kv_heads=args.n_kv_heads,
+        n_layers=args.n_layers,
+        d_ff=derive_d_ff(args.d_model),
+        max_seq_len=args.max_len,
+        moe_experts=args.moe_experts,
+        window=args.window,
+        kv_int8=args.kv_int8,
+    )
 
 
 def load_model(args: argparse.Namespace, mesh=None, device=None,
@@ -342,27 +356,15 @@ def load_model(args: argparse.Namespace, mesh=None, device=None,
         param_bytes,
         quantize_model_params,
     )
-    from ..models.transformer import TransformerConfig, init_params
+    from ..models.transformer import init_params
     from ..parallel.sharding import shard_params
     from .modelcfg import (
-        derive_d_ff,
         merge_lora,
         restore_params_only,
         validate_lora_flags,
     )
 
-    cfg = TransformerConfig(
-        vocab_size=args.vocab,
-        d_model=args.d_model,
-        n_heads=args.n_heads,
-        n_kv_heads=args.n_kv_heads,
-        n_layers=args.n_layers,
-        d_ff=derive_d_ff(args.d_model),
-        max_seq_len=args.max_len,
-        moe_experts=args.moe_experts,
-        window=args.window,
-        kv_int8=args.kv_int8,
-    )
+    cfg = model_config(args)
     device = args.device if device is None else device
     multi = mesh is not None and mesh.size > 1
     # blocks from the start, unless --int8 needs the whole tree first
@@ -419,6 +421,82 @@ def fetch_peer_weights(args: argparse.Namespace, params):
         print(f"weights fetched from peer {args.weights_from} in "
               f"{time.perf_counter() - t0:.3f}s", flush=True)
     return fetched
+
+
+def fleet_backend(args: argparse.Namespace):
+    """--fleet-catalog's discovery backend (None without the flag),
+    after adopting a same-host peer's kernel build directory when asked
+    (so the kernels this process builds next are loaded, not built)."""
+    import os
+
+    if not args.fleet_catalog:
+        return None
+    from ..discovery.factory import new_backend
+
+    backend = new_backend(args.fleet_catalog)
+    if backend is None:
+        raise SystemExit("--fleet-catalog resolved to no discovery backend")
+    if (args.adopt_compile_cache
+            and not os.environ.get("CONTAINERPILOT_TORCH_BUILD_DIR")):
+        from .modelcfg import adopt_fleet_compile_cache
+
+        adopted = adopt_fleet_compile_cache(backend, args.fleet_service)
+        if adopted:
+            print(f"adopted fleet kernel build dir {adopted}", flush=True)
+    return backend
+
+
+def peer_blocks(args: argparse.Namespace, mesh, lockstep):
+    """--weights-from over ranks: the front alone dials the peer and
+    fetches the whole params once into host memory (the template: empty
+    host tensors of the shapes and dtypes ``load_model`` gives on the
+    meta device, nothing computed), then hands every rank its blocks
+    over the op channel, leaf by leaf, each cut on the host under the
+    tensor-parallel rules (``shard_params``'s); a rank's card only ever
+    holds its own blocks. Returns this rank's blocks, or None on every
+    rank when the fetch failed. Every rank calls it at the same point."""
+    import torch
+    import torch.distributed as dist
+
+    from ..fleet.standby import _unflatten_like, param_leaves
+    from ..parallel.sharding import leaf_rules, local_slice, sharded_by
+
+    whole = None
+    if lockstep.front:
+        # a merged adapter changes no shape: the template skips it
+        cfg, shapes, _ = load_model(
+            argparse.Namespace(**{**vars(args), "lora_dir": ""}),
+            device="meta", say=lambda _line: None)
+        whole = fetch_peer_weights(args, _unflatten_like(shapes, [
+            torch.empty(t.shape, dtype=t.dtype)
+            for _name, t in param_leaves(shapes)]))
+    # the tree's keys (None at the leaves), or None: the fetch failed
+    box = [None if whole is None else _skeleton(whole)]
+    dist.broadcast_object_list(box, src=0, group=lockstep.group)
+    if box[0] is None:
+        return None
+    if whole is not None:
+        leaves = param_leaves(whole)
+        rules = param_leaves(leaf_rules(whole, mesh, cfg))
+    mine = []
+    for i in range(len(param_leaves(box[0]))):
+        blocks = None
+        if whole is not None:
+            leaf, rule = leaves[i][1], rules[i][1]
+            cut = sharded_by(rule, mesh)
+            blocks = [
+                (local_slice(leaf, rule, mesh, mesh.coords_of(r))
+                 if cut else leaf).contiguous()
+                for r in range(lockstep.size)]
+        got = [None]
+        dist.scatter_object_list(got, blocks, src=0, group=lockstep.group)
+        mine.append(got[0].to(mesh.device))
+    return _unflatten_like(box[0], mine)
+
+
+def _skeleton(tree):
+    return {k: _skeleton(v) for k, v in tree.items()} if isinstance(
+        tree, dict) else None
 
 
 def _free_port() -> int:
@@ -487,7 +565,11 @@ def serve_over_ranks(args: argparse.Namespace, argv=None,
     world = max(args.tp, 1) * max(args.cp, 1)
     rank = args.follower_rank
     procs = []
+    backend = None
     if rank == 0:
+        # the front is the fleet member; a peer's build dir is adopted
+        # before the build, and the followers inherit it
+        backend = fleet_backend(args)
         if torch.device(args.device).type == "cuda":
             from ..ops import _build
 
@@ -526,23 +608,45 @@ def serve_over_ranks(args: argparse.Namespace, argv=None,
                              name="followers").start()
         mesh, lockstep = _join(args, rank, world, url)
         cp_mesh = mesh if args.cp > 1 else None
-        cfg, params, checkpoint = load_model(args, mesh, mesh.device)
+        params = None
+        if args.weights_from:
+            checkpoint_dir = args.checkpoint_dir
+            args.checkpoint_dir = ""  # skip the restore the peer replaces
+            params = peer_blocks(args, mesh, lockstep)
+            args.checkpoint_dir = checkpoint_dir
+            if params is not None:
+                cfg, checkpoint = model_config(args), None
+            elif rank == 0:
+                print("peer weight transfer failed; falling back to the "
+                      + ("checkpoint restore" if checkpoint_dir
+                         else "seeded weights"), flush=True)
+        if params is None:
+            cfg, params, checkpoint = load_model(args, mesh, mesh.device)
         if rank == 0:
-            return _serve(args, cfg, params, checkpoint, mesh=mesh,
-                          cp_mesh=cp_mesh, lockstep=lockstep,
-                          stopping=stopping)
+            rc = _serve(args, cfg, params, checkpoint, backend=backend,
+                        mesh=mesh, cp_mesh=cp_mesh, lockstep=lockstep,
+                        stopping=stopping)
+            # the followers had the shutdown op, and NCCL's teardown on
+            # each waits for every rank's: tear down before waiting for
+            # their exits, not after
+            dist.destroy_process_group()
+            return rc
         follower = ServingFollower(
             cfg, params, args.max_len, mesh, lockstep, cp_mesh=cp_mesh,
             cp_min_len=args.cp_min_len, prefill_chunk=args.prefill_chunk,
             slots=args.slots, slot_chunk=args.slot_chunk,
-            slot_window=args.slot_window)
+            slot_window=args.slot_window, draft_layers=args.draft_layers,
+            speculate=args.speculate, prefix_cache_entries=args.prefix_cache,
+            kv_spill_bytes=kv_spill_bytes(args))
         return follower.run()
     finally:
         stopping.set()
-        for p in procs:
+        for r, p in enumerate(procs, start=1):
             try:
                 p.wait(timeout=30)
             except subprocess.TimeoutExpired:
+                print(f"follower rank {r} did not exit in 30 s; killed",
+                      file=sys.stderr, flush=True)
                 p.kill()
                 p.wait()
         if dist.is_initialized():
@@ -551,7 +655,6 @@ def serve_over_ranks(args: argparse.Namespace, argv=None,
 
 def main(argv=None, follower_cmd=None) -> int:
     import logging
-    import os
 
     logging.basicConfig(
         level=logging.INFO, format="%(asctime)s %(name)s %(message)s"
@@ -560,28 +663,9 @@ def main(argv=None, follower_cmd=None) -> int:
     check_ported(args)
     if max(args.tp, 1) * max(args.cp, 1) > 1:
         return serve_over_ranks(args, argv, follower_cmd)
-    backend = None
-    if args.fleet_catalog:
-        from ..discovery.factory import new_backend
-
-        backend = new_backend(args.fleet_catalog)
-        if backend is None:
-            raise SystemExit(
-                "--fleet-catalog resolved to no discovery backend"
-            )
-    if (backend is not None and args.adopt_compile_cache
-            and not os.environ.get("CONTAINERPILOT_TORCH_BUILD_DIR")):
-        from .modelcfg import adopt_fleet_compile_cache
-
-        adopted = adopt_fleet_compile_cache(backend, args.fleet_service)
-        if adopted:
-            print(f"adopted fleet kernel build dir {adopted}", flush=True)
+    backend = fleet_backend(args)
     checkpoint_dir = args.checkpoint_dir
     if args.weights_from:
-        if not args.weights_from.rpartition(":")[2].isdigit():
-            raise SystemExit(
-                f"--weights-from wants host:port, got {args.weights_from!r}"
-            )
         args.checkpoint_dir = ""  # skip the restore the peer replaces
     cfg, params, checkpoint = load_model(args)
     if args.weights_from:
@@ -597,6 +681,11 @@ def main(argv=None, follower_cmd=None) -> int:
             print("peer weight transfer failed; serving the seeded "
                   "weights", flush=True)
     return _serve(args, cfg, params, checkpoint, backend=backend)
+
+
+def kv_spill_bytes(args: argparse.Namespace) -> int:
+    """--kv-spill-mb in bytes (over ranks, each rank's budget)."""
+    return int(args.kv_spill_mb * 1024 * 1024)
 
 
 def _serve(args: argparse.Namespace, cfg, params, checkpoint, backend=None,
@@ -616,7 +705,7 @@ def _serve(args: argparse.Namespace, cfg, params, checkpoint, backend=None,
         max_batch_rows=args.max_batch_rows,
         device=args.device if mesh is None else mesh.device,
         prefix_cache_entries=args.prefix_cache,
-        kv_spill_bytes=int(args.kv_spill_mb * 1024 * 1024),
+        kv_spill_bytes=kv_spill_bytes(args),
         prefill_chunk=args.prefill_chunk, slots=args.slots,
         slot_chunk=args.slot_chunk, slot_window=args.slot_window,
         draft_layers=args.draft_layers, speculate=args.speculate,

@@ -20,12 +20,19 @@ enters the same tier through ``adopt_host``. The stats
 (``spilled``/``readmitted``/``spill_bytes``) stay zero without a tier, so
 the ``/v1/model`` schema is the same either way.
 
+Serving over ranks (parallel/serving.py), every rank keeps a cache of
+its own KV blocks under the same keys, changed only by lockstep ops, so
+its LRU, spill and readmit decisions are the front's; ``keys_digest``
+is what the lockstep's check holds equal on every rank. A spill tier's
+budget then counts a rank's bytes.
+
 Thread safety: ``match_len`` runs on the event-loop thread while the
 store side runs on the inference thread, so every OrderedDict access
 holds ``_lock``.
 """
 from __future__ import annotations
 
+import hashlib
 import threading
 import time
 from collections import OrderedDict
@@ -163,6 +170,19 @@ class PrefixCache:
             keys.extend(k for k in self.spill.keys() if k not in seen)
         return [k for k in keys if len(k) >= MIN_REUSE]
 
+    def keys_digest(self) -> str:
+        """A digest of the device keys in LRU order, then the spilled
+        keys in theirs: equal on two caches that made the same
+        decisions (the lockstep's agreement check over ranks)."""
+        with self._lock:
+            keys = list(self._cache)
+        h = hashlib.blake2b(digest_size=8)
+        for tier in (keys, self.spill.keys() if self.spill else []):
+            for key in tier:
+                h.update(repr(key).encode())
+            h.update(b"|")
+        return h.hexdigest()
+
     def digest(self, max_bytes: Optional[int] = None) -> str:
         """Versioned fingerprint digest of every reusable prefix cached
         (device and spill tiers), for gateway routing; memoized per
@@ -290,12 +310,14 @@ def generate_with_prefix(
     """Single-row generation reusing the longest cached prompt prefix
     (runs on the inference thread). A miss prefills (chunked when the
     server's prefill_chunk applies) and seeds the cache. The stored
-    cache is never written: decode continues in a copy."""
+    cache is never written: decode continues in a copy. Over ranks it is
+    a lockstep op: every rank runs it on its blocks and its own cache."""
     from ..models.decode import generate_from_cache, row_generator
 
+    mesh = getattr(srv, "mesh", None)
     logits, stored = prefill_row(
         srv.prefix_cache, row, srv.cfg, srv.params, srv.max_len,
-        srv.prefill_chunk,
+        srv.prefill_chunk, mesh,
     )
     cache = {name: leaf if name == "pos" else leaf.clone()
              for name, leaf in stored.items()}
@@ -307,6 +329,9 @@ def generate_with_prefix(
         rng=[row_generator(seed, 0, logits.device)],
         top_k=top_k, top_p=top_p, eos_id=eos_id,
         min_new_tokens=min_new, presence_penalty=presence,
-        frequency_penalty=frequency, logit_bias=logit_bias,
+        frequency_penalty=frequency, logit_bias=logit_bias, mesh=mesh,
     )
+    lockstep = getattr(srv, "lockstep", None)
+    if lockstep is not None:
+        lockstep.record_tokens(out.cpu().numpy())
     return out.tolist()

@@ -31,7 +31,9 @@ front's engine broadcasts the verb and its host arguments before it
 runs it, and each follower's engine (``worker=False``, no thread, no
 queue) runs the same verb on its shard. Every decision (which request,
 which slot, fused or not, the budgets) is the front's and travels with
-the verb.
+the verb. An engine's verbs are ops named ``<name>.<verb>``, so a
+server's slot engine (``slot``) and speculative engine (``spec``) share
+one lockstep.
 
 The device-time ledger (``ledger``, telemetry/goodput.py) is stamped
 where the reference stamps it, on the worker thread at request
@@ -136,6 +138,7 @@ class SlotEngine:
         mesh=None,
         lockstep=None,
         worker: bool = True,
+        name: str = "slot",
     ) -> None:
         if slots < 1 or chunk < 1:
             raise ValueError("slots and chunk must be >= 1")
@@ -216,8 +219,9 @@ class SlotEngine:
         # first (the lookahead keeps at most two)
         self._handles: "deque" = deque()
         self.lockstep = lockstep
+        self.name = name
         if lockstep is not None:
-            lockstep.register({f"slot.{verb}": getattr(self, f"_do_{verb}")
+            lockstep.register({f"{name}.{verb}": getattr(self, f"_do_{verb}")
                                for verb in VERBS})
         self.slots = program.slots
         self.chunk = program.chunk
@@ -453,7 +457,7 @@ class SlotEngine:
         wire = tuple(
             {f: getattr(a, f) for f in _DEVICE_FIELDS}
             if isinstance(a, _Request) else a for a in args)
-        return self.lockstep.call(f"slot.{verb}", wire)
+        return self.lockstep.call(f"{self.name}.{verb}", wire)
 
     def _do_admit(self, slot_id: int, req) -> int:
         """Prefill the prompt (engine policy) and hand the result to the

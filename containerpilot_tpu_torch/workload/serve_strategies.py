@@ -1,9 +1,10 @@
 """Non-batched decode strategies for the inference server (counterpart
 of ``containerpilot_tpu/workload/serve_strategies.py``): beam search,
 context-parallel prefill and chunked prefill. Each runs on the inference
-thread (on every rank under a lockstep, parallel/serving.py; beams are
-not ported there yet) and returns the generated rows; speculative
-decoding rides a slot engine (serve_slots.py)."""
+thread (on every rank under a lockstep, parallel/serving.py, where a
+beam runs on the ``model`` axis and seq ranks repeat it, as the
+reference's beams run without a ring) and returns the generated rows;
+speculative decoding rides a slot engine (serve_slots.py)."""
 from __future__ import annotations
 
 from typing import Any, List
@@ -26,10 +27,11 @@ def run_beam(
         srv.cfg, max_new_tokens=max_new_requested, max_len=srv.max_len,
         beam_width=beam_width, eos_id=eos_id,
         length_penalty=length_penalty, prefill_chunk=srv.prefill_chunk,
+        mesh=getattr(srv, "mesh", None),
     )
     srv.batch_stats["calls"] += 1
     srv.batch_stats["rows"] += 1
-    return [out.tolist()]
+    return _record(srv, [out.tolist()])
 
 
 def _record(srv: Any, out: List[List[int]]) -> List[List[int]]:

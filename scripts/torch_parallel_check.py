@@ -23,12 +23,17 @@ not a speed figure) and exits non-zero on a failed check. ``--device
 cpu`` runs the same flow at a tiny size over gloo, with no launch
 counts.
 
-``--serve`` runs chip_smoke's serve_parallel drive for ``--tp 2 --cp 2
---cp-min-len 1024 --slots 8`` instead (the serve CLI at the flagship
-CLI's width, its three followers each on their own card): every request
-judged against the one-rank model, every rank's tokens equal, K1 never
-for the ringed heads, the mesh, cp and NCCL reported by ``/v1/model``,
-nothing staged through the host.
+``--serve`` runs chip_smoke's serve_parallel drive for the composed pod
+P (``--tp 2 --int8 --slots 8 --prefix-cache 4 --kv-spill-mb 64
+--draft-layers 2 --standby --weights-from E --fleet-catalog``, its two
+ranks on cards 0 and 1, beside the one-rank E: the weight wire,
+promotion, beams, speculation, a prefix hit, KV pulls both ways,
+/v1/weights and a drain) and for ``--tp 2 --cp 2 --cp-min-len 1024
+--slots 8`` (its three followers each on their own card) instead, the
+serve CLI at the flagship CLI's width: every answer judged against the
+one-rank model, every rank's tokens and caches equal, K1/K2 a rank by
+path, K1 never for the ringed heads, the mesh, cp and NCCL reported by
+``/v1/model``, nothing staged through the host.
 
 ``--pod`` runs chip_smoke's serve_pod drive as a dp2 x tp2 pod of 4
 serve_dist ranks (a card each, NCCL): every answer judged against the
@@ -80,13 +85,15 @@ def _setup(device: str) -> None:
     cs.RANK_SCRIPT = os.path.abspath(__file__)
 
 
-SERVE_TINY = ["--vocab", "512", "--d-model", "64", "--n-layers", "2",
+# 4 layers: the composed pod's 2-layer draft needs a deeper target
+SERVE_TINY = ["--vocab", "512", "--d-model", "64", "--n-layers", "4",
               "--n-heads", "4", "--max-len", "256"]
 
 
 def serve_check(device: str) -> int:
-    """The tp2 x cp2 serve CLI over 4 ranks (chip_smoke's drive; on the
-    cards each rank has its own, so NCCL and no host staging)."""
+    """The composed tp2 pod P over 2 ranks and the tp2 x cp2 serve CLI
+    over 4 (chip_smoke's drive; on the cards each rank has its own, so
+    NCCL and no host staging)."""
     t0 = time.perf_counter()
     world = 4
     card = {"kind": device}
@@ -113,6 +120,13 @@ def serve_check(device: str) -> int:
             lens={"tp": (128,), "cp": (192, 131)} if small else None,
             min_len=128 if small else 1024,
             extra_args=("--lockstep-deadline", "60"), timeout=240)
+    pod = out["tp2_int8"]
+    print(json.dumps({"serve": "composed_pod", **{k: pod[k] for k in (
+        "backend", "staging", "step_program", "ranks_agree",
+        "rank_caches_agree", "judged", "beam_equal_one_rank",
+        "launches_by_path", "pool", "wall_ms_by_path", "ready_s", "kv",
+        "weights",
+        "drain", "front_staged_bytes_a_token") if k in pod}}), flush=True)
     run = out["tp2_cp2"]
     print(json.dumps({"serve": "tp2_cp2", **{k: run[k] for k in (
         "backend", "staging", "step_program", "ranks_agree", "judged",

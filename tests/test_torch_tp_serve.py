@@ -19,7 +19,9 @@ weights under tp2 equal the one-rank port's int8 (greedy, the fused path:
 every rank's projections through the plain version of K2), the CLI's
 ``--tp 2`` answering as ``--tp 1`` does, a killed follower making the
 front exit non-zero within its lockstep deadline, and the compositions
-refused over ranks. Tokens exactly; every rank's tokens equal rank 0's.
+refused at startup (the reference's own: what --cp does not compose
+with, a --tp that does not divide the model, a --weights-from that is
+not host:port). Tokens exactly; every rank's tokens equal rank 0's.
 """
 import json
 import os
@@ -35,6 +37,8 @@ import numpy as np
 import pytest
 import torch
 
+from containerpilot_tpu.fleet import standby as ref_standby
+from containerpilot_tpu.models import beam as jbeam
 from containerpilot_tpu.models import decode as jdecode
 from containerpilot_tpu.models import quantized as jquant
 from containerpilot_tpu.models import transformer as jtf
@@ -109,7 +113,7 @@ def world(tmp_path_factory):
                  {"tokens": [[1, 2, 3]], "max_new_tokens": 4},
                  {"tokens": [[1, 2, 3]], "max_new_tokens": 4,
                   "beam_width": 2},
-                 {"method": "GET", "path": "/v1/weights"},
+                 {"method": "GET", "path": "/v1/weights", "raw": True},
                  {"method": "POST", "path": "/v1/score",
                   "body": {"tokens": [[1, 2, 3, 4]]}},
              ]),
@@ -131,6 +135,9 @@ def world(tmp_path_factory):
         refs["server"] = np.asarray(jdecode.generate(
             trees["server"], jnp.asarray([[1, 2, 3]], jnp.int32),
             jax_cfg(SERVER), 4, 32)).tolist()
+        refs["server_beam"] = np.asarray(jbeam.beam_search(
+            trees["server"], jnp.asarray([[1, 2, 3]], jnp.int32),
+            jax_cfg(SERVER), 4, 32, beam_width=2)[0]).tolist()
         refs["slots_greedy"] = np.asarray(jdecode.generate(
             trees["slots"], jnp.asarray([[5, 6]], jnp.int32),
             jax_cfg(SLOTS), 4, SLOT_MAX_LEN)).tolist()
@@ -182,15 +189,20 @@ def test_int8_under_tp2_equals_one_rank_int8(world):
 def test_inference_server_reports_mesh(world):
     """:3117 on model 4: /v1/model reports the mesh the params are
     sharded over, as the reference does, and the server answers from
-    the sharded params (JAX's tokens); beams and the weight verb are
-    refused over ranks; /v1/score runs as a lockstep op; the ranks
-    agree."""
-    out, _trees, _prompts, refs = world
+    the sharded params (JAX's tokens); a beam is one lockstep op and
+    answers the reference's beam_search tokens; /v1/weights streams the
+    whole params (every leaf gathered along its rule: the reference's
+    manifest); /v1/score runs as a lockstep op; the ranks agree."""
+    out, trees, _prompts, refs = world
     front = results(out, "server", WORLD)[0]
     gen, beam, weights, score = front["answers"]
     assert gen == [200, {"tokens": refs["server"]}]
-    assert beam[0] == 422 and "not ported yet under --tp/--cp" in beam[1]
-    assert weights[0] == 501
+    assert beam == [200, {"tokens": [refs["server_beam"]]}]
+    assert weights[0] == 200
+    raw = bytes.fromhex(weights[1])
+    n = int.from_bytes(raw[:8], "big")
+    assert json.loads(raw[8:8 + n]) == ref_standby.weights_manifest(
+        trees["server"])
     assert score[0] == 200 and len(score[1]["logprobs"][0]) == 3
     info = front["info"]
     assert info["mesh"] == {"data": 1, "model": 4}
@@ -342,22 +354,24 @@ def test_cli_killed_follower_ends_the_front():
     assert took < deadline, took
 
 
-@pytest.mark.parametrize("argv,message", [
-    (["--tp", "2", "--prefix-cache", "2"],
-     "--prefix-cache is not ported yet under --tp/--cp"),
-    (["--tp", "2", "--draft-layers", "1"],
-     "--draft-layers is not ported yet under --tp/--cp"),
-    (["--cp", "2", "--standby"], "--standby is not ported yet under"),
-    (["--tp", "2", "--weights-from", "127.0.0.1:1"],
-     "--weights-from is not ported yet under"),
-    (["--tp", "3"], r"--tp 3 must divide n_heads \(4\)"),
-    (["--tp", "2", "--moe-experts", "3"],
+@pytest.mark.parametrize("argv,error,message", [
+    (["--cp", "2", "--prefix-cache", "2"], ValueError,
+     "--cp does not compose with --prefix-cache"),
+    (["--cp", "2", "--draft-layers", "1"], ValueError,
+     "--cp does not compose with --draft-layers"),
+    (["--cp", "2", "--window", "8"], ValueError,
+     "--cp does not compose with --window"),
+    (["--tp", "2", "--weights-from", "nohost"], SystemExit,
+     "--weights-from wants host:port"),
+    (["--tp", "3"], SystemExit, r"--tp 3 must divide n_heads \(4\)"),
+    (["--tp", "2", "--moe-experts", "3"], SystemExit,
      r"--tp 2 must divide moe_experts \(3\)"),
 ])
-def test_cli_refuses_at_startup(argv, message):
-    """Compositions this port does not serve over ranks exit before any
-    rank starts, naming the pair; --tp that does not divide the model
-    exits with the reference's message."""
+def test_cli_refuses_at_startup(argv, error, message):
+    """What the reference refuses exits before any rank starts, with its
+    message: the compositions --cp rejects (``refuse_cp_compositions``'s
+    ValueError), --tp that does not divide the model and a --weights-from
+    that is not host:port (``check_ported``'s own SystemExit)."""
     args = serve_cli.build_arg_parser().parse_args(argv)
-    with pytest.raises(SystemExit, match=message):
+    with pytest.raises(error, match=message):
         serve_cli.check_ported(args)

@@ -19,8 +19,11 @@ paths joined with "/"), carried into each rank's blocks by
   for each set of sampling arguments;
 - ``server``: rank 0 runs an ``InferenceServer`` with its lockstep on
   127.0.0.1:0 and sends it the case's requests one after another (a
-  ``/v1/generate`` body, or ``{"method", "path", "body"}``), then reads
-  ``/v1/model``; the other ranks are ``ServingFollower``s;
+  ``/v1/generate`` body, or ``{"method", "path", "body"}``, with
+  ``"port"`` to send it to another server instead, ``"{self}"`` in the
+  body standing for this server's port, and ``"raw": true`` to keep a
+  binary answer as hex), then reads ``/v1/model``; the other ranks are
+  ``ServingFollower``s built with the same arguments;
 - ``slots``: rank 0 runs a ``SlotEngine`` with its lockstep and submits
   the case's requests at once; the other ranks' engines follow.
 
@@ -75,17 +78,23 @@ def load(case, mesh):
     return cfg, bridge.shard_from_jax(full, mesh, "cpu", cfg)
 
 
-async def http(port, method, path, body=None):
+async def http(port, method, path, body=None, raw=False):
     reader, writer = await asyncio.open_connection("127.0.0.1", port)
     payload = json.dumps(body).encode() if body is not None else b""
     writer.write(
         f"{method} {path} HTTP/1.1\r\nHost: x\r\nConnection: close\r\n"
         f"Content-Length: {len(payload)}\r\n\r\n".encode() + payload)
     await writer.drain()
-    raw = await reader.read()
+    data = await reader.read()
     writer.close()
-    head, _, data = raw.partition(b"\r\n\r\n")
-    return int(head.split()[1]), data.decode()
+    head, _, data = data.partition(b"\r\n\r\n")
+    return int(head.split()[1]), data.hex() if raw else data.decode()
+
+
+# the server arguments a follower is built with too
+FOLLOWER_ARGS = ("cp_min_len", "prefill_chunk", "slots", "slot_chunk",
+                 "slot_window", "draft_layers", "speculate",
+                 "prefix_cache_entries", "kv_spill_bytes")
 
 
 def run_server(case, cfg, params, mesh, lockstep, rank):
@@ -99,10 +108,7 @@ def run_server(case, cfg, params, mesh, lockstep, rank):
     if rank != 0:
         ServingFollower(
             cfg, params, kw["max_len"], mesh, lockstep, cp_mesh=cp_mesh,
-            cp_min_len=kw.get("cp_min_len", 0),
-            prefill_chunk=kw.get("prefill_chunk", 0),
-            slots=kw.get("slots", 0), slot_chunk=kw.get("slot_chunk", 8),
-            slot_window=kw.get("slot_window", 4)).run()
+            **{k: kw[k] for k in FOLLOWER_ARGS if k in kw}).run()
         return {}
     server = InferenceServer(
         cfg, params, "127.0.0.1", 0, device="cpu", mesh=mesh,
@@ -118,9 +124,14 @@ def run_server(case, cfg, params, mesh, lockstep, rank):
                 method, path, body = (
                     (req["method"], req["path"], req.get("body"))
                     if "path" in req else ("POST", "/v1/generate", req))
-                status, data = await http(server.port, method, path, body)
+                if body is not None:
+                    body = json.loads(json.dumps(body).replace(
+                        "{self}", str(server.port)))
+                raw = req.get("raw", False)
+                status, data = await http(req.get("port", server.port),
+                                          method, path, body, raw)
                 answers.append([status, json.loads(data)
-                                if status == 200 else data])
+                                if status == 200 and not raw else data])
             status, info = await http(server.port, "GET", "/v1/model")
             return answers, json.loads(info)
         finally:

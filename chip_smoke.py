@@ -25,7 +25,9 @@ training phases, then beams, speculative decoding and LoRA):
    their TFLOP/s (kept pairs' FLOPs over kernel time). The windowed
    cases (K1 at the windowed prefill and training shapes, K3/K4 at the
    windowed training shape) are timed against SDPA with an explicit
-   window mask, which is not a flash path;
+   window mask, which is not a flash path. K1 is also held at 128
+   tokens (a whole and a tp2 rank's heads) and K3/K4 at a 128-token
+   row: lengths the H100 table's crossover sends to the kernels;
 4. serve_bf16: the 1.2B flagship config (vocab 32768, d_model 2048, 16
    heads, 16 layers, d_ff 8192, max_len 2048), seeded random weights,
    served by the port's InferenceServer over HTTP on 127.0.0.1:0: health,
@@ -48,7 +50,8 @@ training phases, then beams, speculative decoding and LoRA):
    dispatches/token; steady windows dispatched under
    torch.cuda.set_sync_debug_mode("error"); the K1/K2 counts (graph
    replays included) zeroed before the requests and read after;
-6. serve_window: the bf16 flagship with --window 1024 at max_len 4096,
+6. serve_window: the bf16 flagship's first CUT_LAYERS (8) layers with
+   --window 1024 at max_len 4096 (cut from 16 for the script's clock),
    served by the Batcher over HTTP, once with the ring alone and once
    with --kv-int8: a greedy 3072-token prompt (windowed K1; the ring
    wraps during prefill) with 64 new tokens, a 4-row batch of 1024-token
@@ -66,7 +69,8 @@ training phases, then beams, speculative decoding and LoRA):
 8. serve_slots_int8: phase 5 on the int8 model with --prefill-chunk 256:
    K2 runs the decode replays at m = 8 and the chunked admission's
    16- and 256-row pieces;
-9. serve_slots_window_int8: the int8 flagship with --window 1024
+9. serve_slots_window_int8: the int8 flagship's first CUT_LAYERS layers
+   with --window 1024
    --kv-int8 --slots 8 --slot-chunk 8 --slot-window 4 --prefill-chunk
    256 at max_len 4096 (constructing it with --prefix-cache must
    raise): 8 staggered concurrent requests (the 3072-token prompt, a
@@ -102,7 +106,7 @@ training phases, then beams, speculative decoding and LoRA):
    --checkpoint-dir`` on that checkpoint, once with the raw params and
    once with --use-ema: a greedy request's tokens equal an in-process
    generate on restore_params(prefer_ema=...);
-14. serve_beam: the flagship again (phase 4's seeded weights), bf16 and
+14. serve_beam: the flagship's width at CUT_LAYERS layers (seeded), bf16 and
    then int8, served with --draft-layers 4 --speculate 4 (beams route
    first): beam_width 4 on the 1024-token prompt with 32 new tokens (K1
    in the prefill, K2 at m = 4 under int8), twice and against one new
@@ -133,8 +137,8 @@ training phases, then beams, speculative decoding and LoRA):
    its greedy tokens equal an in-process generate on the same params;
    the evaluate CLI's --lora-dir loss equals the in-process one;
 18. serve_fleet_face: the serve CLI (serve_cli.main, its K1/K2 counters
-   zeroed and read through signals) at the flagship's width and depth,
-   d_ff 6144 as the CLI derives it, with --slots 8 --text --mux, bf16
+   zeroed and read through signals) at the flagship's width and
+   CUT_LAYERS of its depth, d_ff 6144 as the CLI derives it, with --slots 8 --text --mux, bf16
    and then --int8: 8 concurrent /v1/completions (a 1023-byte prompt, so
    K1 runs at admission; six short; one streamed) as streams on ONE
    cp-mux/1 connection of the port's MuxConnection and over HTTP/1.1, in
@@ -148,7 +152,8 @@ training phases, then beams, speculative decoding and LoRA):
    each transport, the /metrics scrape ms, the slot step with and
    without the device-time ledger (in-process, in turns), and K2 against
    its plain version at the CLI model's MLP shapes;
-19. serve_fleet_handoff: three serve CLIs at the same width and depth,
+19. serve_fleet_handoff: three serve CLIs at the same width and depth
+   (FACE_MODEL),
    --int8 --slots 8 --prefix-cache 4 --kv-spill-mb 1024 --mux, in one
    file catalog: A --role prefill, B --role decode, C --standby
    --weights-from A. The catalog shows A's and B's roles (the port's
@@ -171,10 +176,11 @@ training phases, then beams, speculative decoding and LoRA):
    work beside it), at an 8-row decode against its bytes bound (every
    expert's weights), the int8 layer dequantized per call at the decode
    shape, and the dense SwiGLU half beside each;
-21. serve_moe: the flagship with 8 switch-routed experts in place of
-   its SwiGLU (4.70 B parameters, seeded), served by the Batcher over
-   HTTP as in phase 4, in bf16 and then with int8 weights: K1 exactly
-   n_layers times a 1024-token prefill, K2 never (an int8 MoE layer
+21. serve_moe: the flagship's width with 8 switch-routed experts in
+   place of its SwiGLU at 8 of its 16 layers (seeded; the full depth,
+   4.70 B parameters, cut for the script's clock), served by the
+   Batcher over HTTP as in phase 4, in bf16 and then with int8 weights:
+   K1 exactly n_layers times a 1024-token prefill, K2 never (an int8 MoE layer
    dequantizes in full); the greedy request judged against the plain
    attention path (flash_min_seq=0) teacher-forced on its tokens, and
    the prompt's logits through K1 against one plain forward whose
@@ -214,9 +220,10 @@ training phases, then beams, speculative decoding and LoRA):
    microbatch, 0 under a seq axis); ZeRO-1's moments and FSDP's params and moments at 1/dp
    of one rank's bytes; step ms, bytes staged through the host and peak
    memory per rank (ranks share the card: no step time is a speed
-   figure). Then the train CLI as 4 ranks through initialize_from_catalog
-   on a file catalog with --pipeline-stages 2 --tensor-parallel 2: the
-   mesh line {'data': 1, 'pipe': 2, 'model': 2} and a falling loss;
+   figure). Beside them the train CLI as 4 ranks through
+   initialize_from_catalog on a file catalog with --pipeline-stages 2
+   --tensor-parallel 2: the mesh line {'data': 1, 'pipe': 2, 'model': 2}
+   and a falling loss (the two worlds and the CLI, two at a time);
 25. serve_parallel: K1 at a tp2 rank's 1024-token prefill (b=1, h=8)
    and K2 at a tp2 rank's CLI projections (2048x1024, 1024x2048,
    2048x3072, 3072x2048 at m = 1 and 8) against their plain versions,
@@ -239,7 +246,7 @@ training phases, then beams, speculative decoding and LoRA):
    prefix-cache keys equal); and --tp 2 --cp 2 --cp-min-len 1024 --slots
    8 (a 1536-id and a 1031-id prompt, each ringed, the second with a
    1-token remainder, one short prompt, then a beam of width 2 on the
-   model axis). Every request judged against the one-rank model
+   model axis), these two at once after P. Every request judged against the one-rank model
    (judge_served; beams judge_beam), every rank's tokens equal (the
    lockstep's digests),
    /v1/model's mesh, cp and step-program mode, K1 exactly n_layers times
@@ -254,8 +261,8 @@ training phases, then beams, speculative decoding and LoRA):
    step's loss and K1/K3/K4 launches) through a file catalog, with
    --checkpoint-every 2: an uninterrupted 6-step run with --eval-every 3
    on token shards of the port's own source text (every rank the same
-   losses and eval_loss); the same run with rank 1 SIGKILLed after step
-   5 (every peer exits non-zero by itself), relaunched: it resumes at
+   losses and eval_loss); beside it the same run with rank 1 SIGKILLed
+   after step 5 (every peer exits non-zero by itself), relaunched: it resumes at
    step 4 and its losses equal the uninterrupted run's within
    RESUME_REL_TOL, the two step-6 checkpoints compared leaf by leaf;
    the step-6 checkpoint restored in this process (one rank), one more
@@ -265,7 +272,7 @@ training phases, then beams, speculative decoding and LoRA):
    4 / 2 / 2 a rank a step (2 layers), as the ranks logged them;
    start-up, save (gather, write) and restore seconds, the bytes on
    rank 0's host;
-27. serve_pod: the pod server (python -m
+27. serve_pod (run beside train_resume): the pod server (python -m
    containerpilot_tpu_torch.workload.serve_dist) as 2 ranks on this card
    (COUNTED_POD children; gloo, tp2, the slot round uncaptured) on a
    file catalog, the serve CLI flagship's width at 8 layers (POD_MODEL)
@@ -276,9 +283,36 @@ training phases, then beams, speculative decoding and LoRA):
    Every rank exits 0; K1 8 times and K2 on every rank's blocks, as the
    ranks log them; the ranks' token digests agree; no capture, build or
    load after warm-up; every answer judged against the one-rank model
-   (judge_served), the score within E2E_REL_TOL; rank start-up and
+   (judge_served), the score within E2E_REL_TOL of the one-rank
+   scorer on the plain attention (flash_min_seq 0); rank start-up and
    warm-up seconds, wall ms a request, bytes staged a token, the step
-   program's mode.
+   program's mode. K1's count a rank comes from the flash crossover in
+   force (``k1_forwards``): the long prompt's prefill, and /v1/score's
+   forward (63 ids padded to 128) where the H100 table puts 128 at or
+   above the crossover;
+28. autotune (after the kernel checks): ``ops/autotune.measure`` at two
+   sequence lengths with K1, K3 and K4 on the card, its table in the
+   reference's schema, and the committed
+   ``ops/tuned/<card>.json`` found by discovery, with
+   ``resolve_min_seq(AUTO, kind)`` answering its crossovers;
+29. supervised_serve (run beside train_resume and serve_pod, all three
+   mostly waiting on processes of their own): ``python -m
+   containerpilot_tpu_torch
+   -config containerpilot_tpu_torch/examples/serving-pod.json5`` on the
+   port's own ``-catalog-server``, serving the flagship config (d_ff
+   8192) through the serve CLI (its counters read through the CLI's
+   signals, as COUNTED_SERVE does): the job passes in the catalog; a
+   greedy 1024-token request launches K1 n_layers times and its tokens
+   equal an in-process generate on the same seeded params; while the
+   job serves, it holds the card's /dev/nvidia* device files and the
+   supervisor and the catalog server hold none and have no compute
+   context in nvidia-smi (neither initialized CUDA); /metrics
+   and /status answer on the supervisor's telemetry port; -putmetric,
+   -putenv (MAX_BATCH_ROWS, which the -reload's new generation serves
+   with), -maintenance enable (the catalog drops the job) and -reload
+   (a new job, healthy again); SIGTERM runs the stopping and stopped
+   hooks, the supervisor exits 0, and no pid of either job holds the
+   card.
 
 Then the kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -309,6 +343,10 @@ FLAGSHIP = dict(vocab_size=32768, d_model=2048, n_heads=16, n_layers=16,
                 d_ff=8192, max_seq_len=2048)
 MAX_LEN = 2048
 PROMPT_LEN = 1024
+SAMPLED_LEN = 64  # drive_server's sampled prompt, run twice
+# the flagship's width at half its depth, for the script's clock: the
+# windowed, beam/speculative, serve CLI (face, handoff) and MoE phases
+CUT_LAYERS = 8
 FLASH_TOL = 2e-2      # abs, bf16 outputs of magnitude <~4 (one bf16 step)
 INT8_REL_TOL = 1e-2   # abs err / max|ref|: ~two bf16 rounding steps
 E2E_REL_TOL = 5e-2    # logits, kernel path vs plain path, 16 bf16 layers
@@ -349,6 +387,10 @@ FWD_CASES = [
     (2, 1024, 8, 8, 64, 64),      # head_dim 64, window 64
     (1, 3072, 16, 16, 128, 1024),  # the windowed serving path's prefill
     (8, 2048, 8, 8, 128, 1024),   # the windowed training path
+    # lengths the H100 table's crossover (128) sends to K1: a 128-token
+    # prefill (a /v1/score row padded to 128), and a tp2 rank's half
+    (1, 128, 16, 16, 128, 0),
+    (1, 128, 8, 8, 128, 0),
 ]
 TRAIN_FWD_CASE = FWD_CASES[5]
 WINDOW_PREFILL_CASE, WINDOW_TRAIN_CASE = FWD_CASES[8], FWD_CASES[9]
@@ -370,6 +412,7 @@ BWD_CASES = [
     (2, 1024, 8, 64, 0),      # head_dim 64
     (2, 1024, 8, 64, 64),     # head_dim 64, window 64
     (8, 2048, 8, 128, 1024),  # the windowed training path
+    (1, 128, 16, 128, 0),     # a 128-token training row (the H100 table)
 ]
 WINDOW_BWD_CASE = BWD_CASES[6]
 # K1 (b, s, h, kv, hd, window) and K3/K4 (b, s, h, hd, window) at a
@@ -411,6 +454,22 @@ def emit(obj) -> None:
     if "phase" in obj:
         obj = {**obj, "ended_at_s": round(time.perf_counter() - T_START, 1)}
     print(json.dumps(obj), flush=True)
+
+
+def k1_forwards(cfg, lengths, kind="fwd") -> int:
+    """How many forwards at these sequence lengths take K1 under the
+    flash crossover in force (``ops/tuning.resolve_min_seq``, the card's
+    table where one is committed): a count of launches a layer."""
+    from containerpilot_tpu_torch.models import transformer as tf
+
+    return sum(tf.flash_eligible(cfg, n, kind) for n in lengths)
+
+
+def first_layers(params, n=CUT_LAYERS):
+    """The first ``n`` layers of a params tree (views of its stacked
+    layer leaves): a depth cut of the same weights."""
+    return {**params, "layers": {k: v[:n]
+                                 for k, v in params["layers"].items()}}
 
 
 def cuda_ms(fn, arg_sets, iters: int = 20) -> float:
@@ -808,7 +867,7 @@ async def drive_server(cfg, params, prompt, label, device="cuda",
             "request_ms_batch8_prompt1024_new32": t8[32] * 1e3,
             "decode_tok_s_batch8": 8 * 31 / (t8[32] - t8[1]),
         })
-        sampled = {"tokens": [prompt[:64]], "max_new_tokens": 16,
+        sampled = {"tokens": [prompt[:SAMPLED_LEN]], "max_new_tokens": 16,
                    "temperature": 0.8, "top_k": 40, "seed": 7}
         s1, _ = await generate_tokens(port, sampled)
         s2, _ = await generate_tokens(port, sampled)
@@ -1961,14 +2020,18 @@ def serve_checkpoint(ckpt, model_args, vocab, emas=(False, True)):
         n_heads=int(model_args[model_args.index("--n-heads") + 1]),
         n_layers=int(model_args[model_args.index("--n-layers") + 1]),
         d_ff=derive_d_ff(d_model), max_seq_len=1024)
+    from concurrent.futures import ThreadPoolExecutor
+
     prompt = [(7 * i + 3) % vocab for i in range(48)]
     body = {"tokens": [prompt], "max_new_tokens": 24}
     out = {}
-    for ema in emas:
-        served, info, log_text = _serve_cli_tokens(
+    # the servers start at once (each its own process and port)
+    with ThreadPoolExecutor(len(emas)) as pool:
+        runs = list(pool.map(lambda ema: _serve_cli_tokens(
             ["--device", "cuda", "--checkpoint-dir", ckpt, "--max-len",
              "1024", "--vocab", str(vocab), *model_args]
-            + (["--use-ema"] if ema else []), body)
+            + (["--use-ema"] if ema else []), body), emas))
+    for ema, (served, info, log_text) in zip(emas, runs):
         restored = restore_params(ckpt, abstract_train_state(cfg),
                                   prefer_ema=ema, device="cuda")
         params = quantized.cast_params(restored[0], cfg.dtype)
@@ -2407,6 +2470,8 @@ def drive_serve_lora(tmp, model):
     then quantized), and its greedy tokens equal an in-process generate
     on the same params; the evaluator's --lora-dir loss equals the
     in-process one."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from containerpilot_tpu_torch.models import decode, quantized
     from containerpilot_tpu_torch.models import transformer as tf
     from containerpilot_tpu_torch.workload.modelcfg import (
@@ -2442,10 +2507,20 @@ def drive_serve_lora(tmp, model):
     result = {"phase": "serve_lora", "rank": LORA_RANK,
               "base_step": int(base_step.group(1)),
               "train_s": time.perf_counter() - t0}
-    for label, extra in (("bf16", []), ("int8", ["--int8"])):
-        served, _info, log_text = _serve_cli_tokens(
+    variants = (("bf16", []), ("int8", ["--int8"]))
+    # the two servers and the evaluator start at once (processes of
+    # their own)
+    with ThreadPoolExecutor(len(variants) + 1) as pool:
+        evaluated = pool.submit(_run_cli, "evaluate", [
+            "--device", "cuda", "--checkpoint-dir", ckpt, *lora_flags,
+            "--data-dir", shards, "--eval-holdout", "4", "--batch", "2",
+            "--seq-len", "1024", "--vocab", "1024", *model])
+        runs = list(pool.map(lambda extra: _serve_cli_tokens(
             ["--device", "cuda", "--checkpoint-dir", ckpt, "--max-len",
-             "1024", "--vocab", "1024", *model, *lora_flags, *extra], body)
+             "1024", "--vocab", "1024", *model, *lora_flags, *extra],
+            body), [extra for _label, extra in variants]))
+        rc, out = evaluated.result()
+    for (label, extra), (served, _info, log_text) in zip(variants, runs):
         if f"merged lora adapter (rank {LORA_RANK}, step 4)" not in log_text:
             raise AssertionError(f"serve --lora-dir ({label}):\n"
                                  f"{log_text[-1500:]}")
@@ -2462,10 +2537,6 @@ def drive_serve_lora(tmp, model):
         result[label] = {"tokens_equal_in_process": True,
                          "tokens_head": served[0][:8]}
         del params
-    rc, out = _run_cli("evaluate", [
-        "--device", "cuda", "--checkpoint-dir", ckpt, *lora_flags,
-        "--data-dir", shards, "--eval-holdout", "4", "--batch", "2",
-        "--seq-len", "1024", "--vocab", "1024", *model])
     if rc != 0:
         raise AssertionError(f"evaluate --lora-dir: exit {rc}\n{out[-2000:]}")
     report = json.loads(out.strip().splitlines()[-1])
@@ -2487,10 +2558,9 @@ def drive_serve_lora(tmp, model):
 # phase 18: the replica's telemetry and wire face, through the serve CLI
 # ---------------------------------------------------------------------------
 
-# the serve CLI at the flagship's width and depth (its d_ff is the CLI's
-# derive_d_ff(2048) = 6144, as in the reference CLI: FLAGSHIP's 8192 is
-# not a CLI flag)
-FACE_MODEL = ["--vocab", "32768", "--d-model", "2048", "--n-layers", "16",
+# the serve CLI at the flagship's width and CUT_LAYERS of its depth (its
+# d_ff is the CLI's derive_d_ff(2048) = 6144, as in the reference CLI)
+FACE_MODEL = ["--vocab", "32768", "--d-model", "2048", "--n-layers", "8",
               "--n-heads", "16", "--max-len", str(MAX_LEN)]
 FACE_ARGS = ["--slots", "8", "--text", "--mux"]
 # K2 at the CLI model's MLP projections (k, n), beside INT8_PROJ's
@@ -2798,7 +2868,7 @@ def slot_step_with_ledger(cfg, params, reps=2):
 
 
 def drive_fleet_face(tmp, card, gen, device="cuda"):
-    """Phase 18: the serve CLI at the flagship's width and depth with
+    """Phase 18: the serve CLI at FACE_MODEL (the flagship's width) with
     --slots 8 --text --mux (bf16, then --int8), seeded weights. Over ONE
     cp-mux/1 connection (the port's MuxConnection), 8 concurrent
     /v1/completions with X-CP-Trace ids (a 1023-byte prompt for K1, six
@@ -3105,7 +3175,7 @@ class Counts:
 
 def drive_fleet_handoff(tmp, card, model=FACE_MODEL, device="cuda",
                         prompt_len=PROMPT_LEN):
-    """Phase 19: three serve CLIs at the flagship's width and depth,
+    """Phase 19: three serve CLIs at FACE_MODEL (the flagship's width),
     int8, seeded weights, in one file catalog: A (--role prefill), B
     (--role decode) and C (--standby --weights-from A). A prefills a
     1024-id prompt (/v1/prefill: K1 exactly n_layers times); B pulls its
@@ -3448,12 +3518,13 @@ def drive_serve_moe(prompt):
     from containerpilot_tpu_torch.ops import flash, quant
     from containerpilot_tpu_torch.parallel.train import tree_leaves
 
-    cfg = tf.TransformerConfig(**FLAGSHIP, moe_experts=MOE_EXPERTS)
+    moe_cfg = {**FLAGSHIP, "n_layers": CUT_LAYERS}
+    cfg = tf.TransformerConfig(**moe_cfg, moe_experts=MOE_EXPERTS)
     masters = tf.init_params(0, cfg, device="cuda")
     n_params = sum(t.numel() for t in tree_leaves(masters))
     params = quantized.cast_params(masters, cfg.dtype)
     out = {"phase": "serve_moe",
-           "config": {**FLAGSHIP, "moe_experts": MOE_EXPERTS},
+           "config": {**moe_cfg, "moe_experts": MOE_EXPERTS},
            "params": n_params}
     slots = None
     for label in ("bf16", "int8"):
@@ -3478,10 +3549,12 @@ def drive_serve_moe(prompt):
             "device_bytes_at_start": resident,
             "peak_memory_bytes": torch.cuda.max_memory_allocated(),
         })
-        if k1 != SERVER_PREFILLS * cfg.n_layers or k2 != 0:
+        want_k1 = cfg.n_layers * k1_forwards(
+            cfg, [len(prompt)] * SERVER_PREFILLS + [SAMPLED_LEN] * 2)
+        if k1 != want_k1 or k2 != 0:
             raise AssertionError(
                 f"serve_moe_{label}: K1 {k1} launches (want "
-                f"{SERVER_PREFILLS * cfg.n_layers}), K2 {k2} (want 0)")
+                f"{want_k1}), K2 {k2} (want 0)")
         run.update(judge_against_plain(cfg, params, prompt,
                                        run.pop("greedy_tokens")))
         run.pop("phase")
@@ -3490,8 +3563,10 @@ def drive_serve_moe(prompt):
             slots = asyncio.run(drive_slots(cfg, params, prompt,
                                             "serve_slots_moe",
                                             profiled=True))
-            if slots["k1_launches"] != 2 * cfg.n_layers \
-                    or slots["k2_launches"] != 0:
+            admissions = [len(r["tokens"][0]) for r in
+                          slot_requests(prompt, cfg.vocab_size)]
+            if slots["k1_launches"] != cfg.n_layers * k1_forwards(
+                    cfg, admissions) or slots["k2_launches"] != 0:
                 raise AssertionError(
                     f"serve_slots_moe: K1 {slots['k1_launches']} launches "
                     f"(two 1024-token admissions), K2 "
@@ -3890,8 +3965,10 @@ def drive_train_parallel(gen, tmp, device="cuda"):
     (MoE on pinned routes, their flips near ties), K1/K3/K4 a rank a
     step as the layout implies (2 / 1 / 1 per local layer and
     microbatch), ZeRO-1's moments and FSDP's params and moments at 1/dp
-    of the one-rank bytes; then the train CLI as 4 ranks through a file
-    catalog (pp2 x tp2): the mesh line and a falling loss."""
+    of the one-rank bytes; beside them, the train CLI as 4 ranks through
+    a file catalog (pp2 x tp2): the mesh line and a falling loss."""
+    from concurrent.futures import ThreadPoolExecutor
+
     t_phase = time.perf_counter()
     per_shard = None
     if device == "cuda":
@@ -3901,7 +3978,8 @@ def drive_train_parallel(gen, tmp, device="cuda"):
     root = os.path.dirname(os.path.abspath(__file__))
     layouts = {}
     seconds = {}
-    for world in sorted({w for _n, w, *_rest in PARALLEL_LAYOUTS}):
+
+    def run_world(world):
         t0 = time.perf_counter()
         world_dir = os.path.join(tmp, f"world{world}")
         os.makedirs(world_dir)
@@ -3931,6 +4009,17 @@ def drive_train_parallel(gen, tmp, device="cuda"):
              for r in range(world)],
             envs, world_dir, RANK_TIMEOUT)
         seconds[f"world_of_{world}"] = time.perf_counter() - t0
+
+    # the worlds and the 4-rank CLI are processes of their own, two
+    # launches at a time (the script's clock; the ranks' step times are
+    # no speed figure: they share the card)
+    with ThreadPoolExecutor(2) as pool:
+        launches = [pool.submit(run_world, world) for world in sorted(
+            {w for _n, w, *_rest in PARALLEL_LAYOUTS}, reverse=True)]
+        cli_run = pool.submit(drive_parallel_cli, tmp, device)
+        for launch in launches:
+            launch.result()
+        cli = cli_run.result()
     for name, world, plan, opts, over in PARALLEL_LAYOUTS:
         ref = refs[json.dumps(over, sort_keys=True)]
         job_dir = os.path.join(tmp, f"world{world}", name)
@@ -3999,7 +4088,6 @@ def drive_train_parallel(gen, tmp, device="cuda"):
     for name in os.listdir(tmp):
         if name.startswith("ref") or name == "tokens.pt":
             os.remove(os.path.join(tmp, name))
-    cli = drive_parallel_cli(tmp, device)
     return {"phase": "train_parallel", "config": PARALLEL_CFG,
             "batch": TRAIN_BATCH, "seq": TRAIN_SEQ,
             "per_shard_kernels": per_shard, "layouts": layouts,
@@ -4528,6 +4616,8 @@ def drive_serve_parallel(tmp, card, device="cuda", model=None, lens=None,
     same drive on the plain versions for a small ``model`` and ``lens``
     (no kernel to count or hold). ``extra_args`` go to every CLI;
     ``timeout`` bounds each CLI's start-up."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from containerpilot_tpu_torch.workload import serve_cli
 
     model = PAR_MODEL if model is None else model
@@ -4547,15 +4637,14 @@ def drive_serve_parallel(tmp, card, device="cuda", model=None, lens=None,
     result["tp2_int8"] = drive_composed_pod(
         tmp, card, device, model=model, lens=lens, extra_args=extra_args,
         timeout=timeout)
-    for label, extra, ranks in PAR_RUNS:
+
+    def serve_run(label, extra, ranks, ids):
         cp = "--cp" in extra
         if cp:
             extra = [*extra, "--cp-min-len", str(min_len)]
         args = ["--device", device, *model, *PAR_ARGS, *extra, *extra_args]
         parsed = serve_cli.build_arg_parser().parse_args(args)
         cfg, params, _ = serve_cli.load_model(parsed)  # one rank, whole
-        ids = torch.randint(0, cfg.vocab_size, (max(lens["cp"]),),
-                            generator=cpu).tolist()
         longs, shorts = parallel_bodies(ids, lens["cp" if cp else "tp"],
                                         shorts=1 if cp else 8)
         # under --cp a beam too: on the model axis, seq ranks repeating it
@@ -4564,7 +4653,10 @@ def drive_serve_parallel(tmp, card, device="cuda", model=None, lens=None,
         out = {"args": [*PAR_ARGS, *extra], "ranks": ranks}
         if device == "cuda":
             torch.cuda.empty_cache()
-        with CountedServe(args, tmp, timeout=timeout, ranks=ranks) as srv:
+        run_dir = os.path.join(tmp, label)
+        os.makedirs(run_dir)
+        with CountedServe(args, run_dir, timeout=timeout,
+                          ranks=ranks) as srv:
             port = srv.port
             out["ready_s"] = srv.ready_s
             before = json.loads(asyncio.run(http(port, "GET", "/v1/model")))
@@ -4654,10 +4746,23 @@ def drive_serve_parallel(tmp, card, device="cuda", model=None, lens=None,
             "wall_ms_by_request": walls, "drive_s": drive_s,
             "tokens": tokens, "front_staged_bytes_a_token": staged / tokens,
         })
-        result[label] = out
         del params
         if device == "cuda":
             torch.cuda.empty_cache()
+        return out
+
+    # each run's prompt ids drawn in PAR_RUNS' order; the runs then serve
+    # at once (processes of their own: the script's clock; their walls
+    # are no speed figure)
+    vocab = serve_cli.build_arg_parser().parse_args(
+        ["--device", device, *model, *PAR_ARGS, *extra_args]).vocab
+    draws = [torch.randint(0, vocab, (max(lens["cp"]),),
+                           generator=cpu).tolist() for _ in PAR_RUNS]
+    with ThreadPoolExecutor(len(PAR_RUNS)) as pool:
+        runs = [pool.submit(serve_run, *run, ids)
+                for run, ids in zip(PAR_RUNS, draws)]
+        for (label, *_rest), run in zip(PAR_RUNS, runs):
+            result[label] = run.result()
     result["seconds"] = time.perf_counter() - t_phase
     return result
 
@@ -4903,8 +5008,9 @@ def drive_train_resume(tmp, card, device="cuda", model=None):
     """train_resume: the train CLI as 4 ranks (data 1 x model 4, the
     reference's factorization of the world) through a file
     catalog with checkpoints every 2 steps: an uninterrupted run with
-    in-loop eval on the port's own source text; the same run with rank 1
-    SIGKILLed after step 5 (its peers must exit non-zero by themselves),
+    in-loop eval on the port's own source text; beside it, the same run
+    with rank 1 SIGKILLed after step 5 (its peers must exit non-zero by
+    themselves),
     relaunched (resumes at step 4, one step further): its losses against
     the uninterrupted run's and the two step-6 checkpoints against each
     other; the step-6 checkpoint in one rank here, one more step against
@@ -4913,6 +5019,8 @@ def drive_train_resume(tmp, card, device="cuda", model=None):
     gradient. K1/K3/K4 a rank a step as logged; start-up, save and
     restore seconds and the bytes staged on rank 0's host (none is a
     speed figure: the ranks share the card)."""
+    from concurrent.futures import ThreadPoolExecutor
+
     from containerpilot_tpu_torch.models import transformer as tf
     from containerpilot_tpu_torch.parallel import (
         abstract_train_state,
@@ -4939,10 +5047,20 @@ def drive_train_resume(tmp, card, device="cuda", model=None):
     result = {"phase": "train_resume", "model": model, "ranks": 4,
               "mesh": {"data": 1, "model": 4}, "tokens": n_tokens, **card}
 
-    # the uninterrupted run
-    rcs, outs, recs, t0 = _run_world(
-        tmp, "full", [*run, "--steps", str(RESUME_STEPS),
-                      "--checkpoint-dir", full_ck], 4, device)
+    # the uninterrupted run, and beside it the same run with rank 1 lost
+    # after step 5 (a checkpoint directory and a catalog each)
+    def killed_world():
+        got = _run_world(tmp, "killed", [*run, "--steps", str(RESUME_STEPS),
+                                         "--checkpoint-dir", killed_ck],
+                         4, device, kill=RESUME_KILL)
+        return (*got, time.time())
+
+    with ThreadPoolExecutor(1) as pool:
+        killed_run = pool.submit(killed_world)
+        rcs, outs, recs, t0 = _run_world(
+            tmp, "full", [*run, "--steps", str(RESUME_STEPS),
+                          "--checkpoint-dir", full_ck], 4, device)
+        killed = killed_run.result()
     _world_ok("full", rcs, outs)
     _launches_ok("full", recs, device)
     full = _steps_of(recs[0])
@@ -4967,10 +5085,7 @@ def drive_train_resume(tmp, card, device="cuda", model=None):
         "launches_a_rank_a_step": _launches_read(recs)}
 
     # rank 1 lost after step 5, then the relaunch (one step further)
-    rcs, outs, recs, t0 = _run_world(
-        tmp, "killed", [*run, "--steps", str(RESUME_STEPS),
-                        "--checkpoint-dir", killed_ck], 4, device,
-        kill=RESUME_KILL)
+    rcs, outs, _recs, t0, t_end = killed
     if rcs[RESUME_KILL[0]] != -signal.SIGKILL or any(
             rc in (0, None) for rc in rcs):
         raise AssertionError(
@@ -4979,7 +5094,7 @@ def drive_train_resume(tmp, card, device="cuda", model=None):
             f"by itself):\n{outs[0][-2000:]}")
     result["killed"] = {"exit_codes": rcs, "rank": RESUME_KILL[0],
                         "after_step": RESUME_KILL[1],
-                        "seconds": time.time() - t0}
+                        "seconds": t_end - t0}
     rcs, outs, recs, t0 = _run_world(
         tmp, "relaunched", [*run, "--steps", str(RESUME_STEPS + 1),
                             "--checkpoint-dir", killed_ck], 4, device)
@@ -5174,6 +5289,8 @@ def drive_serve_pod(tmp, card, device="cuda", model=None, long_len=PROMPT_LEN,
     counted. ``device="cpu"`` rehearses it on the plain versions with a
     small ``model`` (no kernel to count). ``ranks`` processes, with
     ``extra_args`` (e.g. ``--dp 2``) added to every one."""
+    import dataclasses
+
     from containerpilot_tpu_torch.workload import modelcfg, serve_cli
     from containerpilot_tpu_torch.workload import serve_dist
 
@@ -5301,8 +5418,11 @@ def drive_serve_pod(tmp, card, device="cuda", model=None, long_len=PROMPT_LEN,
                        "equal_one_rank": first is None,
                        "worst_gap": worst})
     check_rows(beam_rows, 1, POD_NEW, cfg.vocab_size)
+    # judged against the plain attention: the pod's score takes K1 under
+    # the card's crossover, so an AUTO scorer here would take it too
     with torch.inference_mode():
-        want = modelcfg.score_logprobs_fn(cfg)(
+        want = modelcfg.score_logprobs_fn(
+            dataclasses.replace(cfg, flash_min_seq=0))(
             params, torch.tensor([score_row], device=device))[0]
     score_err = rel_norm_err(torch.tensor(scored["logprobs"][0]),
                              want.float().cpu())
@@ -5311,9 +5431,15 @@ def drive_serve_pod(tmp, card, device="cuda", model=None, long_len=PROMPT_LEN,
                              f"{score_err}")
     k1 = [r["k1_launches"] for r in rank_stats]
     k2 = [r["k2_launches"] for r in rank_stats]
-    if device == "cuda" and (k1 != [cfg.n_layers] * ranks
+    # the long prompt's prefill, and /v1/score's forward over its row
+    # padded to the flash block, where the crossover in force takes K1
+    score_len = -(-(len(score_row) - 1) // 128) * 128
+    want_k1 = cfg.n_layers * (k1_forwards(cfg, [long_len])
+                              + k1_forwards(cfg, [score_len], "train"))
+    if device == "cuda" and (k1 != [want_k1] * ranks
                              or not all(n > 0 for n in k2)):
-        raise AssertionError(f"serve_pod: K1 {k1}, K2 {k2} launches by rank")
+        raise AssertionError(f"serve_pod: K1 {k1} (want {want_k1} a "
+                             f"rank), K2 {k2} launches by rank")
     mode = "uncaptured" if device == "cuda" else "eager"
     first_use = [(r["captures_after_warm"], r["builds_after_warm"],
                   r["loads_after_warm"]) for r in rank_stats]
@@ -5334,7 +5460,8 @@ def drive_serve_pod(tmp, card, device="cuda", model=None, long_len=PROMPT_LEN,
         "phase": "serve_pod", "model": model,
         "args": [*POD_ARGS, *extra_args],
         "ranks": ranks, "mesh": info["pod"]["mesh"],
-        "k1_launches_by_rank": k1, "k2_launches_by_rank": k2,
+        "k1_launches_by_rank": k1, "k1_want_a_rank": want_k1,
+        "k2_launches_by_rank": k2,
         "digests": [r["digest"] for r in rank_stats],
         "ops_by_rank": [r["ops"] for r in rank_stats],
         "step_program": rank_stats[0]["step_program"],
@@ -5351,6 +5478,387 @@ def drive_serve_pod(tmp, card, device="cuda", model=None, long_len=PROMPT_LEN,
     }
 
 
+# ---------------------------------------------------------------------------
+# phase 28: the H100's own flash crossover (ops/autotune.py)
+# ---------------------------------------------------------------------------
+
+AUTOTUNE_SEQS = (512, 1024)
+TABLE_KEYS = {"platform", "flash_min_seq", "blocks", "speedup_vs_default",
+              "measurements"}
+
+
+def drive_autotune(card):
+    """``autotune.measure`` at AUTOTUNE_SEQS (K1 alone for ``fwd``, K1 +
+    K3 + K4 through flash_attention's backward for ``train``, against
+    the plain causal_attention), its table in the reference's schema;
+    then the committed table of this card, found by discovery, and
+    ``resolve_min_seq(AUTO, kind)`` answering its crossovers."""
+    from containerpilot_tpu_torch.ops import autotune, flash, tuning
+
+    t0 = time.perf_counter()
+    flash.LAUNCHES = flash.DQ_LAUNCHES = flash.DKDV_LAUNCHES = 0
+    results = autotune.measure(AUTOTUNE_SEQS, n=3, reps=2)
+    launches = {"k1": flash.LAUNCHES, "k3": flash.DQ_LAUNCHES,
+                "k4": flash.DKDV_LAUNCHES}
+    if not all(launches.values()):
+        raise AssertionError(f"autotune.measure launched {launches}")
+    slug = tuning.platform_slug()
+    table = autotune.build_table(results, slug)
+    default = list(autotune.DEFAULT_PAIR)
+    if not (set(table) == TABLE_KEYS and table["platform"] == slug
+            and all(isinstance(table["flash_min_seq"][k], int)
+                    and table["blocks"][k] == {str(n): default
+                                               for n in AUTOTUNE_SEQS}
+                    and set(table["speedup_vs_default"][k].values()) == {1.0}
+                    for k in ("fwd", "train"))
+            and all(t > 0 for e in results.values()
+                    for t in (e["xla_fwd_ms"], e["xla_train_ms"],
+                              *e["flash"]["128x128"].values()))):
+        raise AssertionError(f"autotune table off the schema: {table}")
+    if os.environ.get("CONTAINERPILOT_FLASH_TABLE"):
+        raise AssertionError("CONTAINERPILOT_FLASH_TABLE overrides the "
+                             "committed table")
+    path = os.path.join(os.path.dirname(os.path.abspath(tuning.__file__)),
+                        "tuned", f"{slug}.json")
+    if not os.path.exists(path):
+        raise AssertionError(f"no committed flash table for {slug}: {path}")
+    with open(path) as fh:
+        committed = json.load(fh)
+    tuning.set_table(None)  # rediscover from disk
+    resolved = {kind: tuning.resolve_min_seq(tuning.AUTO, kind)
+                for kind in ("fwd", "train")}
+    if resolved != committed["flash_min_seq"] or tuning._table_path() != path:
+        raise AssertionError(f"AUTO resolves to {resolved}, the committed "
+                             f"table says {committed['flash_min_seq']}")
+    return {
+        "phase": "autotune", "seqs": list(AUTOTUNE_SEQS),
+        "measured_min_seq": table["flash_min_seq"],
+        "measurements": results, "launches": launches,
+        "committed_table": os.path.relpath(
+            path, os.path.dirname(os.path.abspath(__file__))),
+        "committed_min_seq": committed["flash_min_seq"],
+        "committed_card": committed.get("card"),
+        "resolved_min_seq": resolved,
+        "seconds": time.perf_counter() - t0, **card,
+    }
+
+
+# ---------------------------------------------------------------------------
+# phase 29: the port starts as the system starts — its own supervisor
+# ---------------------------------------------------------------------------
+
+SUPERVISED_CONFIG = "containerpilot_tpu_torch/examples/serving-pod.json5"
+SUPERVISED_NEW = 16
+SUPERVISED_TIMEOUT = 300  # s to a passing job: start-up and first check
+SUPERVISED_BATCH_ROWS = 8  # what -putenv hands the -reload's generation
+
+# ``python3`` first on the supervisor's PATH: the serve CLI as the
+# example execs it (python3 -m containerpilot_tpu_torch.workload.serve)
+# runs as COUNTED_SERVE, whose signals zero and read the kernel
+# counters; every other python3 command (the health check, the hooks)
+# runs unchanged
+PYTHON_SHIM = """#!{python}
+import os, sys
+if sys.argv[1:3] == ["-m", "containerpilot_tpu_torch.workload.serve"]:
+    os.execv(sys.executable, [sys.executable, "-c", {code!r}, {counts!r}]
+             + sys.argv[3:])
+os.execv(sys.executable, [sys.executable] + sys.argv[1:])
+"""
+
+
+def _catalog_passing(port, name):
+    return json.loads(asyncio.run(http(
+        port, "GET", f"/v1/health/service/{name}?passing=1")))
+
+
+def _gpu_pids():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-compute-apps=pid", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True).stdout
+    return {int(line) for line in out.split() if line.strip().isdigit()}
+
+
+def _nvidia_files(pid):
+    """The /dev/nvidia* device files ``pid`` holds open, which CUDA
+    opens at its initialization (none in a process that only imported
+    torch)."""
+    fd_dir = f"/proc/{pid}/fd"
+    held = set()
+    for fd in os.listdir(fd_dir):
+        with contextlib.suppress(OSError):
+            target = os.readlink(os.path.join(fd_dir, fd))
+            if target.startswith("/dev/nvidia"):
+                held.add(target)
+    return sorted(held)
+
+
+def drive_supervised_serve(tmp, card, device="cuda", model=None):
+    """python -m containerpilot_tpu_torch -config SUPERVISED_CONFIG on the
+    port's own -catalog-server, the example's model (the flagship, d_ff
+    8192) unless ``model`` overrides its template variables, then every
+    control verb of the port's CLI against it. ``device="cpu"`` rehearses
+    the path with a small ``model`` (no kernel to count, no card)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    from containerpilot_tpu_torch.models import decode
+    from containerpilot_tpu_torch.workload import serve_cli
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    cat_port, tel_port, serve_port = _free_port(), _free_port(), _free_port()
+    counts_path = os.path.join(tmp, "kernel_counts.json")
+    shim_dir = os.path.join(tmp, "bin")
+    os.makedirs(shim_dir)
+    shim = os.path.join(shim_dir, "python3")
+    with open(shim, "w") as fh:
+        fh.write(PYTHON_SHIM.format(python=sys.executable,
+                                    code=COUNTED_SERVE, counts=counts_path))
+    os.chmod(shim, 0o755)
+    env = {**os.environ, "PYTHONPATH": root,
+           "PATH": shim_dir + os.pathsep + os.environ.get("PATH", ""),
+           "CONSUL": f"127.0.0.1:{cat_port}",
+           "CONTROL_SOCKET": os.path.join(tmp, "cp.socket"),
+           "TELEMETRY_PORT": str(tel_port), "SERVE_PORT": str(serve_port),
+           "DEVICE": device, **(model or {})}
+    env.pop("MAX_BATCH_ROWS", None)
+    config = os.path.join(root, SUPERVISED_CONFIG)
+
+    def cli(*args):
+        done = subprocess.run(
+            [sys.executable, "-m", "containerpilot_tpu_torch",
+             "-config", config, *args], cwd=root, env=env,
+            capture_output=True, text=True, timeout=60)
+        if done.returncode != 0:
+            raise AssertionError(f"{args}: rc {done.returncode}: "
+                                 f"{done.stdout}{done.stderr}")
+        return done.stdout
+
+    sup_log = os.path.join(tmp, "supervisor.log")
+    catalog = subprocess.Popen(
+        [sys.executable, "-m", "containerpilot_tpu_torch",
+         "-catalog-server", f"127.0.0.1:{cat_port}"],
+        cwd=root, env=env, stdout=subprocess.DEVNULL,
+        stderr=subprocess.DEVNULL)
+    sup, job_pids, out = None, [], {"phase": "supervised_serve",
+                                    "config": SUPERVISED_CONFIG,
+                                    "model": model or "flagship"}
+
+    def log_tail():
+        with open(sup_log) as fh:
+            return fh.read()[-4000:]
+
+    def wait_job(label, exclude=()):
+        """The pid of the job the supervisor started (not one of
+        ``exclude``)."""
+        deadline = time.monotonic() + SUPERVISED_TIMEOUT
+        while True:
+            if sup.poll() is not None:
+                raise AssertionError(f"supervisor exited {sup.returncode}"
+                                     f":\n{log_tail()}")
+            jobs = [pid for pid in child_pids(sup.pid)
+                    if pid not in exclude and _is_counted(pid)]
+            if jobs:
+                return jobs[0]
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{label}: no job started:\n"
+                                     f"{log_tail()}")
+            time.sleep(0.1)
+
+    def wait_passing(label, since):
+        """Seconds from ``since`` until the catalog lists ``inference``
+        passing."""
+        deadline = time.monotonic() + SUPERVISED_TIMEOUT
+        while True:
+            if sup.poll() is not None:
+                raise AssertionError(f"supervisor exited {sup.returncode}"
+                                     f":\n{log_tail()}")
+            try:
+                if _catalog_passing(cat_port, "inference"):
+                    return time.perf_counter() - since
+            except (OSError, AssertionError):
+                pass
+            if time.monotonic() > deadline:
+                raise AssertionError(f"{label}: the job never passed:\n"
+                                     f"{log_tail()}")
+            time.sleep(0.2)
+
+    def counts(sig):
+        if os.path.exists(counts_path):
+            os.remove(counts_path)
+        os.kill(job_pids[-1], sig)
+        deadline = time.monotonic() + 30
+        while not os.path.exists(counts_path):
+            if time.monotonic() > deadline:
+                raise AssertionError("the job did not report its counts")
+            time.sleep(0.02)
+        with open(counts_path) as fh:
+            return json.load(fh)
+
+    try:
+        # the job registers at its first passing check, long after the
+        # catalog server is up: both start at once
+        t_start = time.perf_counter()
+        with open(sup_log, "w") as fh:
+            sup = subprocess.Popen(
+                [sys.executable, "-m", "containerpilot_tpu_torch",
+                 "-config", config], cwd=root, env=env, stdout=fh,
+                stderr=subprocess.STDOUT)
+        job_pids.append(wait_job("start"))
+        # the same seeded model in this process, loaded while the job
+        # loads its own
+        parsed = serve_cli.build_arg_parser().parse_args(
+            _job_argv(job_pids[-1]))
+        cfg, params, _ = serve_cli.load_model(parsed, device=device,
+                                              say=lambda line: None)
+        out["first_passing_s"] = wait_passing("start", t_start)
+
+        # -- a greedy 1024-token request through the job's port ------------
+        prompt = torch.randint(0, cfg.vocab_size, (PROMPT_LEN,),
+                               generator=torch.Generator().manual_seed(29)
+                               ).tolist()
+        counts(signal.SIGUSR2)
+        rows, wall = asyncio.run(generate_tokens(
+            serve_port, {"tokens": [prompt],
+                         "max_new_tokens": SUPERVISED_NEW}))
+        k = counts(signal.SIGUSR1)
+        check_rows(rows, 1, SUPERVISED_NEW, cfg.vocab_size)
+        want_k1 = cfg.n_layers * k1_forwards(cfg, [PROMPT_LEN])
+        if device == "cuda" and (k["k1"] != want_k1 or k["k2"] != 0):
+            raise AssertionError(f"supervised job: K1 {k['k1']} (want "
+                                 f"{want_k1}), K2 {k['k2']}")
+        # while the job serves on the card, the supervisor that forked it
+        # and the catalog server have not initialized CUDA: no
+        # /dev/nvidia* file open, no compute context (the job has both)
+        if device == "cuda":
+            on_card = _gpu_pids()
+            files = {name: _nvidia_files(pid) for name, pid in (
+                ("job", job_pids[-1]), ("supervisor", sup.pid),
+                ("catalog", catalog.pid))}
+            if (not files["job"] or files["supervisor"] or files["catalog"]
+                    or {sup.pid, catalog.pid} & on_card):
+                raise AssertionError(
+                    f"while the job serves: /dev/nvidia* files held "
+                    f"{files}; nvidia-smi compute pids {sorted(on_card)} "
+                    f"(supervisor {sup.pid}, catalog {catalog.pid})")
+            out["while_serving"] = {
+                "nvidia_files": files,
+                "job_listed_by_nvidia_smi": job_pids[-1] in on_card}
+        with torch.inference_mode():
+            local = decode.generate(
+                params, torch.tensor([prompt], device=device), cfg,
+                SUPERVISED_NEW, parsed.max_len).tolist()
+        del params
+        if device == "cuda":
+            torch.cuda.empty_cache()
+        if rows != local:
+            raise AssertionError(f"supervised tokens {rows} differ from "
+                                 f"in-process generate {local}")
+        out.update({"cfg": {"vocab": cfg.vocab_size, "d_model": cfg.d_model,
+                            "n_heads": cfg.n_heads,
+                            "n_layers": cfg.n_layers, "d_ff": cfg.d_ff},
+                    "k1_launches": k["k1"], "k1_want": want_k1,
+                    "k2_launches": k["k2"], "request_ms": wall * 1e3,
+                    "tokens_equal_in_process": True})
+
+        # -- the supervisor's telemetry and control verbs ------------------
+        status = json.loads(asyncio.run(http(tel_port, "GET", "/status")))
+        if {"Name": "inference", "Status": "healthy"} not in status["Jobs"]:
+            raise AssertionError(f"/status: {status}")
+        with ThreadPoolExecutor(3) as pool:
+            said = list(pool.map(lambda args: cli(*args), [
+                ("-ping",), ("-putmetric", "served_requests=1"),
+                ("-putenv", f"MAX_BATCH_ROWS={SUPERVISED_BATCH_ROWS}")]))
+        if said[0].strip() != "ok":
+            raise AssertionError("-ping did not answer ok")
+        metrics = asyncio.run(http(tel_port, "GET", "/metrics")).decode()
+        for line in ('cp_build_info{role="supervisor",',
+                     'containerpilot_events_total{code="metric",'
+                     'source="served_requests|1"} 1.0',
+                     'containerpilot_control_http_requests_total{'
+                     'path="/v3/metric",status="200"} 1.0',
+                     "process_resident_memory_bytes "):
+            if line not in metrics:
+                raise AssertionError(f"/metrics lacks {line!r}")
+        cli("-maintenance", "enable")
+        deadline = time.monotonic() + 30
+        while _catalog_passing(cat_port, "inference"):
+            if time.monotonic() > deadline:
+                raise AssertionError("maintenance: the catalog still lists "
+                                     "the job passing")
+            time.sleep(0.2)
+        cli("-reload")
+        t_reload = time.perf_counter()
+        job_pids.append(wait_job("reload", exclude=job_pids))
+        out["reload_passing_s"] = wait_passing("reload", t_reload)
+        info = json.loads(asyncio.run(http(serve_port, "GET", "/v1/model")))
+        if info["batching"]["max_batch_rows"] != SUPERVISED_BATCH_ROWS:
+            raise AssertionError(f"the reloaded job serves {info}, not "
+                                 f"-putenv's MAX_BATCH_ROWS")
+        rows2, _ = asyncio.run(generate_tokens(
+            serve_port, {"tokens": [prompt],
+                         "max_new_tokens": SUPERVISED_NEW}))
+        if rows2 != rows:
+            raise AssertionError("the reloaded job answers otherwise")
+
+        # -- SIGTERM: stopping, stopped, exit 0, the card released ---------
+        sup.send_signal(signal.SIGTERM)
+        rc = sup.wait(timeout=120)
+        text = log_tail()
+        hooks = [text.find(f"inference {word}") for word in ("stopping",
+                                                              "stopped")]
+        if rc != 0 or not 0 <= hooks[0] < hooks[1]:
+            raise AssertionError(f"supervisor exit {rc}, stopping/stopped "
+                                 f"hooks at {hooks}:\n{text}")
+        left = json.loads(asyncio.run(http(
+            cat_port, "GET", "/v1/health/service/inference")))
+        holding = sorted(_gpu_pids() & set(job_pids)) if (
+            device == "cuda") else []
+        if left or holding or any(_alive(p) for p in job_pids):
+            raise AssertionError(f"after SIGTERM: catalog {left}, pids "
+                                 f"holding the card {holding}")
+        out.update({"supervisor_rc": rc, "job_pids": job_pids,
+                    "seconds": time.perf_counter() - t0, **card})
+        return out
+    finally:
+        for proc in (sup, catalog):
+            if proc is not None and proc.poll() is None:
+                proc.send_signal(signal.SIGTERM)
+                try:
+                    proc.wait(timeout=60)
+                except subprocess.TimeoutExpired:
+                    proc.kill()
+                    proc.wait(timeout=30)
+        for pid in job_pids:
+            if _alive(pid):
+                with contextlib.suppress(ProcessLookupError):
+                    os.killpg(pid, signal.SIGKILL)
+
+
+def _is_counted(pid):
+    """Whether ``pid`` runs the serve CLI as COUNTED_SERVE."""
+    try:
+        with open(f"/proc/{pid}/cmdline", "rb") as fh:
+            return COUNTED_SERVE.encode() in fh.read()
+    except OSError:
+        return False
+
+
+def _job_argv(pid):
+    """The serve CLI flags of the job ``pid`` (after COUNTED_SERVE's
+    code and counts path)."""
+    with open(f"/proc/{pid}/cmdline", "rb") as fh:
+        argv = fh.read().decode().split("\0")[:-1]
+    return argv[argv.index("-c") + 3:]
+
+
+def _alive(pid):
+    try:
+        with open(f"/proc/{pid}/stat") as fh:
+            return fh.read().rsplit(")", 1)[1].split()[0] != "Z"
+    except OSError:
+        return False
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a "
@@ -5361,6 +5869,8 @@ def main() -> int:
         return rank_job(sys.argv[2], int(sys.argv[3]))
     if sys.argv[1:2] == ["--train-rank"]:  # a train_resume child
         return train_rank(sys.argv[1:])
+    from concurrent.futures import ThreadPoolExecutor
+
     from containerpilot_tpu_torch.models import decode, quantized
     from containerpilot_tpu_torch.models import transformer as tf
     from containerpilot_tpu_torch.ops import _build, flash, quant
@@ -5392,6 +5902,10 @@ def main() -> int:
     bwd_rows = [check_flash_bwd(gen, *c) for c in BWD_CASES]
     emit({"phase": "kernels", "kernel": "flash_bwd_dq+flash_bwd_dkdv",
           "results": bwd_rows, **card})
+
+    # ---- the card's flash crossover: measured, and the committed table --
+    autotune = drive_autotune(card)
+    emit(autotune)
 
     # ---- serve bf16 -----------------------------------------------------
     cfg = tf.TransformerConfig(**FLAGSHIP)
@@ -5435,13 +5949,14 @@ def main() -> int:
     emit(slots_bf16)
 
     # ---- serve a sliding window: ring, then ring + int8 KV --------------
-    cfg_w = tf.TransformerConfig(**{**FLAGSHIP,
+    cfg_w = tf.TransformerConfig(**{**FLAGSHIP, "n_layers": CUT_LAYERS,
                                     "max_seq_len": WINDOW_MAX_LEN},
                                  window=WINDOW, kv_int8=True)
     long_prompt = torch.randint(
         0, cfg.vocab_size, (WINDOW_PROMPT_LEN,), generator=gen, device="cuda"
     ).tolist()
-    serve_window = drive_window_server(cfg_w, params, long_prompt)
+    serve_window = drive_window_server(cfg_w, first_layers(params),
+                                       long_prompt)
     serve_window.update(card)
     emit(serve_window)
     del params
@@ -5521,7 +6036,8 @@ def main() -> int:
     emit(slots_int8)
 
     # ---- serve slots, int8 weights, window ring + int8 KV ---------------
-    slots_window = drive_slots_window(cfg_w, qparams, long_prompt)
+    slots_window = drive_slots_window(cfg_w, first_layers(qparams),
+                                      long_prompt)
     if not (slots_window["k2_launches_decode_replays"] > 0
             and slots_window["k2_launches_admission"] > 0):
         raise AssertionError(
@@ -5553,8 +6069,11 @@ def main() -> int:
         emit({**serve_ckpt, **card})
 
         # ---- beams and speculative decoding, bf16 then int8 ------------
-        masters = tf.init_params(0, cfg, device="cuda")  # phase 4's weights
-        serve_beam, serve_spec = serve_beam_spec(cfg, masters, prompt, card)
+        cfg_cut = tf.TransformerConfig(**{**FLAGSHIP,
+                                          "n_layers": CUT_LAYERS})
+        masters = tf.init_params(0, cfg_cut, device="cuda")
+        serve_beam, serve_spec = serve_beam_spec(cfg_cut, masters, prompt,
+                                                 card)
         emit(serve_beam)
         emit(serve_spec)
         del masters
@@ -5608,20 +6127,27 @@ def main() -> int:
               if path != "e"}
         for key in ("k1", "k2")}
 
-    # ---- the trainer across ranks: checkpoints, crash, resume, LoRA -----
+    # ---- the trainer across ranks: checkpoints, crash, resume, LoRA; ----
+    # ---- beside it the pod server (serve_dist ranks) and the port under -
+    # its own supervisor and catalog server: the three phases are mostly
+    # other processes starting up and waiting, so they run at once (the
+    # script's clock). None reads this process's kernel counters: each
+    # rank, pod rank and supervised job counts its own.
     gc.collect()
     torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
+    with tempfile.TemporaryDirectory() as tmp, \
+            tempfile.TemporaryDirectory() as pod_tmp, \
+            tempfile.TemporaryDirectory() as sup_tmp, \
+            ThreadPoolExecutor(2) as pool:
+        supervised_run = pool.submit(drive_supervised_serve, sup_tmp, card)
+        pod_run = pool.submit(drive_serve_pod, pod_tmp, card)
         train_resume = drive_train_resume(tmp, card)
+        serve_pod = pod_run.result()
+        supervised = supervised_run.result()
     emit(train_resume)
-    resume_launches = train_resume["uninterrupted"]["launches_a_rank_a_step"]
-
-    # ---- the pod server: serve_dist ranks on this card ------------------
-    gc.collect()
-    torch.cuda.empty_cache()
-    with tempfile.TemporaryDirectory() as tmp:
-        serve_pod = drive_serve_pod(tmp, card)
     emit(serve_pod)
+    emit(supervised)
+    resume_launches = train_resume["uninterrupted"]["launches_a_rank_a_step"]
 
     # ---- summary --------------------------------------------------------
     main_flash = flash_rows[0]
@@ -5697,6 +6223,8 @@ def main() -> int:
                 "composed_pod_launches_by_path": pod_paths["k1"],
                 "serve_pod_launches_by_rank":
                     serve_pod["k1_launches_by_rank"]},
+            "autotune_launches": autotune["launches"]["k1"],
+            "supervised_serve_launches": supervised["k1_launches"],
         },
         *(
             {
@@ -5745,6 +6273,7 @@ def main() -> int:
                     parallel_launches[f"{key}_launches"],
                 "train_resume_launches_a_rank_a_step":
                     resume_launches[short],
+                "autotune_launches": autotune["launches"][short],
             }
             for name, key, short, replaces, grads in (
                 ("flash_bwd_dq", "dq", "k3",

@@ -1,7 +1,7 @@
 """Consul discovery backend over the raw HTTP API (the port's own copy of
 ``containerpilot_tpu/discovery/consul.py``, over the port's
-``utils/httpclient.keepalive_request``, without the reference's
-Prometheus gauge of watched instances).
+``utils/httpclient.keepalive_request``, with the gauge of watched
+instances in the port's ``utils/prom.REGISTRY``).
 
 Capability parity with the reference's Consul backend
 (reference: discovery/consul.go, discovery/config.go) without the
@@ -32,6 +32,7 @@ import urllib.parse
 from typing import Any, Dict, List, Optional, Tuple
 
 from ..utils.httpclient import keepalive_request
+from ..utils.prom import REGISTRY, Gauge
 from .backend import (
     Backend,
     DiscoveryError,
@@ -40,6 +41,14 @@ from .backend import (
 )
 
 log = logging.getLogger("containerpilot.discovery")
+
+
+_INSTANCE_GAUGE = Gauge(
+    "containerpilot_watch_instances",
+    "Count of instances seen for each watched service",
+    ["service"],
+    registry=REGISTRY,
+)
 
 class ConsulBackend(Backend):
     def __init__(
@@ -221,6 +230,7 @@ class ConsulBackend(Backend):
         except DiscoveryError as exc:
             log.warning("failed to query %s: %s", service_name, exc)
             return False, False
+        _INSTANCE_GAUGE.labels(service_name).set(len(instances))
         last = self._last_seen.get(service_name)
         did_change = (last is not None and last != instances) or (
             last is None and bool(instances)

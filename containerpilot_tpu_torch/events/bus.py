@@ -1,7 +1,7 @@
 """The in-process event bus: synchronous fan-out pub/sub (the port's own
-copy of ``containerpilot_tpu/events/bus.py``, without its optional
-Prometheus event counter: the port writes its own exposition and a
-replica's bus publishes a handful of maintenance events).
+copy of ``containerpilot_tpu/events/bus.py``; its event counter
+``containerpilot_events`` is in the port's own default registry,
+``utils/prom.REGISTRY``, which the supervisor's ``/metrics`` serves).
 
 Capability parity with the reference supervisor's bus
 (reference: events/bus.go). Semantics preserved:
@@ -35,12 +35,21 @@ import threading
 from collections import deque
 from typing import TYPE_CHECKING, Deque, List, Optional
 
+from ..utils.prom import REGISTRY, Counter
 from .events import GLOBAL_SHUTDOWN, Event
 
 if TYPE_CHECKING:  # pragma: no cover
     from .subscriber import Subscriber
 
 log = logging.getLogger("containerpilot.events")
+
+
+_EVENT_COUNTER = Counter(
+    "containerpilot_events",
+    "Total events published to the supervisor bus",
+    ["code", "source"],
+    registry=REGISTRY,
+)
 
 # Ring-buffer size for DebugEvents-style assertions
 # (reference: events/bus.go:75).
@@ -160,6 +169,7 @@ class EventBus:
                 log.debug("event: %s", event)
                 self._ring.append(event)
                 subscribers = list(self._subscribers)
+            _EVENT_COUNTER.labels(event.code.value, event.source).inc()
             for sub in subscribers:
                 sub.receive(event)  # cpcheck: disable=CP-LOCKPUB delivery-only reentrant lock, taken by no other code path
 

@@ -1,6 +1,6 @@
 """Actor mailbox plumbing: Subscriber and Publisher mixins (the port's
 own copy of ``containerpilot_tpu/events/subscriber.py``; a dropped event
-is counted on the subscriber instead of in Prometheus).
+is counted on the subscriber and in ``containerpilot_events_dropped``).
 
 Capability parity with the reference's subscriber/publisher structs
 (reference: events/subscriber.go, events/publisher.go). Every supervisor
@@ -20,10 +20,19 @@ import asyncio
 import logging
 from typing import Optional
 
+from ..utils.prom import REGISTRY, Counter
 from .bus import EventBus
 from .events import Event
 
 log = logging.getLogger("containerpilot.events")
+
+
+_DROP_COUNTER = Counter(
+    "containerpilot_events_dropped",
+    "Events dropped because an actor's mailbox overflowed",
+    ["code", "source"],
+    registry=REGISTRY,
+)
 
 MAILBOX_CAPACITY = 1000
 
@@ -83,6 +92,7 @@ class Subscriber(Publisher):
                 self,
             )
             self.dropped += 1
+            _DROP_COUNTER.labels(event.code.value, event.source).inc()
 
     async def next_event(self) -> Event:
         return await self.rx.get()

@@ -197,9 +197,10 @@ def prefill(
     if wraps:
         slots = torch.arange(s - length, s, device=x.device) % length
     hooked = cfg.attention_fn is not None
-    gqa_flash = not hooked and flash_eligible(cfg, s, kind="fwd")
+    gqa_flash = not hooked and flash_eligible(cfg, s, kind="fwd",
+                                              device=x.device)
     if gqa_flash:
-        fq, fk = tuning.pick_blocks("fwd", s)
+        fq, fk = tuning.pick_blocks("fwd", s, device=x.device)
     offset = seq_offset(cfg, s)
     for i in range(cfg.n_layers):
         lp = maybe_dequant_layer(layer_params(params, i), cfg.dtype)

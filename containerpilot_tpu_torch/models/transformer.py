@@ -123,10 +123,13 @@ Params = Dict[str, Any]
 FLASH_BLOCK = 128
 
 
-def flash_eligible(cfg: TransformerConfig, seq: int, kind: str = "train") -> bool:
-    """True when attention should take the flash kernel: at/above the
-    threshold and block-aligned (a window must be block-aligned too)."""
-    min_seq = tuning.resolve_min_seq(cfg.flash_min_seq, kind=kind)
+def flash_eligible(cfg: TransformerConfig, seq: int, kind: str = "train",
+                   device="cuda") -> bool:
+    """True when attention on ``device`` should take the flash kernel:
+    at/above the threshold of that device's platform and block-aligned
+    (a window must be block-aligned too)."""
+    min_seq = tuning.resolve_min_seq(cfg.flash_min_seq, kind=kind,
+                                     device=device)
     return (
         min_seq > 0
         and seq >= min_seq
@@ -403,8 +406,8 @@ def _attention(
     s, heads = q.shape[1], q.shape[2]
     if cfg.attention_fn is not None:
         return hooked_attention(q, k, v, cfg)
-    if flash_eligible(cfg, s, kind=kind):
-        bq, bk = tuning.pick_blocks(kind, s)
+    if flash_eligible(cfg, s, kind=kind, device=q.device):
+        bq, bk = tuning.pick_blocks(kind, s, device=q.device)
         if torch.is_grad_enabled():
             return flash_attention(
                 q, repeat_kv(k, heads), repeat_kv(v, heads),

@@ -1,7 +1,10 @@
 """Minimal asyncio HTTP/1.1 server with keep-alive and cp-mux/1: the
 port's own copy of ``containerpilot_tpu/utils/http.py``, so a torch
 replica speaks the same transport, byte for byte, as a JAX replica (the
-fleet gateway's multiplexed path and its HTTP/1.1 fallback).
+fleet gateway's multiplexed path and its HTTP/1.1 fallback). The
+supervisor's servers use it too: the telemetry endpoint on TCP, the
+control plane on a unix domain socket (``start_unix``) and the catalog
+daemon (whose dynamic paths go through ``fallback``).
 
 Connection contract:
 
@@ -315,10 +318,15 @@ Handler = Callable[[Request], Awaitable[Response]]
 
 class HTTPServer:
     """Route-table HTTP server over asyncio streams; bind via
-    ``start_tcp``."""
+    ``start_tcp`` or ``start_unix``."""
 
     def __init__(self) -> None:
         self.routes: Dict[Tuple[str, str], Handler] = {}
+        # optional catch-all for dynamic paths (e.g. /v1/agent/service/
+        # deregister/<id>); returning None falls through to 404
+        self.fallback: Optional[
+            Callable[[Request], Awaitable[Optional[Response]]]
+        ] = None
         self._server: Optional[asyncio.AbstractServer] = None
         # live connection writers, so stop() can force-close lingering
         # keep-alive connections instead of leaving their handler
@@ -341,6 +349,9 @@ class HTTPServer:
 
     async def start_tcp(self, host: str, port: int) -> None:
         self._server = await asyncio.start_server(self._handle, host, port)
+
+    async def start_unix(self, path: str) -> None:
+        self._server = await asyncio.start_unix_server(self._handle, path)
 
     @property
     def bound_port(self) -> Optional[int]:
@@ -903,6 +914,10 @@ class HTTPServer:
     async def _dispatch(self, request: Request) -> Response:
         handler = self.routes.get((request.method, request.path))
         if handler is None:
+            if self.fallback is not None:
+                response = await self.fallback(request)
+                if response is not None:
+                    return response
             if any(p == request.path for (_m, p) in self.routes):
                 return Response(405, b"method not allowed\n")
             return Response(404, b"not found\n")

@@ -15,10 +15,19 @@ and histogram buckets as a JAX replica's, laid out the way
 each counter's and histogram's ``_created`` sample in a gauge family of
 its own after it. Labels are sorted by name; numbers are written as
 ``prometheus_client`` writes them (``floatToGoString``).
+
+``REGISTRY`` is the process-wide default registry, the counterpart of
+``prometheus_client.REGISTRY``: the supervisor's ``/metrics`` serves
+it, with the same process, garbage-collector and platform families that
+``prometheus_client`` registers there by default.
 """
 from __future__ import annotations
 
+import gc
 import math
+import os
+import platform
+import resource
 import threading
 import time
 from typing import Callable, Dict, List, Optional, Sequence, Tuple
@@ -75,6 +84,11 @@ class Registry:
                     f"duplicated timeseries in Registry: {metric.name}")
             self._metrics.append(metric)
 
+    def unregister(self, name: str) -> None:
+        """Drop the family ``name`` (a no-op when it is absent)."""
+        with self._lock:
+            self._metrics = [m for m in self._metrics if m.name != name]
+
     def metrics(self) -> List["_Metric"]:
         with self._lock:
             return list(self._metrics)
@@ -89,7 +103,7 @@ class _Child:
         self.created = time.time()
         self._value = 0.0
         self._fn: Optional[Callable[[], float]] = None
-        if isinstance(metric, Histogram):
+        if isinstance(metric, (Histogram, Summary)):
             self._buckets = [0.0] * len(metric.buckets)
             self._sum = 0.0
 
@@ -141,6 +155,8 @@ class _Metric:
     def __init__(self, name: str, documentation: str,
                  labelnames: Sequence[str] = (),
                  registry: Optional[Registry] = None) -> None:
+        if not name:
+            raise ValueError("Metric name should not be empty")
         self.name = name
         self.documentation = documentation
         self.labelnames = tuple(labelnames)
@@ -176,7 +192,15 @@ class _Metric:
 
 
 class Counter(_Metric):
-    """A monotonic count; exposed as ``<name>_total``."""
+    """A monotonic count; exposed as ``<name>_total`` (a name given with
+    that suffix loses it, as in ``prometheus_client``)."""
+
+    def __init__(self, name: str, documentation: str,
+                 labelnames: Sequence[str] = (),
+                 registry: Optional[Registry] = None) -> None:
+        if name.endswith("_total"):
+            name = name[:-len("_total")]
+        super().__init__(name, documentation, labelnames, registry)
 
     def inc(self, amount: float = 1.0) -> None:
         self._unlabelled().inc(amount)
@@ -244,12 +268,130 @@ class Histogram(_Metric):
         return "".join(lines + _created_family(self, created))
 
 
+class Summary(_Metric):
+    """Observations as a count and a sum (no quantiles, as
+    ``prometheus_client``'s summary)."""
+
+    buckets = (math.inf,)
+
+    def observe(self, amount: float) -> None:
+        self._unlabelled().observe(amount)
+
+    def render(self) -> str:
+        lines = [f"# HELP {self.name} {_escape_help(self.documentation)}\n",
+                 f"# TYPE {self.name} summary\n"]
+        created = []
+        for labels, child in self.children():
+            counts, total = child.histogram()
+            lines.append(_sample(f"{self.name}_count", labels, counts[-1]))
+            lines.append(_sample(f"{self.name}_sum", labels, total))
+            created.append(_sample(f"{self.name}_created", labels,
+                                   child.created))
+        return "".join(lines + _created_family(self, created))
+
+
 def _created_family(metric: _Metric, lines: List[str]) -> List[str]:
     if not lines:
         return []
     name = f"{metric.name}_created"
     return [f"# HELP {name} {_escape_help(metric.documentation)}\n",
             f"# TYPE {name} gauge\n", *lines]
+
+
+class _Family(_Metric):
+    """A family whose samples are read at every scrape:
+    ``sample()`` returns ``[(labels, value), ...]``."""
+
+    def __init__(self, name: str, documentation: str, kind: str,
+                 sample: Callable[[], List[Tuple[Dict[str, str], float]]],
+                 registry: Registry) -> None:
+        self.kind = kind
+        self._sample_fn = sample
+        super().__init__(name, documentation, (), registry)
+
+    def render(self) -> str:
+        lines = [f"# HELP {self.name} {_escape_help(self.documentation)}\n",
+                 f"# TYPE {self.name} {self.kind}\n"]
+        for labels, value in self._sample_fn():
+            lines.append(_sample(self.name, labels, value))
+        return "".join(lines)
+
+
+def _proc_stat() -> List[str]:
+    with open("/proc/self/stat", "rb") as fh:
+        # fields after the command name, which may hold spaces
+        return fh.read().split(b")")[-1].decode().split()
+
+
+def _boot_time() -> float:
+    with open("/proc/stat", "rb") as fh:
+        for line in fh:
+            if line.startswith(b"btime "):
+                return float(line.split()[1])
+    return 0.0
+
+
+def register_default_families(registry: Registry) -> None:
+    """The families ``prometheus_client`` puts in its default registry:
+    garbage-collector counts, ``python_info`` and, where ``/proc`` is
+    there, the ``process_*`` families, with the same names and help."""
+
+    def gc_stat(key: str):
+        return lambda: [({"generation": str(i)}, float(st[key]))
+                        for i, st in enumerate(gc.get_stats())]
+
+    _Family("python_gc_objects_collected_total",
+            "Objects collected during gc", "counter", gc_stat("collected"),
+            registry)
+    _Family("python_gc_objects_uncollectable_total",
+            "Uncollectable objects found during GC", "counter",
+            gc_stat("uncollectable"), registry)
+    _Family("python_gc_collections_total",
+            "Number of times this generation was collected", "counter",
+            gc_stat("collections"), registry)
+    major, minor, patch = platform.python_version_tuple()
+    info = {"implementation": platform.python_implementation(),
+            "major": major, "minor": minor, "patchlevel": patch,
+            "version": platform.python_version()}
+    _Family("python_info", "Python platform information", "gauge",
+            lambda: [(info, 1.0)], registry)
+    if not os.path.exists("/proc/self/stat"):
+        return
+    ticks = os.sysconf("SC_CLK_TCK")
+    page = resource.getpagesize()
+    boot = _boot_time()
+
+    def stat(index: int, scale: float = 1.0):
+        # /proc/self/stat after the command: the state is index 0, so
+        # field N of proc(5) sits at index N - 3
+        return lambda: [({}, float(_proc_stat()[index]) * scale)]
+
+    _Family("process_virtual_memory_bytes", "Virtual memory size in bytes.",
+            "gauge", stat(20), registry)
+    _Family("process_resident_memory_bytes",
+            "Resident memory size in bytes.", "gauge", stat(21, page),
+            registry)
+    _Family("process_start_time_seconds",
+            "Start time of the process since unix epoch in seconds.",
+            "gauge",
+            lambda: [({}, float(_proc_stat()[19]) / ticks + boot)],
+            registry)
+    _Family("process_cpu_seconds_total",
+            "Total user and system CPU time spent in seconds.", "counter",
+            lambda: [({}, sum(map(float, _proc_stat()[11:13])) / ticks)],
+            registry)
+    _Family("process_open_fds", "Number of open file descriptors.", "gauge",
+            lambda: [({}, float(len(os.listdir("/proc/self/fd"))))],
+            registry)
+    _Family("process_max_fds", "Maximum number of open file descriptors.",
+            "gauge",
+            lambda: [({}, float(resource.getrlimit(
+                resource.RLIMIT_NOFILE)[0]))],
+            registry)
+
+
+REGISTRY = Registry()
+register_default_families(REGISTRY)
 
 
 def exposition(registry: Registry) -> Tuple[bytes, str]:

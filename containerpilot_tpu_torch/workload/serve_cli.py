@@ -57,6 +57,16 @@ from typing import Any, Dict, Tuple
 _NOT_PORTED: Dict[str, Tuple[str, Any]] = {}
 
 
+def add_d_ff_arg(parser: argparse.ArgumentParser) -> None:
+    """``--d-ff``, on the serve CLI's and the pod server's parsers alike
+    (``model_config`` reads it from both). The reference CLIs have no
+    such flag: they always derive the width from --d-model."""
+    parser.add_argument("--d-ff", type=int, default=0,
+                        help="SwiGLU width (0 = derived from --d-model, "
+                        "~3x, as the reference CLI has it); 8192 at "
+                        "d_model 2048 is the flagship config")
+
+
 def build_arg_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(
         description="supervised inference server (PyTorch/CUDA port)"
@@ -76,6 +86,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--n-kv-heads", type=int, default=0,
                         help="GQA kv heads (0 = full multi-head); must "
                         "match the checkpoint being served")
+    add_d_ff_arg(parser)
     parser.add_argument("--moe-experts", type=int, default=0,
                         help="switch-MoE experts; must match the "
                         "checkpoint being served")
@@ -290,8 +301,8 @@ def check_ported(args: argparse.Namespace) -> None:
             )
     tp, cp = max(args.tp, 1), max(args.cp, 1)
     if tp > 1:
-        _validate_tp(args.n_heads, derive_d_ff(args.d_model), args.vocab,
-                     args.moe_experts, tp)
+        _validate_tp(args.n_heads, args.d_ff or derive_d_ff(args.d_model),
+                     args.vocab, args.moe_experts, tp)
     if cp > 1:
         refuse_cp_compositions(args.draft_layers, args.prefix_cache,
                                args.window)
@@ -326,7 +337,7 @@ def model_config(args: argparse.Namespace):
         n_heads=args.n_heads,
         n_kv_heads=args.n_kv_heads,
         n_layers=args.n_layers,
-        d_ff=derive_d_ff(args.d_model),
+        d_ff=args.d_ff or derive_d_ff(args.d_model),
         max_seq_len=args.max_len,
         moe_experts=args.moe_experts,
         window=args.window,

@@ -1437,6 +1437,7 @@ def _wedge_on_follower(lockstep, wedge_file: str) -> None:
 
 def build_arg_parser() -> argparse.ArgumentParser:
     from ..parallel.serving import DEFAULT_DEADLINE_S
+    from .serve_cli import add_d_ff_arg
 
     parser = argparse.ArgumentParser(
         description="multi-process pod inference server"
@@ -1458,6 +1459,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
     parser.add_argument("--n-layers", type=int, default=2)
     parser.add_argument("--n-heads", type=int, default=4)
     parser.add_argument("--n-kv-heads", type=int, default=0)
+    add_d_ff_arg(parser)
     parser.add_argument("--vocab", type=int, default=1024)
     parser.add_argument("--checkpoint-dir", default="",
                         help="shared-storage checkpoint the whole pod "
@@ -1624,6 +1626,11 @@ def _refuse(args, n_global: int) -> Tuple[int, int]:
         raise SystemExit(
             f"model axis {n_model} must divide moe_experts "
             f"({args.moe_experts})"
+        )
+    # the port's own flag (the reference derives d_ff from d_model)
+    if args.d_ff % n_model:
+        raise SystemExit(
+            f"model axis {n_model} must divide --d-ff {args.d_ff}"
         )
     if args.draft_layers > 0:
         if args.speculate < 1:

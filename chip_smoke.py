@@ -166,9 +166,23 @@ training phases, then beams, speculative decoding and LoRA):
    SIGTERM drains B, whose sessions migrate to C (a drain skips the
    prefill pool), its refusal names C in X-CP-Migrated-To, and C then
    serves the first prompt with K1 0 times and readmitted +1; C adopts
-   A's kernel build directory from its cc= note. The KV entry's and the
-   weights' bytes, seconds and GB/s, the promote latency, and each
-   replica's K1/K2 launches;
+   A's kernel build directory from its cc= note. The port's gateway
+   (``python -m containerpilot_tpu_torch.fleet --catalog
+   file:<handoff_catalog>``, started beside A and B) fronts them: (a) a
+   greedy 1024-id /v1/generate through it takes the disaggregated path
+   (A launches K1 n_layers times for the gateway's /v1/prefill, B 0
+   times and K2 in its 8-slot pool; the tokens A's, or held by
+   judge_served past a near tie; one handoff of the entry's bytes on
+   its counters); (b) its /fleet shows A prefill, B decode, C standby,
+   then C active once promoted; (c) session-pinned requests through it
+   see no 5xx while B drains, its migrated-session count equals the
+   entries B moved, each drain answer is a retry, and the first
+   prompt's session lands on C with K1 0 times; (d) its /metrics parses
+   and carries the reference gateway's families; (e) it holds none of
+   the card's device files, and exits 0 on SIGTERM. The KV entry's and
+   the weights' bytes, seconds and GB/s, the promote latency, the
+   gateway's wall against the direct path, and each replica's K1/K2
+   launches;
 20. moe_expert_half: one layer's feed-forward half (norm, route,
    experts, residual) at the flagship's widths with 4 and 8 experts: at
    a 1024-token prefill against its operations bound (the drop-free
@@ -312,7 +326,16 @@ training phases, then beams, speculative decoding and LoRA):
    with), -maintenance enable (the catalog drops the job) and -reload
    (a new job, healthy again); SIGTERM runs the stopping and stopped
    hooks, the supervisor exits 0, and no pid of either job holds the
-   card.
+   card;
+30. chaos_promoted (alone, after serve_fleet_handoff):
+   ``python -m containerpilot_tpu_torch.chaos --scenario
+   kill_under_burst_promoted --device cuda``, the port's harness with
+   its gateway and replicas (the harness's tiny float32 model, seeded
+   torch generator) in that process, the replicas on the card: the CLI
+   exits 0 and every check of the report passes, with the slow boot
+   armed once, at least one standby promotion and no client-visible
+   5xx; its goodput fraction, TTFT p99 and promotions print on a line
+   of their own.
 
 Then the kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -332,6 +355,7 @@ import signal
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 
 import torch
@@ -3173,6 +3197,143 @@ class Counts:
         return self.srv.counts()
 
 
+#: the port's gateway in front of phase 19's replicas
+GATEWAY_ARGS = ["--poll-interval", "0.2", "--no-hedge", "--retries", "3",
+                "--drain-window", "10"]
+#: the families the reference gateway registers (``_created`` companions
+#: aside); tests/test_torch_fleet_gateway.py holds this list to it
+GATEWAY_FAMILIES = frozenset((
+    "containerpilot_gateway_admission_depth",
+    "containerpilot_gateway_admission_inflight",
+    "containerpilot_gateway_admitted_total",
+    "containerpilot_gateway_cache_hint_hits_total",
+    "containerpilot_gateway_cache_hint_misses_total",
+    "containerpilot_gateway_catalog_flaps_damped_total",
+    "containerpilot_gateway_conns_saved_by_mux_total",
+    "containerpilot_gateway_deadline_expired_total",
+    "containerpilot_gateway_drained_away_total",
+    "containerpilot_gateway_fleet_tokens_reused",
+    "containerpilot_gateway_handoff_bytes_total",
+    "containerpilot_gateway_handoff_ms",
+    "containerpilot_gateway_handoffs_failed_total",
+    "containerpilot_gateway_handoffs_total",
+    "containerpilot_gateway_healthy_replicas",
+    "containerpilot_gateway_hedged_total",
+    "containerpilot_gateway_migration_failed_total",
+    "containerpilot_gateway_migration_timeout_total",
+    "containerpilot_gateway_mux_cancels_total",
+    "containerpilot_gateway_mux_streams_total",
+    "containerpilot_gateway_pool_evicted_total",
+    "containerpilot_gateway_pool_hit_total",
+    "containerpilot_gateway_pool_miss_total",
+    "containerpilot_gateway_replicas_by_role",
+    "containerpilot_gateway_request_seconds",
+    "containerpilot_gateway_requests_total",
+    "containerpilot_gateway_retried_total",
+    "containerpilot_gateway_routed_total",
+    "containerpilot_gateway_sessions_migrated_total",
+    "containerpilot_gateway_shed_total",
+    "containerpilot_gateway_standby_replicas",
+    "containerpilot_gateway_sticky_evicted_total",
+    "cp_build_info",
+    "cp_fleet_productive_fraction",
+    "cp_loop_lag_ms",
+    "cp_request_stage_seconds",
+))
+
+
+class GatewayCLI:
+    """``python -m containerpilot_tpu_torch.fleet`` in a subprocess on a
+    free port, over a file catalog. Entering only starts it (a thread
+    notes ``ready_s``, the seconds until its /fleet first answers), so
+    its start-up runs beside the replicas'; ``fleet`` waits for it to
+    answer. Exit sends SIGTERM (the gateway drains, then exits) and
+    keeps the exit code."""
+
+    def __init__(self, catalog, timeout=120):
+        self.catalog, self.timeout = catalog, timeout
+        self.proc, self.rc, self.log = None, None, ""
+        self.ready_s = None
+
+    def __enter__(self):
+        root = os.path.dirname(os.path.abspath(__file__))
+        self.port = _free_port()
+        t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "containerpilot_tpu_torch.fleet",
+             "--catalog", f"file:{self.catalog}", "--host", "127.0.0.1",
+             "--port", str(self.port), *GATEWAY_ARGS],
+            cwd=root, env={**os.environ, "PYTHONPATH": root},
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+
+        def note_ready():
+            while self.proc.poll() is None:
+                try:
+                    http_status(self.port, "GET", "/fleet", timeout=5)
+                except OSError:
+                    time.sleep(0.05)
+                    continue
+                self.ready_s = time.perf_counter() - t0
+                return
+
+        threading.Thread(target=note_ready, daemon=True).start()
+        return self
+
+    def get(self, path):
+        status, _headers, data = http_status(self.port, "GET", path)
+        if status != 200:
+            raise AssertionError(f"gateway GET {path} -> {status}")
+        return data.decode()
+
+    def fleet(self):
+        deadline = time.monotonic() + self.timeout
+        while True:
+            if self.proc.poll() is not None:
+                raise AssertionError(f"gateway exited {self.proc.returncode}:"
+                                     f" {self.proc.communicate()[0][-2000:]}")
+            try:
+                return json.loads(self.get("/fleet"))
+            except OSError:
+                if time.monotonic() > deadline:
+                    raise AssertionError("the gateway never answered")
+                time.sleep(0.2)
+
+    def wait_roles(self, want, timeout=60):
+        """/fleet once its replicas' roles are ``want`` ({id: role})."""
+        deadline = time.monotonic() + timeout
+        while True:
+            fleet = self.fleet()
+            roles = {r["id"]: r["role"] for r in fleet["replicas"]}
+            if roles == want:
+                return fleet
+            if time.monotonic() > deadline:
+                raise AssertionError(f"gateway roles {roles}, want {want}")
+            time.sleep(0.1)
+
+    def metrics(self):
+        """/metrics parsed: ({family: type}, {(sample, labels): value})."""
+        return parse_exposition(self.get("/metrics"))
+
+    def __exit__(self, *exc):
+        if self.proc is None:
+            return
+        if self.proc.poll() is None:
+            self.proc.send_signal(signal.SIGTERM)
+        try:
+            self.log = self.proc.communicate(timeout=60)[0]
+        except subprocess.TimeoutExpired:
+            self.proc.kill()
+            self.log = self.proc.communicate()[0]
+        self.rc = self.proc.returncode
+
+
+def counter_by(samples, name, label):
+    """{label value: value} of one labelled counter's samples."""
+    return {dict(labels).get(label): value
+            for (sample, labels), value in samples.items()
+            if sample == name}
+
+
 def drive_fleet_handoff(tmp, card, model=FACE_MODEL, device="cuda",
                         prompt_len=PROMPT_LEN):
     """Phase 19: three serve CLIs at FACE_MODEL (the flagship's width),
@@ -3187,8 +3348,17 @@ def drive_fleet_handoff(tmp, card, model=FACE_MODEL, device="cuda",
     to C (a drain skips the prefill pool, A), its refusal names C in
     X-CP-Migrated-To, and C then serves the first prompt with K1 0 times
     and readmitted +1; C adopts A's kernel build directory (cc=).
-    Reports the KV entry's and the weights' bytes, seconds and GB/s, the
-    promote latency and each replica's K1/K2 launches. ``device="cpu"`` drives the same path on the plain
+    The port's gateway (``python -m containerpilot_tpu_torch.fleet``,
+    started beside A and B) fronts them: a greedy 1024-id request
+    through it takes the disaggregated path (A's /v1/prefill launches K1
+    n_layers times, B decodes the pulled entry with K1 0 times, one
+    handoff of the entry's bytes counted), its /fleet shows each role
+    (C standby, then active), session-pinned requests through it see no
+    5xx while B drains and the first prompt's session lands on C, its
+    /metrics carries the reference gateway's families, and it never
+    opens the card. Reports the KV entry's and the weights' bytes,
+    seconds and GB/s, the promote latency, the gateway's figures and
+    each replica's K1/K2 launches. ``device="cpu"`` drives the same path on the plain
     versions (no kernel to count), for a small ``model``."""
     import random
 
@@ -3212,8 +3382,8 @@ def drive_fleet_handoff(tmp, card, model=FACE_MODEL, device="cuda",
     n_layers, vocab = args.n_layers, args.vocab
     on_card = device == "cuda"
     rng = random.Random(19)
-    p1, p2, p3, p5 = ([rng.randrange(vocab) for _ in range(prompt_len)]
-                      for _ in range(4))
+    p1, p2, p3, p5, p6 = ([rng.randrange(vocab) for _ in range(prompt_len)]
+                          for _ in range(5))
 
     def greedy(row, new=HANDOFF_NEW):
         return {"tokens": [row], "max_new_tokens": new}
@@ -3240,7 +3410,8 @@ def drive_fleet_handoff(tmp, card, model=FACE_MODEL, device="cuda",
               "--migrate-window", "120"]
     c_args = [*base, "--fleet-id", "C", "--migrate-window", "0"]
     launches = {}
-    with CountedServe(a_args, subdir("a")) as a, \
+    with GatewayCLI(catalog) as gw, \
+            CountedServe(a_args, subdir("a")) as a, \
             CountedServe(b_args, subdir("b")) as b:
         seen = catalog_fields(catalog, ["A", "B"], timeout=120)
         roles = {i: seen[i][1].get("role") for i in ("A", "B")}
@@ -3328,6 +3499,38 @@ def drive_fleet_handoff(tmp, card, model=FACE_MODEL, device="cuda",
             "local_launches": k_local, "pulled_launches": k_pulled,
         }
 
+        # -- (a) the gateway's disaggregated path -----------------------
+        before = gw.wait_roles({"A": "prefill", "B": "decode"})["handoff"]
+        ca.delta()
+        cb.delta()
+        got_g, wall_g = served(gw.port, greedy(p6))
+        k_ga, k_gb = ca.delta(), cb.delta()
+        fleet = gw.fleet()
+        handoff = {k: fleet["handoff"][k] - before[k] for k in before}
+        if (handoff["total"] != 1 or handoff["failed"]
+                or handoff["bytes"] != kv_bytes):
+            raise AssertionError(f"gateway handoff {handoff}, entry "
+                                 f"{kv_bytes} B")
+        if k_gb["k1"] != 0 or (on_card and (k_ga["k1"] != n_layers
+                                            or k_gb["k2"] <= 0)):
+            raise AssertionError(f"through the gateway: A {k_ga}, B {k_gb}")
+        got_a6, wall_a6 = served(a.port, greedy(p6))
+        # (e) the gateway never opens the card
+        held = _nvidia_files(gw.proc.pid)
+        if held:
+            raise AssertionError(f"the gateway holds {held}")
+        result["gateway"] = {
+            "ready_s": gw.ready_s, "args": GATEWAY_ARGS,
+            "disagg_wall_s": wall_g,
+            "direct_prefill_pull_generate_s": (
+                result["prefill_wall_s"] + pull_s + wall_b),
+            "handoff_bytes": handoff["bytes"],
+            "handoff_ms": handoff["ms_sum"],
+            "a_launches": k_ga, "b_launches": k_gb,
+            "a_direct_wall_s": wall_a6, "tokens_equal": got_g == got_a6,
+            "nvidia_files": held,
+        }
+
         # -- C: a standby whose weights come from A --------------------
         t0 = time.perf_counter()
         wm, wchunks = asyncio.run(fetch_weight_chunks(
@@ -3340,6 +3543,7 @@ def drive_fleet_handoff(tmp, card, model=FACE_MODEL, device="cuda",
             seen = catalog_fields(catalog, ["C"], timeout=120)
             if seen["C"][1].get("role") != "standby":
                 raise AssertionError(f"C's note: {seen['C'][1]}")
+            gw.wait_roles({"A": "prefill", "B": "decode", "C": "standby"})
             cm = weights_manifest_of(c.port)
             if cm["leaves"] != wm["leaves"] or cm["chunks"] != wm["chunks"]:
                 raise AssertionError("C's weight digests differ from A's")
@@ -3362,17 +3566,63 @@ def drive_fleet_handoff(tmp, card, model=FACE_MODEL, device="cuda",
             }
             # the promotion's beat drops role=, so C is now a survivor
             catalog_fields(catalog, ["C"], absent=("role",), timeout=30)
+            gw.wait_roles({"A": "prefill", "B": "decode", "C": "active"})
+            result["gateway"]["roles_seen"] = [
+                "A=prefill B=decode", "C=standby", "C=active"]
+
+            # -- (c) the first prompt's session, pinned to B (its
+            # digest is warm), then session traffic through the drain
+            first = {**greedy(p1), "session_id": "first"}
+            _types, samples = gw.metrics()
+            routed0 = counter_by(samples, "containerpilot_gateway_routed_total",
+                                 "replica")
+            served(gw.port, first)
+            _types, samples = gw.metrics()
+            routed1 = counter_by(samples, "containerpilot_gateway_routed_total",
+                                 "replica")
+            if routed1.get("B", 0) - routed0.get("B", 0) != 1:
+                raise AssertionError(f"the first session's pin: {routed1}")
+            # each background request leaves (end time, status) or
+            # (end time, the exception it raised): one record a request
+            stop_bg, bg_sent, bg_done = threading.Event(), [0], []
+
+            def session_traffic():
+                shorts = [[(7 * i + j) % vocab for j in range(8)]
+                          for i in range(4)]
+                i = 0
+                while not stop_bg.is_set():
+                    body = {"tokens": [shorts[i % 4]], "max_new_tokens": 4,
+                            "session_id": f"bg{i % 4}"}
+                    bg_sent[0] += 1
+                    try:
+                        got = http_status(gw.port, "POST", "/v1/generate",
+                                          body, 120)[0]
+                    except Exception as exc:  # noqa: BLE001 - checked below
+                        got = repr(exc)
+                    bg_done.append((time.perf_counter(), got))
+                    i += 1
+
+            first_turns = [http_status(gw.port, "POST", "/v1/generate", {
+                "tokens": [[(7 * i + j) % vocab for j in range(8)]],
+                "max_new_tokens": 4, "session_id": f"bg{i}"}, 120)[0]
+                for i in range(4)]  # the background sessions' first turns
+            if first_turns != [200] * 4:
+                raise AssertionError(f"the sessions' first turns: "
+                                     f"{first_turns}")
+            bg = threading.Thread(target=session_traffic, daemon=True)
 
             # -- drain B: its sessions migrate to C ---------------------
             launches["B"] = cb.total()
             before_c = readmitted(c.port)
             cc.delta()
+            bg.start()
             b.proc.send_signal(signal.SIGTERM)
             refusal, landed, t_term = None, {}, time.perf_counter()
             while b.proc.poll() is None and refusal is None:
                 try:
                     status, headers, _ = http_status(
                         b.port, "POST", "/v1/generate", greedy(p1, 4), 30)
+                    t_alive = time.perf_counter()  # B answered: alive
                     landed = json.loads(http_status(
                         b.port, "POST", "/v1/migrate", {})[2])["landed"]
                 except OSError:
@@ -3385,7 +3635,31 @@ def drive_fleet_handoff(tmp, card, model=FACE_MODEL, device="cuda",
             if refusal is None or refusal["x-cp-migrated-to"] != "C":
                 raise AssertionError(f"B's refusal while draining: "
                                      f"{refusal}, landed {landed}")
-            got_c, wall_c = served(c.port, greedy(p1))
+            # let at least 4 session requests finish while B is seen
+            # still draining (its drain took 11-15 s on the card)
+            while True:
+                n_draining = sum(t_term < t <= t_alive for t, _ in bg_done)
+                if (n_draining >= 4 or not bg.is_alive()
+                        or time.perf_counter() - t_term > 120):
+                    break
+                time.sleep(0.05)
+                now = time.perf_counter()
+                if b.proc.poll() is not None:
+                    break
+                t_alive = now
+            stop_bg.set()
+            bg.join(timeout=150)
+            bg_status = [got for _, got in bg_done]
+            if (bg.is_alive() or len(bg_done) != bg_sent[0]
+                    or n_draining < 4
+                    or any(not isinstance(x, int) for x in bg_status)):
+                raise AssertionError(
+                    f"session traffic through the drain: thread alive "
+                    f"{bg.is_alive()}, {len(bg_done)} answered of "
+                    f"{bg_sent[0]} sent, {n_draining} finished while B "
+                    f"drained, {[x for x in bg_status if not isinstance(x, int)][:3]}")
+            cc.delta()  # the background turns' launches
+            got_c, wall_c = served(gw.port, first)
             k_c = cc.delta()
             readmit_c = readmitted(c.port) - before_c
             if readmit_c != 1 or k_c["k1"] != 0:
@@ -3394,6 +3668,29 @@ def drive_fleet_handoff(tmp, card, model=FACE_MODEL, device="cuda",
             # C stays up until B's drain has pushed every session
             b.proc.wait(timeout=300)
             drain_s = time.perf_counter() - t_term
+            gw.wait_roles({"A": "prefill", "C": "active"})
+            fleet = gw.fleet()
+            _types, samples = gw.metrics()
+            codes = counter_by(samples, "containerpilot_gateway_requests_total",
+                               "code")
+            result["gateway"]["drain"] = {
+                "session_requests": len(bg_status),
+                "session_requests_while_b_drained": n_draining,
+                "session_statuses": sorted(set(bg_status)),
+                "migration": fleet["migration"],
+                "retried": counter_by(
+                    samples, "containerpilot_gateway_retried_total",
+                    "replica"),
+                "requests_by_code": codes,
+            }
+            fives = {c: n for c, n in codes.items() if c.startswith("5")}
+            if fives or any(x >= 500 for x in bg_status):
+                raise AssertionError(f"5xx through the gateway: {codes}")
+            result["gateway"]["metric_families"] = len(_types)
+            families = {f for f in _types if not f.endswith("_created")}
+            if families != GATEWAY_FAMILIES:
+                raise AssertionError(
+                    f"gateway families: {families ^ GATEWAY_FAMILIES}")
             result["migration"] = {
                 "drain_s": drain_s,
                 "retry_after": refusal.get("retry-after"),
@@ -3410,6 +3707,8 @@ def drive_fleet_handoff(tmp, card, model=FACE_MODEL, device="cuda",
         result["c_log"] = [line for line in c.log.splitlines() if any(
             k in line for k in ("weights fetched", "adopted fleet kernel",
                                 "CUDA kernels ready"))]
+    if gw.rc != 0:
+        raise AssertionError(f"gateway exit {gw.rc}: {gw.log[-2000:]}")
     moved = re.findall(r"migration moved (\d+)/(\d+) entries \((\d+) "
                        r"bytes, (\d+) failed, (\d+) timed out", b.log)
     if (not any("weights fetched" in x for x in result["c_log"])
@@ -3420,12 +3719,23 @@ def drive_fleet_handoff(tmp, card, model=FACE_MODEL, device="cuda",
         raise AssertionError(f"B's log: {b.log[-1500:]} C's log: "
                              f"{c.log[-1500:]}")
     done, total, moved_bytes, _failed, _late = map(int, moved[0])
+    # the reference gateway's accounting: every entry B's drain moved is
+    # a migrated session (mg= deltas), each 503 it answered a retry,
+    # and the first prompt's pin followed it to C
+    drain_g = result["gateway"]["drain"]
+    mig = drain_g["migration"]
+    if (mig["sessions_migrated"] != done or mig["failed"] or mig["timeout"]
+            or mig["pins_repointed"] + mig["drain_answers"] < 1
+            or drain_g["retried"].get("B", 0) < mig["drain_answers"]):
+        raise AssertionError(f"gateway drain counters {drain_g}, B moved "
+                             f"{done}")
     result["migration"].update({
         "entries": total, "bytes": moved_bytes,
         "gb_s_over_drain": moved_bytes / result["migration"]["drain_s"]
         / 1e9})
     # every answer A's (or, past a near tie, each held to solo decoding)
     answers = [("B_pulled", greedy(p1), got_b, got_a),
+               ("gateway_disagg", greedy(p6), got_g, got_a6),
                ("C_promoted", short, got_c5, got_a5),
                ("C_migrated", greedy(p1), got_c, got_a)]
     differ = [x for x in answers if x[2] != x[3]]
@@ -3445,6 +3755,9 @@ def drive_fleet_handoff(tmp, card, model=FACE_MODEL, device="cuda",
         del params
         torch.cuda.empty_cache()
     launches["A_prefill"] = k_prefill
+    launches["A_gateway"] = result["gateway"]["a_launches"]
+    launches["B_gateway"] = result["gateway"]["b_launches"]
+    launches["C_gateway_migrated"] = k_c
     result["launches"] = launches
     return result
 
@@ -5592,6 +5905,61 @@ def _nvidia_files(pid):
     return sorted(held)
 
 
+def drive_chaos_promoted(tmp, card, device="cuda"):
+    """The port's chaos CLI (``python -m containerpilot_tpu_torch.chaos``:
+    the harness, its gateway and its replicas in that process, the
+    replicas on ``device``) running ``kill_under_burst_promoted`` (a
+    burst, a SIGKILLed replica repaired by promoting the warm standby
+    while every new launch pays the armed slow boot). The CLI must exit
+    0 and every check of the scenario's report pass, with the slow boot
+    armed once, at least one promotion and no client-visible 5xx."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    out = os.path.join(tmp, "chaos_promoted.json")
+    t0 = time.perf_counter()
+    done = subprocess.run(
+        [sys.executable, "-m", "containerpilot_tpu_torch.chaos",
+         "--scenario", "kill_under_burst_promoted", "--seed", "5",
+         "--device", device, "--json", out],
+        cwd=root, env={**os.environ, "PYTHONPATH": root},
+        capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    if not os.path.exists(out):
+        raise AssertionError(f"chaos CLI exit {done.returncode}: "
+                             f"{done.stderr[-3000:]}")
+    with open(out) as fh:
+        report = json.load(fh)["scenarios"][0]
+    failed = [c for c in report["checks"] if not c["ok"]]
+    standby = (report["autoscaler"] or {}).get("standby") or {}
+    promotions = standby.get("promotions", 0)
+    score = report["score"]
+    events = report["goodput_ledger"]["scale_events"]
+    summary = {
+        "phase": "chaos_promoted", "seconds": seconds, "device": device,
+        "checks": [c["name"] for c in report["checks"]],
+        "goodput_fraction": score["goodput_fraction"],
+        "goodput_rps": score["goodput_rps"],
+        "admitted_goodput_fraction": score["goodput_fraction_admitted"],
+        "ttft_ms": score["ttft_ms"], "tpot_ms": score["tpot_ms"],
+        "requests": score["requests"], "count_5xx": score["count_5xx"],
+        "promotions": promotions,
+        "cold_launches": standby.get("cold_launches"),
+        "promoted_ttfrt_s": [e.get("ttfrt_s") for e in events
+                             if e.get("mode") == "promoted"],
+        "loop_lag_max_ms": report["loop_lag_max_ms"],
+        "fault_counts": report["fault_counts"],
+        "productive_fraction":
+            report["goodput_ledger"]["productive_fraction"],
+        **card,
+    }
+    if (done.returncode != 0 or failed or not report["passed"]
+            or report["fault_counts"].get("slow_boot") != 1
+            or promotions < 1 or score["count_5xx"] != 0):
+        raise AssertionError(
+            f"chaos_promoted: exit {done.returncode}, failed checks "
+            f"{failed}, {json.dumps(summary, default=str)}")
+    return summary
+
+
 def drive_supervised_serve(tmp, card, device="cuda", model=None):
     """python -m containerpilot_tpu_torch -config SUPERVISED_CONFIG on the
     port's own -catalog-server, the example's model (the flagship, d_ff
@@ -6090,9 +6458,19 @@ def main() -> int:
         fleet_face = drive_fleet_face(tmp, card, gen)
         emit(fleet_face)
 
-        # ---- the replica in a fleet: KV handoff, drain, standby ---------
+        # ---- the replica in a fleet: KV handoff, drain, standby, the ----
+        # port's gateway
         handoff = drive_fleet_handoff(tmp, card)
         emit(handoff)
+
+        # ---- the chaos CLI, alone: its latency floors move with what --
+        # shares the host (scripts/torch_chaos_spread.py)
+        chaos_promoted = drive_chaos_promoted(tmp, card)
+        print(f"chaos_promoted: goodput "
+              f"{chaos_promoted['goodput_fraction']}, TTFT p99 "
+              f"{chaos_promoted['ttft_ms']['p99']} ms, promotions "
+              f"{chaos_promoted['promotions']}", flush=True)
+        emit(chaos_promoted)
 
     # ---- a switch-routed mixture of experts -----------------------------
     serve_moe, slots_moe, train_moe = drive_moe(gen, prompt, card)
@@ -6205,7 +6583,8 @@ def main() -> int:
                 for label in ("bf16", "int8")},
             "fleet_handoff_launches": {
                 f"serve_fleet_handoff_{name}": handoff["launches"][name]["k1"]
-                for name in ("A", "B", "C")},
+                for name in ("A", "B", "C", "A_gateway", "B_gateway",
+                             "C_gateway_migrated")},
             "moe_launches": {
                 "serve_moe_bf16": serve_moe["bf16"]["k1_launches"],
                 "serve_moe_int8": serve_moe["int8"]["k1_launches"],
@@ -6322,7 +6701,8 @@ def main() -> int:
                 "serve_fleet_face_bf16": fleet_face["bf16"]["k2_launches"]},
             "fleet_handoff_launches": {
                 f"serve_fleet_handoff_{name}": handoff["launches"][name]["k2"]
-                for name in ("A", "B", "C")},
+                for name in ("A", "B", "C", "A_gateway", "B_gateway",
+                             "C_gateway_migrated")},
             "cli_shapes": fleet_face["k2_cli_shapes"],
             "moe_launches": {
                 "serve_moe_int8": serve_moe["int8"]["k2_launches"],

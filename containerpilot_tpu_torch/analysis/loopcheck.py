@@ -1,5 +1,6 @@
-"""loopcheck: the event-loop lag probe (the port's own copy of
-``containerpilot_tpu/analysis/loopcheck.py``'s ``LoopLagProbe``).
+"""loopcheck: event-loop health sentinels (the port's own copy of
+``containerpilot_tpu/analysis/loopcheck.py``): ``LoopLagProbe`` and
+``TaskWatchdog``.
 
 The replica's event loop is cooperative, so ONE blocking call (a sync
 sleep, a file read, a device sync on the wrong thread) stalls every
@@ -9,19 +10,33 @@ the loop actually ran it versus when it asked to run (scheduling delay).
 Samples land in a fixed-size ring; ``max_ms``/``p99_ms`` are exposed as
 the ``cp_loop_lag_ms{stat}`` gauge on the replica's ``/metrics``.
 Overhead: one timer callback per ``interval_s`` (default 50ms).
+
+``TaskWatchdog`` wraps a loop's task factory: every task created on the
+instrumented loop gets a done-callback, and a task that finished with an
+exception nobody retrieved within ``grace_s`` is recorded (ring) and
+logged with its name. ``CancelledError`` is never a leak. The grace
+window exists because a handled failure is retrieved by its awaiter on
+the very next wakeup; only orphans are still unretrieved after it. The
+chaos harness runs both for every scenario and gates on them.
 """
 from __future__ import annotations
 
 import asyncio
+import logging
 import time
 from collections import deque
-from typing import Any, Deque, Dict, Optional
+from typing import Any, Deque, Dict, List, Optional, Tuple
+
+log = logging.getLogger("containerpilot.loopcheck")
 
 #: heartbeat cadence: 20/s is fine-grained enough to catch a 100ms
 #: stall while costing one trivial callback per 50ms
 DEFAULT_INTERVAL_S = 0.05
 #: lag samples retained (~51s of history at the default cadence)
 RING_SIZE = 1024
+#: how long an unretrieved task exception may wait for its awaiter
+#: before the watchdog calls it leaked
+DEFAULT_GRACE_S = 0.05
 
 
 class LoopLagProbe:
@@ -104,3 +119,93 @@ class LoopLagProbe:
             "heartbeats": self.beats,
             "interval_ms": self.interval_s * 1e3,
         }
+
+
+class TaskWatchdog:
+    """Task-factory wrapper recording leaked-task exceptions.
+
+    Installed on a loop, every task it creates gets a done-callback.
+    A task that finishes with an exception is re-checked one grace
+    window later: if no awaiter retrieved the exception by then (the
+    fire-and-forget case — an awaited task's exception is retrieved
+    on the awaiter's next wakeup, well inside the window), the
+    exception is recorded in a fixed-size ring and logged with the
+    task's name. Retrieving it here also takes ownership, so the
+    interpreter's own destructor-time "exception was never retrieved"
+    complaint (which fires at GC, far from the scene) is replaced by
+    an immediate, attributed record.
+    """
+
+    def __init__(
+        self, ring: int = 64, grace_s: float = DEFAULT_GRACE_S
+    ) -> None:
+        #: (task name, exception repr) per leaked exception
+        self.exceptions: Deque[Tuple[str, str]] = deque(maxlen=ring)
+        self.tasks_created = 0
+        self.grace_s = grace_s
+        self._loop: Optional[asyncio.AbstractEventLoop] = None
+        self._prev_factory: Any = None
+        self.installed = False
+
+    def install(
+        self, loop: Optional[asyncio.AbstractEventLoop] = None
+    ) -> "TaskWatchdog":
+        if self.installed:
+            return self
+        self._loop = loop or asyncio.get_event_loop()
+        self._prev_factory = self._loop.get_task_factory()
+        self._loop.set_task_factory(self._factory)
+        self.installed = True
+        return self
+
+    def uninstall(self) -> None:
+        if not self.installed or self._loop is None:
+            return
+        self._loop.set_task_factory(self._prev_factory)
+        self._prev_factory = None
+        self.installed = False
+
+    def _factory(self, loop, coro, **kwargs):
+        if self._prev_factory is not None:
+            task = self._prev_factory(loop, coro, **kwargs)
+        else:
+            task = asyncio.Task(coro, loop=loop, **kwargs)
+        self.tasks_created += 1
+        task.add_done_callback(self._on_done)
+        return task
+
+    def _on_done(self, task: "asyncio.Task") -> None:
+        if task.cancelled():
+            return
+        # cheap pre-filter without retrieving: Future.exception()
+        # would mark the exception retrieved and hide a real leak
+        if getattr(task, "_exception", True) is None:  # noqa: SLF001
+            return
+        # defer the verdict one grace window: a legitimate awaiter
+        # (await / gather / wait+result()) retrieves on its next
+        # wakeup, which the loop schedules before this timer fires
+        if self._loop is not None:
+            self._loop.call_later(self.grace_s, self._check, task)
+
+    def _check(self, task: "asyncio.Task") -> None:
+        # _log_traceback flips False the moment anyone retrieves the
+        # exception; still True after the grace window == leaked.
+        # (CPython implementation detail; on others the getattr
+        # default records every task exception, which errs loud.)
+        if not getattr(task, "_log_traceback", True):
+            return
+        exc = task.exception()  # retrieve: we own it now
+        if exc is None or isinstance(exc, asyncio.CancelledError):
+            return
+        self.exceptions.append((task.get_name(), repr(exc)))
+        log.error(
+            "leaked task %r died unobserved: %r", task.get_name(), exc,
+            exc_info=exc,
+        )
+
+    def snapshot(self) -> List[Dict[str, str]]:
+        """JSON-able list of recorded leaks."""
+        return [
+            {"task": name, "exception": exc}
+            for name, exc in self.exceptions
+        ]

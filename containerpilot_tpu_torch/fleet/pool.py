@@ -1,22 +1,32 @@
-"""The client half of cp-mux/1: the port's own copy of
-``containerpilot_tpu/fleet/pool.py``'s ``MuxConnection`` and what it
-needs to open an upgraded connection and run streams on it. The
-gateway's connection pool is not ported; ``dial_mux`` stands in for its
-dial-and-upgrade step.
+"""The fleet's upstream transport (the port's own copy of
+``containerpilot_tpu/fleet/pool.py``): cp-mux/1's client half
+(``MuxConnection``) and the gateway's per-replica connection pool
+(``ConnectionPool``).
 
 One upgraded connection carries many interleaved streams to a single
 server. Frames are parsed at the transport-protocol layer and routed to
 per-stream handles; a response's DATA credit is granted back only as its
 chunks are consumed, so a stalled reader parks only its own stream. A
 connection that dies fails every in-flight stream exactly once.
+
+The pool keeps ONE warm mux connection per replica and, for replicas
+that decline the upgrade, a bounded LIFO stack of idle keep-alive
+connections: health-aware eviction, a retirement cap per connection,
+an idle TTL, and one transparent redial of a reused connection that
+died between uses (``StaleConnection`` / ``StaleMuxConnection``).
+``max_idle=0`` disables reuse: every acquire dials, every release
+closes. The pool's mux dial goes through ``dial_mux``, whose
+``MuxConnection.adopt`` keeps the upgraded socket's ``StreamWriter``
+for the connection's life.
 """
 from __future__ import annotations
 
 import asyncio
 import json
 import logging
+import time
 from collections import deque
-from typing import Deque, Dict, List, Optional, Tuple
+from typing import Callable, Deque, Dict, List, Optional, Set, Tuple
 
 from ..telemetry import tracing
 from ..utils.http import (
@@ -36,9 +46,13 @@ from ..utils.http import (
 )
 
 __all__ = [
+    "ConnectionPool",
     "MuxConnection",
     "MuxStream",
     "MuxStreamError",
+    "PooledConnection",
+    "StaleConnection",
+    "StaleMuxConnection",
     "UpstreamError",
     "dial_mux",
 ]
@@ -51,11 +65,53 @@ class UpstreamError(RuntimeError):
     """Transport-level failure talking to one replica."""
 
 
+class StaleConnection(UpstreamError):
+    """A pooled connection died between uses (server idle reap,
+    replica restart): raised only for REUSED connections that failed
+    before any response byte arrived, so one transparent redial is
+    always safe."""
+
+
+class StaleMuxConnection(UpstreamError):
+    """The shared mux connection died between the acquire and this
+    stream's open (idle reap, replica restart): the server saw none
+    of this request, so one transparent redial is safe — the mux
+    analog of StaleConnection. Never raised by a freshly dialed
+    connection, which bounds the redial loop at one."""
+
+
 class MuxStreamError(UpstreamError):
     """One stream failed on a connection that is still healthy
     (per-stream deadline, server-side stream abort): the co-resident
     streams are fine, so the caller must NOT evict the replica's
     connections — cancel this stream and move on."""
+
+
+class PooledConnection:
+    """One upstream connection plus the bookkeeping reuse needs."""
+
+    __slots__ = (
+        "reader", "writer", "replica_id", "authority",
+        "reused", "uses", "idle_since",
+    )
+
+    def __init__(
+        self,
+        reader: asyncio.StreamReader,
+        writer: asyncio.StreamWriter,
+        replica_id: str,
+        authority: str,
+    ) -> None:
+        self.reader = reader
+        self.writer = writer
+        self.replica_id = replica_id
+        self.authority = authority
+        self.reused = False  # True when handed out from the idle pool
+        self.uses = 0
+        self.idle_since = 0.0
+
+    def close(self) -> None:
+        self.writer.close()
 
 
 class MuxStream:
@@ -240,13 +296,17 @@ class MuxConnection:
     streams to a single replica. Frames are parsed at the protocol
     layer (_MuxClientProtocol) and routed to per-stream handles;
     death (EOF, reset, protocol violation) fails every in-flight
-    stream exactly once."""
+    stream exactly once and marks the connection for replacement at
+    the next acquire."""
 
     def __init__(self, replica_id: str, authority: str) -> None:
         self.replica_id = replica_id
         self.authority = authority
         self.dead = False
         self.dead_exc: Optional[UpstreamError] = None
+        #: False only between the dial and the first acquire-reuse:
+        #: the stale-redial discipline keys off it
+        self.reused = False
         self.streams: Dict[int, MuxStream] = {}
         self.streams_opened = 0
         self._next_id = 1
@@ -334,10 +394,12 @@ class MuxConnection:
     ) -> MuxStream:
         """Send HEADERS(+DATA)+END for a new stream in one write and
         return its handle; ``trace_id`` rides the HEADERS frame as
-        ``x-cp-trace``. Raises UpstreamError when the connection is
-        dead or the send fails."""
+        ``x-cp-trace``. A send that bounces off a dead connection raises
+        StaleMuxConnection when the connection came warm from the pool
+        (redial-safe: the server answered nothing for this stream) and
+        plain UpstreamError for a fresh dial."""
         if self.dead:
-            raise UpstreamError(f"{self.authority}: connection already dead")
+            raise self._send_failure("connection already dead")
         sid = self._next_id
         self._next_id += 1
         if self._next_id >= 1 << 32:
@@ -355,16 +417,23 @@ class MuxConnection:
         except (ConnectionError, OSError) as exc:
             self.streams.pop(sid, None)
             self._die(UpstreamError(f"{self.authority}: {exc}"))
-            raise UpstreamError(f"{self.authority}: {exc}") from None
+            raise self._send_failure(str(exc)) from None
         if self._protocol.paused:
             # transport backpressure (rare: the socket buffer filled);
             # wait it out so opens can't pile unbounded bytes
             await self._protocol.drained.wait()
             if self.dead:
                 self.streams.pop(sid, None)
-                raise UpstreamError(
-                    f"{self.authority}: connection died during drain")
+                raise self._send_failure("connection died during drain")
         return stream
+
+    def _send_failure(self, msg: str) -> UpstreamError:
+        if self.reused:
+            return StaleMuxConnection(
+                f"{self.authority}: mux connection died between "
+                f"uses ({msg})"
+            )
+        return UpstreamError(f"{self.authority}: {msg}")
 
     def grant(self, sid: int, n: int) -> None:
         """Refill the server's send window for one stream; fire-and-
@@ -470,7 +539,17 @@ class MuxConnection:
         failed = list(self.streams.values())
         self.streams.clear()
         for stream in failed:
-            stream.push(("err", exc))
+            if stream.status is None and self.reused:
+                # zero response bytes on a warm connection that just
+                # died: the keep-alive stale heuristic applies, so the
+                # caller may redial and resend ONCE; a stream whose
+                # head arrived gets the plain error (the server took it)
+                stream.push(("err", StaleMuxConnection(
+                    f"{self.authority}: connection died before "
+                    f"stream {stream.sid} got any response ({exc})"
+                )))
+            else:
+                stream.push(("err", exc))
         if self._transport is not None:
             self._transport.close()
 
@@ -502,12 +581,15 @@ def _parse_head(
 
 async def dial_mux(
     host: str, port: int, timeout: float = 10.0, replica_id: str = "",
+    on_decline: Optional[Callable] = None,
 ) -> Optional[MuxConnection]:
     """Dial ``host:port`` and ask for the cp-mux/1 upgrade. Returns the
     upgraded connection, or None when the server declined (a server
     without mux answers the upgrade path through its route table, 404):
-    the caller's signal to stay on plain HTTP/1.1. Raises UpstreamError
-    when the dial or the upgrade exchange fails."""
+    the caller's signal to stay on plain HTTP/1.1. A declined socket is
+    closed, or handed to ``await on_decline(reader, writer, headers)``
+    when given (the pool keeps it). Raises UpstreamError when the dial
+    or the upgrade exchange fails."""
     authority = f"{host}:{port}"
     try:
         reader, writer = await asyncio.wait_for(
@@ -528,7 +610,7 @@ async def dial_mux(
         head_blob = await asyncio.wait_for(
             reader.readuntil(b"\r\n\r\n"), timeout
         )
-        status, _headers = _parse_head(head_blob, authority)
+        status, headers = _parse_head(head_blob, authority)
     except (
         OSError, ConnectionError, asyncio.TimeoutError,
         asyncio.IncompleteReadError, asyncio.LimitOverrunError,
@@ -539,8 +621,267 @@ async def dial_mux(
             raise
         raise UpstreamError(f"mux upgrade {authority}: {exc}") from None
     if status != 101:
-        writer.close()
+        if on_decline is None:
+            writer.close()
+        else:
+            await on_decline(reader, writer, headers)
         return None
     conn = MuxConnection(replica_id or authority, authority)
     conn.adopt(reader, writer)
     return conn
+
+
+# pool events the gateway mirrors into its prometheus counters
+POOL_HIT = "hit"
+POOL_MISS = "miss"
+POOL_EVICTED = "evicted"
+
+
+class ConnectionPool:
+    """Bounded LIFO pool of idle keep-alive connections per replica."""
+
+    def __init__(
+        self,
+        max_idle: int = 8,
+        idle_ttl: float = 30.0,
+        max_uses: int = 1000,
+        on_event: Optional[Callable[[str, str], None]] = None,
+        mux: bool = True,
+    ) -> None:
+        self.max_idle = max_idle
+        self.idle_ttl = idle_ttl
+        self.max_uses = max_uses
+        self.mux = mux
+        self._on_event = on_event
+        self._idle: Dict[str, List[PooledConnection]] = {}
+        # cp-mux/1: ONE warm multiplexed connection per replica; the
+        # classic idle stacks above become the fallback for replicas
+        # that declined the upgrade (and the per-dial baseline)
+        self._mux_conns: Dict[str, MuxConnection] = {}
+        self._mux_unsupported: Set[str] = set()
+        # in-flight upgrade dials, so a cold burst of N concurrent
+        # acquires shares ONE dial instead of stampeding N sockets
+        self._mux_dialing: Dict[str, "asyncio.Task"] = {}
+        # plain counters for the /fleet JSON snapshot; the gateway's
+        # prometheus counters are fed through on_event
+        self.hits: Dict[str, int] = {}
+        self.misses: Dict[str, int] = {}
+        self.evicted: Dict[str, int] = {}
+
+    def _event(self, table: Dict[str, int], event: str, rid: str) -> None:
+        table[rid] = table.get(rid, 0) + 1
+        if self._on_event is not None:
+            self._on_event(event, rid)
+
+    async def acquire(
+        self, replica, connect_timeout: float
+    ) -> PooledConnection:
+        """Pop the freshest usable idle connection to ``replica``, or
+        dial a new one. Raises UpstreamError when the dial fails.
+        Concurrent acquires (retry legs, hedge legs) can never share a
+        connection: an idle connection is handed to exactly one caller
+        by the pop, and a dial is private to its caller."""
+        stack = self._idle.get(replica.id)
+        now = time.monotonic()
+        while stack:
+            conn = stack.pop()
+            if (
+                conn.writer.is_closing()
+                or conn.reader.at_eof()
+                or now - conn.idle_since > self.idle_ttl
+            ):
+                # already dead (server FIN arrived while idle) or aged
+                # out: drop it rather than hand out a known-bad socket
+                self._event(self.evicted, POOL_EVICTED, replica.id)
+                conn.close()
+                continue
+            conn.reused = True
+            self._event(self.hits, POOL_HIT, replica.id)
+            return conn
+        self._event(self.misses, POOL_MISS, replica.id)
+        try:
+            reader, writer = await asyncio.wait_for(
+                asyncio.open_connection(replica.address, replica.port),
+                connect_timeout,
+            )
+        except (OSError, asyncio.TimeoutError) as exc:
+            raise UpstreamError(
+                f"connect {replica.authority}: {exc}"
+            ) from None
+        return PooledConnection(reader, writer, replica.id, replica.authority)
+
+    async def acquire_mux(
+        self, replica, connect_timeout: float
+    ) -> Optional[MuxConnection]:
+        """The replica's shared mux connection, dialing and upgrading
+        on first use. Returns None when mux is off or the replica
+        declined the upgrade — the caller's signal to take the
+        classic pooled path. Raises UpstreamError when the dial or
+        the upgrade exchange transport-fails.
+
+        Unlike ``acquire``, the returned connection is SHARED: any
+        number of concurrent callers may hold it, each opening their
+        own streams on it."""
+        if not self.mux:
+            return None
+        conn = self._mux_conns.get(replica.id)
+        if conn is not None:
+            if not conn.dead:
+                conn.reused = True
+                return conn
+            self._mux_conns.pop(replica.id, None)
+        if replica.id in self._mux_unsupported:
+            return None
+        dial = self._mux_dialing.get(replica.id)
+        if dial is None:
+            dial = asyncio.ensure_future(
+                self._dial_mux(replica, connect_timeout)
+            )
+            self._mux_dialing[replica.id] = dial
+            dial.add_done_callback(
+                lambda _t, rid=replica.id: self._mux_dialing.pop(rid, None)
+            )
+        # shield: a caller cancelled mid-dial (losing hedge leg) must
+        # not kill the dial its co-acquirers are waiting on
+        return await asyncio.shield(dial)
+
+    async def _dial_mux(
+        self, replica, connect_timeout: float
+    ) -> Optional[MuxConnection]:
+        """Dial + upgrade one mux connection (the single shared dial
+        behind acquire_mux) through ``dial_mux``, whose adopted
+        connection keeps its writer. Returns None when the replica
+        declined the upgrade; raises UpstreamError on transport
+        failure — every waiter sees the same outcome."""
+        declined: List[PooledConnection] = []
+
+        async def on_decline(reader, writer, headers) -> None:
+            # the replica speaks plain HTTP/1.1 only (older build or
+            # --no-mux): drain the declined answer and pool the
+            # already-dialed socket for the classic path, so the probe
+            # costs nothing
+            if await self._drain_decline(reader, headers):
+                declined.append(PooledConnection(
+                    reader, writer, replica.id, replica.authority))
+            else:
+                writer.close()
+
+        conn = await dial_mux(
+            replica.address, replica.port, timeout=connect_timeout,
+            replica_id=replica.id, on_decline=on_decline,
+        )
+        if conn is None:
+            self._mux_unsupported.add(replica.id)
+            for pooled in declined:
+                self.release(pooled)
+            return None
+        self._mux_conns[replica.id] = conn
+        return conn
+
+    @staticmethod
+    async def _drain_decline(reader, headers: Dict[str, str]) -> bool:
+        """Read the declined upgrade's body off the socket so it can
+        be pooled; False when the response isn't cleanly framed."""
+        raw = headers.get("content-length", "")
+        if not raw.isascii() or not raw.isdigit():
+            return False
+        if "close" in headers.get("connection", "").lower():
+            return False
+        try:
+            await reader.readexactly(int(raw))
+        except (OSError, asyncio.IncompleteReadError):
+            return False
+        return True
+
+    def mux_stats(self, replica_id: str) -> Dict[str, object]:
+        """Per-replica mux snapshot for the /fleet JSON."""
+        conn = self._mux_conns.get(replica_id)
+        return {
+            "enabled": self.mux,
+            "connected": conn is not None and not conn.dead,
+            "active_streams": conn.active_streams if conn else 0,
+            "streams_opened": conn.streams_opened if conn else 0,
+            "unsupported": replica_id in self._mux_unsupported,
+        }
+
+    def release(self, conn: PooledConnection) -> None:
+        """Return a connection whose response was FULLY read (and was
+        Content-Length-framed with no ``Connection: close``) for
+        reuse; retires it instead when the pool is full, reuse is
+        disabled, or the connection hit its use cap."""
+        conn.uses += 1
+        stack = self._idle.setdefault(conn.replica_id, [])
+        if (
+            self.max_idle <= 0
+            or len(stack) >= self.max_idle
+            or conn.uses >= self.max_uses
+            or conn.writer.is_closing()
+        ):
+            conn.close()
+            return
+        conn.reused = False
+        conn.idle_since = time.monotonic()
+        stack.append(conn)
+
+    def discard(self, conn: PooledConnection) -> None:
+        """Close a connection that must never be reused: transport
+        failure, streamed (close-delimited) response, or a cancelled
+        hedge/retry leg that may have left unread response bytes."""
+        conn.close()
+
+    def discard_stale(self, conn: PooledConnection) -> None:
+        """Close a reused connection that died between uses; counted
+        as an eviction (the reuse attempt was voided)."""
+        self._event(self.evicted, POOL_EVICTED, conn.replica_id)
+        conn.close()
+
+    def evict(self, replica_id: str) -> int:
+        """Drop every idle connection to one replica (it drained,
+        deregistered, or just failed a request). The replica's mux
+        connection goes too — its in-flight streams fail exactly once
+        (idempotent when the failure that triggered this eviction
+        already killed it) — and the mux-unsupported memory is
+        cleared, so a restarted replica gets a fresh upgrade probe."""
+        stack = self._idle.pop(replica_id, [])
+        for conn in stack:
+            self._event(self.evicted, POOL_EVICTED, replica_id)
+            conn.close()
+        evicted = len(stack)
+        mux = self._mux_conns.pop(replica_id, None)
+        if mux is not None:
+            if not mux.dead:
+                self._event(self.evicted, POOL_EVICTED, replica_id)
+                evicted += 1
+            mux.close("replica evicted from the pool")
+        self._mux_unsupported.discard(replica_id)
+        return evicted
+
+    def prune(self, keep_ids) -> int:
+        """Evict pools for replicas no longer in the healthy set —
+        including bare mux-unsupported memory with no live
+        connections, so a replica that re-registers under the same id
+        after an upgrade gets a fresh probe."""
+        gone = (
+            set(self._idle) | set(self._mux_conns) | self._mux_unsupported
+        ) - set(keep_ids)
+        return sum(self.evict(rid) for rid in gone)
+
+    def close_all(self) -> None:
+        """Shutdown: close everything idle (not counted as eviction)."""
+        for rid in list(self._idle):
+            for conn in self._idle.pop(rid):
+                conn.close()
+        for rid in list(self._mux_conns):
+            self._mux_conns.pop(rid).close("pool shutdown")
+
+    def idle_count(self, replica_id: str) -> int:
+        return len(self._idle.get(replica_id, ()))
+
+    def stats(self, replica_id: str) -> Dict[str, int]:
+        """Per-replica snapshot for the /fleet JSON."""
+        return {
+            "idle": self.idle_count(replica_id),
+            "hits": self.hits.get(replica_id, 0),
+            "misses": self.misses.get(replica_id, 0),
+            "evicted": self.evicted.get(replica_id, 0),
+        }

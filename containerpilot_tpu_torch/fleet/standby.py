@@ -1,6 +1,7 @@
-"""Warm standby, the replica half: peer weight transfer over cp-mux/1 (the
-port's own copy of ``containerpilot_tpu/fleet/standby.py:94-420``; the
-autoscaler's ``StandbyLauncher`` stays with the reference).
+"""Warm standby (the port's own copy of
+``containerpilot_tpu/fleet/standby.py``): the replica half, peer weight
+transfer over cp-mux/1, and the autoscaler half, ``StandbyLauncher``,
+which turns a scale-up into the promotion of a warm standby.
 
 A standby boots, loads weights and warms exactly like an active replica,
 registers under ``role=standby`` and waits for
@@ -31,11 +32,13 @@ import asyncio
 import hashlib
 import json
 import logging
-from typing import Any, Dict, List, Optional, Tuple
+import random
+from typing import Any, Dict, List, Optional, Set, Tuple
 
 import numpy as np
 import torch
 
+from ..utils.tasks import spawn
 from .pool import MuxConnection, UpstreamError, dial_mux
 
 log = logging.getLogger("containerpilot.fleet")
@@ -70,6 +73,19 @@ class WeightTransferError(RuntimeError):
     """The peer transfer failed in a way a redial cannot fix (digest
     mismatch, manifest drift, shape disagreement): fall back to the
     local load, do not retry the peer."""
+
+
+def equal_jitter(
+    backoff: float, rng: random.Random, fraction: float = 0.5
+) -> float:
+    """The fleet's ONE retry-delay shape (the gateway's request
+    retries, the autoscaler's launch retries, and the standby
+    refill all call this): a deterministic floor plus a uniform
+    random slice of ``fraction`` of the backoff — failures retried
+    by many actors at once spread out instead of re-arriving as one
+    synchronized wave."""
+    spread = backoff * fraction
+    return backoff - spread + rng.random() * spread
 
 
 # -- the leaf codec (shared with kvtier/handoff.py) --------------------
@@ -428,3 +444,177 @@ async def fetch_params(
             "(%s); falling back to local load", exc,
         )
         return None
+
+
+# -- the pool (autoscaler side) ---------------------------------------
+
+
+class StandbyLauncher:
+    """Autoscaler launcher that turns scale-up into PROMOTION.
+
+    Wraps an inner launcher speaking the plain duck type plus three
+    standby verbs::
+
+        count() -> int / ids() -> list[str]   ACTIVE replicas only
+        async launch() -> str                 cold active launch
+        async retire(id)                      drain + stop
+        async launch_standby() -> str         boot one standby replica
+        async promote(id) -> bool             standby -> active; False
+                                              when the standby is gone
+                                              or already promoted
+
+    ``launch()`` claims a warm standby (popped BEFORE any await, so
+    two concurrent launches can never promote the same one — the
+    promotion-race invariant) and promotes it; a dead/contended
+    standby is dropped and the next tried; an empty pool falls back
+    to the inner cold launch. Every launch — promoted or cold —
+    schedules a background refill that boots standbys until the pool
+    holds ``standby_count`` again, retrying failures with the
+    fleet's equal-jitter backoff discipline. The autoscaler's
+    kill-repair path calls the same ``launch()``, so crash recovery
+    promotes too."""
+
+    def __init__(
+        self,
+        inner: Any,
+        standby_count: int = 1,
+        *,
+        refill_backoff: float = 0.25,
+        refill_backoff_cap: float = 4.0,
+        jitter_seed: Optional[int] = None,
+    ) -> None:
+        if standby_count < 0:
+            raise ValueError("standby_count must be >= 0")
+        self.inner = inner
+        self.standby_count = standby_count
+        self.refill_backoff = refill_backoff
+        self.refill_backoff_cap = refill_backoff_cap
+        self._rng = random.Random(jitter_seed)
+        self._pool: List[str] = []
+        self.promotions = 0
+        self.promote_failures = 0
+        self.cold_launches = 0
+        self.refill_failures = 0
+        #: how the LAST successful launch happened ("promoted"/"cold")
+        #: — the autoscaler stamps it into its scale log so the TTFRT
+        #: report can separate the promoted path from the cold one
+        self.last_launch: Dict[str, str] = {}
+        self._refill_task: Optional["asyncio.Task[None]"] = None
+        self._tasks: Set["asyncio.Task"] = set()
+
+    # -- the autoscaler duck type -------------------------------------
+
+    def count(self) -> int:
+        return self.inner.count()
+
+    def ids(self) -> List[str]:
+        return self.inner.ids()
+
+    def standby_ids(self) -> List[str]:
+        return list(self._pool)
+
+    async def launch(self) -> str:
+        """Promote a warm standby when one exists; cold-launch
+        otherwise. Either way the pool refills in the background."""
+        while self._pool:
+            # claim BEFORE the await: concurrent launches pop
+            # different standbys, so exactly one promoter ever
+            # targets each — the loser of a pool race simply gets
+            # the next standby (or the cold path), never a 409
+            standby_id = self._pool.pop(0)
+            try:
+                promoted = await self.inner.promote(standby_id)
+            except Exception as exc:
+                log.warning(
+                    "standby: promote %s raised (%s); trying next",
+                    standby_id, exc,
+                )
+                promoted = False
+            if promoted:
+                self.promotions += 1
+                self.last_launch = {
+                    "mode": "promoted", "replica": standby_id,
+                }
+                self._ensure_refill()
+                return standby_id
+            # the standby died (or someone else promoted it) between
+            # joining the pool and now: drop it and keep going
+            self.promote_failures += 1
+        self.last_launch = {"mode": "cold"}
+        self._ensure_refill()
+        replica_id = await self.inner.launch()
+        # counted AFTER the await: a raising launcher is the
+        # autoscaler's launch_failures, not a cold launch that never
+        # happened skewing the promoted-vs-cold split
+        self.cold_launches += 1
+        return replica_id
+
+    async def retire(self, replica_id: str) -> None:
+        await self.inner.retire(replica_id)
+
+    # -- pool maintenance ---------------------------------------------
+
+    async def prefill(self) -> None:
+        """Boot the initial standby set synchronously (the fleet-boot
+        path; refills after that are background)."""
+        while len(self._pool) < self.standby_count:
+            self._pool.append(await self.inner.launch_standby())
+
+    def _ensure_refill(self) -> None:
+        if self.standby_count <= 0:
+            return
+        if self._refill_task is not None and not self._refill_task.done():
+            return
+        self._refill_task = spawn(
+            self._refill_loop(), name="standby-refill",
+            owner=self._tasks,
+        )
+
+    async def _refill_loop(self) -> None:
+        """Boot standbys until the pool is full again. A standby that
+        crashes mid-boot counts a failure and retries after an
+        equal-jitter backoff (doubling, capped) — the same discipline
+        the gateway's retry path uses, so a broken launcher can't
+        storm the host with boot attempts."""
+        backoff = self.refill_backoff
+        while len(self._pool) < self.standby_count:
+            try:
+                standby_id = await self.inner.launch_standby()
+            except Exception as exc:
+                self.refill_failures += 1
+                delay = equal_jitter(backoff, self._rng)
+                log.warning(
+                    "standby: refill launch failed (%s); retrying "
+                    "in %.2fs", exc, delay,
+                )
+                await asyncio.sleep(delay)
+                backoff = min(backoff * 2, self.refill_backoff_cap)
+                continue
+            self._pool.append(standby_id)
+            backoff = self.refill_backoff
+        log.info(
+            "standby: pool refilled to %d (%s)",
+            len(self._pool), self._pool,
+        )
+
+    async def stop(self) -> None:
+        """Cancel the background refill (shutdown path)."""
+        task = self._refill_task
+        self._refill_task = None
+        if task is not None and not task.done():
+            task.cancel()
+            try:
+                await task
+            except asyncio.CancelledError:
+                log.debug("standby: refill task cancelled at stop")
+
+    def standby_stats(self) -> Dict[str, Any]:
+        """The pool's surface on /fleet (via the autoscaler stats)."""
+        return {
+            "standby_count": self.standby_count,
+            "pool": list(self._pool),
+            "promotions": self.promotions,
+            "promote_failures": self.promote_failures,
+            "cold_launches": self.cold_launches,
+            "refill_failures": self.refill_failures,
+        }

@@ -234,12 +234,18 @@ class Gauge(_Metric):
         return "".join(lines)
 
 
+#: ``prometheus_client``'s default histogram buckets
+DEFAULT_BUCKETS = (.005, .01, .025, .05, .075, .1, .25, .5, .75, 1.0, 2.5,
+                   5.0, 7.5, 10.0, math.inf)
+
+
 class Histogram(_Metric):
     """Observations counted into fixed buckets (``+Inf`` added)."""
 
     def __init__(self, name: str, documentation: str,
-                 labelnames: Sequence[str], registry: Optional[Registry],
-                 buckets: Sequence[float]) -> None:
+                 labelnames: Sequence[str] = (),
+                 registry: Optional[Registry] = None,
+                 buckets: Sequence[float] = DEFAULT_BUCKETS) -> None:
         bounds = [float(b) for b in buckets]
         if bounds != sorted(bounds):
             raise ValueError("buckets not in sorted order")

@@ -110,7 +110,7 @@ import threading
 import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, List, Optional
+from typing import Any, Awaitable, Callable, Dict, List, Optional
 
 import torch
 
@@ -493,6 +493,14 @@ class InferenceServer:
         self._migration_counters = {
             "done": 0, "total": 0, "failed": 0, "timeout": 0,
         }
+        # test-only fault-injection seam (the chaos harness): when set,
+        # awaited before every instrumented API handler and at warm-up.
+        # Injects per-request latency (slow-replica brownouts) or raises
+        # to fail requests, without touching any serving path. Never
+        # set in production; None costs one attribute load per request.
+        self.chaos_hook: Optional[
+            Callable[[str], Awaitable[None]]
+        ] = None
         # context-parallel prefill: single rows at least cp_min_len long
         # ring over the mesh's seq axis; compositions validated here
         self.cp_mesh = cp_mesh
@@ -1060,6 +1068,11 @@ class InferenceServer:
             ):
                 self.ledger.enter("decode")
             try:
+                # the hook runs inside the inflight window: a request
+                # parked in an injected delay must hold off a drain's
+                # inflight==0 wait exactly like one inside the handler
+                if self.chaos_hook is not None:
+                    await self.chaos_hook(endpoint)
                 resp = await handler(req)
             except Exception:
                 # the HTTP layer answers 500; count and time it first
@@ -1673,6 +1686,11 @@ class InferenceServer:
         override the engine's own stamps cannot claim) and opens the
         serving clock in ``idle`` before ``/health`` turns 200."""
         self.ledger.set_override("compile_warmup")
+        # chaos seam: an injected slow boot parks HERE, inside the
+        # compile_warmup attribution window (the fault the standby pool
+        # exists to mask)
+        if self.chaos_hook is not None:
+            await self.chaos_hook("warmup")
         await asyncio.get_running_loop().run_in_executor(
             self._executor, self._warm
         )
@@ -1935,6 +1953,28 @@ class InferenceServer:
         self._executor.shutdown(wait=True)
         if self.lockstep is not None:
             # the followers' last op: they leave their loop and exit
+            self.lockstep.shutdown()
+
+    async def abort(self) -> None:
+        """Test-only (the chaos harness): die like SIGKILL. The listener
+        and every live connection drop FIRST (in-flight clients see
+        resets, exactly as if the process vanished), and only then are
+        the decode threads reaped so the test process doesn't leak them.
+        No drain, no deregistration: a FleetMember's catalog record is
+        left to decay critical by TTL expiry, the crash signature
+        gateways must route around."""
+        self.ready = False
+        self.ledger.freeze()
+        self._loop_probe.stop()
+        await self._server.abort()
+        await self._batcher.stop()
+        for engine in (self.slot_engine, self.spec_engine):
+            if engine is not None:
+                await asyncio.get_running_loop().run_in_executor(
+                    None, engine.stop
+                )
+        self._executor.shutdown(wait=False)
+        if self.lockstep is not None:
             self.lockstep.shutdown()
 
 

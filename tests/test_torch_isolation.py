@@ -86,6 +86,14 @@ def test_importing_every_port_module_loads_no_jax():
         "containerpilot_tpu_torch.fleet.standby",
         "containerpilot_tpu_torch.kvtier.spill",
         "containerpilot_tpu_torch.kvtier.handoff",
+        "containerpilot_tpu_torch.fleet.admission",
+        "containerpilot_tpu_torch.fleet.autoscaler",
+        "containerpilot_tpu_torch.fleet.gateway",
+        "containerpilot_tpu_torch.chaos.trace",
+        "containerpilot_tpu_torch.chaos.slo",
+        "containerpilot_tpu_torch.chaos.faults",
+        "containerpilot_tpu_torch.chaos.client",
+        "containerpilot_tpu_torch.chaos.scenarios",
     } <= set(mods)
     code = (
         "import importlib, sys\n"

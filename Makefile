@@ -3,7 +3,7 @@
 
 PYTHON ?= python
 
-.PHONY: all build test test-fast test-workload integration fleet-smoke trace-smoke chaos chaos-smoke bench bench-host bench-gateway bench-reuse bench-goodput bench-coldstart bench-disagg bench-migrate lint lint-baseline lint-diff clean image
+.PHONY: all build test test-fast test-workload integration fleet-smoke trace-smoke chaos chaos-smoke bench bench-host bench-gateway bench-reuse bench-goodput bench-coldstart bench-disagg bench-migrate lint lint-baseline lint-torch lint-torch-baseline lint-diff clean image
 
 all: build test
 
@@ -126,6 +126,15 @@ lint:
 # reports which entries were added/removed and why they went stale
 lint-baseline:
 	$(PYTHON) -m containerpilot_tpu.analysis --write-baseline
+
+# the port's gate: the same rules (plus torch's host syncs) over
+# containerpilot_tpu_torch/ vs containerpilot_tpu_torch/analysis/baseline.json
+lint-torch:
+	$(PYTHON) -m containerpilot_tpu_torch.analysis
+
+# regenerate the port's baseline (shrink it, never grow it)
+lint-torch-baseline:
+	$(PYTHON) -m containerpilot_tpu_torch.analysis --write-baseline
 
 # cpcheck findings for files changed since $(SINCE) (default HEAD:
 # staged + unstaged + untracked). Full call graph, findings filtered

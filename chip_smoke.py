@@ -335,7 +335,14 @@ training phases, then beams, speculative decoding and LoRA):
    exits 0 and every check of the report passes, with the slow boot
    armed once, at least one standby promotion and no client-visible
    5xx; its goodput fraction, TTFT p99 and promotions print on a line
-   of their own.
+   of their own;
+31. lint (started right after phase 1, in a thread beside the kernel
+   phases, joined before the summary): the port's lint gate, ``python
+   -m containerpilot_tpu_torch.analysis`` (byte-compile, the cpcheck
+   and call-graph rules over the port's source against
+   ``containerpilot_tpu_torch/analysis/baseline.json``), as a
+   subprocess: it must exit 0 and print its clean verdict; its exit
+   code, seconds, findings and baselined entries.
 
 Then the kernel summary line, the nvidia-smi line, and last
 ``{"ok": true, "device": {...}}``. Any failure raises and exits non-zero;
@@ -6227,6 +6234,33 @@ def _alive(pid):
         return False
 
 
+def drive_lint() -> dict:
+    """The port's lint gate (``python -m containerpilot_tpu_torch.analysis``:
+    byte-compile, then the cpcheck and call-graph rules over the port's
+    source against its baseline) in a subprocess; run in a thread beside
+    the kernel phases. A non-zero exit fails the run."""
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [sys.executable, "-m", "containerpilot_tpu_torch.analysis"],
+        cwd=root, capture_output=True, text=True, timeout=600,
+    )
+    seconds = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(
+            f"the port's lint gate exited {proc.returncode}:\n"
+            f"{proc.stdout[-4000:]}{proc.stderr[-4000:]}")
+    found = re.search(r"cpcheck: clean \(package; (\d+) finding",
+                      proc.stdout)
+    if found is None:
+        raise AssertionError(f"no verdict from the lint gate: {proc.stdout}")
+    with open(os.path.join(root, "containerpilot_tpu_torch", "analysis",
+                           "baseline.json")) as fh:
+        baselined = len(json.load(fh)["entries"])
+    return {"phase": "lint", "rc": proc.returncode, "seconds": seconds,
+            "findings": int(found.group(1)), "baselined": baselined}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: CUDA is not available; this script needs a "
@@ -6253,6 +6287,11 @@ def main() -> int:
     card = {"kind": kind, "nvidia_smi": smi}
     emit({"phase": "device", **card, "torch": torch.__version__,
           "cuda": torch.version.cuda, "count": torch.cuda.device_count()})
+
+    # the lint gate runs on the host beside the kernel phases (joined
+    # before the summary)
+    lint_pool = ThreadPoolExecutor(1)
+    lint_run = lint_pool.submit(drive_lint)
 
     emit({"phase": "build", "seconds": _build.build_all(),
           "sources": _build.sources()})
@@ -6526,6 +6565,9 @@ def main() -> int:
     emit(serve_pod)
     emit(supervised)
     resume_launches = train_resume["uninterrupted"]["launches_a_rank_a_step"]
+
+    emit(lint_run.result())
+    lint_pool.shutdown()
 
     # ---- summary --------------------------------------------------------
     main_flash = flash_rows[0]

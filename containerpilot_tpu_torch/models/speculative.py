@@ -105,7 +105,7 @@ def _dispatch_round(params, draft_params, cfg: TransformerConfig,
 
 def _fetch_round(drafts: torch.Tensor, target_choice: torch.Tensor):
     """The round's one host fetch -> (drafts, target choices) as ints."""
-    both = torch.cat([drafts, target_choice]).tolist()
+    both = torch.cat([drafts, target_choice]).tolist()  # cpcheck: disable=CP-HOTSYNC the per-round acceptance fetch
     k = drafts.shape[0]
     return both[:k], both[k:]
 
@@ -326,6 +326,7 @@ class SpeculativeStepProgram:
     def retire(self, slot: int) -> None:
         self.reset()
 
+    # cpcheck: hotpath — one draft + one verify dispatch, no syncs
     @torch.inference_mode()
     def dispatch(self, budgets, fused: bool):
         """One draft round and one verify chunk, no host sync ->
@@ -341,6 +342,7 @@ class SpeculativeStepProgram:
         )
         return drafts, target_choice, k
 
+    # cpcheck: hotpath — the acceptance fetch, the round's one sync
     @torch.inference_mode()
     def tokens(self, handle):
         """The round's one host fetch, acceptance and rewind -> (toks

@@ -272,6 +272,8 @@ class PlainStepProgram:
     def retire(self, slot: int) -> None:
         retire_slot(self._state, slot)
 
+    # cpcheck: hotpath — the fused window dispatch: the chunk or window
+    # is enqueued with zero host syncs (the budgets upload is async)
     @torch.inference_mode()
     def dispatch(self, budgets, fused: bool) -> _Handle:
         """Enqueue one chunk, or (``fused`` and K > 1) a window of up to K
@@ -290,7 +292,7 @@ class PlainStepProgram:
                 "tokens before dispatching again)"
             )
         h = self._free.pop()
-        budgets = np.asarray(budgets, np.int64)
+        budgets = np.asarray(budgets, np.int64)  # cpcheck: disable=CP-HOTSYNC host-side numpy only, no device operand
         h.window = fused and self.rounds > 1
         h.rounds = 1
         if h.window:
@@ -307,15 +309,16 @@ class PlainStepProgram:
             h.event.record()
         return h
 
+    # cpcheck: hotpath — the one deliberate sync per window
     def tokens(self, handle: _Handle):
         """Wait for the handle's copies (the one deliberate sync of a
         window) -> (toks [S, rounds_run * chunk], valid [S],
         rounds_run)."""
         if handle.event is not None:
-            handle.event.synchronize()
+            handle.event.synchronize()  # cpcheck: disable=CP-HOTSYNC the per-window token fetch
         rounds_run = int(handle.run) if handle.window else 1
         width = rounds_run * self.chunk
-        toks = handle.toks.numpy()[:, :width].copy()
+        toks = handle.toks.numpy()[:, :width].copy()  # cpcheck: disable=CP-HOTSYNC the per-window token fetch (a pinned host read after the event)
         self._free.append(handle)
         valid = np.full((self.slots,), width, np.int64)
         return toks, valid, rounds_run

@@ -244,6 +244,6 @@ class Lockstep:
         for stream in (sys.stderr, sys.stdout):
             try:
                 stream.flush()
-            except Exception:  # noqa: BLE001 — best-effort flush
+            except Exception:  # noqa: BLE001 — cpcheck: disable=CP-SWALLOW best-effort flush on the road to os._exit
                 pass
         os._exit(EXIT_CODE)

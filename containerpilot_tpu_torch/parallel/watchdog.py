@@ -97,6 +97,6 @@ class StepWatchdog:
                 for stream in (sys.stderr, sys.stdout):
                     try:
                         stream.flush()
-                    except Exception:  # noqa: BLE001 — best-effort flush on the road to os._exit
+                    except Exception:  # noqa: BLE001 — cpcheck: disable=CP-SWALLOW best-effort flush on the road to os._exit
                         pass
                 os._exit(self.exit_code)

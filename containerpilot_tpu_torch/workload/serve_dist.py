@@ -338,6 +338,8 @@ class _SlotMirror:
         self._done_host[slot] = first == req.eos_id or req.max_new <= 1
         return first
 
+    # cpcheck: hotpath — the pod's per-round chunk step; the program's
+    # one fetch, and a device write only where the mask ends a slot
     def run_chunk(self, done_mask, rounds: int = 1,
                   budget=None) -> np.ndarray:
         """Advance every slot one chunk, or (``rounds`` > 1) up to
@@ -347,7 +349,7 @@ class _SlotMirror:
         synchronizes device work, so a wedged computation stalls THIS
         op). Slots the mask newly ends are retired first; a steady round
         writes nothing to the device but the budgets."""
-        mask = np.asarray(done_mask, bool)
+        mask = np.asarray(done_mask, bool)  # cpcheck: disable=CP-HOTSYNC host-side numpy only, no device operand
         for slot in np.flatnonzero(mask & ~self._done_host):
             self.program.retire(int(slot))
         self._done_host = mask.copy()
@@ -355,12 +357,12 @@ class _SlotMirror:
         self.use("window" if fused else "chunk")
         if budget is None or not fused:
             budget = np.zeros((self.slots,), np.int64)
-        handle = self.program.dispatch(np.asarray(budget, np.int64), fused)
+        handle = self.program.dispatch(np.asarray(budget, np.int64), fused)  # cpcheck: disable=CP-HOTSYNC host-side numpy only, no device operand
         toks, _valid, _rounds_run = self.program.tokens(handle)
         return toks
 
 
-def _debug_round(mirror: _SlotMirror, payload, first, toks) -> None:
+def _debug_round(mirror: _SlotMirror, payload, first, toks) -> None:  # cpcheck: disable=CP-HOTREACH debug-only dump behind CONTAINERPILOT_POD_DEBUG; every sync here is the point
     """Dump one round's inputs (CONTAINERPILOT_POD_DEBUG only)."""
     state = mirror.program._state
     print(
@@ -377,6 +379,7 @@ def _debug_round(mirror: _SlotMirror, payload, first, toks) -> None:
     )
 
 
+# cpcheck: hotpath — the device ops of one pod round
 def _apply_round(mirror: _SlotMirror, payload):
     """The device ops of one round, identical on every rank: optional
     admission, then optionally one chunk (or a fused window). Returns

@@ -511,6 +511,8 @@ class SlotEngine:
                                  0)
         return budgets
 
+    # cpcheck: hotpath — the continuous-batching decode loop; a steady
+    # window must ship zero host syncs beyond the program's one fetch
     def _run(self) -> None:
         with torch.inference_mode():
             self._loop()

@@ -64,7 +64,12 @@ def test_importing_every_port_module_loads_no_jax():
         "containerpilot_tpu_torch.utils.prom",
         "containerpilot_tpu_torch.telemetry.tracing",
         "containerpilot_tpu_torch.telemetry.goodput",
+        "containerpilot_tpu_torch.analysis",
         "containerpilot_tpu_torch.analysis.loopcheck",
+        "containerpilot_tpu_torch.analysis.cpcheck",
+        "containerpilot_tpu_torch.analysis.callgraph",
+        "containerpilot_tpu_torch.analysis.racecheck",
+        "containerpilot_tpu_torch.analysis.__main__",
         "containerpilot_tpu_torch.fleet.pool",
         "containerpilot_tpu_torch.workload.text",
         "containerpilot_tpu_torch.version",

@@ -61,7 +61,10 @@ def _rewrite(src: str, drop_imports) -> str:
                   src)
 
 
-def load(name: str, package: str, drop_imports=()) -> types.ModuleType:
+def load(name: str, package: str, drop_imports=(),
+         replace=()) -> types.ModuleType:
+    """``replace`` holds (old, new) text pairs applied to the port's
+    copy only: names the port spells its own way (a make target)."""
     path = os.path.join(TESTS, f"{name}.py")
     with open(path, encoding="utf-8") as f:
         src = f.read()
@@ -69,6 +72,8 @@ def load(name: str, package: str, drop_imports=()) -> types.ModuleType:
                  r"read_value(\1)", src)
     if package == "torch":
         src = _rewrite(src, drop_imports)
+        for old, new in replace:
+            src = src.replace(old, new)
     mod = types.ModuleType(f"{name}__{package}")
     mod.__file__ = path
     mod.read_value = read_value

@@ -27,15 +27,27 @@ training phases, then beams, speculative decoding and LoRA):
    windowed training shape) are timed against SDPA with an explicit
    window mask, which is not a flash path. K1 is also held at 128
    tokens (a whole and a tp2 rank's heads) and K3/K4 at a 128-token
-   row: lengths the H100 table's crossover sends to the kernels;
+   row: lengths the H100 table's crossover sends to the kernels. The
+   sampling draw (ops/draw.py, Triton: fold_in, the threefry bits, the
+   Gumbel noise and the argmax in one launch) is held at [1, 32768] and
+   [8, 32768] against its plain version (ops/prng.py): the card's
+   threefry on the frozen known answers, every hashed word and every
+   token equal, a repeat launch bit-equal; its bound counts the hash's
+   32-bit operations at the card's issue limit (128 lanes an SM a clock,
+   33.45 T/s);
 4. serve_bf16: the 1.2B flagship config (vocab 32768, d_model 2048, 16
    heads, 16 layers, d_ff 8192, max_len 2048), seeded random weights,
-   served by the port's InferenceServer over HTTP on 127.0.0.1:0: health,
+   made by init_params(0) (the reference's threefry key tree and
+   jax.random.normal draws, plain torch in chunks on the card: the
+   card's normals held to JAX's frozen values, the init timed), served
+   by the port's InferenceServer over HTTP on 127.0.0.1:0: health,
    greedy 1024-token prompts (the flash kernel's path), a repeat, a
    4-row batch, an 8-row batch (decode tokens/s at 8 rows), a seeded
-   sampled request, /v1/model; the flash kernel's launch count is zeroed
-   just before and read just after; the logits through the kernel are
-   held against the plain attention path;
+   sampled request twice (a draw kernel launch a sampled token, counted
+   around the two requests and held to 1), /v1/model; the flash and
+   draw kernels' launch counts are zeroed just before and read just
+   after; the logits through the kernel are held against the plain
+   attention path;
 5. serve_slots_bf16: the same model served with --slots 8 --slot-chunk 8
    --slot-window 4 --prefix-cache 4: graphs captured before /health, 8
    staggered concurrent single-row requests (two 1024-token prompts
@@ -48,8 +60,9 @@ training phases, then beams, speculative decoding and LoRA):
    through a window-1 engine must give the same bits; decode tokens/s
    at 8 concurrent requests beside the batcher's 8-row figure,
    dispatches/token; steady windows dispatched under
-   torch.cuda.set_sync_debug_mode("error"); the K1/K2 counts (graph
-   replays included) zeroed before the requests and read after;
+   torch.cuda.set_sync_debug_mode("error"); the K1/K2 and draw counts
+   (graph replays included: the draw once a pool step, once an
+   admission) zeroed before the requests and read after;
 6. serve_window: the bf16 flagship's first CUT_LAYERS (8) layers with
    --window 1024 at max_len 4096 (cut from 16 for the script's clock),
    served by the Batcher over HTTP, once with the ring alone and once
@@ -375,6 +388,7 @@ FLAGSHIP = dict(vocab_size=32768, d_model=2048, n_heads=16, n_layers=16,
 MAX_LEN = 2048
 PROMPT_LEN = 1024
 SAMPLED_LEN = 64  # drive_server's sampled prompt, run twice
+SAMPLED_NEW = 16  # its new tokens: a draw kernel launch each
 # the flagship's width at half its depth, for the script's clock: the
 # windowed, beam/speculative, serve CLI (face, handoff) and MoE phases
 CUT_LAYERS = 8
@@ -733,6 +747,110 @@ def check_flash_bwd(gen, b, s, h, hd, window):
     }
 
 
+DRAW_ROWS = (1, 8)  # the Batcher's sampled row, the slot pool's 8 rows
+
+
+def eager_ms(fn, args, iters: int = 10) -> float:
+    """Mean device ms of ``iters`` eager calls of fn between two CUDA
+    events, host launch gaps included: the plain draw's ~150 small
+    launches a call cost that much on the card."""
+    fn(*args)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn(*args)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def check_draw(gen, rows, vocab):
+    """The draw kernel (ops/draw.py) against its plain version
+    (ops/prng.py) at [rows, vocab] float32 logits: the card's threefry
+    on prng.KNOWN_ANSWERS, the kernel's bits at prng.KNOWN_DRAWS'
+    counters, every hashed word equal to the plain bits, the tokens
+    equal, and a repeat launch bit-equal; then kernel ms (in a CUDA
+    graph), the plain version's ms (eager: its launches are its cost)
+    and the bound (the hash's operations at the card's issue limit
+    against the logits' bytes). No PyTorch call computes the same
+    draw."""
+    from containerpilot_tpu_torch.models import decode
+    from containerpilot_tpu_torch.ops import draw, prng
+
+    if not prng.known_answers("cuda"):
+        raise AssertionError("threefry2x32 on the card misses its known "
+                             "answers")
+    bits = torch.empty((1, vocab), dtype=torch.int32, device="cuda")
+    zeros = torch.zeros((1, vocab), device="cuda")
+    for seed, row, step, want in prng.KNOWN_DRAWS:
+        draw.gumbel_argmax(zeros, decode.row_key(seed, row, "cuda")[None],
+                           step, bits_out=bits)
+        got = {at: int(bits[0, at]) & prng.MASK for at in want}
+        if got != want:
+            raise AssertionError(f"draw kernel bits {got} != {want}")
+
+    def inputs():
+        x = torch.randn((rows, vocab), generator=gen, device="cuda") * 3
+        return x, torch.stack([decode.row_key(s, 0)
+                               for s in range(rows)]).cuda()
+
+    x, keys = inputs()
+    steps = torch.arange(rows, device="cuda") * 7 + 1  # a pool's steps
+    bits = torch.empty((rows, vocab), dtype=torch.int32, device="cuda")
+    toks = draw.gumbel_argmax(x, keys, steps, bits_out=bits)
+    torch.cuda.synchronize()
+    plain_bits = draw.draw_bits_plain(keys, steps, vocab)
+    plain = draw.gumbel_argmax_plain(x, keys, steps)
+    bits64 = bits.long() & prng.MASK
+    err = max(int((bits64 - plain_bits).abs().max()),
+              int((toks - plain).abs().max()))
+    if err:
+        raise AssertionError(
+            f"draw kernel disagrees at [{rows}, {vocab}]: "
+            f"{int((bits64 != plain_bits).sum())} words, tokens "
+            f"{toks.tolist()} vs {plain.tolist()}")
+    again_bits = torch.empty_like(bits)
+    again = draw.gumbel_argmax(x, keys, steps, bits_out=again_bits)
+    if not (torch.equal(again, toks) and torch.equal(again_bits, bits)):
+        raise AssertionError("draw kernel changed between two launches")
+    sets = [(x, keys, steps)] + [
+        (*inputs(), steps) for _ in range(copies_for(rows * vocab * 4) - 1)]
+    ms = cuda_ms(draw.gumbel_argmax, sets, iters=50)
+    plain_ms = eager_ms(draw.gumbel_argmax_plain, sets[0])
+    b = draw.bound_ms(rows, vocab)
+    return {
+        "shape": {"rows": rows, "vocab": vocab},
+        "max_abs_err": float(err), "tol": "bits and tokens equal",
+        "known_answers": len(prng.KNOWN_ANSWERS) + len(prng.KNOWN_DRAWS),
+        "repeat_bit_equal": True,
+        "ms": ms, "plain_ms": plain_ms, "library_ms": None,
+        "bound_ms": b["bound_ms"], "bound_by": b["bound_by"],
+        "bound_share": b["bound_ms"] / ms,
+        "t_ops_s": b["ops"] / ms * 1e-9,
+    }
+
+
+NORMAL_REL_TOL = 2e-6  # vs JAX's values: log1p may round an ulp apart
+
+
+def check_init_normals() -> int:
+    """The init's normal draws (prng.normal, plain torch) on the card
+    against prng.KNOWN_NORMALS, JAX's values frozen by the CPU tests:
+    each within NORMAL_REL_TOL of JAX's (against max(|JAX|, 1)).
+    Returns how many were held."""
+    from containerpilot_tpu_torch.ops import prng
+
+    seed, shape, want = prng.KNOWN_NORMALS
+    got = prng.normal(prng.prng_key(seed, "cuda"), shape).reshape(-1)
+    for at, value in want.items():
+        if abs(float(got[at]) - value) > NORMAL_REL_TOL * max(abs(value), 1):
+            raise AssertionError(f"normal draw on the card at {at}: "
+                                 f"{float(got[at])} != JAX's {value}")
+    return len(want)
+
+
 def check_int8(gen, m, k, n):
     """K2 against int8_matmul_kernel_reference at x [m, k], w_q [k, n]:
     error, a repeat launch's bit equality (the split-k sum runs in a
@@ -844,6 +962,7 @@ async def drive_server(cfg, params, prompt, label, device="cuda",
                        max_len=MAX_LEN):
     """Serve over HTTP; returns the phase's measurements. Counters are
     zeroed by the caller just before and read just after."""
+    from containerpilot_tpu_torch.ops import draw
     from containerpilot_tpu_torch.workload.serve import InferenceServer
 
     server = InferenceServer(cfg, params, "127.0.0.1", 0, max_len,
@@ -898,13 +1017,17 @@ async def drive_server(cfg, params, prompt, label, device="cuda",
             "request_ms_batch8_prompt1024_new32": t8[32] * 1e3,
             "decode_tok_s_batch8": 8 * 31 / (t8[32] - t8[1]),
         })
-        sampled = {"tokens": [prompt[:SAMPLED_LEN]], "max_new_tokens": 16,
-                   "temperature": 0.8, "top_k": 40, "seed": 7}
+        sampled = {"tokens": [prompt[:SAMPLED_LEN]],
+                   "max_new_tokens": SAMPLED_NEW, "temperature": 0.8,
+                   "top_k": 40, "seed": 7}
+        before = draw.LAUNCHES
         s1, _ = await generate_tokens(port, sampled)
         s2, _ = await generate_tokens(port, sampled)
-        check_rows(s1, 1, 16, cfg.vocab_size)
+        out["sampled_draw_launches"] = draw.LAUNCHES - before
+        check_rows(s1, 1, SAMPLED_NEW, cfg.vocab_size)
         if s1 != s2:
             raise AssertionError("seeded sampling is not deterministic")
+        out["sampled_tokens"] = len(s1[0]) + len(s2[0])
         info = json.loads(await http(port, "GET", "/v1/model"))
         if (info["n_layers"] != cfg.n_layers
                 or not info["device"].startswith(device)):
@@ -913,6 +1036,22 @@ async def drive_server(cfg, params, prompt, label, device="cuda",
         return out
     finally:
         await server.stop()
+
+
+def draw_counts(launches, in_replays, program) -> dict:
+    """The draw kernel's launches on a slot phase's requests: every
+    graph replay draws ``chunk`` times (a step of the pool a launch) and
+    every admission once (token 0). Fails when the requests drew
+    nothing through the kernel."""
+    per_replay = program.replay_launches[2]
+    if per_replay != program.chunk or in_replays < 1 or launches <= in_replays:
+        raise AssertionError(
+            f"draw kernel: {launches} launches, {in_replays} in replays, "
+            f"{per_replay} a replay (chunk {program.chunk})")
+    return {"draw_launches": launches,
+            "draw_launches_decode_replays": in_replays,
+            "draw_launches_admission": launches - in_replays,
+            "draw_per_replay": per_replay}
 
 
 def logits_rel_err(a, b) -> float:
@@ -998,8 +1137,8 @@ def judge_served(cfg, params, body, got, max_len=MAX_LEN):
     """Hold a served request's own tokens to solo decoding: teacher-force
     the solo path (one-shot prefill, decode_step) on ``got`` and, at
     every position, take the solo's own choice there exactly as
-    ``generate`` makes it (argmax; or sample_logits on the request's
-    generator stream, one [vocab] block a step). The served token must
+    ``generate`` makes it (argmax; or sample_logits with the request's
+    row key folded with the step, the draw kernel). The served token must
     be that choice or a near tie with it: greedy, top logit minus the
     served token's logit <= NEAR_TIE_TOL * max|logits|; sampled, the
     same on the draw's Gumbel-perturbed scores, scaled by
@@ -1011,19 +1150,18 @@ def judge_served(cfg, params, body, got, max_len=MAX_LEN):
     worst gap over all positions, and the median gap of a vocabulary
     entry at position 0 (what a wrong token would show)."""
     from containerpilot_tpu_torch.models import decode
+    from containerpilot_tpu_torch.ops import prng
 
     row = body["tokens"][0]
     dev = params["norm_out"].device
     temp = float(body.get("temperature", 0.0))
     top_k = int(body.get("top_k", 0))
     seed = int(body.get("seed", 0))
-    # twin streams: one for the solo's draw, one for the same uniforms
-    draw, twin = (decode.row_generator(seed, 0, dev) for _ in range(2))
+    key = decode.row_key(seed, 0, dev)
     # generate passes the filters only when one is set (top_p stays 0)
     knobs = (torch.tensor([temp], device=dev),) + (
         (torch.tensor([top_k], device=dev),
          torch.tensor([0.0], device=dev)) if top_k else (None, None))
-    tiny = torch.finfo(torch.float32).tiny
     first, worst, typical = None, 0.0, None
     with torch.inference_mode():
         logits, cache = decode.prefill(
@@ -1034,11 +1172,12 @@ def judge_served(cfg, params, body, got, max_len=MAX_LEN):
                 choice = int(torch.argmax(raw))
                 score, scale, cut_gap = raw, raw.abs().max(), 0.0
             else:
-                choice = int(decode.sample_logits(logits, [draw], *knobs)[0])
+                choice = int(decode.sample_logits(logits, key[None], i,
+                                                  *knobs)[0])
                 x = raw / temp
-                u = torch.rand(cfg.vocab_size, generator=twin,
-                               device=dev).clamp_min(tiny)
-                score, scale = x - torch.log(-torch.log(u)), x.abs().max()
+                # the same noise the draw adds (plain version on the card)
+                noise = prng.gumbel(prng.fold_in(key, i), (cfg.vocab_size,))
+                score, scale = x + noise, x.abs().max()
                 cut = torch.topk(x, top_k).values[-1] if top_k else x.min()
                 cut_gap = float(torch.clamp_min(cut - x[tok], 0) / scale)
             gaps = (score[choice] - score) / scale
@@ -1192,9 +1331,9 @@ async def drive_slots(cfg, params, prompt, label, prefill_chunk=0,
     must be bit-equal; decode tokens/s at 8 concurrent requests; steady
     windows free of host syncs (with ``profiled``, also their device ms
     a step and idle share under the profiler, and one graph replay
-    against the eager round). The K1/K2 counters are zeroed just before
-    the requests and read just after them."""
-    from containerpilot_tpu_torch.ops import flash, quant
+    against the eager round). The K1/K2 and draw counters are zeroed
+    just before the requests and read just after them."""
+    from containerpilot_tpu_torch.ops import draw, flash, quant
     from containerpilot_tpu_torch.workload.serve import InferenceServer
     from containerpilot_tpu_torch.workload.serve_prefix import PrefixCache
     from containerpilot_tpu_torch.workload.serve_slots import SlotEngine
@@ -1227,13 +1366,14 @@ async def drive_slots(cfg, params, prompt, label, prefill_chunk=0,
             rows, _ = await generate_tokens(port, body)
             return rows[0]
 
-        flash.LAUNCHES = quant.LAUNCHES = 0
+        flash.LAUNCHES = quant.LAUNCHES = draw.LAUNCHES = 0
         program.replayed_launches = [0] * len(program.replayed_launches)
         outs = await asyncio.gather(*[staggered(i, b)
                                       for i, b in enumerate(bodies)])
         outs.append((await generate_tokens(port, hit))[0][0])
-        k1, k2 = flash.LAUNCHES, quant.LAUNCHES
+        k1, k2, kd = flash.LAUNCHES, quant.LAUNCHES, draw.LAUNCHES
         k2_decode = program.replayed_launches[0]
+        kd_decode = program.replayed_launches[2]
         info = json.loads(await http(port, "GET", "/v1/model"))
         pc = info["prefix_cache"]
         if pc["hits"] < 1 or not info["prefix_digest"].startswith("v"):
@@ -1245,6 +1385,7 @@ async def drive_slots(cfg, params, prompt, label, prefill_chunk=0,
             "k2_launches_decode_replays": k2_decode,
             "k2_launches_admission": k2 - k2_decode,
             "k2_per_replay": program.replay_launches[0],
+            **draw_counts(kd, kd_decode, program),
             "graphs_captured": program.graphs,
             "capture_s": program.capture_seconds,
             "prefix_cache": pc, "slot_engine": info["slot_engine"],
@@ -1515,14 +1656,12 @@ def replay_matches_eager(program, params, cfg):
     (slots.gated_round) on a copy of that state: the tokens and every
     pool leaf must be bit-equal. A position frozen into the graph at
     capture would write and mask the wrong slots. The slots decode
-    greedily, so the copies' generators only need to exist."""
+    greedily (the draw still runs, on the copied keys)."""
     from containerpilot_tpu_torch.models import slots
 
     pool = {k: v.clone() for k, v in program._pool.items()}
     state = {k: (v.clone() if torch.is_tensor(v) else v)
              for k, v in program._state.items()}
-    state["keys"] = [torch.Generator(device="cuda")
-                     for _ in state["keys"]]
     if state["temperature"].any():
         raise AssertionError("replay check needs greedy slots")
     positions = pool["pos"].tolist()
@@ -1547,9 +1686,9 @@ async def serve_slots_window_requests(cfg, params, prompt):
     """The windowed int8 flagship through the slot engine over HTTP:
     the 8 staggered requests (one streamed over SSE), the streamed
     request again without streaming, and a second stream dropped after
-    its first event. K1/K2 counts are zeroed just before the 8 requests
-    and read just after."""
-    from containerpilot_tpu_torch.ops import flash, quant
+    its first event. K1/K2 and draw counts are zeroed just before the 8
+    requests and read just after."""
+    from containerpilot_tpu_torch.ops import draw, flash, quant
     from containerpilot_tpu_torch.workload.serve import InferenceServer
 
     try:
@@ -1592,12 +1731,13 @@ async def serve_slots_window_requests(cfg, params, prompt):
                 raise AssertionError(f"stream count {events[-1]}")
             return got, len(events) - 1
 
-        flash.LAUNCHES = quant.LAUNCHES = 0
+        flash.LAUNCHES = quant.LAUNCHES = draw.LAUNCHES = 0
         program.replayed_launches = [0] * len(program.replayed_launches)
         outs = await asyncio.gather(*[staggered(i, b)
                                       for i, b in enumerate(bodies)])
-        k1, k2 = flash.LAUNCHES, quant.LAUNCHES
+        k1, k2, kd = flash.LAUNCHES, quant.LAUNCHES, draw.LAUNCHES
         k2_decode = program.replayed_launches[0]
+        kd_decode = program.replayed_launches[2]
         outs[STREAMED], deltas = outs[STREAMED]
         twin = (await generate_tokens(port, bodies[STREAMED]))[0][0]
         if twin != outs[STREAMED]:
@@ -1629,6 +1769,7 @@ async def serve_slots_window_requests(cfg, params, prompt):
             "k2_launches_decode_replays": k2_decode,
             "k2_launches_admission": k2 - k2_decode,
             "k2_per_replay": program.replay_launches[0],
+            **draw_counts(kd, kd_decode, program),
             "graphs_captured": program.graphs,
             "capture_s": program.capture_seconds,
             "streamed_events": deltas, "stream_equals_not_streamed": True,
@@ -6275,7 +6416,7 @@ def main() -> int:
 
     from containerpilot_tpu_torch.models import decode, quantized
     from containerpilot_tpu_torch.models import transformer as tf
-    from containerpilot_tpu_torch.ops import _build, flash, quant
+    from containerpilot_tpu_torch.ops import _build, draw, flash, quant
 
     t_start = time.perf_counter()
     kind = torch.cuda.get_device_name(0)
@@ -6309,6 +6450,10 @@ def main() -> int:
     bwd_rows = [check_flash_bwd(gen, *c) for c in BWD_CASES]
     emit({"phase": "kernels", "kernel": "flash_bwd_dq+flash_bwd_dkdv",
           "results": bwd_rows, **card})
+    draw_rows = [check_draw(gen, r, FLAGSHIP["vocab_size"])
+                 for r in DRAW_ROWS]
+    emit({"phase": "kernels", "kernel": "draw", "results": draw_rows,
+          **card})
 
     # ---- the card's flash crossover: measured, and the committed table --
     autotune = drive_autotune(card)
@@ -6316,18 +6461,33 @@ def main() -> int:
 
     # ---- serve bf16 -----------------------------------------------------
     cfg = tf.TransformerConfig(**FLAGSHIP)
+    # the seeded random weights a server without a checkpoint serves
+    known_normals = check_init_normals()
+    torch.cuda.synchronize()
+    t_init = time.perf_counter()
     masters = tf.init_params(0, cfg, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t_init
     params = quantized.cast_params(masters, cfg.dtype)
     prompt = torch.randint(
         0, cfg.vocab_size, (PROMPT_LEN,), generator=gen, device="cuda"
     ).tolist()
-    flash.LAUNCHES = 0
+    flash.LAUNCHES = draw.LAUNCHES = 0
     serve_bf16 = asyncio.run(drive_server(cfg, params, prompt, "serve_bf16"))
-    k1_launches = flash.LAUNCHES
+    k1_launches, draw_launches = flash.LAUNCHES, draw.LAUNCHES
     if k1_launches < cfg.n_layers:
         raise AssertionError(
             f"flash kernel launched {k1_launches} times on the serving path"
         )
+    # one draw a sampled token: counted around the two sampled requests
+    # (the rest of the phase's launches are the warm-up's one token)
+    draw_per_token = (serve_bf16["sampled_draw_launches"]
+                      / serve_bf16["sampled_tokens"])
+    if draw_per_token != 1 or draw_launches < serve_bf16["sampled_tokens"]:
+        raise AssertionError(
+            f"draw kernel launched {serve_bf16['sampled_draw_launches']} "
+            f"times for {serve_bf16['sampled_tokens']} sampled tokens "
+            f"({draw_launches} in the phase)")
     toks = torch.tensor([prompt], device="cuda")
     with torch.inference_mode():
         via_kernel = tf.forward(params, toks, cfg)[0, -64:]
@@ -6337,7 +6497,10 @@ def main() -> int:
     if not (torch.isfinite(via_kernel).all() and e2e <= E2E_REL_TOL):
         raise AssertionError(f"flash-path logits off the plain path: {e2e}")
     serve_bf16.update({
-        "flash_launches": k1_launches, "logits_rel_err_vs_plain": e2e,
+        "flash_launches": k1_launches, "draw_launches": draw_launches,
+        "draw_launches_per_sampled_token": draw_per_token,
+        "init_params_s": init_s, "init_known_normals": known_normals,
+        "logits_rel_err_vs_plain": e2e,
         "resident_param_bytes": quantized.param_bytes(params), **card,
     })
     emit(serve_bf16)
@@ -6375,9 +6538,10 @@ def main() -> int:
     del masters
     torch.cuda.empty_cache()
     quant.LAUNCHES = 0
-    flash.LAUNCHES = 0
+    flash.LAUNCHES = draw.LAUNCHES = 0
     serve_int8 = asyncio.run(drive_server(cfg, qparams, prompt, "serve_int8"))
     k2_launches = quant.LAUNCHES
+    int8_draw_launches = draw.LAUNCHES
     if k2_launches < 7 * cfg.n_layers:
         raise AssertionError(
             f"int8 kernel launched {k2_launches} times on the serving path"
@@ -6420,6 +6584,7 @@ def main() -> int:
         raise AssertionError(f"int8 decode logits off the CPU path: {worst}")
     serve_int8.update({
         "int8_launches": k2_launches, "flash_launches": flash.LAUNCHES,
+        "draw_launches": int8_draw_launches,
         "decode_logits_rel_err_vs_cpu": worst["batch1"],
         "decode_logits_rel_err_vs_cpu_batch8": worst["batch8"],
         "resident_param_bytes": quantized.param_bytes(qparams), **card,
@@ -6761,6 +6926,37 @@ def main() -> int:
                     serve_pod["k2_launches_by_rank"]},
         },
     ]
+    main_draw = draw_rows[DRAW_ROWS.index(8)]
+    kernels.append({
+        "name": "draw", "route": "triton",
+        "source": "containerpilot_tpu_torch/ops/draw.py",
+        "replaces": "none: containerpilot_tpu/models/decode.py:467-472 "
+                    "(jax.random.categorical, XLA-fused, no Pallas kernel)",
+        "launches": draw_launches,
+        "max_abs_err": max(r["max_abs_err"] for r in draw_rows),
+        "ms": main_draw["ms"], "plain_ms": main_draw["plain_ms"],
+        "bound_ms": main_draw["bound_ms"], "bound_by": main_draw["bound_by"],
+        "library_ms": None,
+        "shape": "rows=8 vocab=32768, one slot-pool step's draw",
+        "per_shape": {f"rows={r['shape']['rows']}": {
+            key: r[key] for key in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "max_abs_err")}
+            for r in draw_rows},
+        # a pool step is one launch: a replay of a chunk-round draws once
+        # a step (draw_counts holds draw_per_replay to the chunk)
+        "launches_per_step": {
+            "slot_pool_step": slots_bf16["draw_per_replay"]
+            / slots_bf16["args"]["slot_chunk"],
+            "serve_bf16_sampled_token":
+                serve_bf16["draw_launches_per_sampled_token"]},
+        "slot_launches": {
+            "serve_slots_bf16": slots_bf16["draw_launches"],
+            "serve_slots_bf16_decode_replays":
+                slots_bf16["draw_launches_decode_replays"],
+            "serve_slots_int8": slots_int8["draw_launches"],
+            "serve_slots_window_int8": slots_window["draw_launches"]},
+        "serve_int8_launches": int8_draw_launches,
+    })
     emit({"kernels": kernels})
     emit({"phase": "done", "seconds": time.perf_counter() - t_start})
     print(smi, flush=True)

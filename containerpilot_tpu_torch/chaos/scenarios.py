@@ -340,8 +340,7 @@ class FleetHarness:
             max_seq_len=64, dtype=torch.float32,
         )
         device = resolve_device(self.device)
-        rng = torch.Generator(device=device).manual_seed(0)
-        params = init_params(rng, cfg, device=device)
+        params = init_params(0, cfg, device=device)
         self._model = (cfg, params)
         self.backend = FileCatalogBackend(self.catalog_dir)
         for i in range(self.n_replicas):

@@ -15,11 +15,11 @@ Intended differences from the reference:
 - Eager torch runs no fixed-length scan: ``generate`` stops once every
   row has emitted eos (rows already done would only emit pad) and fills
   the rest with pad, which returns the same tokens.
-- Sampling draws come from per-row ``torch.Generator``s, not
-  ``jax.random`` threefry: sampled tokens differ from the reference for
-  the same seed (greedy tokens are identical). A row's draws depend only
-  on (seed, row, step): each step takes one [vocab] uniform block from
-  the row's generator.
+- Sampling draws JAX's threefry bits (``ops/prng.py``), so a seeded
+  sampled answer is the reference's: row r of a request seeded s draws
+  step i from ``fold_in(fold_in(PRNGKey(s), r), i)``. On the card the
+  draw (fold_in, the bits, the Gumbel noise, the argmax) is one launch
+  of the Triton kernel ``ops/draw.py``; on the CPU its plain version.
 
 Serving on a mesh (``mesh=``, parallel/mesh.py: one process a rank,
 every rank calling the same function on its blocks of the params): the
@@ -27,19 +27,18 @@ KV cache holds the rank's kv heads (``cache_kv_heads``: kv_heads/tp when
 tp divides them, else the kv of the rank's query heads, whose weights
 are replicated), attention and the flash kernel run on the rank's
 heads, and the vocab-parallel logits are gathered whole before
-sampling, so every rank samples the same token from the same bits with
-identically seeded generators. A mesh without a live ``model`` axis
-runs exactly the unsharded path.
+sampling, so every rank samples the same token from the same keys. A
+mesh without a live ``model`` axis runs exactly the unsharded path.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, List, Optional, Sequence, Tuple, Union
+from typing import Any, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
 
 from .. import resolve_device
-from ..ops import tuning
+from ..ops import draw, prng, tuning
 from ..ops.attention import NEG_INF, causal_attention
 from ..ops.flash import flash_attention_forward
 from ..ops.quant import quantize_int8_axes
@@ -412,54 +411,30 @@ def chunked_prefill(
 # sampling
 # ---------------------------------------------------------------------------
 
-_MASK64 = (1 << 64) - 1
+def row_key(seed: int, row: int, device="cpu") -> torch.Tensor:
+    """The sampling key [2] of row ``row`` of a request seeded ``seed``:
+    ``fold_in(PRNGKey(seed), row)``, the server convention (equal to
+    ``split(PRNGKey(seed), n)[row]``, what ``generate`` gives row
+    ``row`` of a seed). Step i of the row draws from
+    ``fold_in(row_key, i)``."""
+    return prng.fold_in(prng.prng_key(seed), row).to(device)
 
 
-def _mix64(x: int) -> int:
-    """splitmix64 finalizer: spreads (seed, row) into a generator seed."""
-    x = (x + 0x9E3779B97F4A7C15) & _MASK64
-    x = ((x ^ (x >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    x = ((x ^ (x >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return x ^ (x >> 31)
-
-
-def row_seed(seed: int, row: int) -> int:
-    """The generator seed of row ``row`` of a request seeded ``seed``."""
-    return _mix64(_mix64(int(seed) & _MASK64) ^ int(row)) >> 1
-
-
-def row_generator(seed: int, row: int, device) -> torch.Generator:
-    """The sampling generator of row ``row`` of a request seeded
-    ``seed`` (the counterpart of ``fold_in(PRNGKey(seed), row)``). The
-    slot engine re-seeds a slot's own generator with the same
-    ``row_seed(seed, 0)`` at admission, so a request draws the same
-    stream in a slot as in a solo ``generate``."""
-    gen = torch.Generator(device=torch.device(device))
-    gen.manual_seed(row_seed(seed, row))
-    return gen
-
-
-def sample_logits(
+def filter_logits(
     logits: torch.Tensor,
-    generators: Sequence[torch.Generator],
     temperature: torch.Tensor,
     top_k: Optional[torch.Tensor] = None,
     top_p: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
-    """Sample token ids from [batch, vocab] logits with per-row knobs.
-
-    Same filters as the reference: a row with temperature <= 0 takes the
-    argmax; top-k keeps the k highest (k <= 0 keeps all; ties at the
-    k-th value survive); nucleus keeps the smallest set reaching mass p
-    (p outside (0, 1) keeps all); ``None`` skips a filter. The draw is
-    the Gumbel-max form of a categorical draw, like
-    ``jax.random.categorical``, with one [vocab] uniform block per row
-    from that row's generator."""
+    """The float32 logits a sampled row draws from, [batch, vocab]:
+    divided by the row's temperature, then top-k keeps the k highest
+    (k <= 0 keeps all; ties at the k-th value survive) and nucleus the
+    smallest set reaching mass p (p outside (0, 1) keeps all); a
+    filtered token gets NEG_INF; ``None`` skips a filter."""
     b, vocab = logits.shape
     dev = logits.device
     t = temperature.to(torch.float32).reshape(b, 1)
-    raw = logits.float()
-    x = raw / torch.clamp_min(t, 1e-6)
+    x = logits.float() / torch.clamp_min(t, 1e-6)
     if top_k is not None or top_p is not None:
         sorted_logits = torch.sort(x, dim=-1, descending=True).values
         keep = torch.ones_like(sorted_logits, dtype=torch.bool)
@@ -477,12 +452,29 @@ def sample_logits(
             dim=-1, keepdim=True
         )
         x = torch.where(x < threshold, NEG_INF, x)
-    tiny = torch.finfo(torch.float32).tiny
-    u = torch.stack([
-        torch.rand(vocab, generator=g, device=dev) for g in generators
-    ]).clamp_min(tiny)
-    sampled = torch.argmax(x - torch.log(-torch.log(u)), dim=-1)
-    return torch.where(t[:, 0] <= 0.0, torch.argmax(raw, dim=-1), sampled)
+    return x.contiguous()
+
+
+def sample_logits(
+    logits: torch.Tensor,
+    row_keys: torch.Tensor,
+    step,
+    temperature: torch.Tensor,
+    top_k: Optional[torch.Tensor] = None,
+    top_p: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Sample token ids from [batch, vocab] logits with per-row knobs,
+    as the reference does: a row with temperature <= 0 takes the argmax,
+    the others draw ``jax.random.categorical`` from ``filter_logits``
+    with row r's key ``fold_in(row_keys[r], step)`` (``step`` an int or
+    [batch]), the reference folding the step into each row's key. The
+    draw is one launch of the draw kernel on the card (``ops/draw.py``),
+    its plain version on the CPU."""
+    t = temperature.to(torch.float32).reshape(-1)
+    sampled = draw.gumbel_argmax(
+        filter_logits(logits, temperature, top_k, top_p), row_keys, step)
+    return torch.where(t <= 0.0, torch.argmax(logits.float(), dim=-1),
+                       sampled)
 
 
 def mask_eos_before_min(
@@ -602,7 +594,21 @@ def normalize_logit_bias(cfg, b: int, logit_bias, slots: int = None):
     return idx, val
 
 
-Rng = Union[None, int, Sequence[torch.Generator]]
+Rng = Union[None, int, torch.Tensor]
+
+
+def _row_keys(rng: Rng, b: int, device) -> torch.Tensor:
+    """[b, 2] row keys from ``generate``'s ``rng``, as the reference reads
+    its key: None is ``PRNGKey(0)``, a seed ``PRNGKey(seed)``, one key
+    [2] is split into b row keys, stacked keys [b, 2] are the rows'."""
+    if rng is None or isinstance(rng, (int, np.integer)):
+        rng = prng.prng_key(0 if rng is None else int(rng))
+    keys = torch.as_tensor(rng, dtype=torch.int64)
+    if keys.dim() == 1:
+        keys = prng.split(keys.cpu(), b)
+    if keys.shape != (b, 2):
+        raise ValueError(f"rng must be one key or {b} stacked keys")
+    return keys.to(device)
 
 
 def _normalize_sampling(cfg, b, max_new_tokens, temperature, rng, top_k,
@@ -611,8 +617,8 @@ def _normalize_sampling(cfg, b, max_new_tokens, temperature, rng, top_k,
                         logit_bias=None, *, device):
     """Validate/broadcast the per-row knobs as ``generate`` documents ->
     (greedy, filtered, penalized, biased, operands dict of per-row
-    tensors on ``device`` plus the row generators). Same checks and
-    messages as the reference."""
+    tensors on ``device``, the row keys [b, 2] among them). Same checks
+    and messages as the reference."""
     def row(v, dtype, name):
         arr = np.asarray(v, dtype)
         if arr.ndim == 0:
@@ -643,13 +649,7 @@ def _normalize_sampling(cfg, b, max_new_tokens, temperature, rng, top_k,
             f"eos_id (< 0 disables) and pad_id must be < vocab "
             f"{cfg.vocab_size}, pad_id non-negative"
         )
-    if rng is None or isinstance(rng, (int, np.integer)):
-        seed = 0 if rng is None else int(rng)
-        generators = [row_generator(seed, i, device) for i in range(b)]
-    else:
-        generators = list(rng)
-        if len(generators) != b:
-            raise ValueError(f"rng must be one seed or {b} generators")
+    row_keys = _row_keys(rng, b, device)
     min_arr = row(min_new_tokens, np.int64, "min_new_tokens")
     if (min_arr < 0).any() or (min_arr > max_new_tokens).any():
         raise ValueError(
@@ -673,7 +673,7 @@ def _normalize_sampling(cfg, b, max_new_tokens, temperature, rng, top_k,
         return torch.as_tensor(arr).to(device=device, dtype=dtype)
 
     operands = {
-        "generators": generators,
+        "keys": row_keys,
         "temperature": on(t, torch.float32),
         "top_k": on(k_arr, torch.int64),
         "top_p": on(p_arr.astype(np.float32), torch.float32),
@@ -710,7 +710,7 @@ def _sampling_loop(params, cache, logits, cfg, max_new_tokens: int,
         if greedy:
             return torch.argmax(logits, dim=-1)
         return sample_logits(
-            logits, ops["generators"], ops["temperature"],
+            logits, ops["keys"], step_idx, ops["temperature"],
             ops["top_k"] if filtered else None,
             ops["top_p"] if filtered else None,
         )
@@ -764,10 +764,12 @@ def generate(
     sequence; temperature <= 0 rows decode greedily; top_k/top_p filter;
     eos_id >= 0 stops a row (pad after it); min_new_tokens floors eos;
     presence/frequency penalties count GENERATED tokens; logit_bias is
-    one {token: bias} dict or a per-row list. ``rng`` is a seed (rows
-    seeded from (seed, row)), per-row torch.Generators, or None (seed
-    0). ``mesh``: the params are this rank's blocks (every rank calls
-    it with the same arguments)."""
+    one {token: bias} dict or a per-row list. ``rng`` is the
+    reference's: one key [2] (split into a key a row) or stacked row
+    keys [batch, 2] (int64 words, ``ops/prng.py``), a seed (its
+    ``PRNGKey``) or None (``PRNGKey(0)``); row r's step i draws from
+    ``fold_in(row_keys[r], i)``. ``mesh``: the params are this rank's
+    blocks (every rank calls it with the same arguments)."""
     device = params["norm_out"].device
     ops_tuple = _normalize_sampling(
         cfg, prompt.shape[0], max_new_tokens, temperature, rng, top_k,

@@ -20,6 +20,7 @@ from typing import Dict, Tuple, Union
 import torch
 
 from .. import resolve_device
+from ..ops import prng
 from .transformer import Params, TransformerConfig
 
 LORA_TARGETS = ("wq", "wv")  # the classic attention q/v target set
@@ -37,33 +38,32 @@ def lora_out_dim(cfg: TransformerConfig, target: str) -> int:
 
 
 def init_lora_params(
-    rng: Union[int, torch.Generator],
+    rng: Union[int, torch.Tensor],
     cfg: TransformerConfig,
     rank: int,
     targets: Tuple[str, ...] = LORA_TARGETS,
     device="cuda",
 ) -> Dict[str, torch.Tensor]:
-    """Layer-stacked LoRA pairs in float32: A ~ N(0, 1/r) drawn from
-    ``rng`` (a seed, or a torch.Generator on ``device``), B = 0, so the
-    initial delta is exactly zero. The numbers differ from the
-    reference's ``jax.random`` draws (parity tests bridge JAX adapters)."""
+    """Layer-stacked LoRA pairs in float32: A ~ N(0, 1/r), B = 0, so the
+    initial delta is exactly zero. ``rng`` is a seed or a threefry key
+    [2] (``ops/prng.py``): the reference's draws exactly (``split(rng,
+    len(targets))``, a key a target, ``jax.random.normal``)."""
     if rank < 1:
         raise ValueError("lora rank must be >= 1")
     dev = resolve_device(device)
-    if isinstance(rng, torch.Generator):
-        gen = rng
-    elif dev.type == "meta":  # shapes only (checkpoint restore targets)
-        gen = None
-    else:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(rng))
+    if not isinstance(rng, torch.Tensor):
+        rng = prng.prng_key(int(rng))
+    keys = prng.split(rng.cpu(), len(targets))
     L, d = cfg.n_layers, cfg.d_model
     out: Dict[str, torch.Tensor] = {}
-    for target in targets:
+    for key, target in zip(keys, targets):
         n = lora_out_dim(cfg, target)
-        out[f"{target}_a"] = torch.randn(
-            (L, d, rank), generator=gen, dtype=torch.float32, device=dev
-        ) * rank ** -0.5
+        if dev.type == "meta":  # shapes only (checkpoint restore targets)
+            out[f"{target}_a"] = torch.empty((L, d, rank),
+                                             dtype=torch.float32, device=dev)
+        else:
+            out[f"{target}_a"] = prng.normal(
+                key.to(dev), (L, d, rank)).mul_(rank ** -0.5)
         out[f"{target}_b"] = torch.zeros((L, rank, n), dtype=torch.float32,
                                          device=dev)
     return out

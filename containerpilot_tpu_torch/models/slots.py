@@ -23,18 +23,19 @@ Intended differences from the reference:
   ``pos - length``) is outside the window of a full ring, and a
   truncated ring (window > max_len) never wraps: the engine refuses a
   request that would decode past its length.
-- ``state["keys"]`` holds one ``torch.Generator`` per slot (the
-  reference's per-slot PRNG keys). Admission re-seeds the slot's
-  generator with ``row_seed(seed, 0)``, the seed a solo ``generate``
-  gives row 0, and every step draws one [vocab] block from each slot's
-  generator, as ``generate`` does, so a request samples the same stream
-  in a slot as alone.
+- ``state["keys"]`` is the reference's per-slot PRNG keys, a [S, 2]
+  int64 tensor of threefry words (``ops/prng.py``). Admission writes the
+  request's ``row_key(seed, row)`` into its slot, and step i of the slot
+  draws from ``fold_in(key, i)`` (one launch of the draw kernel for the
+  whole pool on the card), as ``generate`` and the reference do, so a
+  request samples the same stream in a slot as alone, in either package.
 - The window's early exit is a device-side live flag, not a loop exit:
   ``round_step`` gated by ``live`` keeps last/done/pos/step_idx/counts
   and emits pad when no slot is live (``~done & run*chunk < budget``),
   so K gated rounds give the reference's while-loop result with
   ``rounds_run`` counted on the device. Rounds past the exit still
-  compute (and draw) but change nothing a live request reads.
+  compute (and draw, from the unchanged step) but change nothing a live
+  request reads.
 
 On a mesh (``mesh=``, serving over ranks) the pool holds the rank's kv
 heads (``decode.cache_kv_heads``), the step runs the rank's blocks of
@@ -68,7 +69,7 @@ from .decode import (
     layer_out,
     mask_eos_before_min,
     ring_length,
-    row_seed,
+    row_key,
     sample_logits,
     seed_counts_row,
 )
@@ -121,12 +122,9 @@ def init_slot_state(cfg: TransformerConfig, slots: int, device="cuda") -> dict:
     def full(shape, value, dtype):
         return torch.full(shape, value, dtype=dtype, device=dev)
 
-    keys = [torch.Generator(device=dev) for _ in range(slots)]
-    for g in keys:
-        g.manual_seed(0)
     return {
         "last": full((slots,), 0, torch.int64),
-        "keys": keys,
+        "keys": full((slots, 2), 0, torch.int64),
         "step_idx": full((slots,), 0, torch.int64),
         "temperature": full((slots,), 0.0, torch.float32),
         "top_k": full((slots,), 0, torch.int64),
@@ -148,25 +146,23 @@ def clear_slot_state(state: dict) -> None:
     """Bring a state dict back to ``init_slot_state``'s values in place
     (its buffers keep their addresses, which a captured graph holds)."""
     for name, value in (
-        ("last", 0), ("step_idx", 0), ("temperature", 0.0), ("top_k", 0),
-        ("top_p", 0.0), ("eos_id", -1), ("pad_id", 0), ("min_new", 0),
+        ("last", 0), ("keys", 0), ("step_idx", 0), ("temperature", 0.0),
+        ("top_k", 0), ("top_p", 0.0), ("eos_id", -1), ("pad_id", 0),
+        ("min_new", 0),
         ("presence", 0.0), ("frequency", 0.0), ("bias_idx", -1),
         ("bias_val", 0.0), ("counts", 0.0), ("done", True),
     ):
         state[name].fill_(value)
-    for g in state["keys"]:
-        g.manual_seed(0)
 
 
 def seed_slot(state: dict, slot: int, seed: int,
-              row: int = 0) -> torch.Generator:
-    """Re-seed ``slot``'s generator for row ``row`` of a request seeded
-    ``seed`` (the stream ``row_generator(seed, row)`` gives that row of a
-    solo ``generate``) and return it; ``first_sample`` draws token 0
-    from it."""
-    gen = state["keys"][slot]
-    gen.manual_seed(row_seed(seed, row))
-    return gen
+              row: int = 0) -> torch.Tensor:
+    """Write ``slot``'s key for row ``row`` of a request seeded ``seed``
+    (``row_key(seed, row)``, that row's key in a solo ``generate``) and
+    return it as [1, 2]; ``first_sample`` draws token 0 from it."""
+    key = row_key(seed, row, state["keys"].device)
+    state["keys"][slot] = key
+    return key[None]
 
 
 @torch.inference_mode()
@@ -178,8 +174,8 @@ def admit_slot_state(
     """Write one admitted request's sampling knobs into row ``slot`` of
     every state leaf, in place. ``last`` is the first sampled token (a
     device scalar or an int); the slot's counts row seeds from it on the
-    device. The slot's generator was re-seeded by ``seed_slot`` before
-    token 0 was drawn."""
+    device. The slot's key was written by ``seed_slot`` before token 0
+    was drawn."""
     dev = state["last"].device
     last = torch.as_tensor(last, device=dev).reshape(())
     state["last"][slot] = last
@@ -367,7 +363,7 @@ def round_step(
         masked, idx, state["min_new"], state["eos_id"]
     )
     nxt = sample_logits(
-        masked, state["keys"], state["temperature"], state["top_k"],
+        masked, state["keys"], idx, state["temperature"], state["top_k"],
         state["top_p"],
     )
     pad, done = state["pad_id"], state["done"]
@@ -467,14 +463,14 @@ def decode_slots_window(
 
 @torch.inference_mode()
 def first_sample(
-    logits: torch.Tensor, generator: torch.Generator, temperature, top_k,
+    logits: torch.Tensor, key: torch.Tensor, temperature, top_k,
     top_p, eos_id: int = -1, min_new: int = 0, bias_idx=None,
     bias_val=None,
 ) -> torch.Tensor:
     """Token 0 from prefill logits [1, vocab] -> a device scalar, as
     ``generate`` samples it: logit_bias, the min_new eos mask at step 0,
-    then one draw from ``generator`` (counts are empty at sample 0, so
-    penalties are a no-op)."""
+    then the draw from ``fold_in(key, 0)`` (``key`` [1, 2], the row's
+    key; counts are empty at sample 0, so penalties are a no-op)."""
     dev = logits.device
 
     def row(v, dtype):
@@ -492,6 +488,7 @@ def first_sample(
         masked, 0, row(min_new, torch.int64), row(eos_id, torch.int64)
     )
     return sample_logits(
-        masked, [generator], row(temperature, torch.float32),
-        row(top_k, torch.int64), row(top_p, torch.float32),
+        masked, key.reshape(1, 2).to(dev), 0,
+        row(temperature, torch.float32), row(top_k, torch.int64),
+        row(top_p, torch.float32),
     )[0]

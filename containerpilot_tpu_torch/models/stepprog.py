@@ -7,9 +7,9 @@ per-slot sampling state, the window buffers) with static shapes per
 ``(config, S, chunk, K)``, and exposes the reference's verbs:
 
 - ``admit(slot, req, logits, row_cache)``: sample token 0 from the
-  engine's prefill (one draw from the slot's re-seeded generator), copy
-  the row into the pool and write the slot's state; returns token 0 as
-  a host int;
+  engine's prefill (the draw from the slot's key, ``row_key(req.seed,
+  req.row)``), copy the row into the pool and write the slot's state;
+  returns token 0 as a host int;
 - ``dispatch(budgets, fused)``: advance every slot one chunk, or up to
   K chunk-rounds with the early exit (``fused=True``); never waits on
   the device, returns a handle;
@@ -48,12 +48,14 @@ The graph reads every position from the pool's device ``pos`` (RoPE,
 the write slot, the ring mask), never from a host value, so one capture
 serves every admission at every position.
 
-Each slot's torch.Generator is registered with the graph, so a replay
-draws each slot's stream from its generator's current state and
-advances it, as the eager step does; admission re-seeds it.
+The slots' sampling keys are one of the graph's static buffers
+(``state["keys"]``, [S, 2] threefry words): a replay draws each slot's
+step from ``fold_in(key, step_idx)`` in the draw kernel, as the eager
+step does, and admission writes a slot's key in place. No generator
+state is registered with the graph.
 
-Kernel launch counters (``ops.quant.LAUNCHES``, ``ops.flash.LAUNCHES``)
-count Python calls, and a replay makes none: the program records each
+Kernel launch counters (``ops.quant.LAUNCHES``, ``ops.flash.LAUNCHES``,
+``ops.draw.LAUNCHES``) count Python calls, and a replay makes none: the program records each
 counter's increase during capture, takes it back (a capture executes
 nothing) and adds it again on every replay, so the counters mean
 launches executed.
@@ -66,7 +68,7 @@ from typing import Any, Dict, List
 import numpy as np
 import torch
 
-from ..ops import flash, quant
+from ..ops import draw, flash, quant
 from .slots import (
     admit_slot_state,
     begin_window,
@@ -82,7 +84,7 @@ from .slots import (
 )
 from .transformer import Params, TransformerConfig
 
-_COUNTERS = ((quant, "LAUNCHES"), (flash, "LAUNCHES"))
+_COUNTERS = ((quant, "LAUNCHES"), (flash, "LAUNCHES"), (draw, "LAUNCHES"))
 
 # dispatches whose tokens may be outstanding at once: the engine's
 # one-window lookahead needs two
@@ -198,8 +200,6 @@ class PlainStepProgram:
         torch.cuda.current_stream(self.device).wait_stream(stream)
         torch.cuda.synchronize(self.device)
         graph = torch.cuda.CUDAGraph()
-        for gen in self._state["keys"]:
-            graph.register_generator_state(gen)
         before = _counts()
         with torch.cuda.graph(graph, stream=stream,
                               capture_error_mode="thread_local"):
@@ -245,13 +245,12 @@ class PlainStepProgram:
     @torch.inference_mode()
     def admit(self, slot: int, req: Any, logits: torch.Tensor,
               row_cache: Dict[str, Any]) -> int:
-        """Sample token 0 from ``logits`` [1, vocab] with the slot's
-        generator re-seeded for ``req.seed`` and row ``req.row``, copy the
-        prefilled row into the pool and write the slot's state; returns
-        token 0."""
-        gen = seed_slot(self._state, slot, req.seed, req.row)
+        """Sample token 0 from ``logits`` [1, vocab] with the slot's key
+        written for ``req.seed`` and row ``req.row``, copy the prefilled
+        row into the pool and write the slot's state; returns token 0."""
+        key = seed_slot(self._state, slot, req.seed, req.row)
         first = first_sample(
-            logits, gen, req.temperature, req.top_k, req.top_p,
+            logits, key, req.temperature, req.top_k, req.top_p,
             eos_id=req.eos_id, min_new=req.min_new,
             bias_idx=req.bias_idx, bias_val=req.bias_val,
         )

@@ -58,7 +58,7 @@ from torch.utils.checkpoint import (
 )
 
 from .. import resolve_device
-from ..ops import tuning
+from ..ops import prng, tuning
 from ..ops.attention import causal_attention
 from ..ops.flash import flash_attention, flash_attention_forward
 from .moe import moe_layer, moe_layer_capacity
@@ -139,63 +139,60 @@ def flash_eligible(cfg: TransformerConfig, seq: int, kind: str = "train",
 
 
 def init_params(
-    rng: Union[int, torch.Generator], cfg: TransformerConfig,
-    device="cuda",
+    rng: Union[int, torch.Tensor], cfg: TransformerConfig, device="cuda",
 ) -> Params:
-    """Float32 master parameters, stacked per layer. ``rng`` is a seed
-    or a torch.Generator on ``device``; the numbers differ from the
-    reference's ``jax.random`` (parity tests bridge JAX params instead).
-    Cast once to the compute dtype with ``quantized.cast_params``. An
-    MoE config (``moe_experts > 0``) gets ``router [L, d, E]``,
-    ``moe_w_in [L, E, d, f]`` and ``moe_w_out [L, E, f, d]`` in place of
-    the SwiGLU weights, with the same fan-in scaling."""
+    """Float32 master parameters, stacked per layer. ``rng`` is a seed or
+    a threefry key [2] (``ops/prng.py``): the reference's
+    ``init_params(PRNGKey(seed))`` exactly, its key tree (``split(rng,
+    4)`` into embed, attention, MLP and unembed keys, then a key a leaf)
+    and its ``jax.random.normal`` draws, each leaf made on ``device`` by
+    ``prng.normal`` in chunks of flat counters. Cast once to the compute
+    dtype with ``quantized.cast_params``. An MoE config (``moe_experts >
+    0``) gets ``router [L, d, E]``, ``moe_w_in [L, E, d, f]`` and
+    ``moe_w_out [L, E, f, d]`` in place of the SwiGLU weights, with the
+    same fan-in scaling and keys."""
     dev = resolve_device(device)
-    if isinstance(rng, torch.Generator):
-        gen = rng
-    elif dev.type == "meta":  # shapes only (checkpoint restore targets)
-        gen = None
-    else:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(rng))
     d, h, hd, f, L = (
         cfg.d_model, cfg.n_heads, cfg.head_dim, cfg.d_ff, cfg.n_layers,
     )
     kv = cfg.kv_heads
+    if not isinstance(rng, torch.Tensor):
+        rng = prng.prng_key(int(rng))
+    keys = list(prng.split(rng.cpu(), 4))
+    ks, km = list(prng.split(keys[1], 4)), list(prng.split(keys[2], 3))
 
-    def normal(shape, scale):
+    def normal(key, shape, scale):
         if dev.type == "meta":
             # shapes only: an op on meta tensors imports torch._dynamo
             # (seconds), which a restore target does not need
             return torch.empty(shape, dtype=torch.float32, device=dev)
-        return torch.randn(
-            shape, generator=gen, dtype=torch.float32, device=dev
-        ) * scale
+        return prng.normal(key.to(dev), shape).mul_(scale)
 
-    def dense(shape, fan_in):
-        return normal(shape, fan_in ** -0.5)
+    def dense(key, shape, fan_in):
+        return normal(key, shape, fan_in ** -0.5)
 
     layers = {
-        "wq": dense((L, d, h, hd), d),
-        "wk": dense((L, d, kv, hd), d),
-        "wv": dense((L, d, kv, hd), d),
-        "wo": dense((L, h, hd, d), h * hd),
+        "wq": dense(ks[0], (L, d, h, hd), d),
+        "wk": dense(ks[1], (L, d, kv, hd), d),
+        "wv": dense(ks[2], (L, d, kv, hd), d),
+        "wo": dense(ks[3], (L, h, hd, d), h * hd),
         "norm_attn": torch.ones((L, d), dtype=torch.float32, device=dev),
         "norm_mlp": torch.ones((L, d), dtype=torch.float32, device=dev),
     }
     if cfg.moe_experts > 0:
         E = cfg.moe_experts
-        layers["router"] = dense((L, d, E), d)
-        layers["moe_w_in"] = dense((L, E, d, f), d)
-        layers["moe_w_out"] = dense((L, E, f, d), f)
+        layers["router"] = dense(km[0], (L, d, E), d)
+        layers["moe_w_in"] = dense(km[1], (L, E, d, f), d)
+        layers["moe_w_out"] = dense(km[2], (L, E, f, d), f)
     else:
-        layers["w_gate"] = dense((L, d, f), d)
-        layers["w_up"] = dense((L, d, f), d)
-        layers["w_down"] = dense((L, f, d), f)
+        layers["w_gate"] = dense(km[0], (L, d, f), d)
+        layers["w_up"] = dense(km[1], (L, d, f), d)
+        layers["w_down"] = dense(km[2], (L, f, d), f)
     return {
-        "embed": normal((cfg.vocab_size, d), 0.02),
+        "embed": normal(keys[0], (cfg.vocab_size, d), 0.02),
         "layers": layers,
         "norm_out": torch.ones((d,), dtype=torch.float32, device=dev),
-        "unembed": dense((d, cfg.vocab_size), d),
+        "unembed": dense(keys[3], (d, cfg.vocab_size), d),
     }
 
 

@@ -251,7 +251,7 @@ def _master(params: Params) -> Params:
 
 
 def init_train_state(
-    rng: Union[int, torch.Generator, Params],
+    rng: Union[int, torch.Tensor, Params],
     cfg: TransformerConfig,
     device="cuda",
     learning_rate: float = 3e-4,
@@ -261,7 +261,7 @@ def init_train_state(
     zero1: bool = False,
     rules: Any = None,
 ) -> TrainState:
-    """Float32 masters (from a seed/generator, or a given params dict,
+    """Float32 masters (from a seed or threefry key, or a given params dict,
     e.g. bridged from JAX) that require grad, the optimizer's state, step
     0. With a ``mesh`` of several ranks the state is this rank's blocks
     under ``rules`` (default: the tensor-parallel rules; pass

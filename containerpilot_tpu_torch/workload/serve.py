@@ -172,8 +172,10 @@ def score_rows(srv: Any, tokens: List[List[int]]):
 
 
 def warm_shapes(srv: Any) -> None:
-    """The warmup's device work: the default-shaped requests once, then,
-    with a draft, every speculative round shape."""
+    """The warmup's device work: the default-shaped requests once, one
+    sampled token (the draw kernel builds here, not under the first
+    sampled request), then, with a draft, every speculative round
+    shape."""
     for prompt_len in (4, 16):
         if prompt_len + 16 > srv.max_len:
             continue
@@ -183,6 +185,13 @@ def warm_shapes(srv: Any) -> None:
         generate(
             srv.params, prompt, srv.cfg, max_new_tokens=16,
             max_len=srv.max_len, mesh=srv.mesh,
+        )
+    if srv.max_len >= 5:
+        generate(
+            srv.params, torch.zeros((1, 4), dtype=torch.int64,
+                                    device=srv.device),
+            srv.cfg, max_new_tokens=1, max_len=srv.max_len,
+            temperature=1.0, mesh=srv.mesh,
         )
     if srv.draft_params is not None and srv.max_len >= 20:
         warm_speculative(

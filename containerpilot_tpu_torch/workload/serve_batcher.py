@@ -3,9 +3,9 @@
 
 Requests queue here; the batcher coalesces whatever accumulated while
 the device was busy into ONE generate call with per-row sampling knobs.
-Each row samples from its own generator, seeded from (request seed, row
-index), so a request's output never depends on what it was batched
-with. The device call is ``generate_rows`` on the group's host data, so
+Row i of a request seeded s samples from ``fold_in(PRNGKey(s), i)``, the
+reference's key, so a request's output never depends on what it was
+batched with and equals the reference server's. The device call is ``generate_rows`` on the group's host data, so
 a server over ranks can run it through its lockstep
 (parallel/serving.py) on every rank (``Batcher.run_rows``).
 """
@@ -17,7 +17,8 @@ from typing import Any, Dict, List, Optional
 
 import torch
 
-from ..models.decode import generate, row_generator
+from ..models.decode import generate, row_key
+from ..ops import prng
 
 
 @dataclass
@@ -51,13 +52,13 @@ def generate_rows(srv: Any, jobs: List[Dict[str, Any]]) -> List[List[int]]:
     device = srv.params["norm_out"].device
     rows: List[List[int]] = []
     knobs: Dict[str, list] = {k: [] for k in _KNOBS}
-    gens = []
+    keys = []
     for job in jobs:
         for i, r in enumerate(job["rows"]):
             rows.append(r)
             for key in _KNOBS:
                 knobs[key].append(job[key])
-            gens.append(row_generator(job["seed"], i, device))
+            keys.append(row_key(job["seed"], i, device))
     # pad the batch to a power of two, as the reference does (its reason
     # is compile churn; kept so batch shapes stay comparable)
     target = 1
@@ -68,7 +69,7 @@ def generate_rows(srv: Any, jobs: List[Dict[str, Any]]) -> List[List[int]]:
         rows.append([0] * len(rows[0]))
         for key, value in zip(_KNOBS, (0.0, 0, 0.0, -1, 0, 0.0, 0.0, None)):
             knobs[key].append(value)
-        gens.append(row_generator(0, 0, device))
+        keys.append(prng.prng_key(0, device))
     out = generate(
         srv.params,
         torch.tensor(rows, dtype=torch.int64, device=device),
@@ -76,7 +77,7 @@ def generate_rows(srv: Any, jobs: List[Dict[str, Any]]) -> List[List[int]]:
         max_new_tokens=jobs[0]["max_new"],
         max_len=srv.max_len,
         temperature=knobs["temperature"],
-        rng=gens,
+        rng=torch.stack(keys),
         top_k=knobs["top_k"],
         top_p=knobs["top_p"],
         eos_id=knobs["eos_id"],

@@ -32,6 +32,10 @@ Frontend surface (process 0): ``/health``, ``/metrics``, ``/v1/model``,
 /v1/score`` and, behind ``--text``, ``POST /v1/completions``.
 Followers have no HTTP surface.
 
+Request sampling keeps the single-host server's key convention (row i of
+a request draws from ``fold_in(PRNGKey(seed), i)``), so answers equal a
+single-host server's of the same config, in either package.
+
 Failure detection (``--watchdog``): every rank's lockstep watchdog beats
 at the end of every op; the idle ``check`` op bounds every rank's cycle,
 so a follower that wedges (``--wedge-file`` injects one) or dies stalls
@@ -48,10 +52,6 @@ Intended differences from the reference:
   kv heads (``cache_kv_heads``), as the slot engine under a mesh does;
   the logits are gathered whole before sampling, so every rank samples
   the same tokens.
-- Sampling: row i of a request draws from the port's per-row generator
-  for (seed, i) (``models.decode.row_seed``), as the port's single-host
-  server does: greedy answers equal the reference's, sampled answers the
-  port's one-rank server's (the port does not draw threefry).
 - ``--catalog`` takes the reference's Consul address, and also
   ``file:DIR`` (``discovery.factory.new_backend``), so a pod can
   rendezvous on a file catalog without a catalog server.
@@ -114,8 +114,8 @@ def _payload_zeros(max_len: int, slots: int) -> Dict[str, np.ndarray]:
         "prompt": np.zeros((max_len,), np.int32),
         "plen": np.zeros((), np.int32),
         # admission (admit_slot -1 = none this round); row_idx is the
-        # row's index within its request: it draws from the generator
-        # of (seed, row_idx), the server convention
+        # row's index within its request: the key schedule
+        # fold_in(PRNGKey(seed), row_idx) is the server convention
         "admit_slot": np.full((), -1, np.int32),
         "row_idx": np.zeros((), np.int32),
         "max_new_req": np.zeros((), np.int32),

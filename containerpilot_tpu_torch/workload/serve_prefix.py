@@ -312,7 +312,7 @@ def generate_with_prefix(
     server's prefill_chunk applies) and seeds the cache. The stored
     cache is never written: decode continues in a copy. Over ranks it is
     a lockstep op: every rank runs it on its blocks and its own cache."""
-    from ..models.decode import generate_from_cache, row_generator
+    from ..models.decode import generate_from_cache, row_key
 
     mesh = getattr(srv, "mesh", None)
     logits, stored = prefill_row(
@@ -326,7 +326,7 @@ def generate_with_prefix(
     out = generate_from_cache(
         srv.params, cache, logits, srv.cfg,
         max_new_tokens=max_new, temperature=temperature,
-        rng=[row_generator(seed, 0, logits.device)],
+        rng=row_key(seed, 0, logits.device)[None],
         top_k=top_k, top_p=top_p, eos_id=eos_id,
         min_new_tokens=min_new, presence_penalty=presence,
         frequency_penalty=frequency, logit_bias=logit_bias, mesh=mesh,

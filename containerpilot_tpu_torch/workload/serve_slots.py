@@ -17,8 +17,8 @@ admissions, a cancel, stop), and dispatches window N+1 before fetching
 window N's tokens when none is (the one-window lookahead).
 
 Per-request output equals a solo ``generate`` with the same arguments:
-each slot samples from its own generator re-seeded as ``generate`` seeds
-row 0, and a fused window runs the same step body as K sequential
+each slot samples from its row's key, ``fold_in(PRNGKey(seed), row)``,
+the key ``generate`` gives that row, and a fused window runs the same step body as K sequential
 chunks. With ``cp_mesh`` an admission whose prompt is at least
 ``cp_min_len`` long rings its prefill over the mesh's ``seq`` axis
 (``parallel.context.cp_prefill_with_remainder``, the maximal head) before
@@ -85,8 +85,8 @@ class _Request:
     min_new: int = 0
     presence: float = 0.0
     frequency: float = 0.0
-    # the row's index within its request: it samples from the generator
-    # of (seed, row)
+    # the row's index within its request: it samples from the key
+    # fold_in(PRNGKey(seed), row)
     row: int = 0
     # [BIAS_SLOTS_MAX] logit_bias row (idx -1 = unused), always at the
     # engine's one static width

@@ -47,7 +47,7 @@ def run_cp(srv: Any, tokens: List[List[int]], p: dict) -> List[List[int]]:
     server's seq mesh, the cache gathered once, then the normal decode
     (``parallel.cp_generate``) with the server's sampling convention
     (row 0 of the request's seed)."""
-    from ..models.decode import row_generator
+    from ..models.decode import row_key
     from ..parallel.context import cp_generate
 
     srv.batch_stats["calls"] += 1
@@ -56,7 +56,7 @@ def run_cp(srv: Any, tokens: List[List[int]], p: dict) -> List[List[int]]:
         srv.params, torch.tensor(tokens, dtype=torch.int64), srv.cfg,
         srv.cp_mesh, p["max_new"], srv.max_len,
         temperature=p["temperature"],
-        rng=[row_generator(p["seed"], 0, srv.device)],
+        rng=row_key(p["seed"], 0, srv.device)[None],
         top_k=p["top_k"], top_p=p["top_p"], eos_id=p["eos_id"],
         min_new_tokens=p["min_new"], presence_penalty=p["presence"],
         frequency_penalty=p["frequency"], logit_bias=p["logit_bias"],
@@ -77,7 +77,7 @@ def run_chunked(
     prefill activations O(chunk) instead of O(prompt)), then decode with
     the server's sampling convention (row 0 of ``seed``). Runs on the
     inference thread."""
-    from ..models.decode import generate_from_cache, row_generator
+    from ..models.decode import generate_from_cache, row_key
     from .serve_prefix import prefill_row
 
     mesh = getattr(srv, "mesh", None)
@@ -90,7 +90,7 @@ def run_chunked(
     out = generate_from_cache(
         srv.params, cache, logits, srv.cfg,
         max_new_tokens=max_new, temperature=temperature,
-        rng=[row_generator(seed, 0, logits.device)],
+        rng=row_key(seed, 0, logits.device)[None],
         top_k=top_k, top_p=top_p, eos_id=eos_id,
         min_new_tokens=min_new, presence_penalty=presence,
         frequency_penalty=frequency, logit_bias=logit_bias, mesh=mesh,

@@ -21,9 +21,10 @@ What a job's ``exec`` points at, supervised by containerpilot-tpu:
   ("demo mode") without it; eval, checkpoints, SIGTERM and resume then
   cover the adapters.
 
-Synthetic tokens for step N come from a ``torch.Generator`` seeded from
-(1, N), so a resumed run replays its stream exactly; the stream differs
-from the JAX trainer's ``jax.random`` one for the same seed. The
+Synthetic tokens for step N are the JAX trainer's: ``randint(fold_in(
+PRNGKey(1), N), ...)`` over JAX's threefry bits (``ops/prng.py``), so a
+resumed run replays its stream exactly and both packages train on the
+same batches. The
 reference's ``enable_compile_cache`` has no counterpart: nothing is
 jit-compiled here (the CUDA kernels build once into ``build/kernels``).
 
@@ -67,6 +68,8 @@ import threading
 import time
 
 import torch
+
+from ..ops import prng
 
 _LORA_PLAIN_ONLY = (
     "--lora-rank composes with the plain trainer only (the adapter "
@@ -212,13 +215,12 @@ def build_mesh(args: argparse.Namespace, device):
 
 def synthetic_tokens(step: int, batch: int, seq_len: int, vocab: int,
                      device) -> torch.Tensor:
-    """Step ``step``'s [batch, seq_len + 1] tokens: a CPU generator
-    seeded from (1, step), so the stream is the same on every device and
-    a resumed run replays it."""
-    gen = torch.Generator()
-    gen.manual_seed((1 << 32) | step)
-    toks = torch.randint(0, vocab, (batch, seq_len + 1), generator=gen)
-    return toks.to(device)
+    """Step ``step``'s [batch, seq_len + 1] tokens, the reference's
+    ``randint(fold_in(PRNGKey(1), step), (batch, seq_len + 1), 0,
+    vocab)``, made on the CPU, so the stream is the same on every device
+    and a resumed run replays it."""
+    key = prng.fold_in(prng.prng_key(1), step)
+    return prng.randint(key, (batch, seq_len + 1), 0, vocab).to(device)
 
 
 def _write_progress(path: str, step: int, loss: float) -> None:

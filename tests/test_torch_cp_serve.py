@@ -18,7 +18,7 @@ devices become 4 ranks — with ``/v1/model``'s ``cp`` and ``mesh``; bad
 compositions and thresholds fail at construction) and
 ``tests/test_slots.py`` :703 (the prefix cache refuses cp and window).
 Greedy tokens equal JAX's exactly; the sampled request equals the
-one-rank port's (torch generators); every rank's tokens agree.
+one-rank port's (the same threefry keys); every rank's tokens agree.
 """
 import dataclasses
 

@@ -16,7 +16,7 @@ x seq 2, sampled, an odd prompt length, the int8 KV cache, the contract's
 refusals) and :466 (the remainder's extend pieces capped). Tolerances:
 the reference's 2e-4 for ring outputs, greedy tokens exactly (against
 JAX ``generate``), sampled tokens exactly against the one-rank port
-(torch generators, not threefry), every rank's tokens equal rank 0's.
+(the same threefry keys), every rank's tokens equal rank 0's.
 """
 import dataclasses
 

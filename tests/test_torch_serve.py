@@ -2,7 +2,9 @@
 device="cpu": health after warmup, /v1/model, /v1/generate JSON equal to
 JAX ``generate`` tokens after the same trim, a 422 for a bad row,
 /v1/score against JAX's ``score_logprobs_fn``, the CLI's flag surface,
-and serving the trainer's checkpoints (raw and EMA)."""
+and serving the trainer's checkpoints (raw and EMA). Seeded sampled
+requests answer the same JSON as the reference's server beside it,
+through the Batcher, the slot engine and a prefix-cache hit."""
 import asyncio
 import json
 import os
@@ -15,10 +17,14 @@ import pytest
 from containerpilot_tpu.models import decode as jdecode
 from containerpilot_tpu.models import transformer as jtf
 from containerpilot_tpu.workload import modelcfg as jmodelcfg
+from containerpilot_tpu.workload.serve import InferenceServer as JaxServer
 from containerpilot_tpu_torch import bridge
+from containerpilot_tpu_torch.models import decode as tdecode
 from containerpilot_tpu_torch.models import transformer as ttf
 from containerpilot_tpu_torch.workload import serve_cli
 from containerpilot_tpu_torch.workload.serve import InferenceServer
+
+from torch_draws import assert_same_tokens, teacher_forced_gap
 
 BASE = dict(vocab_size=128, d_model=64, n_heads=2, n_layers=2, d_ff=128,
             max_seq_len=64, dtype="float32")
@@ -130,6 +136,89 @@ def test_server_generate_matches_jax_and_routes(run):
             await server.stop()
 
     run(scenario(), timeout=120)
+
+
+_ROWS = np.random.default_rng(3).integers(0, 128, (2, 18)).tolist()
+# seeded sampled requests a server path serves, and the server flags
+# that send them there; the prefix path's second request hits the entry
+# the first one stored
+SAMPLED_PATHS = {
+    "batcher": ({}, [
+        {"tokens": _ROWS, "max_new_tokens": 9, "temperature": 0.9,
+         "top_k": 20, "top_p": 0.9, "seed": 5},
+        {"tokens": _ROWS[:1], "max_new_tokens": 7, "temperature": 1.1,
+         "n": 3, "seed": 2**31 + 3},
+        {"tokens": _ROWS, "max_new_tokens": 6, "temperature": 0.7,
+         "presence_penalty": 0.5, "frequency_penalty": 0.2,
+         "logit_bias": {"3": 1.5}, "seed": 8},
+    ]),
+    "slots": ({"slots": 2, "slot_chunk": 4}, [
+        {"tokens": _ROWS[:1], "max_new_tokens": 9, "temperature": 0.9,
+         "top_k": 20, "top_p": 0.9, "seed": 5},
+        {"tokens": _ROWS[1:], "max_new_tokens": 12, "temperature": 1.2,
+         "seed": 11, "frequency_penalty": 0.4},
+    ]),
+    "prefix": ({"prefix_cache_entries": 2}, [
+        {"tokens": _ROWS[:1], "max_new_tokens": 8, "temperature": 0.8,
+         "top_k": 30, "seed": 6},
+        {"tokens": [_ROWS[0] + [7, 9]], "max_new_tokens": 8,
+         "temperature": 1.0, "top_p": 0.85, "seed": 6},
+    ]),
+}
+
+
+@pytest.mark.parametrize("path", sorted(SAMPLED_PATHS))
+def test_sampled_server_json_equals_reference_server(run, path):
+    """The reference's server and the port's, side by side on the same
+    weights and flags, answer the same seeded sampled requests with the
+    same JSON: the Batcher (a batch, n, penalties and logit_bias), the
+    slot engine and a prefix-cache hit."""
+    flags, bodies = SAMPLED_PATHS[path]
+    jcfg = jtf.TransformerConfig(**{**BASE, "dtype": jnp.float32})
+    tcfg = ttf.TransformerConfig(**bridge.config_kwargs(BASE))
+    jp = jtf.init_params(jax.random.PRNGKey(0), jcfg)
+    tp = bridge.params_from_jax(jax.tree_util.tree_map(np.asarray, jp),
+                                "cpu")
+
+    async def scenario():
+        servers = [
+            JaxServer(jcfg, jp, "127.0.0.1", 0, max_len=MAX_LEN, **flags),
+            InferenceServer(tcfg, tp, "127.0.0.1", 0, MAX_LEN, device="cpu",
+                            **flags),
+        ]
+        for server in servers:
+            await server.run()
+        answers = ([], [])
+        try:
+            for body in bodies:
+                for out, server in zip(answers, servers):
+                    out.append(await _http(server.port, "POST",
+                                           "/v1/generate", body))
+            info = [json.loads((await _http(s.port, "GET", "/v1/model"))[1])
+                    for s in servers]
+        finally:
+            for server in servers:
+                await server.stop()
+        return answers, info
+
+    (ref, got), info = run(scenario(), timeout=240)
+    for body, (rs, rb), (gs, gb) in zip(bodies, ref, got):
+        assert (gs, rs) == (200, 200), (gb, rb)
+        rows = body["tokens"] * body.get("n", 1)
+        want, have = json.loads(rb)["tokens"], json.loads(gb)["tokens"]
+
+        def gap(r, i):
+            knobs = {k: body[k] for k in ("temperature", "top_k", "top_p")
+                     if k in body}
+            key = tdecode.row_key(body["seed"], r)
+            return teacher_forced_gap(tp, tcfg, rows[r], want[r], i, key,
+                                      **knobs)
+
+        assert_same_tokens(want, have, gap)
+        assert gb == rb
+    if path == "prefix":
+        for stats in info:
+            assert stats["prefix_cache"]["hits"] >= 1, stats
 
 
 def test_cli_parses_supported_flags():

@@ -10,9 +10,12 @@ Params come from ``jax.random.PRNGKey(0)``, carried by ``bridge`` into a
 port checkpoint that the pod serves with ``--checkpoint-dir`` (the
 reference pod initializes the same params itself). Greedy tokens equal
 the reference ``generate`` with the server's key convention and
-``_trim`` exactly; sampled tokens equal the port's one-rank ``generate``
-with the per-row generator of (seed, row) (the port does not draw
-threefry); beams equal the reference ``beam_search``; ``/v1/score``
+``_trim`` exactly, and so do seeded sampled tokens (both packages draw
+row i of a request from ``fold_in(PRNGKey(seed), i)``); where a pod's
+flags have no in-process reference recipe here (the cp ring), sampled
+rows equal the port's one-rank ``generate`` with the same keys; the MoE
+pod with int8 and LoRA draws what a SlotEngine over the same tp2 layout
+draws, and that model on one rank draws the reference's row; beams equal the reference ``beam_search``; ``/v1/score``
 equals the reference ``score_logprobs_fn`` at ``SCORE_TOL`` (bf16
 models) and the logprobs echo equals the pod's own ``/v1/score``.
 
@@ -54,6 +57,9 @@ from containerpilot_tpu_torch.models.quantized import cast_params
 from containerpilot_tpu_torch.parallel.checkpoint import save_checkpoint
 from containerpilot_tpu_torch.parallel.train import TrainState, make_optimizer
 from containerpilot_tpu_torch.workload.serve import InferenceServer
+
+from torch_draws import first_difference, teacher_forced_gap
+from torch_serve_jobs import finish_world, results, start_world
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 POD = "containerpilot_tpu_torch.workload.serve_dist"
@@ -144,13 +150,14 @@ def _reference(tokens, max_new, cfg=None, params=None, row=0, **kw):
 
 
 def _port_reference(tokens, max_new, cfg, params, row=0, **kw):
-    """The port's one-rank generate with the per-row generator of (seed,
-    row), trimmed as the server trims: what a sampled pod row equals."""
+    """The port's one-rank generate with the server key convention
+    (``row_key(seed, row)``), trimmed as the server trims: what a sampled
+    pod row equals."""
     seed = kw.pop("seed", 0)
     eos = kw.pop("eos_id", -1)
     out = tdecode.generate(
         params, torch.tensor([tokens]), cfg, max_new, cfg.max_seq_len,
-        rng=[tdecode.row_generator(seed, row, "cpu")], eos_id=eos, **kw,
+        rng=tdecode.row_key(seed, row)[None], eos_id=eos, **kw,
     )
     return InferenceServer._trim([out[0].tolist()], max_new, eos)[0]
 
@@ -326,8 +333,7 @@ def test_pod_serves_http(tmp_path, base, n_procs, dp):
     logprobs echo, beams, SSE, co-batching, a disconnect, /v1/model and
     /metrics, and SIGTERM ending every rank with 0; every rank's token
     digest agrees."""
-    ck, jp, tp = base
-    cfg = port_cfg()
+    ck, jp, _tp = base
     knob_matrix = n_procs == 2
     flags = (["--dp", str(dp), "--checkpoint-dir", ck]
              + (["--prefix-cache", "2", "--prefill-chunk", "4"]
@@ -340,18 +346,18 @@ def test_pod_serves_http(tmp_path, base, n_procs, dp):
             [7, 8, 9], 6, params=jp, min_new_tokens=3,
             frequency_penalty=30.0, logit_bias={11: -100.0})
         want_sampled = [
-            _port_reference([5, 6], 5, cfg, tp, row=r, temperature=0.8,
-                            top_k=20, seed=9) for r in (0, 1)]
-        want_long = _port_reference([5, 6], 40, cfg, tp, temperature=0.8,
-                                    top_k=20, seed=9)
+            _reference([5, 6], 5, params=jp, row=r, temperature=0.8,
+                       top_k=20, seed=9) for r in (0, 1)]
+        want_long = _reference([5, 6], 40, params=jp, temperature=0.8,
+                               top_k=20, seed=9)
         history = [(i * 5 + 2) % 128 for i in range(20)]
         if knob_matrix:
             want_wide = _reference(
                 [1, 2, 3], 6, params=jp,
                 logit_bias={i: -100.0 for i in range(20)})
             want_t1 = _reference(history, 5, params=jp)
-            want_t2 = _port_reference(history + [7, 3], 5, cfg, tp,
-                                      temperature=0.6, seed=5)
+            want_t2 = _reference(history + [7, 3], 5, params=jp,
+                                 temperature=0.6, seed=5)
             from containerpilot_tpu.models.beam import beam_search
 
             bt, _sc = beam_search(
@@ -559,8 +565,8 @@ def test_pod_warmup_covers_serve_path(base):
 def test_mirror_rounds_match_generate(base):
     """Mirror of :621: the per-round device ops every rank replays
     (admission, chunks under a churning done mask, retirement, slot
-    reuse) equal solo generate: greedy rows the reference's, the sampled
-    row the port's one-rank generate of (seed, row)."""
+    reuse) equal the reference's solo generate, greedy and sampled
+    rows alike."""
     from containerpilot_tpu_torch.models.slots import append_chunk
     from containerpilot_tpu_torch.workload import serve_dist as sd
 
@@ -594,8 +600,8 @@ def test_mirror_rounds_match_generate(base):
     append_chunk(em_b, toks[1], 12, -1)
     assert len(em_b) == 12
     assert em_a == _reference([1, 2, 3, 4], 20, params=jp)
-    assert em_b == _port_reference([5, 6, 7, 8], 12, cfg, tp,
-                                   temperature=0.8, top_k=20, seed=9)
+    assert em_b == _reference([5, 6, 7, 8], 12, params=jp,
+                              temperature=0.8, top_k=20, seed=9)
     # slot 0 REUSED: nothing of A, nor of B's knobs
     em_c: list = []
     first, toks = rnd([0, 0, 1, 1], [9, 8, 7, 6], 0, max_new=9, seed=3)
@@ -703,8 +709,14 @@ def test_pod_serves_moe_int8_lora(tmp_path):
     --lora-dir (merged before quantization), --int8 (the whole tree
     quantized, then cut) and --window (ring caches that wrap) in one
     boot. Greedy equals the reference's quantize(apply_lora(base)) of
-    the same params; the sampled row equals the port's one-rank
-    load_model of the same flags."""
+    the same params. The sampled request is held exactly twice: the
+    port's one-rank load_model of the same flags draws the reference's
+    single-device row token for token (the packages agree), and the pod
+    draws what a SlotEngine of the pod's layout draws (a gloo world of
+    2 ranks, load_model of the same flags on its tp2 mesh, the pod's
+    slots, chunk and window), whose bf16 partial sums over ``model``
+    round as the pod's do. Where the pod's row leaves the one-rank row,
+    the test prints the step and the draw's top-two gap there."""
     from containerpilot_tpu.models.lora import apply_lora, init_lora_params
     from containerpilot_tpu.models.quantized import quantize_model_params
     from containerpilot_tpu_torch.parallel import lora_abstract_state
@@ -734,31 +746,58 @@ def test_pod_serves_moe_int8_lora(tmp_path):
         "--int8", "--lora-dir", str(lora_dir), "--lora-rank", "4",
         "--window", "8", "--checkpoint-dir", str(ck),
     ]
-    with Pod.launch(str(tmp_path), 2, model_flags) as pod:
-        ref_params = quantize_model_params(
-            apply_lora(base_jp, jax.tree_util.tree_map(jnp.asarray,
-                                                       adapter), cfg))
-        want = _reference([1, 2, 3], 6, cfg=cfg, params=ref_params)
-        args = serve_cli.build_arg_parser().parse_args(
-            ["--device", "cpu"] + model_flags)
-        tcfg, tparams, _ = serve_cli.load_model(args, say=lambda s: None)
-        want_sampled = _port_reference([5, 6], 5, tcfg, tparams,
+    sampled_body = {"tokens": [[5, 6]], "max_new_tokens": 5,
+                    "temperature": 0.7, "top_k": 12, "seed": 4}
+    layout = tmp_path / "tp2"
+    layout.mkdir()
+    procs, out = start_world(layout, [{
+        "name": "pod_layout", "kind": "slots", "plan": {"data": 1,
+                                                       "model": 2},
+        "cli_flags": model_flags,
+        "engine": {"max_len": 48, "slots": 4, "chunk": 8, "window": 4},
+        "requests": [[[5, 6], {"max_new": 5, "temperature": 0.7,
+                               "top_k": 12, "seed": 4}]],
+    }], world=2)
+    try:
+        with Pod.launch(str(tmp_path), 2, model_flags) as pod:
+            ref_params = quantize_model_params(
+                apply_lora(base_jp, jax.tree_util.tree_map(jnp.asarray,
+                                                           adapter), cfg))
+            want = _reference([1, 2, 3], 6, cfg=cfg, params=ref_params)
+            want_sampled = _reference([5, 6], 5, cfg=cfg, params=ref_params,
+                                      temperature=0.7, top_k=12, seed=4)
+            args = serve_cli.build_arg_parser().parse_args(
+                ["--device", "cpu"] + model_flags)
+            tcfg, tparams, _ = serve_cli.load_model(args,
+                                                    say=lambda s: None)
+            one_rank = _port_reference([5, 6], 5, tcfg, tparams,
                                        temperature=0.7, top_k=12, seed=4)
-        pod.wait_healthy()
-        log0 = pod.log(0)
-        assert "pod merged lora adapter (rank 4, step 3)" in log0
-        assert "pod int8: resident params" in log0
-        info = json.loads(pod.get("/v1/model"))
-        assert info["moe_experts"] == 2 and info["int8"] is True
-        assert info["lora"] == {"rank": 4}
-        assert info["window"] == 8
-        greedy = pod.generate({"tokens": [[1, 2, 3]], "max_new_tokens": 6})
-        assert greedy["tokens"][0] == want
-        sampled = pod.generate({"tokens": [[5, 6]], "max_new_tokens": 5,
-                                "temperature": 0.7, "top_k": 12,
-                                "seed": 4})
-        assert sampled["tokens"][0] == want_sampled
-        assert pod.stop() == [0, 0], pod.logs()
+            pod.wait_healthy()
+            log0 = pod.log(0)
+            assert "pod merged lora adapter (rank 4, step 3)" in log0
+            assert "pod int8: resident params" in log0
+            info = json.loads(pod.get("/v1/model"))
+            assert info["moe_experts"] == 2 and info["int8"] is True
+            assert info["lora"] == {"rank": 4}
+            assert info["window"] == 8
+            greedy = pod.generate({"tokens": [[1, 2, 3]],
+                                   "max_new_tokens": 6})
+            assert greedy["tokens"][0] == want
+            got = pod.generate(sampled_body)["tokens"][0]
+            assert pod.stop() == [0, 0], pod.logs()
+    finally:
+        finish_world(procs)
+    assert one_rank == want_sampled
+    layout_row = results(out, "pod_layout", 2)[0]["outs"][0]
+    where = first_difference([one_rank], [got])
+    if where is not None:
+        step = where[1]
+        print(f"pod sampled row {got} leaves the one-rank row {one_rank} "
+              f"at step {step}; the one-rank draw's top-two gap there",
+              teacher_forced_gap(tparams, tcfg, [5, 6], one_rank, step,
+                                 tdecode.row_key(4, 0), temperature=0.7,
+                                 top_k=12))
+    assert got == layout_row
 
 
 def test_pod_serves_cp_long_prompt(tmp_path):
@@ -1103,7 +1142,7 @@ def test_reference_pod_and_port_pod_answer_alike(background):
     live catalog server with the same flags on the same params:
     ``/v1/model`` has the same keys (the ``pod`` and ``prefix_cache``
     blocks' values too) and ``/v1/generate`` the same tokens, byte for
-    byte."""
+    byte, greedy and seeded sampled (n rows, top-k, top-p, penalties)."""
     pair = background["pair"]
     pair.port.wait_healthy()
     pair.ref.wait_healthy(BOOT_S * 2)
@@ -1113,6 +1152,10 @@ def test_reference_pod_and_port_pod_answer_alike(background):
          "max_new_tokens": 5},
         {"tokens": [[7, 8, 9]], "max_new_tokens": 6, "min_new_tokens": 3,
          "frequency_penalty": 30.0, "logit_bias": {"11": -100}},
+        {"tokens": [[5, 6]], "max_new_tokens": 7, "temperature": 0.8,
+         "top_k": 20, "seed": 9, "n": 2},
+        {"tokens": [[4, 1, 4]], "max_new_tokens": 6, "temperature": 1.1,
+         "top_p": 0.9, "presence_penalty": 0.5, "seed": 2**30 + 7},
     ]
     for body in bodies:
         got = pair.port.generate(dict(body))

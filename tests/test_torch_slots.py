@@ -5,8 +5,9 @@ reference tests' tiny config: per-request parity with the port's solo
 requests than slots, validation, recovery from a failed dispatch,
 chunked admission, min_new, penalties, stream deltas, cancel, and the
 server over HTTP; a window's ring pools and the int8 KV pool.
-Cross-package: greedy tokens equal the JAX ``SlotEngine``'s on the same
-staggered requests, and JAX ``generate``'s on a windowed config. Mirrors
+Cross-package: greedy and seeded sampled tokens equal the JAX
+``SlotEngine``'s on the same staggered requests, and JAX ``generate``'s
+on a windowed config. Mirrors
 tests/test_slots.py (without its streaming-server, cp and tp cases;
 streaming is tests/test_torch_stream.py)."""
 import asyncio
@@ -290,6 +291,50 @@ def test_greedy_tokens_match_jax_slot_engine(params, jax_params):
         finally:
             eng.stop()
     assert results["torch"] == results["jax"]
+
+
+def test_sampled_tokens_match_jax_slot_engine(params, jax_params):
+    """Cross-package: staggered seeded sampled requests (temperature,
+    top-k, top-p, a penalty, a seed past int32) through the port's engine
+    and the JAX engine give the same tokens: both draw row 0 of the seed
+    from fold_in(PRNGKey(seed), 0) and fold in each step."""
+    from torch_draws import assert_same_tokens, teacher_forced_gap
+
+    jcfg, jparams = jax_params
+    reqs = [
+        ([1, 2, 3, 4, 5], dict(max_new=12, temperature=0.9, top_k=12,
+                               top_p=0.8, seed=11)),
+        ([9, 8], dict(max_new=5, temperature=1.3, seed=2**31 + 7)),
+        ([7, 7, 7], dict(max_new=9, temperature=0.7, seed=3,
+                         frequency_penalty=0.5)),
+        ([4, 3, 2, 1], dict(max_new=7, temperature=1.0, top_p=0.6,
+                            seed=0)),
+    ]
+    results = {}
+    for name, make in (
+        ("torch", lambda: SlotEngine(CFG, params, MAX_LEN, slots=2,
+                                     chunk=3)),
+        ("jax", lambda: JaxSlotEngine(jcfg, jparams, MAX_LEN, slots=2,
+                                      chunk=3)),
+    ):
+        eng = make()
+        try:
+            futs = []
+            for tokens, kw in reqs:
+                futs.append(eng.submit(tokens, **kw))
+                time.sleep(0.01)  # staggered arrival
+            results[name] = [f.result(timeout=WAIT) for f in futs]
+        finally:
+            eng.stop()
+
+    def gap(r, i):
+        tokens, kw = reqs[r]
+        knobs = {k: kw[k] for k in ("temperature", "top_k", "top_p")
+                 if k in kw}
+        return teacher_forced_gap(params, CFG, tokens, results["jax"][r], i,
+                                  tdecode.row_key(kw["seed"], 0), **knobs)
+
+    assert_same_tokens(results["jax"], results["torch"], gap)
 
 
 async def _http(port, method, path, body=None):

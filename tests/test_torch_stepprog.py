@@ -4,8 +4,11 @@ chunks in its tokens and in every state leaf, the early exit on budget
 and on done leaves pad and advances by exactly rounds_run, engine
 parity at K=1 vs K>1, honest dispatch counters, cancel mid-window, the
 quantized program and the tiny-max_len clamp; the program's dispatch
-handles under lookahead; windows over a ring and the int8 KV leaves. Mirrors tests/test_stepprog.py (without its
-speculative cases)."""
+handles under lookahead; windows over a ring and the int8 KV leaves.
+Cross-package: sampled requests give the reference's tokens through the
+eager window functions (``slots.decode_slots_window``) and through the
+step program. Mirrors tests/test_stepprog.py (without its speculative
+cases)."""
 import dataclasses
 import threading
 import time
@@ -16,7 +19,11 @@ import numpy as np
 import pytest
 import torch
 
+from containerpilot_tpu.models import slots as jslots
+from containerpilot_tpu.models import stepprog as jstepprog
 from containerpilot_tpu.models import transformer as jtf
+from containerpilot_tpu.models.decode import _jitted_prefill
+from containerpilot_tpu.workload.serve_slots import _Request as JaxRequest
 from containerpilot_tpu_torch import bridge
 from containerpilot_tpu_torch.models import decode as tdecode
 from containerpilot_tpu_torch.models import quantized as tquant
@@ -25,6 +32,8 @@ from containerpilot_tpu_torch.models import stepprog
 from containerpilot_tpu_torch.models import transformer as ttf
 from containerpilot_tpu_torch.workload.serve import InferenceServer
 from containerpilot_tpu_torch.workload.serve_slots import SlotEngine, _Request
+
+from torch_draws import assert_same_tokens, teacher_forced_gap
 
 BASE = dict(vocab_size=64, d_model=32, n_heads=2, n_layers=1, d_ff=64,
             max_seq_len=64, dtype="float32")
@@ -61,8 +70,8 @@ def admitted_pool(params, tokens, seed=7, temperature=0.8, top_k=12,
     state = tslots.init_slot_state(cfg, 2, device="cpu")
     logits, row = tdecode.prefill(params, torch.tensor([tokens]), cfg,
                                   MAX_LEN)
-    gen = tslots.seed_slot(state, 0, seed)
-    first = tslots.first_sample(logits, gen, temperature, top_k, 0.0)
+    key = tslots.seed_slot(state, 0, seed)
+    first = tslots.first_sample(logits, key, temperature, top_k, 0.0)
     tslots.insert_row(pool, row, 0)
     tslots.admit_slot_state(
         state, 0, cfg, last=first, temperature=temperature, top_k=top_k,
@@ -76,26 +85,19 @@ def admitted_pool(params, tokens, seed=7, temperature=0.8, top_k=12,
 def leaves(pool, state):
     out = {f"pool.{k}": v.clone() for k, v in pool.items()}
     for name in tslots.SLOT_STATE_KEYS:
-        if name == "keys":
-            out[name] = [g.get_state() for g in state["keys"]]
-        else:
-            out[name] = state[name].clone()
+        out[name] = state[name].clone()
     return out
 
 
 def assert_same(a, b):
     assert a.keys() == b.keys()
     for name in a:
-        if name == "keys":
-            assert all(torch.equal(x, y) for x, y in zip(a[name], b[name])), (
-                "generator states diverged")
-        else:
-            assert torch.equal(a[name], b[name]), f"leaf {name} diverged"
+        assert torch.equal(a[name], b[name]), f"leaf {name} diverged"
 
 
 def test_window_matches_sequential_chunks(params):
     """One fused K-round window emits the tokens of K sequential chunks
-    and leaves every state leaf (the pool, the generators) the same."""
+    and leaves every state leaf (the pool, the keys) the same."""
     chunk, k_rounds = 3, 4
     pool, state = admitted_pool(params, [1, 2, 3, 4])
     seq = []
@@ -156,8 +158,8 @@ def test_window_program_with_ring_and_int8_leaves_matches_chunks(params,
 def test_window_early_exit_on_budget_and_done(params):
     """A 2-token budget exits after one 3-token round: the skipped
     rounds' columns stay pad and the state equals one chunk's; a pool
-    with no budget runs zero rounds and changes no leaf but the
-    generators (rounds past the exit still draw)."""
+    with no budget runs zero rounds and changes no leaf (rounds past the
+    exit draw from the unchanged keys and steps, and keep nothing)."""
     chunk, k_rounds = 3, 4
     ref_pool, ref_state = admitted_pool(params, [1, 2, 3, 4])
     _p, _s, ref = tslots.decode_slots_chunk(params, ref_pool, ref_state,
@@ -171,7 +173,6 @@ def test_window_early_exit_on_budget_and_done(params):
     assert torch.equal(toks[:, :chunk], ref)
     assert (toks[:, chunk:] == 0).all()  # pad_id 0
     got = leaves(pool, state)
-    got.pop("keys"), want.pop("keys")
     # the exit round's k/v write at the unchanged pos differs; nothing
     # reads it before the next real step overwrites it
     got.pop("pool.k"), got.pop("pool.v"), want.pop("pool.k"), want.pop("pool.v")
@@ -182,7 +183,7 @@ def test_window_early_exit_on_budget_and_done(params):
         params, pool, state, CFG, chunk, k_rounds, [0, 0])
     assert int(run) == 0 and (toks == 0).all()
     after = leaves(pool, state)
-    for name in ("last", "done", "counts", "step_idx", "pool.pos"):
+    for name in ("last", "keys", "done", "counts", "step_idx", "pool.pos"):
         assert torch.equal(after[name], before[name]), name
     # a done slot is not live however large its budget
     tslots.retire_slot(state, 0)
@@ -391,8 +392,8 @@ def test_window_replays_only_rounds_a_budget_can_use(params, monkeypatch):
         state = tslots.init_slot_state(CFG, 2, device="cpu")
         logits, row = tdecode.prefill(params, torch.tensor([[2, 7]]), CFG,
                                       MAX_LEN)
-        gen = tslots.seed_slot(state, 1, 4)
-        first = tslots.first_sample(logits, gen, 0.9, 0, 0.0)
+        key = tslots.seed_slot(state, 1, 4)
+        first = tslots.first_sample(logits, key, 0.9, 0, 0.0)
         tslots.insert_row(pool, row, 1)
         tslots.admit_slot_state(
             state, 1, CFG, last=first, temperature=0.9, top_k=0, top_p=0.0,
@@ -405,3 +406,116 @@ def test_window_replays_only_rounds_a_budget_can_use(params, monkeypatch):
     assert torch.equal(state["step_idx"], idx)
     n, (toks, valid, run_), _ = run([0, 0])
     assert (n, run_, toks.shape) == (0, 0, (2, 0))
+
+
+SAMPLED = [  # (prompt, slot, knobs of a sampled admission)
+    ([1, 2, 3, 4], 0, dict(seed=7, temperature=0.8, top_k=12, top_p=0.0)),
+    ([9, 8, 7], 1, dict(seed=2**31 + 1, temperature=1.1, top_k=0,
+                        top_p=0.85)),
+]
+NO_BIAS = ([-1] * tdecode.BIAS_SLOTS_MAX, [0.0] * tdecode.BIAS_SLOTS_MAX)
+
+
+@pytest.fixture(scope="module")
+def jax_model():
+    jcfg = jtf.TransformerConfig(**{**BASE, "dtype": jnp.float32})
+    return jcfg, jtf.init_params(jax.random.PRNGKey(0), jcfg)
+
+
+def _knobs(kw):
+    return dict(temperature=kw["temperature"], top_k=kw["top_k"],
+                top_p=kw["top_p"])
+
+
+def assert_same_rows(ref, got, params, firsts):
+    """``SAMPLED``'s rows of a decode against the reference's, with the
+    draw's top-two gap where they part (teacher-forced on the
+    reference's tokens after token 0)."""
+    def gap(r, i):
+        tokens, _slot, kw = SAMPLED[r]
+        return teacher_forced_gap(
+            params, CFG, tokens, [firsts[r]] + list(ref[r]), i + 1,
+            tdecode.row_key(kw["seed"], 0), **_knobs(kw))
+
+    assert_same_tokens(ref, got, gap)
+
+
+def test_sampled_eager_window_matches_reference_window(params, jax_model):
+    """Two sampled slots admitted and decoded by the eager window
+    functions draw the reference's tokens (its ``decode_slots_window``
+    on the same admissions): token 0 from ``fold_in(row_key, 0)``, then
+    every step's ``fold_in(row_key, step_idx)``."""
+    jcfg, jp = jax_model
+    chunk, k_rounds, budget = 3, 3, [9, 9]
+    pool = tslots.slot_cache(CFG, 2, MAX_LEN, device="cpu")
+    state = tslots.init_slot_state(CFG, 2, device="cpu")
+    jpool = jslots.slot_cache(jcfg, 2, MAX_LEN)
+    jstate = jslots.init_slot_state(jcfg, 2)
+    firsts = []
+    for tokens, slot, kw in SAMPLED:
+        knobs = _knobs(kw)
+        with torch.inference_mode():
+            logits, row = tdecode.prefill(params, torch.tensor([tokens]),
+                                          CFG, MAX_LEN)
+            key = tslots.seed_slot(state, slot, kw["seed"])
+            first = tslots.first_sample(logits, key, **knobs)
+            tslots.insert_row(pool, row, slot)
+            tslots.admit_slot_state(
+                state, slot, CFG, last=first, eos_id=-1, pad_id=0,
+                min_new=0, presence=0.0, frequency=0.0, bias_idx=NO_BIAS[0],
+                bias_val=NO_BIAS[1], done=False, **knobs)
+        jlogits, jrow = _jitted_prefill(jcfg, MAX_LEN)(
+            jp, jnp.asarray([tokens], jnp.int32))
+        jkey = jax.random.fold_in(jax.random.PRNGKey(kw["seed"]), 0)
+        jfirst = jslots.first_sample(jlogits, jkey, cfg=jcfg, **knobs)
+        jpool = jslots.insert_row(jpool, jrow, slot, jcfg)
+        jstate = jslots.admit_slot_state(
+            jstate, slot, jcfg, last=jfirst, key=jkey, eos_id=-1, pad_id=0,
+            min_new=0, presence=0.0, frequency=0.0,
+            bias_idx=jnp.asarray(NO_BIAS[0], jnp.int32),
+            bias_val=jnp.asarray(NO_BIAS[1], jnp.float32), done=False,
+            **knobs)
+        assert int(first) == int(jfirst)
+        firsts.append(int(first))
+    _p, _s, toks, run = tslots.decode_slots_window(
+        params, pool, state, CFG, chunk, k_rounds, budget)
+    _jp, _js, jtoks, jrun = jslots.decode_slots_window(
+        jp, jpool, jstate, jcfg, chunk, k_rounds, budget)
+    assert int(run) == int(jrun) == k_rounds
+    assert_same_rows(np.asarray(jtoks).tolist(), toks.tolist(), params,
+                     firsts)
+
+
+def test_sampled_step_program_matches_reference_program(params, jax_model):
+    """The step program (the slot engine's device side) admits the same
+    sampled requests as the reference's and dispatches a fused window
+    and a chunk: the same tokens, token 0 included."""
+    jcfg, jp = jax_model
+    prog = stepprog.PlainStepProgram(CFG, params, MAX_LEN, 2, 3, rounds=3)
+    jprog = jstepprog.PlainStepProgram(jcfg, jp, MAX_LEN, 2, 3, rounds=3)
+    firsts, jfirsts = [], []
+    for tokens, slot, kw in SAMPLED:
+        fields = dict(tokens=tokens, max_new=20, eos_id=-1, pad_id=0,
+                      seed=kw["seed"], **_knobs(kw))
+        with torch.inference_mode():
+            logits, row = tdecode.prefill(params, torch.tensor([tokens]),
+                                          CFG, MAX_LEN)
+            firsts.append(prog.admit(slot, _Request(
+                **fields, bias_idx=NO_BIAS[0], bias_val=NO_BIAS[1]),
+                logits, row))
+        jlogits, jrow = _jitted_prefill(jcfg, MAX_LEN)(
+            jp, jnp.asarray([tokens], jnp.int32))
+        jfirsts.append(jprog.admit(slot, JaxRequest(
+            **fields, bias_idx=np.asarray(NO_BIAS[0], np.int32),
+            bias_val=np.asarray(NO_BIAS[1], np.float32)), jlogits, jrow))
+    assert firsts == jfirsts
+    got, want = [[] for _ in SAMPLED], [[] for _ in SAMPLED]
+    for fused in (True, False):
+        toks, _valid, _run = prog.tokens(prog.dispatch(np.array([9, 9]),
+                                                       fused))
+        jtoks, _jvalid, _jrun = jprog.tokens(jprog.dispatch(
+            np.array([9, 9]), fused))
+        for r in range(len(SAMPLED)):
+            got[r] += toks[r].tolist()
+            want[r] += np.asarray(jtoks)[r].tolist()
+    assert_same_rows(want, got, params, firsts)

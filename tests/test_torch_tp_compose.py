@@ -235,7 +235,7 @@ def test_speculative_engine_over_ranks_equals_greedy(world):
 def test_prefix_cache_over_ranks_counts_as_the_reference(world):
     """:2457 on a tp2 mesh: a prefix-path request is one lockstep op on
     every rank's own cache; greedy rows equal the reference's generate,
-    the sampled hit the one-rank port server's (the port's generators),
+    the sampled hit the one-rank port server's (the same keys),
     and hits, misses and tokens reused equal the reference server's
     for the same requests; the LRU holds 2 entries on every rank (their
     keys agree)."""

@@ -148,10 +148,10 @@ def test_two_cpu_ranks_zero1_match_the_reference_mesh_and_loss(tmp_path):
     """Two CPU ranks meet through a file catalog and train 2 steps with
     --zero1: their mesh line is the JAX CLI's on two devices, their
     step-1 loss equals the port's one-rank run on the same seed (the same
-    init and batch; bf16 tensor parallelism moves it by rounding only),
-    and both it and the JAX CLI's sit at the uniform-prediction loss
-    ln(vocab) (the two packages draw init and tokens from different
-    generators)."""
+    init and batch; bf16 tensor parallelism moves it by rounding only)
+    and the JAX CLI's (both packages draw the init from PRNGKey(0) and
+    the tokens from fold_in(PRNGKey(1), step)), and both sit at the
+    uniform-prediction loss ln(vocab)."""
     import socket
 
     args = TINY + ["--steps", "2", "--zero1"]
@@ -202,6 +202,7 @@ def test_two_cpu_ranks_zero1_match_the_reference_mesh_and_loss(tmp_path):
         assert ttrain_cli.main(args) == 0
     assert loss_of(outs[0]) == pytest.approx(loss_of(one.getvalue()),
                                              rel=1e-3)
+    assert loss_of(outs[0]) == pytest.approx(loss_of(ref.stdout), rel=1e-3)
     for loss in (loss_of(outs[0]), loss_of(ref.stdout)):
         assert loss == pytest.approx(np.log(128), rel=0.15)
 

@@ -1,6 +1,6 @@
 """One rank of a gloo world on the CPU serving the port over ranks, for
 the tensor- and context-parallel serving tests
-(``tests/test_torch_{ring,tp_serve,cp_serve}.py``):
+(``tests/test_torch_{ring,tp_serve,cp_serve,serve_dist}.py``):
 
     python -m torch_serve_jobs SPEC.json RANK
 
@@ -11,7 +11,10 @@ case makes its own mesh from the world. Every rank writes
 hold every rank to rank 0 and rank 0 to the JAX package. The params of
 a case are a JAX pytree the test process wrote as an ``.npz`` (leaf
 paths joined with "/"), carried into each rank's blocks by
-``bridge.shard_from_jax``. Kinds:
+``bridge.shard_from_jax``, or, where the case gives ``cli_flags``
+instead, the serve CLI's ``load_model`` of those flags on the case's
+mesh (a checkpoint, a merged adapter, int8: each rank's blocks as a pod
+rank builds them). Kinds:
 
 - ``ring``: ``ops.ring_attention.ring_attention`` on whole q/k/v;
 - ``generate``: ``models.decode.generate`` on the mesh, or
@@ -72,6 +75,14 @@ def sampling(kw: dict) -> dict:
 
 
 def load(case, mesh):
+    if "cli_flags" in case:
+        from containerpilot_tpu_torch.workload import serve_cli
+
+        args = serve_cli.build_arg_parser().parse_args(
+            ["--device", "cpu"] + case["cli_flags"])
+        cfg, params, _ = serve_cli.load_model(args, mesh, "cpu",
+                                              say=lambda line: None)
+        return cfg, params
     cfg = ttf.TransformerConfig(**bridge.config_kwargs(case["config"]))
     with np.load(case["params"]) as npz:
         full = unflatten(npz)
